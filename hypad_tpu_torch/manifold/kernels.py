@@ -1,0 +1,115 @@
+"""Fused MobiusLinear forward: the CUDA kernel, its plain version, autograd.
+
+``mobius_linear`` is the plain PyTorch composition (matvec -> expmap0 ->
+mobius_add(bias) -> project), the counterpart of
+``hypad_tpu.models.tadgan.mobius_linear``. ``mobius_linear_kernel`` is the
+wrapper of the hand-written kernel ``csrc/mobius_linear.cu``, which replaces
+the Pallas kernel ``hypad_tpu/manifold/kernels.py:35``: on a CUDA tensor it
+launches the kernel (or raises), on a CPU tensor it runs the plain version.
+``mobius_linear_fused`` puts the wrapper under a ``torch.autograd.Function``
+whose backward is autograd of the plain composition, as the JAX
+``custom_vjp`` does (there is no backward kernel).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from hypad_tpu_torch.manifold import stereographic as st
+
+MAX_DIM = 128  # largest Din and Dout the kernel takes (csrc/mobius_linear.cu)
+
+
+def mobius_linear(x, w, b, k=-1.0):
+    """x (..., in), w (out, in), b (out,) on the ball -> (..., out) on the
+    ball."""
+    out = x @ w.T
+    out = st.expmap0(out, k)
+    out = st.mobius_add(out, b.expand_as(out), k)
+    return st.project(out, k)
+
+
+def _check(x, w, b):
+    for name, t in (("x", x), ("w", w), ("b", b)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"mobius_linear_kernel: {name} must be float32, "
+                            f"got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"mobius_linear_kernel: {name} is on {t.device}, "
+                             f"x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"mobius_linear_kernel: {name} must be "
+                             "contiguous")
+    if x.dim() != 2 or w.dim() != 2 or b.dim() != 1:
+        raise ValueError("mobius_linear_kernel: expected x (B, in), "
+                         f"w (out, in), b (out,); got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(b.shape)}")
+    if w.shape[1] != x.shape[1] or b.shape[0] != w.shape[0]:
+        raise ValueError("mobius_linear_kernel: shape mismatch "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(b.shape)}")
+    if not (1 <= x.shape[1] <= MAX_DIM and 1 <= w.shape[0] <= MAX_DIM):
+        raise ValueError(f"mobius_linear_kernel: in/out widths must be in "
+                         f"[1, {MAX_DIM}], got {x.shape[1]}, {w.shape[0]}")
+
+
+@functools.cache
+def _lib():
+    from hypad_tpu_torch import _build
+
+    lib = _build.load("mobius_linear")
+    fn = lib.mobius_linear_forward
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def mobius_linear_kernel(x, w, b):
+    """Forward of MobiusLinear through ``csrc/mobius_linear.cu`` for a CUDA
+    ``x``, through :func:`mobius_linear` for a CPU ``x``. x (B, in),
+    w (out, in), b (out,), all float32 and contiguous."""
+    _check(x, w, b)
+    if x.device.type == "cpu":
+        return mobius_linear(x, w, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"mobius_linear_kernel: unsupported device "
+                         f"{x.device}")
+    out = torch.empty((x.shape[0], w.shape[0]), dtype=torch.float32,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib()(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                     out.data_ptr(), x.shape[0], x.shape[1], w.shape[0],
+                     stream)
+    if err != 0:
+        raise RuntimeError(f"mobius_linear_forward failed: CUDA error {err}")
+    mobius_linear_kernel.launches += 1
+    return out
+
+
+mobius_linear_kernel.launches = 0
+
+
+class _MobiusLinearFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w, b)
+        return mobius_linear_kernel(x, w, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w, b = ctx.saved_tensors
+        with torch.enable_grad():
+            xs, ws, bs = (t.detach().requires_grad_(True) for t in (x, w, b))
+            out = mobius_linear(xs, ws, bs)
+        return torch.autograd.grad(out, (xs, ws, bs), grad)
+
+
+def mobius_linear_fused(x, w, b):
+    """Differentiable MobiusLinear whose forward is the kernel wrapper and
+    whose backward is autograd of the plain composition."""
+    return _MobiusLinearFn.apply(x, w, b)

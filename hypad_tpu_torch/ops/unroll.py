@@ -1,0 +1,42 @@
+"""Anti-diagonal unrolling of window-stacked values.
+
+Port of ``hypad_tpu.ops.unroll``: ``antidiagonal_gather`` (the gather-free
+pad-reshape skew) and ``masked_median``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def antidiagonal_gather(y_hat):
+    """(N, W) window-stacked values -> (T, W) anti-diagonal matrix + mask.
+
+    Row i holds ``y_hat[i - j, j]`` for the valid j's in ascending-j order;
+    invalid entries are 0 with mask False. T = N + W - 1. Padding each row
+    of y_hat.T by W zeros and re-viewing the flat buffer at width T shifts
+    row j right by exactly j, so no gather is needed."""
+    N, W = y_hat.shape
+    T = N + W - 1
+    P = F.pad(y_hat.T, (0, W))                       # (W, N + W)
+    vals = P.reshape(-1)[:-W].reshape(W, T).T.contiguous()
+    i = torch.arange(T, device=y_hat.device)[:, None]
+    j = torch.arange(W, device=y_hat.device)[None, :]
+    n = i - j
+    mask = (n >= 0) & (n < N)
+    return vals, mask
+
+
+def masked_median(vals, mask):
+    """Per-row median over the masked entries (np.median semantics: mean of
+    the two middle order statistics for even counts). An all-masked row
+    wraps its index like the JAX version and is never used by callers."""
+    big = torch.finfo(vals.dtype).max
+    filled = torch.where(mask, vals, torch.full_like(vals, big))
+    s = torch.sort(filled, dim=-1).values
+    cnt = torch.sum(mask, dim=-1)
+    width = vals.shape[-1]
+    lo = torch.gather(s, -1, torch.remainder((cnt - 1) // 2, width)[:, None])
+    hi = torch.gather(s, -1, torch.remainder(cnt // 2, width)[:, None])
+    return 0.5 * (lo[:, 0] + hi[:, 0])
