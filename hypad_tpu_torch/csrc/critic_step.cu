@@ -1,0 +1,619 @@
+// The WGAN-GP critic step on Hopper (sm_90a): K4 and K5.
+//
+// Replaces: hypad_tpu/train/critic_kernel.py:156 `_kernel` (K4, public
+// entry `critics_fused_grads`) and hypad_tpu/train/critic_kernel.py:350
+// `_kernel_full` (K5, public entry `critic_step_fused_full`).
+//
+// K4 takes the stacked rows of both critics,
+//   bigx (3B, W) = [x, x_fake, interp_x],  bigz (3B, L) = [z_enc, z, interp_z],
+// and the dropout keep-masks mx (4, 3B, Hx), mz (2, 3B, Hz), and computes for
+// each critic its WGAN-GP loss and the loss's gradient with respect to every
+// critic parameter, first and second order, in closed form. The critics are
+// piecewise linear (leaky ReLU 0.2 and inverted dropout between Linear
+// layers), so with the masks fixed (D_i = keep_i / (1 - p) * leaky'(a_i)):
+//   forward   h_i = Drop_i(leaky(h_{i-1} W_i^T + b_i)), out = h_L Wo^T + bo
+//   wl        = sum_r c_r out_r, c = sign/B * (-1 on rows [0,B), +1 on
+//               [B,2B), 0 on the interpolates); sign +1 critic_x, -1 critic_z
+//   GP input  g = d(sum out[2B:])/d interp = ((Wo o D_L) W_L ...) W_1
+//   loss      = wl + 10 (gn - 1)^2, gn = sqrt(sum g^2 + 1e-12), ONE norm
+//               over the whole (B, .) batch
+//   wl grads  e_i = (e_{i+1} W_{i+1}) o D_i, gW_i = e_i^T h_{i-1}, gb_i = sum e_i
+//   GP grads  gW_i += w_i^T u_{i-1}, u_i = D_i o (u_{i-1} W_i^T) on the
+//               interpolate rows, u_0 = 20 (gn - 1) / gn * g, w_i the GP
+//               backward chain's v o D_i; gWo += sum_r u_L; biases get none.
+// K5 first runs the critic step's gradient-free generator forwards and forms
+// bigx and bigz itself: the decoder on z_x (dense1, two bidirectional LSTM
+// cells at T = 1 with the inter-layer keep-mask, dense2, tanh, and the
+// MobiusLinear head with K1's clamp table when hyperbolic), and the encoder
+// on x (bidirectional LSTM cell at T = 1, dense). At T = 1 with zero state
+// the recurrent product and the forget gate drop out: h = s(o) tanh(s(i)
+// tanh(g)), gates = x W_ih^T + b_ih + b_hh, gate order i, f, g, o.
+//
+// Bound on the H100: at B = 64 K4 moves about 0.15 MB and does about 5.5
+// MFLOP, K5 about 0.77 MB and 22 MFLOP (chip_smoke.py's count), which is
+// under a microsecond either way. What limits the kernel is the chain
+// itself: some 40 dependent phases (layers, reductions over the batch),
+// each a few microseconds of latency.
+//
+// Design: a grid of two blocks and no grid-wide sync. critic_x needs only x,
+// a_x and the decoder forward; critic_z needs only z_z, a_z and the encoder
+// forward. So block 0 runs the decoder and then critic_x, block 1 the
+// encoder and then critic_z, and each writes its own outputs. The weights
+// are read from global memory, where they stay L2-resident (the generator
+// weights are about 640 KB f32 at the published widths, beyond the 227 KB of
+// shared memory a block may have). Activations, backward diagonals and
+// chains live in a global workspace that the wrapper allocates
+// (critic_step_workspace_floats). Shared memory holds the 33 KB tile of
+// layer input rows and the 68-byte reduction scratch, under the 48 KB a
+// block gets without an opt-in. Arithmetic is f32 FMA in ascending index
+// order, no TF32 and no tensor cores. Every sum over rows is owned by one
+// thread or is a fixed-shape shuffle-and-shared-memory tree, with no
+// atomics, so two launches on the same inputs give the same bits. Not yet
+// done: spreading the decoder's rows over many SMs (clusters and
+// distributed shared memory), and wgmma.
+
+#include <math.h>
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxHead = 128;  // widest MobiusLinear head: 4 lanes a thread
+constexpr int kMaxIn = 128;    // widest layer input staged in shared memory
+constexpr int kTileRows = 64;  // input rows staged at a time
+constexpr float kLeaky = 0.2f;
+constexpr float kGpWeight = 10.0f;
+constexpr float kGpEps = 1e-12f;
+constexpr float kNormFloor = 1e-15f;
+constexpr float kTanhClamp = 15.0f;
+constexpr float kMaxNorm = (float)(1.0 - 4e-3);  // project, f32 eps
+constexpr float kCxKeep = (float)(1.0 - 0.25);   // CriticX dropout
+constexpr float kCzKeep = (float)(1.0 - 0.2);    // CriticZ dropout
+constexpr float kDecKeep = (float)(1.0 - 0.2);   // decoder LSTM dropout
+
+// Slots of the pointer array; the SLOT_* constants of
+// hypad_tpu_torch/train/critic_kernel.py name the same positions.
+enum Slot {
+  X, ZX, AX, ZZ, AZ, MDEC, MCX, MCZ, BIGX, BIGZ,
+  ENC = 10,   // lstm.0 w_ih, b_ih, b_hh, w_ih_rev, b_ih_rev, b_hh_rev, dense w, b
+  DEC = 18,   // dense1 w, b, lstm.0 (6), lstm.1 (6), dense2 w, b, mw, mb
+  CX = 36,    // critic_x dense1..dense5 (w, b)
+  CZ = 46,    // critic_z dense1..dense3 (w, b)
+  LOSS = 52,  // (2,) lx, lz
+  GCX = 53,   // gradients, laid out as CX
+  GCZ = 63,   // gradients, laid out as CZ
+  WS = 69,
+  kSlots = 70
+};
+enum Dim { DB, DW, DL, DHX, DHZ, DHE, DD1, DHD, kDims };
+
+struct Args {
+  void* p[kSlots];
+  int B, W, L, Hx, Hz, He, D1, Hd;
+  int full, hyperbolic;
+};
+
+struct Lstm {
+  const float *w, *bi, *bh;  // one direction: w_ih (4H, in), b_ih, b_hh
+};
+
+__host__ __device__ size_t critic_ws(int R, int B, int in, int H, int L) {
+  const int wide = in > H ? in : H;
+  return (size_t)2 * L * R * H + R + (size_t)L * B * H + (size_t)2 * B * wide +
+         (size_t)2 * R * H;
+}
+__host__ __device__ size_t decoder_ws(const Args& a) {
+  return (size_t)a.B * a.D1 + (size_t)4 * a.B * a.Hd + (size_t)2 * a.B * a.W;
+}
+__host__ __device__ size_t encoder_ws(const Args& a) {
+  return (size_t)2 * a.B * a.He;
+}
+// Workspace layout: [critic_x][decoder][critic_z][encoder].
+__host__ __device__ size_t side_x_ws(const Args& a) {
+  return critic_ws(3 * a.B, a.B, a.W, a.Hx, 4) + decoder_ws(a);
+}
+__host__ __device__ size_t total_ws(const Args& a) {
+  return side_x_ws(a) + critic_ws(3 * a.B, a.B, a.L, a.Hz, 2) + encoder_ws(a);
+}
+
+__device__ __forceinline__ const float* in_ptr(const Args& a, int s) {
+  return static_cast<const float*>(a.p[s]);
+}
+__device__ __forceinline__ float* out_ptr(const Args& a, int s) {
+  return static_cast<float*>(a.p[s]);
+}
+
+// Sum of v over the block, the same bits on every thread and every launch.
+__device__ float block_sum(float v, float* red) {
+  v = hypad::warp_sum(v);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float t = lane < kWarps ? red[lane] : 0.0f;
+    t = hypad::warp_sum(t);
+    if (lane == 0) red[kWarps] = t;
+  }
+  __syncthreads();
+  return red[kWarps];
+}
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// The layers with a weight matrix of the generator, and the critics' forward
+// and u-chain products, stage up to kTileRows input rows at a time in
+// shared memory (row stride din | 1, odd, so the 32 rows a warp reads fall in
+// 32 banks) and give each thread one (row, output) pair, rows fastest: the
+// lanes of a warp share one weight row, so each weight load is a broadcast,
+// and each thread sums its input row in ascending order. (A thread per
+// output with the output index fastest read 32 weight rows a load, 32
+// sectors each: K5 took 2.61 ms a launch at B = 64 on an H100 80GB HBM3 at
+// 700 W; a warp per output with a shuffle sum, 1.62 ms.)
+
+// Stage rows [r0, r0 + n) of in (rows, din) into `tile` and run
+// body(r0, n, ld) on each stage.
+template <typename Body>
+__device__ void for_row_tiles(const float* in, int rows, int din,
+                              float* tile, Body body) {
+  const int ld = din | 1;
+  for (int r0 = 0; r0 < rows; r0 += kTileRows) {
+    const int n = rows - r0 < kTileRows ? rows - r0 : kTileRows;
+    __syncthreads();  // the previous stage's readers are done
+    for (int idx = threadIdx.x; idx < n * din; idx += blockDim.x) {
+      const int r = idx / din, k = idx - r * din;
+      tile[r * ld + k] = in[(size_t)(r0 + r) * din + k];
+    }
+    __syncthreads();
+    body(r0, n, ld);
+  }
+}
+
+// out (rows, dout) = in (rows, din) W^T (+ b), tanh'd when `act_tanh`.
+__device__ void linear(const float* in, int rows, int din, const float* W,
+                       const float* b, float* out, int dout, bool act_tanh,
+                       float* tile) {
+  for_row_tiles(in, rows, din, tile, [&](int r0, int n, int ld) {
+    for (int idx = threadIdx.x; idx < n * dout; idx += blockDim.x) {
+      const int j = idx / n, r = idx - j * n;
+      const float* x = tile + r * ld;
+      const float* w = W + (size_t)j * din;
+      float acc = 0.0f;
+      for (int k = 0; k < din; ++k) acc = fmaf(x[k], w[k], acc);
+      if (b) acc = acc + b[j];
+      out[(size_t)(r0 + r) * dout + j] = act_tanh ? tanhf(acc) : acc;
+    }
+  });
+}
+
+// One bidirectional LSTM layer at T = 1 with zero state: out (rows, 2H),
+// [forward, reverse] on the feature axis; inverted dropout when `keep`.
+__device__ void bilstm_t1(const float* in, int rows, int din, Lstm fw,
+                          Lstm bw, int H, const uint8_t* keep, float kscale,
+                          float* out, float* tile) {
+  const int width = 2 * H;
+  for_row_tiles(in, rows, din, tile, [&](int r0, int n, int ld) {
+    for (int idx = threadIdx.x; idx < n * width; idx += blockDim.x) {
+      const int c = idx / n, r = idx - c * n;
+      const bool rev = c >= H;
+      const int j = rev ? c - H : c;
+      const Lstm d = rev ? bw : fw;
+      const float* x = tile + r * ld;
+      const float* wi = d.w + (size_t)j * din;
+      const float* wg = d.w + (size_t)(2 * H + j) * din;
+      const float* wo = d.w + (size_t)(3 * H + j) * din;
+      float gi = 0.0f, gg = 0.0f, go = 0.0f;
+      for (int k = 0; k < din; ++k) {
+        const float xk = x[k];
+        gi = fmaf(xk, wi[k], gi);
+        gg = fmaf(xk, wg[k], gg);
+        go = fmaf(xk, wo[k], go);
+      }
+      gi = gi + d.bi[j] + d.bh[j];
+      gg = gg + d.bi[2 * H + j] + d.bh[2 * H + j];
+      go = go + d.bi[3 * H + j] + d.bh[3 * H + j];
+      const size_t o = (size_t)(r0 + r) * width + c;
+      float h = sigmoid(go) * tanhf(sigmoid(gi) * tanhf(gg));
+      if (keep) h = keep[o] ? h / kscale : 0.0f;
+      out[o] = h;
+    }
+  });
+}
+
+// MobiusLinear's clamp chain on u = x W^T (rows, W), one warp a row:
+// expmap0, mobius_add(b) at k = -1, project; as K1 (csrc/mobius_linear.cu).
+__device__ void mobius_rows(const float* u, int rows, int W, const float* mb,
+                            float* out) {
+  constexpr int kPer = kMaxHead / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float bj[kPer];
+  float b2 = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int j = lane + 32 * q;
+    bj[q] = j < W ? mb[j] : 0.0f;
+    b2 += bj[q] * bj[q];
+  }
+  b2 = hypad::warp_sum(b2);
+  for (int r = warp; r < rows; r += kWarps) {
+    const float* ur = u + (size_t)r * W;
+    float e[kPer];
+    float sq = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int j = lane + 32 * q;
+      e[q] = j < W ? ur[j] : 0.0f;
+      sq += e[q] * e[q];
+    }
+    const float un = fmaxf(sqrtf(hypad::warp_sum(sq)), kNormFloor);
+    const float t = tanhf(fminf(fmaxf(un, -kTanhClamp), kTanhClamp));
+    float x2 = 0.0f, xy = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      e[q] = t * (e[q] / un);
+      x2 += e[q] * e[q];
+      xy += e[q] * bj[q];
+    }
+    x2 = hypad::warp_sum(x2);
+    xy = hypad::warp_sum(xy);
+    const float ce = 1.0f + 2.0f * xy + b2;
+    const float cb = 1.0f - x2;
+    const float den = fmaxf(1.0f + 2.0f * xy + x2 * b2, kNormFloor);
+    float s2 = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      e[q] = (ce * e[q] + cb * bj[q]) / den;
+      s2 += e[q] * e[q];
+    }
+    const float sn = fmaxf(sqrtf(hypad::warp_sum(s2)), kNormFloor);
+    float* orow = out + (size_t)r * W;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int j = lane + 32 * q;
+      if (j < W) orow[j] = sn > kMaxNorm ? e[q] / sn * kMaxNorm : e[q];
+    }
+  }
+}
+
+// Block 0 of K5: the decoder on z_x, then bigx = [x, x_fake, interp_x].
+__device__ void decoder_side(const Args& a, float* ws, float* bigx,
+                             float* tile) {
+  const int B = a.B, W = a.W, Hd = a.Hd;
+  float* d1 = ws;
+  float* h1 = d1 + (size_t)B * a.D1;
+  float* h2 = h1 + (size_t)2 * B * Hd;
+  float* xdec = h2 + (size_t)2 * B * Hd;
+  float* u = xdec + (size_t)B * W;
+  float* xfake = bigx + (size_t)B * W;
+  const Lstm l0f{in_ptr(a, DEC + 2), in_ptr(a, DEC + 3), in_ptr(a, DEC + 4)};
+  const Lstm l0b{in_ptr(a, DEC + 5), in_ptr(a, DEC + 6), in_ptr(a, DEC + 7)};
+  const Lstm l1f{in_ptr(a, DEC + 8), in_ptr(a, DEC + 9), in_ptr(a, DEC + 10)};
+  const Lstm l1b{in_ptr(a, DEC + 11), in_ptr(a, DEC + 12),
+                 in_ptr(a, DEC + 13)};
+
+  linear(in_ptr(a, ZX), B, a.L, in_ptr(a, DEC), in_ptr(a, DEC + 1), d1, a.D1,
+         false, tile);
+  __syncthreads();
+  bilstm_t1(d1, B, a.D1, l0f, l0b, Hd,
+            static_cast<const uint8_t*>(a.p[MDEC]), kDecKeep, h1, tile);
+  __syncthreads();
+  bilstm_t1(h1, B, 2 * Hd, l1f, l1b, Hd, nullptr, 1.0f, h2, tile);
+  __syncthreads();
+  linear(h2, B, 2 * Hd, in_ptr(a, DEC + 14), in_ptr(a, DEC + 15),
+         a.hyperbolic ? xdec : xfake, W, true, tile);
+  __syncthreads();
+  if (a.hyperbolic) {
+    linear(xdec, B, W, in_ptr(a, DEC + 16), nullptr, u, W, false, tile);
+    __syncthreads();
+    mobius_rows(u, B, W, in_ptr(a, DEC + 17), xfake);
+    __syncthreads();
+  }
+  const float* x = in_ptr(a, X);
+  const float* ax = in_ptr(a, AX);
+  for (int idx = threadIdx.x; idx < B * W; idx += blockDim.x) {
+    const float xv = x[idx], al = ax[idx];
+    bigx[idx] = xv;
+    bigx[(size_t)2 * B * W + idx] = al * xv + (1.0f - al) * xfake[idx];
+  }
+  __syncthreads();
+}
+
+// Block 1 of K5: the encoder on x, then bigz = [z_enc, z_z, interp_z].
+__device__ void encoder_side(const Args& a, float* ws, float* bigz,
+                             float* tile) {
+  const int B = a.B, L = a.L;
+  const Lstm f{in_ptr(a, ENC), in_ptr(a, ENC + 1), in_ptr(a, ENC + 2)};
+  const Lstm b{in_ptr(a, ENC + 3), in_ptr(a, ENC + 4), in_ptr(a, ENC + 5)};
+  bilstm_t1(in_ptr(a, X), B, a.W, f, b, a.He, nullptr, 1.0f, ws, tile);
+  __syncthreads();
+  linear(ws, B, 2 * a.He, in_ptr(a, ENC + 6), in_ptr(a, ENC + 7), bigz, L,
+         false, tile);
+  __syncthreads();
+  const float* zz = in_ptr(a, ZZ);
+  const float* az = in_ptr(a, AZ);
+  for (int idx = threadIdx.x; idx < B * L; idx += blockDim.x) {
+    const float z = zz[idx], al = az[idx];
+    bigz[(size_t)B * L + idx] = z;
+    bigz[(size_t)2 * B * L + idx] = al * z + (1.0f - al) * bigz[idx];
+  }
+  __syncthreads();
+}
+
+// One critic's loss and parameter gradients on stacked rows `big` (3B, in):
+// `nl` hidden layers of width H, then the scalar output layer. Parameters
+// and gradients at slots [first, first + 2 (nl + 1)), (w, b) per layer.
+__device__ void critic(const Args& a, const float* big, int in, int H, int nl,
+                       int pslot, int gslot, const uint8_t* masks, float keep,
+                       float sign, float* loss, float* ws, float* red,
+                       float* tile) {
+  const int B = a.B, R = 3 * B;
+  const int wide = in > H ? in : H;
+  const float* Wl[5];
+  const float* bl[5];
+  float* gW[5];
+  float* gb[5];
+  for (int i = 0; i <= nl; ++i) {
+    Wl[i] = in_ptr(a, pslot + 2 * i);
+    bl[i] = in_ptr(a, pslot + 2 * i + 1);
+    gW[i] = out_ptr(a, gslot + 2 * i);
+    gb[i] = out_ptr(a, gslot + 2 * i + 1);
+  }
+  float* hs = ws;                                // nl x (R, H)
+  float* Ds = hs + (size_t)nl * R * H;           // nl x (R, H)
+  float* out = Ds + (size_t)nl * R * H;          // (R,)
+  float* wgp = out + R;                          // nl x (B, H)
+  float* v0 = wgp + (size_t)nl * B * H;          // (B, wide)
+  float* v1 = v0 + (size_t)B * wide;             // (B, wide)
+  float* e0 = v1 + (size_t)B * wide;             // (R, H)
+  float* e1 = e0 + (size_t)R * H;                // (R, H)
+  auto h_in = [&](int i) { return i == 0 ? big : hs + (size_t)(i - 1) * R * H; };
+  auto d_in = [&](int i) { return i == 0 ? in : H; };
+  const float* Wo = Wl[nl];
+  const float csc = (float)((double)sign / (double)B);
+  auto c_of = [&](int r) { return r < B ? -csc : (r < 2 * B ? csc : 0.0f); };
+
+  // forward, with the backward diagonals
+  for (int i = 0; i < nl; ++i) {
+    const int din = d_in(i);
+    float* hi = hs + (size_t)i * R * H;
+    float* Di = Ds + (size_t)i * R * H;
+    const uint8_t* mi = masks + (size_t)i * R * H;
+    for_row_tiles(h_in(i), R, din, tile, [&](int r0, int n, int ld) {
+      for (int idx = threadIdx.x; idx < n * H; idx += blockDim.x) {
+        const int j = idx / n, r = idx - j * n;
+        const float* x = tile + r * ld;
+        const float* w = Wl[i] + (size_t)j * din;
+        float acc = 0.0f;
+        for (int k = 0; k < din; ++k) acc = fmaf(x[k], w[k], acc);
+        const float pre = acc + bl[i][j];
+        const bool pos = pre >= 0.0f;
+        const size_t o = (size_t)(r0 + r) * H + j;
+        const bool kept = mi[o] != 0;
+        hi[o] = kept ? (pos ? pre : kLeaky * pre) / keep : 0.0f;
+        Di[o] = kept ? (pos ? 1.0f : kLeaky) / keep : 0.0f;
+      }
+    });
+    __syncthreads();
+  }
+  const float* hL = hs + (size_t)(nl - 1) * R * H;
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    float acc = 0.0f;
+    for (int j = 0; j < H; ++j) acc = fmaf(hL[(size_t)r * H + j], Wo[j], acc);
+    out[r] = acc + bl[nl][0];
+  }
+  __syncthreads();
+  float part = 0.0f;
+  for (int r = threadIdx.x; r < R; r += blockDim.x) part += out[r] * c_of(r);
+  const float wl = block_sum(part, red);
+
+  // GP input gradient: the backward chain on the interpolate rows
+  const float* v = nullptr;  // null: Wo broadcast over the rows
+  float* vbuf[2] = {v0, v1};
+  for (int i = nl - 1; i >= 0; --i) {
+    const float* Di = Ds + (size_t)i * R * H + (size_t)2 * B * H;
+    float* wi = wgp + (size_t)i * B * H;
+    for (int idx = threadIdx.x; idx < B * H; idx += blockDim.x) {
+      const int j = idx % H;
+      wi[idx] = (v ? v[idx] : Wo[j]) * Di[idx];
+    }
+    __syncthreads();
+    const int din = d_in(i);
+    float* vn = vbuf[i & 1];
+    for (int idx = threadIdx.x; idx < B * din; idx += blockDim.x) {
+      const int r = idx / din, k = idx - r * din;
+      float acc = 0.0f;
+      for (int j = 0; j < H; ++j)
+        acc = fmaf(wi[(size_t)r * H + j], Wl[i][(size_t)j * din + k], acc);
+      vn[idx] = acc;
+    }
+    __syncthreads();
+    v = vn;
+  }
+  float* g = vbuf[0];  // the chain ends at i = 0
+  part = 0.0f;
+  for (int idx = threadIdx.x; idx < B * in; idx += blockDim.x)
+    part += g[idx] * g[idx];
+  const float gn = sqrtf(block_sum(part, red) + kGpEps);
+  const float gd = gn - 1.0f;
+  if (threadIdx.x == 0) *loss = wl + kGpWeight * (gd * gd);
+
+  // wl-path gradients: backprop of the cotangent c
+  for (int idx = threadIdx.x; idx <= H; idx += blockDim.x) {
+    float acc = 0.0f;
+    if (idx < H) {
+      for (int r = 0; r < R; ++r)
+        acc = fmaf(c_of(r), hL[(size_t)r * H + idx], acc);
+      gW[nl][idx] = acc;
+    } else {
+      for (int r = 0; r < R; ++r) acc += c_of(r);
+      gb[nl][0] = acc;
+    }
+  }
+  float* ebuf[2] = {e0, e1};
+  const float* e = nullptr;  // null: the per-row cotangent c (R, 1)
+  for (int i = nl - 1; i >= 0; --i) {
+    const float* Di = Ds + (size_t)i * R * H;
+    float* en = ebuf[i & 1];
+    for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
+      const int r = idx / H, j = idx - r * H;
+      float acc;
+      if (e) {
+        acc = 0.0f;
+        const float* Wn = Wl[i + 1];
+        for (int m = 0; m < H; ++m)
+          acc = fmaf(e[(size_t)r * H + m], Wn[(size_t)m * H + j], acc);
+      } else {
+        acc = c_of(r) * Wo[j];
+      }
+      en[idx] = acc * Di[idx];
+    }
+    __syncthreads();
+    const float* hp = h_in(i);
+    const int din = d_in(i);
+    for (int idx = threadIdx.x; idx < H * din + H; idx += blockDim.x) {
+      float acc = 0.0f;
+      if (idx < H * din) {
+        const int j = idx / din, k = idx - j * din;
+        for (int r = 0; r < R; ++r)
+          acc = fmaf(en[(size_t)r * H + j], hp[(size_t)r * din + k], acc);
+        gW[i][idx] = acc;
+      } else {
+        const int j = idx - H * din;
+        for (int r = 0; r < R; ++r) acc += en[(size_t)r * H + j];
+        gb[i][j] = acc;
+      }
+    }
+    __syncthreads();
+    e = en;
+  }
+
+  // GP-path gradients: the forward chain run on u_0 = 20 (gn - 1) / gn * g
+  const float coef = (2.0f * kGpWeight * gd) / gn;
+  for (int idx = threadIdx.x; idx < B * in; idx += blockDim.x)
+    g[idx] = coef * g[idx];
+  __syncthreads();
+  float* u = g;
+  for (int i = 0; i < nl; ++i) {
+    const int din = d_in(i);
+    const float* wi = wgp + (size_t)i * B * H;
+    const float* Di = Ds + (size_t)i * R * H + (size_t)2 * B * H;
+    float* un = u == v0 ? v1 : v0;
+    for (int idx = threadIdx.x; idx < H * din; idx += blockDim.x) {
+      const int j = idx / din, k = idx - j * din;
+      float acc = 0.0f;
+      for (int r = 0; r < B; ++r)
+        acc = fmaf(wi[(size_t)r * H + j], u[(size_t)r * din + k], acc);
+      gW[i][idx] = gW[i][idx] + acc;
+    }
+    for_row_tiles(u, B, din, tile, [&](int r0, int n, int ld) {
+      for (int idx = threadIdx.x; idx < n * H; idx += blockDim.x) {
+        const int j = idx / n, r = idx - j * n;
+        const float* x = tile + r * ld;
+        const float* w = Wl[i] + (size_t)j * din;
+        float acc = 0.0f;
+        for (int k = 0; k < din; ++k) acc = fmaf(x[k], w[k], acc);
+        const size_t o = (size_t)(r0 + r) * H + j;
+        un[o] = Di[o] * acc;
+      }
+    });
+    __syncthreads();
+    u = un;
+  }
+  for (int j = threadIdx.x; j < H; j += blockDim.x) {
+    float acc = 0.0f;
+    for (int r = 0; r < B; ++r) acc += u[(size_t)r * H + j];
+    gW[nl][j] = gW[nl][j] + acc;
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads) critic_step_kernel(Args a) {
+  __shared__ float red[kWarps + 1];
+  __shared__ float tile[kTileRows * (kMaxIn + 1)];  // 33,024 bytes
+  float* ws = static_cast<float*>(a.p[WS]);
+  float* loss = static_cast<float*>(a.p[LOSS]);
+  if (blockIdx.x == 0) {
+    float* bigx = static_cast<float*>(a.p[BIGX]);
+    float* cws = ws;
+    if (a.full)
+      decoder_side(a, cws + critic_ws(3 * a.B, a.B, a.W, a.Hx, 4), bigx,
+                   tile);
+    critic(a, bigx, a.W, a.Hx, 4, CX, GCX,
+           static_cast<const uint8_t*>(a.p[MCX]), kCxKeep, +1.0f, loss, cws,
+           red, tile);
+  } else {
+    float* bigz = static_cast<float*>(a.p[BIGZ]);
+    float* cws = ws + side_x_ws(a);
+    if (a.full)
+      encoder_side(a, cws + critic_ws(3 * a.B, a.B, a.L, a.Hz, 2), bigz,
+                   tile);
+    critic(a, bigz, a.L, a.Hz, 2, CZ, GCZ,
+           static_cast<const uint8_t*>(a.p[MCZ]), kCzKeep, -1.0f, loss + 1,
+           cws, red, tile);
+  }
+}
+
+bool fill(Args* a, void* const* ptrs, const int* dims, int full,
+          int hyperbolic) {
+  for (int s = 0; s < kSlots; ++s) a->p[s] = ptrs[s];
+  a->B = dims[DB];
+  a->W = dims[DW];
+  a->L = dims[DL];
+  a->Hx = dims[DHX];
+  a->Hz = dims[DHZ];
+  a->He = dims[DHE];
+  a->D1 = dims[DD1];
+  a->Hd = dims[DHD];
+  a->full = full;
+  a->hyperbolic = hyperbolic;
+  for (int d = 0; d < kDims; ++d)
+    if (dims[d] < 1) return false;
+  if (a->W > kMaxIn || a->L > kMaxIn || a->Hx > kMaxIn || a->Hz > kMaxIn)
+    return false;
+  return !full || (!(hyperbolic && a->W > kMaxHead) && a->D1 <= kMaxIn &&
+                   2 * a->Hd <= kMaxIn && 2 * a->He <= kMaxIn);
+}
+
+int launch(void* const* ptrs, const int* dims, int full, int hyperbolic,
+           void* stream) {
+  Args a;
+  if (!fill(&a, ptrs, dims, full, hyperbolic)) return cudaErrorInvalidValue;
+  critic_step_kernel<<<2, kThreads, 0, (cudaStream_t)stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Floats of global workspace one launch needs, for dims
+// [B, W, L, Hx, Hz, He, D1, Hd].
+extern "C" long long critic_step_workspace_floats(const int* dims) {
+  Args a;
+  a.B = dims[DB];
+  a.W = dims[DW];
+  a.L = dims[DL];
+  a.Hx = dims[DHX];
+  a.Hz = dims[DHZ];
+  a.He = dims[DHE];
+  a.D1 = dims[DD1];
+  a.Hd = dims[DHD];
+  return (long long)total_ws(a);
+}
+
+// K4: both critics' losses and gradients from bigx, bigz, mx, mz. `ptrs`
+// holds the 70 slots of `Slot` (the generator slots are not read). Returns
+// cudaGetLastError() after the launch on `stream`.
+extern "C" int critics_fused_grads_forward(void* const* ptrs, const int* dims,
+                                           void* stream) {
+  return launch(ptrs, dims, 0, 0, stream);
+}
+
+// K5: the generator forwards, then K4; bigx and bigz are written.
+extern "C" int critic_step_full_forward(void* const* ptrs, const int* dims,
+                                        int hyperbolic, void* stream) {
+  return launch(ptrs, dims, 1, hyperbolic, stream);
+}

@@ -13,6 +13,13 @@ from datetime import datetime
 
 import numpy as np
 
+# The A1-sized training input of chip_smoke.py and profile_train.py:
+# ``synthetic_detect_input(A1_WINDOWS, 100, anomaly_len=50)`` is a signal as
+# long as Yahoo A1 real_1 (1,420 samples), trained in batches of
+# configs/univariate.yaml's 64.
+A1_WINDOWS = 1320
+A1_BATCH_SIZE = 64
+
 
 def synthetic_timestamps(n: int) -> np.ndarray:
     """Per-second epoch timestamps starting 2012-11-24 local time."""

@@ -1,11 +1,13 @@
 """kappa-stereographic (Poincare ball, k<0) gyrovector math in PyTorch.
 
 Port of the subset of ``hypad_tpu.manifold.stereographic`` that the
-hyperbolic detector runs: the clamp constants, ``tanh``/``artanh``,
-``project``, ``lambda_x``, ``mobius_add``, ``expmap0``, ``logmap0`` and
-``acosh_poincare_distance``. Every stability clamp is kept as it is there,
-so boundary numerics agree with the JAX package. All ops reduce over the
-last axis and compute in the input dtype.
+hyperbolic detector and trainer run: the clamp constants, ``tanh``/``artanh``,
+``project``, ``lambda_x``, ``mobius_add``, ``gyration``, ``expmap0``,
+``logmap0``, ``retr``, ``parallel_transport``, ``egrad2rgrad`` and the two
+acosh Poincare distances (detector score and training loss). Every
+stability clamp is kept as it is there, so boundary numerics agree with the
+JAX package. All ops reduce over the last axis and compute in the input
+dtype.
 """
 
 from __future__ import annotations
@@ -77,6 +79,37 @@ def mobius_add(x, y, k=-1.0):
     return num / denom.clamp_min(NORM_FLOOR)
 
 
+def gyration(u, v, w, k=-1.0):
+    """gyr[u, v] w, simplified closed form."""
+    u2 = torch.sum(u * u, dim=-1, keepdim=True)
+    v2 = torch.sum(v * v, dim=-1, keepdim=True)
+    uv = torch.sum(u * v, dim=-1, keepdim=True)
+    uw = torch.sum(u * w, dim=-1, keepdim=True)
+    vw = torch.sum(v * w, dim=-1, keepdim=True)
+    k2 = k * k
+    a = -k2 * uw * v2 - k * vw + 2.0 * k2 * uv * vw
+    b = -k2 * vw * u2 + k * uw
+    d = 1.0 - 2.0 * k * uv + k2 * u2 * v2
+    return w + 2.0 * (a * u + b * v) / d.clamp_min(NORM_FLOOR)
+
+
+def retr(x, u, k=-1.0):
+    """First-order retraction: project(x + u)."""
+    return project(x + u, k)
+
+
+def parallel_transport(x, y, v, k=-1.0):
+    """P_{x->y}(v) = gyr[y, -x] v * lambda_x / lambda_y."""
+    return (gyration(y, -x, v, k) * lambda_x(x, k, keepdim=True)
+            / lambda_x(y, k, keepdim=True))
+
+
+def egrad2rgrad(x, grad, k=-1.0):
+    """Euclidean to Riemannian gradient: grad / lambda_x^2."""
+    lam = lambda_x(x, k, keepdim=True)
+    return grad / (lam * lam)
+
+
 def expmap0(u, k=-1.0):
     """Exponential map at the origin."""
     u_norm = _last_norm(u)
@@ -109,3 +142,17 @@ def acosh_poincare_distance(u, v, eps=ACOSH_EPS):
     offset = float(torch.tensor(1.0 + eps, dtype=u.dtype) - 1.0)
     y = 2.0 * sqdist / ((1.0 - squnorm) * (1.0 - sqvnorm)) + offset
     return torch.log1p(y + torch.sqrt(y * (y + 2.0)))
+
+
+def acosh_poincare_distance_loss(u, v, eps=ACOSH_EPS):
+    """The same distance as the generator's reconstruction loss computes it:
+    ``acosh(1 + 2 d2 / ((1-||u||^2)(1-||v||^2)) + 1e-7)`` with the argument
+    rounded to the working dtype before the acosh. Its gradient is then
+    ``1 / sqrt(x^2 - 1)`` at the rounded argument, the form the JAX
+    trainer differentiates, where :func:`acosh_poincare_distance` keeps the
+    excess over 1 apart for the detector's forward accuracy."""
+    sqdist = torch.sum((u - v) ** 2, dim=-1)
+    squnorm = torch.sum(u * u, dim=-1)
+    sqvnorm = torch.sum(v * v, dim=-1)
+    x_temp = 1.0 + 2.0 * sqdist / ((1.0 - squnorm) * (1.0 - sqvnorm)) + eps
+    return torch.acosh(x_temp)

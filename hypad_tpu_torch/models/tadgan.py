@@ -1,4 +1,4 @@
-"""TadGAN / HypAD modules in PyTorch (eval-mode forwards).
+"""TadGAN / HypAD modules in PyTorch (eval and training forwards).
 
 Port of ``hypad_tpu.models.tadgan``: Encoder, Decoder (with the hyperbolic
 MobiusLinear head), CriticX and CriticZ as ``nn.Module``s. Parameter names
@@ -16,8 +16,11 @@ Initialization (``init_tadgan``) draws from an explicit CPU
 The window enters the LSTMs as one timestep of a ``signal_shape``-wide
 feature vector (sequence length 1), as in the reference model.
 
-Training-mode dropout with explicit keep-masks comes with the training port;
-the dropout rates are kept here so that port reads them from one place.
+Training mode is a forward given explicit dropout keep-masks, as the JAX
+trainer pregenerates them: CriticX takes 4 masks (rate 0.25), CriticZ 2
+(rate 0.2), the Decoder one inter-layer LSTM mask (rate 0.2). A kept value
+is divided by ``1 - rate``, as in the JAX package. Without masks every
+forward is the eval forward.
 """
 
 from __future__ import annotations
@@ -86,6 +89,11 @@ def _leaky_relu(x, slope=0.2):
     return torch.where(x >= 0, x, slope * x)
 
 
+def dropout(x, rate, keep):
+    """Inverted dropout with a pregenerated keep-mask (bool or 0/1)."""
+    return torch.where(keep.to(torch.bool), x / (1.0 - rate), 0.0)
+
+
 class Encoder(nn.Module):
     """x (B, signal_shape) -> z (B, latent_dim)."""
 
@@ -116,9 +124,12 @@ class Decoder(nn.Module):
             self.hyperbolic_linear = MobiusLinear(signal_shape, signal_shape,
                                                   device=device)
 
-    def forward(self, z):
+    def forward(self, z, lstm_drop_masks=None):
+        """``lstm_drop_masks``: training-mode inter-layer keep-masks,
+        (1, 1, B, 128) as the JAX trainer draws them (or (1, B, 128)
+        each in a sequence); None for eval."""
         h = self.dense1(z)[None]          # (1, B, 50)
-        h = self.lstm(h)
+        h = self.lstm(h, lstm_drop_masks, DEC_LSTM_DROPOUT)
         x = torch.tanh(self.dense2(h))[0]
         if self.hyperbolic:
             return self.hyperbolic_linear(x), x
@@ -136,10 +147,15 @@ class CriticX(nn.Module):
         self.dense4 = Dense(latent_dim, latent_dim, device=device)
         self.dense5 = Dense(latent_dim, 1, device=device)
 
-    def forward(self, x):
+    def forward(self, x, drop_masks=None):
+        """``drop_masks``: training-mode keep-masks (4, B, latent); None
+        for eval."""
         h = x
-        for layer in (self.dense1, self.dense2, self.dense3, self.dense4):
+        for i, layer in enumerate((self.dense1, self.dense2, self.dense3,
+                                   self.dense4)):
             h = _leaky_relu(layer(h))
+            if drop_masks is not None:
+                h = dropout(h, CX_DROPOUT, drop_masks[i])
         return self.dense5(h)
 
 
@@ -152,10 +168,14 @@ class CriticZ(nn.Module):
         self.dense2 = Dense(latent_dim, latent_dim, device=device)
         self.dense3 = Dense(latent_dim, 1, device=device)
 
-    def forward(self, z):
+    def forward(self, z, drop_masks=None):
+        """``drop_masks``: training-mode keep-masks (2, B, latent); None
+        for eval."""
         h = z
-        for layer in (self.dense1, self.dense2):
+        for i, layer in enumerate((self.dense1, self.dense2)):
             h = _leaky_relu(layer(h))
+            if drop_masks is not None:
+                h = dropout(h, CZ_DROPOUT, drop_masks[i])
         return self.dense3(h)
 
 

@@ -5,9 +5,10 @@ weights; both biases added; zero initial state; bidirectional outputs
 concatenated on the feature axis. The parameters keep the JAX package's
 names and layout (per layer ``w_ih`` (4H, in), ``w_hh`` (4H, H), ``b_ih``,
 ``b_hh``, and ``*_rev`` for the reverse direction), so weights carry across
-unchanged. The detector always runs it at sequence length 1; the
-``h @ w_hh`` term is kept so the recurrence stays general. Eval mode only:
-training-mode inter-layer dropout comes with the training port.
+unchanged. The detector and trainer always run it at sequence length 1;
+the ``h @ w_hh`` term is kept so the recurrence stays general. Training-mode
+inter-layer dropout takes explicit keep-masks, one per inter-layer gap, as
+the JAX trainer pregenerates them: ``where(keep, out / (1 - p), 0)``.
 """
 
 from __future__ import annotations
@@ -44,10 +45,14 @@ class LSTM(nn.ModuleList):
             for p in layer.values():
                 _uniform_(p, bound, generator)
 
-    def forward(self, x):
-        """x: (T, B, in) time-major -> (T, B, H * num_directions)."""
+    def forward(self, x, drop_masks=None, dropout=0.0):
+        """x: (T, B, in) time-major -> (T, B, H * num_directions).
+
+        ``drop_masks``: training-mode keep-masks (bool or 0/1), entry ``i``
+        shaped like layer ``i``'s output, for every layer but the last;
+        None runs in eval mode."""
         out = x
-        for layer in self:
+        for idx, layer in enumerate(self):
             outs = [_run_direction(out, layer["w_ih"], layer["w_hh"],
                                    layer["b_ih"], layer["b_hh"],
                                    reverse=False)]
@@ -57,6 +62,9 @@ class LSTM(nn.ModuleList):
                                            layer["b_ih_rev"],
                                            layer["b_hh_rev"], reverse=True))
             out = torch.cat(outs, dim=-1)
+            if drop_masks is not None and idx < len(self) - 1:
+                keep = drop_masks[idx].to(torch.bool)
+                out = torch.where(keep, out / (1.0 - dropout), 0.0)
         return out
 
 

@@ -105,17 +105,13 @@ def _busy_us(events):
     return busy
 
 
-def trace(model, X, device, calls=5):
-    """Profile ``calls`` warm detect calls: (top kernels [(name, device ms
-    per call, launches per call)], device busy share, wall ms per call)."""
+def profile_calls(call, calls, tag, chrome_trace=True):
+    """Profile ``calls`` warm calls of ``call()``: (top kernels [(name,
+    device ms per call, launches per call)], device busy share, wall ms per
+    call). Writes ``chiprun_out/<tag>_profile.txt`` and, with
+    ``chrome_trace``, ``<tag>_trace.json``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from hypad_tpu_torch.detect.scorer import detect_scores
-
-    def call():
-        return detect_scores(model, X, True, "mult", fetch_inference=False,
-                             device=device)
 
     call()
     torch.cuda.synchronize()
@@ -124,10 +120,12 @@ def trace(model, X, device, calls=5):
         t0 = time.perf_counter()
         for _ in range(calls):
             call()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     OUT_DIR.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(OUT_DIR / "detect_trace.json"))
-    (OUT_DIR / "detect_profile.txt").write_text(prof.key_averages().table(
+    if chrome_trace:
+        prof.export_chrome_trace(str(OUT_DIR / f"{tag}_trace.json"))
+    (OUT_DIR / f"{tag}_profile.txt").write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=60))
     events = prof.events()
     device_events = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -145,6 +143,17 @@ def trace(model, X, device, calls=5):
                   for name, (ms, count) in per_kernel.items()),
                  key=lambda t: -t[1])
     return top, busy_share, wall_ms
+
+
+def trace(model, X, device, calls=5):
+    """:func:`profile_calls` over warm detect calls."""
+    from hypad_tpu_torch.detect.scorer import detect_scores
+
+    def call():
+        return detect_scores(model, X, True, "mult", fetch_inference=False,
+                             device=device)
+
+    return profile_calls(call, calls, "detect")
 
 
 def main(argv=None):

@@ -1,0 +1,282 @@
+"""The critic step as one kernel: K4 and K5, their wrappers and plain versions.
+
+``critics_fused_grads`` (K4) and ``critic_step_fused_full`` (K5) wrap the
+hand-written kernels of ``csrc/critic_step.cu``, which replace the Pallas
+kernels ``hypad_tpu/train/critic_kernel.py:156`` ``_kernel`` and ``:350``
+``_kernel_full``. K4 takes the two critics' stacked rows and keep-masks and
+returns both WGAN-GP losses with every critic parameter's gradient; K5 also
+runs the step's gradient-free generator forwards first. On a CUDA tensor a
+wrapper launches its kernel (or raises); on a CPU tensor it runs the plain
+version beside it, which is the autograd composition of the training losses
+(``train/losses.py``), not the kernel's hand-derived closed form, so on the
+card the kernel is held against autodiff. Each wrapper counts its kernel
+launches in ``.launches``.
+
+Both return ``(lx, lz, grads_cx, grads_cz)``: 0-d loss tensors and dicts of
+gradients keyed like the port's ``state_dict`` (``"critic_x.dense1.w"``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from hypad_tpu_torch.train.losses import critic_loss_stacked, critic_step_inputs
+
+CX_LAYERS = ("dense1", "dense2", "dense3", "dense4", "dense5")
+CZ_LAYERS = ("dense1", "dense2", "dense3")
+LSTM_KEYS = ("w_ih", "b_ih", "b_hh", "w_ih_rev", "b_ih_rev", "b_hh_rev")
+N_SLOTS = 70          # csrc/critic_step.cu `Slot`
+SLOT_X, SLOT_ZX, SLOT_AX, SLOT_ZZ, SLOT_AZ = 0, 1, 2, 3, 4
+SLOT_MDEC, SLOT_MCX, SLOT_MCZ, SLOT_BIGX, SLOT_BIGZ = 5, 6, 7, 8, 9
+SLOT_ENC, SLOT_DEC, SLOT_CX, SLOT_CZ = 10, 18, 36, 46
+SLOT_LOSS, SLOT_GCX, SLOT_GCZ, SLOT_WS = 52, 53, 63, 69
+MAX_WIDTH = 128       # widest layer input and MobiusLinear head the kernels take
+
+
+def critic_params(critic, prefix):
+    """{"critic_x.dense1.w": tensor, ...} of one critic."""
+    return dict(critic.named_parameters(prefix=prefix))
+
+
+def _grads(lx, lz, critic_x, critic_z):
+    px = critic_params(critic_x, "critic_x")
+    pz = critic_params(critic_z, "critic_z")
+    grads = torch.autograd.grad(lx + lz, [*px.values(), *pz.values()])
+    return (dict(zip(px, grads[:len(px)])), dict(zip(pz, grads[len(px):])))
+
+
+def critics_fused_grads_plain(critic_x, critic_z, bigx, bigz, mx, mz):
+    """K4's plain version: autograd of both critics' WGAN-GP losses."""
+    with torch.enable_grad():
+        lx = critic_loss_stacked(critic_x, bigx, mx, +1)
+        lz = critic_loss_stacked(critic_z, bigz, mz, -1)
+        gx, gz = _grads(lx, lz, critic_x, critic_z)
+    return lx.detach(), lz.detach(), gx, gz
+
+
+def critic_step_plain(model, x, draws, hyperbolic):
+    """K5's plain version: the generator forwards, then K4's plain
+    version. ``draws``: one step's z_x, a_x, z_z, a_z, m_cx (4, 3B, Hx),
+    m_cz (2, 3B, Hz), m_dec (B, 128)."""
+    bigx, bigz = critic_step_inputs(model, x, draws, hyperbolic)
+    return critics_fused_grads_plain(model["critic_x"], model["critic_z"],
+                                     bigx, bigz, draws["m_cx"],
+                                     draws["m_cz"])
+
+
+@functools.cache
+def _lib():
+    from hypad_tpu_torch import _build
+
+    lib = _build.load("critic_step")
+    lib.critic_step_workspace_floats.argtypes = [ctypes.c_void_p]
+    lib.critic_step_workspace_floats.restype = ctypes.c_longlong
+    lib.critics_fused_grads_forward.argtypes = [ctypes.c_void_p] * 3
+    lib.critics_fused_grads_forward.restype = ctypes.c_int
+    lib.critic_step_full_forward.argtypes = ([ctypes.c_void_p] * 2
+                                             + [ctypes.c_int, ctypes.c_void_p])
+    lib.critic_step_full_forward.restype = ctypes.c_int
+    return lib
+
+
+def _check(name, device, **tensors):
+    """Each tensor on ``device`` and contiguous; keep-masks (keys starting
+    with "m") bool, the rest float32."""
+    for key, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected "
+                             f"{device}")
+        want = torch.bool if key.startswith("m") else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name}: {key} must be {want}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def _shape(name, key, t, shape):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+
+
+def _widths(name, widths):
+    for what, width in widths.items():
+        if width > MAX_WIDTH:
+            raise ValueError(f"{name}: {what} width {width} exceeds "
+                             f"{MAX_WIDTH}")
+
+
+def _dims(B, W, L, Hx, Hz, He=1, D1=1, Hd=1):
+    return (ctypes.c_int * 8)(B, W, L, Hx, Hz, He, D1, Hd)
+
+
+def _critic_slots(ptrs, critic_x, critic_z, device):
+    """Fill the critic parameter and gradient slots; returns the gradient
+    dicts and the (2,) loss buffer."""
+    gx, gz = {}, {}
+    for slot, gslot, critic, prefix, layers, grads in (
+            (SLOT_CX, SLOT_GCX, critic_x, "critic_x", CX_LAYERS, gx),
+            (SLOT_CZ, SLOT_GCZ, critic_z, "critic_z", CZ_LAYERS, gz)):
+        for i, layer in enumerate(layers):
+            for j, leaf in enumerate(("w", "b")):
+                p = getattr(getattr(critic, layer), leaf)
+                _check("critic step", device, **{f"{prefix}.{layer}.{leaf}": p})
+                g = torch.empty_like(p)
+                ptrs[slot + 2 * i + j] = p.data_ptr()
+                ptrs[gslot + 2 * i + j] = g.data_ptr()
+                grads[f"{prefix}.{layer}.{leaf}"] = g
+    loss = torch.empty(2, dtype=torch.float32, device=device)
+    ptrs[SLOT_LOSS] = loss.data_ptr()
+    return gx, gz, loss
+
+
+def _run(fn_name, ptrs, dims, device, *extra):
+    lib = _lib()
+    ws = torch.empty(int(lib.critic_step_workspace_floats(dims)),
+                     dtype=torch.float32, device=device)
+    ptrs[SLOT_WS] = ws.data_ptr()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, fn_name)(ptrs, dims, *extra, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
+
+
+def _critic_dims(critic_x, critic_z, bigx, bigz, mx, mz, name):
+    R, W = bigx.shape
+    if bigx.dim() != 2 or R % 3 or R == 0:
+        raise ValueError(f"{name}: bigx must be (3B, W), got "
+                         f"{tuple(bigx.shape)}")
+    Hx = critic_x.dense1.w.shape[0]
+    Hz = critic_z.dense1.w.shape[0]
+    L = critic_z.dense1.w.shape[1]
+    _shape(name, "bigx", bigx, (R, critic_x.dense1.w.shape[1]))
+    _shape(name, "bigz", bigz, (R, L))
+    _shape(name, "mx", mx, (4, R, Hx))
+    _shape(name, "mz", mz, (2, R, Hz))
+    _widths(name, {"bigx": W, "bigz": L, "critic_x hidden": Hx,
+                   "critic_z hidden": Hz})
+    return R // 3, W, L, Hx, Hz
+
+
+def k4_launch_args(critic_x, critic_z, bigx, bigz, mx, mz):
+    """K4's pointer slots, dims and the outputs (lx, lz, grads_cx,
+    grads_cz) it fills, for inputs the wrapper has checked."""
+    ptrs = (ctypes.c_void_p * N_SLOTS)()
+    for slot, t in ((SLOT_BIGX, bigx), (SLOT_BIGZ, bigz), (SLOT_MCX, mx),
+                    (SLOT_MCZ, mz)):
+        ptrs[slot] = t.data_ptr()
+    gx, gz, loss = _critic_slots(ptrs, critic_x, critic_z, bigx.device)
+    dims = _dims(*_critic_dims(critic_x, critic_z, bigx, bigz, mx, mz,
+                               "critics_fused_grads"))
+    return ptrs, dims, (loss[0], loss[1], gx, gz)
+
+
+def k5_launch_args(model, x, d, hyperbolic):
+    """K5's pointer slots, dims and outputs, as :func:`k4_launch_args`,
+    and last the stacked rows (bigx, bigz) the kernel writes, which the
+    caller holds until the launch is enqueued; ``d`` holds one step's
+    draws."""
+    device = x.device
+    enc, dec = model["encoder"], model["decoder"]
+    B, W = x.shape
+    L = model["critic_z"].dense1.w.shape[1]
+    ptrs = (ctypes.c_void_p * N_SLOTS)()
+    for slot, key in ((SLOT_ZX, "z_x"), (SLOT_AX, "a_x"), (SLOT_ZZ, "z_z"),
+                      (SLOT_AZ, "a_z"), (SLOT_MDEC, "m_dec"),
+                      (SLOT_MCX, "m_cx"), (SLOT_MCZ, "m_cz")):
+        ptrs[slot] = d[key].data_ptr()
+    ptrs[SLOT_X] = x.data_ptr()
+    bigx = torch.empty((3 * B, W), dtype=torch.float32, device=device)
+    bigz = torch.empty((3 * B, L), dtype=torch.float32, device=device)
+    ptrs[SLOT_BIGX], ptrs[SLOT_BIGZ] = bigx.data_ptr(), bigz.data_ptr()
+    gen = ([enc.lstm[0][k] for k in LSTM_KEYS] + [enc.dense.w, enc.dense.b]
+           + [dec.dense1.w, dec.dense1.b]
+           + [dec.lstm[0][k] for k in LSTM_KEYS]
+           + [dec.lstm[1][k] for k in LSTM_KEYS]
+           + [dec.dense2.w, dec.dense2.b])
+    if hyperbolic:
+        gen += [dec.hyperbolic_linear.w, dec.hyperbolic_linear.b]
+    for i, p in enumerate(gen):
+        _check("critic_step_fused_full", device, generator_weight=p)
+        ptrs[SLOT_ENC + i] = p.data_ptr()
+    gx, gz, loss = _critic_slots(ptrs, model["critic_x"], model["critic_z"],
+                                 device)
+    dims = _dims(B, W, L, model["critic_x"].dense1.w.shape[0],
+                 model["critic_z"].dense1.w.shape[0],
+                 enc.lstm[0]["w_hh"].shape[1], dec.dense1.w.shape[0],
+                 dec.lstm[0]["w_hh"].shape[1])
+    return ptrs, dims, (loss[0], loss[1], gx, gz), (bigx, bigz)
+
+
+def critics_fused_grads(critic_x, critic_z, bigx, bigz, mx, mz):
+    """(lx, lz, grads_cx, grads_cz) of one critic step: ``csrc``'s K4 for
+    CUDA tensors, :func:`critics_fused_grads_plain` for CPU tensors.
+    ``bigx`` (3B, W) = [x, x_fake, interp_x], ``bigz`` (3B, L) =
+    [z_enc, z, interp_z], ``mx`` (4, 3B, Hx) and ``mz`` (2, 3B, Hz) bool
+    keep-masks."""
+    name = "critics_fused_grads"
+    _critic_dims(critic_x, critic_z, bigx, bigz, mx, mz, name)
+    device = bigx.device
+    _check(name, device, bigx=bigx, bigz=bigz, mx=mx, mz=mz)
+    if device.type == "cpu":
+        return critics_fused_grads_plain(critic_x, critic_z, bigx, bigz, mx,
+                                         mz)
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    ptrs, dims, out = k4_launch_args(critic_x, critic_z, bigx, bigz, mx, mz)
+    _run("critics_fused_grads_forward", ptrs, dims, device)
+    critics_fused_grads.launches += 1
+    return out
+
+
+critics_fused_grads.launches = 0
+
+
+def critic_step_fused_full(model, x, draws, hyperbolic):
+    """(lx, lz, grads_cx, grads_cz) of one whole critic step, generator
+    forwards included: ``csrc``'s K5 for a CUDA ``x``,
+    :func:`critic_step_plain` for a CPU ``x``. ``draws`` as
+    :func:`critic_step_plain` takes them."""
+    name = "critic_step_fused_full"
+    device = x.device
+    d = {k: draws[k] for k in ("z_x", "a_x", "z_z", "a_z", "m_cx", "m_cz",
+                               "m_dec")}
+    _check(name, device, x=x, **d)
+    enc, dec = model["encoder"], model["decoder"]
+    if hyperbolic != dec.hyperbolic:
+        raise ValueError(f"{name}: hyperbolic={hyperbolic} but the decoder "
+                         f"has hyperbolic={dec.hyperbolic}")
+    B, W = x.shape
+    L = model["critic_z"].dense1.w.shape[1]
+    Hx = model["critic_x"].dense1.w.shape[0]
+    Hz = model["critic_z"].dense1.w.shape[0]
+    Hd = dec.lstm[0]["w_hh"].shape[1]
+    for key, shape in (("z_x", (B, L)), ("a_x", (B, W)), ("z_z", (B, L)),
+                       ("a_z", (B, L)), ("m_cx", (4, 3 * B, Hx)),
+                       ("m_cz", (2, 3 * B, Hz)), ("m_dec", (B, 2 * Hd))):
+        _shape(name, key, d[key], shape)
+    if len(dec.lstm) != 2 or len(enc.lstm) != 1:
+        raise ValueError(f"{name}: expected a 1-layer encoder and a 2-layer "
+                         "decoder LSTM")
+    _widths(name, {"signal": W, "latent": L, "critic_x hidden": Hx,
+                   "critic_z hidden": Hz,
+                   "decoder dense1": dec.dense1.w.shape[0],
+                   "decoder LSTM output": 2 * Hd,
+                   "encoder LSTM output": 2 * enc.lstm[0]["w_hh"].shape[1]})
+    if device.type == "cpu":
+        return critic_step_plain(model, x, d, hyperbolic)
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+
+    ptrs, dims, out, _rows = k5_launch_args(model, x, d, hyperbolic)
+    _run("critic_step_full_forward", ptrs, dims, device,
+         int(bool(hyperbolic)))
+    critic_step_fused_full.launches += 1
+    return out
+
+
+critic_step_fused_full.launches = 0

@@ -58,3 +58,64 @@ def test_kde_argmax_kernel_matches_plain_at_tie_level(cuda, N, W, const):
     v, m, g = vals.cpu().numpy(), mask.cpu().numpy(), got.cpu().numpy()
     assert all(g[i] in v[i][m[i]] for i in diff)
     assert len(diff) <= max(1, int(0.01 * len(g)))
+
+
+def _critic_case(device, hyperbolic, B):
+    g = torch.Generator().manual_seed(100 + B + hyperbolic)
+    model = init_tadgan(g, 100, hyperbolic=hyperbolic, device=device)
+    draws = {"z_x": torch.randn(B, 20, generator=g),
+             "a_x": torch.rand(B, 100, generator=g),
+             "z_z": torch.randn(B, 20, generator=g),
+             "a_z": torch.rand(B, 20, generator=g),
+             "m_cx": torch.rand(4, 3 * B, 20, generator=g) < 0.75,
+             "m_cz": torch.rand(2, 3 * B, 20, generator=g) < 0.8,
+             "m_dec": torch.rand(B, 128, generator=g) < 0.8}
+    x = torch.rand(B, 100, generator=g) * 2 - 1
+    return model, x.to(device), {k: v.to(device) for k, v in draws.items()}
+
+
+def _assert_critic_close(got, want, loss_tol, grad_tol):
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, **loss_tol)
+    for gd, wd in zip(got[2:], want[2:]):
+        assert sorted(gd) == sorted(wd)
+        for key in wd:
+            torch.testing.assert_close(gd[key], wd[key], msg=key, **grad_tol)
+
+
+def _assert_bitwise(a, b):
+    assert all(torch.equal(x, y) for x, y in zip(a[:2], b[:2]))
+    assert all(torch.equal(a[i][k], b[i][k]) for i in (2, 3) for k in a[i])
+
+
+@pytest.mark.parametrize("hyperbolic,B", [(True, 64), (False, 64),
+                                          (True, 13)])
+def test_critic_step_kernels_match_autograd(cuda, hyperbolic, B):
+    """K5 and K4 against their plain autograd versions on the card, within
+    the JAX tests' tolerances (tests/test_critic_kernel.py:83-93, :113-122),
+    two launches bitwise equal, one count per launch."""
+    from hypad_tpu_torch.train import critic_kernel as ck
+
+    model, x, d = _critic_case(cuda, hyperbolic, B)
+    want = ck.critic_step_plain(model, x, d, hyperbolic)
+    before = ck.critic_step_fused_full.launches
+    got = ck.critic_step_fused_full(model, x, d, hyperbolic)
+    again = ck.critic_step_fused_full(model, x, d, hyperbolic)
+    torch.cuda.synchronize()
+    assert ck.critic_step_fused_full.launches == before + 2
+    _assert_critic_close(got, want, dict(rtol=5e-5, atol=2e-6),
+                         dict(rtol=1e-4, atol=1e-6))
+    _assert_bitwise(got, again)
+
+    bigx, bigz = ck.critic_step_inputs(model, x, d, hyperbolic)
+    before = ck.critics_fused_grads.launches
+    args = (model["critic_x"], model["critic_z"], bigx, bigz, d["m_cx"],
+            d["m_cz"])
+    got = ck.critics_fused_grads(*args)
+    again = ck.critics_fused_grads(*args)
+    torch.cuda.synchronize()
+    assert ck.critics_fused_grads.launches == before + 2
+    _assert_critic_close(got, ck.critics_fused_grads_plain(*args),
+                         dict(rtol=2e-5, atol=1e-6),
+                         dict(rtol=5e-5, atol=5e-7))
+    _assert_bitwise(got, again)

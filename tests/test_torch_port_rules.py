@@ -84,8 +84,11 @@ def test_detect_scores_defaults_to_cuda():
 
 def test_kernel_sources_are_present_and_name_their_tpu_kernel():
     for name, replaces in (("mobius_linear",
-                            "hypad_tpu/manifold/kernels.py:35"),
-                           ("kde_argmax", "hypad_tpu/ops/kde_pallas.py:42")):
+                            ["hypad_tpu/manifold/kernels.py:35"]),
+                           ("kde_argmax", ["hypad_tpu/ops/kde_pallas.py:42"]),
+                           ("critic_step",
+                            ["hypad_tpu/train/critic_kernel.py:156",
+                             "hypad_tpu/train/critic_kernel.py:350"])):
         src = (PORT / "csrc" / f"{name}.cu").read_text()
-        assert replaces in src
+        assert all(r in src for r in replaces)
         assert 'extern "C"' in src and "cudaGetLastError" in src
