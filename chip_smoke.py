@@ -11,9 +11,9 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    (one process per source, all at once) and print the ptxas report;
 2. kernels against their plain PyTorch versions on the card: the fused
    MobiusLinear forward at the detect and training shapes (max abs diff
-   <= 1e-6) and the KDE argmax (tie
-   level: a differing value is a sample of its own row, at most 1% of rows
-   differ);
+   <= 1e-6); the two KDE argmax kernels, K2 and K3 (use flags bitwise,
+   values at tie level: a differing value is a sample of its own row, at
+   most 1% of rows differ), and K3 against K2 at tie level;
    and the critic-step kernels K5 and K4 against their plain autograd
    versions (B = 64 hyperbolic, B = 64 Euclidean, B = 13; the JAX tests'
    tolerances; two launches bitwise equal);
@@ -21,9 +21,16 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    anomalies, windowed to 20,000 windows of width 100, through
    ``detect_univariate(..., combination="mult", device="cuda")`` with a
    full-width hyperbolic model (random weights from a seed). The kernels'
-   launch counters are zeroed just before and read just after; the scores
-   must be finite and the intervals and F1 equal the same call on the CPU;
-4. training path: a 1,420-sample synthetic signal (the length of Yahoo A1
+   launch counters are zeroed just before and read just after (K1 2, K2
+   1); the scores must be finite and the intervals and F1 equal the same
+   call on the CPU;
+4. Euclidean detect path (the TadGAN of configs/nab_euclidean.yaml): the
+   same windows through ``detect_univariate(..., hyperbolic=False,
+   rec_error=r, combination="mult", kde_version="v2")`` with a full-width
+   Euclidean model, for r in point, area and dtw, counters zeroed before
+   each call (K3 1, K1 and K2 0); the scores must be finite, N + W - 1
+   long, and the intervals, confusion and F1 equal the CPU's;
+5. training path: a 1,420-sample synthetic signal (the length of Yahoo A1
    ``real_1``) windowed to 1,320 windows, through ``train_tadgan(...,
    hyperbolic=True, batch_size=64, lr=5e-4, n_epochs=2, device="cuda")``
    from ``init_tadgan`` seed 0 with zeroed counters: K5 must launch 200
@@ -32,10 +39,22 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    parameters within 5e-3 relative / 2e-4 absolute; the trained weights
    must detect the same intervals and F1 on the card and on the CPU. A
    one-epoch run with ``fused_critics=True`` must launch K4 100 times;
-5. timing: warm detect throughput, warm epoch seconds for each
-   ``fused_critics`` value, and each kernel's time beside its plain
-   version's and its bound at the path's shapes;
-6. report: one JSON line of the kernels, the card's name and power limit,
+6. Euclidean training path: the same 2 epochs with ``hyperbolic=False``
+   (K5 200, K1 0), then detection with the trained weights (point, mult,
+   K3) on the card and on the CPU: the same intervals and F1;
+7. staged path: at 20,000 windows, ``run_inference`` (chunks of 1,024)
+   must give the one call's forward outputs within 1e-5 relative / 1e-6
+   absolute; ``score_anomalies_euclidean`` (Euclidean model) and
+   ``score_anomalies_hyperbolic`` (hyperbolic model) on the one call's
+   forward must give ``detect_scores``' scores within the scores'
+   tolerance; on ``run_inference``'s output, the same zero and NaN
+   positions and intervals (chunks sum the forward in another order, and a
+   last-bit change of a critic value can flip a KDE tie);
+8. timing: warm detect throughput (hyperbolic under K2 and K3, Euclidean
+   for each rec_error), warm epoch seconds for each ``fused_critics``
+   value, and each kernel's time beside its plain version's and its bound
+   at the path's shapes;
+9. report: one JSON line of the kernels, the card's name and power limit,
    and last the JSON line the GPU check reads.
 
 TF32 is switched off for matmuls and cuDNN: every product runs in full f32,
@@ -53,6 +72,12 @@ from pathlib import Path
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM
+# exps on the special-function units: 16 per clock per SM, 132 SMs, at the
+# 1.98 GHz boost clock (H100 SXM); an estimate beside the table's bound
+H100_SFU_EXP_PER_S = 132 * 16 * 1.98e9
+SCORE_TOL = dict(rtol=1e-4, atol=1e-6)   # tests/test_torch_detect.py
+FORWARD_TOL = dict(rtol=1e-5, atol=1e-6)  # tests/test_torch_eucl.py
+REC_ERRORS = ("point", "area", "dtw")
 N_WINDOWS = 20_000
 WIDTH = 100
 SEED = 0
@@ -98,9 +123,9 @@ def phase_build():
 
 
 def phase_kernels(device):
-    """K1 and K2 against their plain versions at the shapes of the detect
-    and training paths and at the edge cases; returns the largest K1 diff and the K2 tie flips
-    summed over the cases."""
+    """K1, K2 and K3 against their plain versions at the shapes of the
+    detect and training paths and at the edge cases; returns the largest K1
+    diff and the K2 and K3 tie flips summed over the cases."""
     import torch
 
     from hypad_tpu_torch.data.pipeline import A1_BATCH_SIZE as TRAIN_BATCH
@@ -109,12 +134,17 @@ def phase_kernels(device):
         mobius_linear_kernel,
     )
     from hypad_tpu_torch.models.tadgan import init_tadgan
-    from hypad_tpu_torch.ops.kde import kde_argmax_rows, kde_argmax_rows_parts
+    from hypad_tpu_torch.ops.kde import (
+        kde_argmax_rows,
+        kde_argmax_rows_parts,
+        kde_argmax_rows_v2_parts,
+    )
     from hypad_tpu_torch.ops.kde_kernel import (
         kde_argmax_kernel,
         kde_argmax_rows_fused,
+        kde_argmax_v2_kernel,
     )
-    from hypad_tpu_torch.ops.unroll import antidiagonal_gather
+    from hypad_tpu_torch.ops.unroll import antidiagonal_gather, masked_median
 
     k1_err = 0.0
     # detect: the decoder head and the target embedding on every window;
@@ -139,7 +169,7 @@ def phase_kernels(device):
             fail(f"K1 differs from its plain version by {err}")
         k1_err = max(k1_err, err)
 
-    flips_total = 0
+    flips_total = {"kde_argmax": 0, "kde_argmax_v2": 0}
     for n, width, const in ((N_WINDOWS, WIDTH, False), (700, 64, False),
                             (300, WIDTH, True)):
         critic = torch.randn(n, generator=torch.Generator().manual_seed(n))
@@ -147,23 +177,42 @@ def phase_kernels(device):
             critic[10:40] = 0.5  # zero-variance rows: the median fallback
         vals, mask = antidiagonal_gather(critic.to(device)[:, None]
                                          .expand(n, width))
-        kde_val, use = kde_argmax_kernel(vals, mask)
-        fused = kde_argmax_rows_fused(vals, mask)
-        torch.cuda.synchronize()
-        want_val, want_use = kde_argmax_rows_parts(vals, mask)
-        if not torch.equal(use, want_use):
-            fail(f"K2 use flags differ at T={vals.shape[0]}, W={width}")
-        flips = tie_flips(kde_val, want_val, vals, mask)
-        tie_flips(fused, kde_argmax_rows(vals, mask), vals, mask)
-        fallback = int((~use).sum().item())
-        print(f"[kernels] K2 kde_argmax T={vals.shape[0]} W={width}"
-              f"{' constant runs' if const else ''}: {flips} tie flips, "
-              f"{fallback} rows on the median fallback")
-        flips_total += flips
+        case = (f"T={vals.shape[0]} W={width}"
+                f"{' constant runs' if const else ''}")
+        results = {}
+        for name, kernel, plain, version in (
+                ("kde_argmax", kde_argmax_kernel, kde_argmax_rows_parts,
+                 "v1"),
+                ("kde_argmax_v2", kde_argmax_v2_kernel,
+                 kde_argmax_rows_v2_parts, "v2")):
+            kde_val, use = kernel(vals, mask)
+            fused = kde_argmax_rows_fused(vals, mask, version)
+            torch.cuda.synchronize()
+            want_val, want_use = plain(vals, mask)
+            if not torch.equal(use, want_use):
+                fail(f"{name} use flags differ from the plain version's at "
+                     f"{case}")
+            flips = tie_flips(kde_val, want_val, vals, mask)
+            tie_flips(fused, torch.where(want_use, want_val,
+                                         masked_median(vals, mask)),
+                      vals, mask)
+            fallback = int((~use).sum().item())
+            print(f"[kernels] {name} {case}: {flips} tie flips against its "
+                  f"plain version, {fallback} rows on the median fallback")
+            flips_total[name] += flips
+            results[name] = (kde_val, use)
+        if not torch.equal(results["kde_argmax"][1],
+                           results["kde_argmax_v2"][1]):
+            fail(f"K2 and K3 use flags differ at {case}")
+        cross = tie_flips(results["kde_argmax_v2"][0],
+                          results["kde_argmax"][0], vals, mask)
+        tie_flips(kde_argmax_rows_fused(vals, mask, "v2"),
+                  kde_argmax_rows(vals, mask), vals, mask)
+        print(f"[kernels] K3 against K2 {case}: {cross} tie flips")
     return k1_err, flips_total
 
 
-def check_same_detection(got, want, known):
+def check_same_detection(got, want, known, tag="detect"):
     """Fail unless two detect_univariate results give the same intervals,
     confusion and F1 (and interval scores within 1e-3 relative)."""
     import numpy as np
@@ -171,13 +220,15 @@ def check_same_detection(got, want, known):
     scores = got["scores"]
     score_diff = float(np.max(np.abs(scores - want["scores"])
                               / np.maximum(np.abs(want["scores"]), 1e-6)))
-    print(f"[detect] scores: max relative diff to the CPU {score_diff:.3e}; "
+    print(f"[{tag}] scores: max relative diff to the CPU {score_diff:.3e}; "
           f"exact zeros at the same positions: "
           f"{np.array_equal(scores == 0, want['scores'] == 0)}")
-    iv, want_iv = got["intervals"], want["intervals"]
-    print(f"[detect] intervals (start, end, score): {iv.tolist()}")
-    print(f"[detect] known anomalies: {np.asarray(known).tolist()}")
-    print(f"[detect] confusion (tn, fp, fn, tp) {got['confusion']}, "
+    # no interval comes back as an empty (0,) array
+    iv, want_iv = (np.asarray(r["intervals"]).reshape(-1, 3)
+                   for r in (got, want))
+    print(f"[{tag}] intervals (start, end, score): {iv.tolist()}")
+    print(f"[{tag}] known anomalies: {np.asarray(known).tolist()}")
+    print(f"[{tag}] confusion (tn, fp, fn, tp) {got['confusion']}, "
           f"metrics {got['metrics']}")
     if iv.shape != want_iv.shape or not np.array_equal(iv[:, :2],
                                                        want_iv[:, :2]):
@@ -273,17 +324,32 @@ def phase_critic_kernels(device):
 
 
 def zero_counters():
+    """Set every kernel's launch count to 0; returns a function that reads
+    them all."""
     from hypad_tpu_torch.manifold.kernels import mobius_linear_kernel
-    from hypad_tpu_torch.ops.kde_kernel import kde_argmax_kernel
+    from hypad_tpu_torch.ops.kde_kernel import (
+        kde_argmax_kernel,
+        kde_argmax_v2_kernel,
+    )
     from hypad_tpu_torch.train import critic_kernel as ck
 
     counters = {"mobius_linear": mobius_linear_kernel,
                 "kde_argmax": kde_argmax_kernel,
+                "kde_argmax_v2": kde_argmax_v2_kernel,
                 "critics_fused_grads": ck.critics_fused_grads,
                 "critic_step_full": ck.critic_step_fused_full}
     for fn in counters.values():
         fn.launches = 0
     return lambda: {name: fn.launches for name, fn in counters.items()}
+
+
+def launches_of(**nonzero):
+    """The full launch dict that ``zero_counters``' reader gives: the named
+    counts, every other kernel 0."""
+    want = dict.fromkeys(("mobius_linear", "kde_argmax", "kde_argmax_v2",
+                          "critics_fused_grads", "critic_step_full"), 0)
+    want.update(nonzero)
+    return want
 
 
 def phase_train(device):
@@ -327,9 +393,8 @@ def phase_train(device):
           f"{seconds:.3f} s (first call); kernel launches {launches}")
     for e, m in enumerate(logs, 1):
         print(f"[train] epoch {e}: {m}")
-    want = {"mobius_linear": 2 * n_batches * 2,
-            "kde_argmax": 0, "critics_fused_grads": 0,
-            "critic_step_full": tr.N_CRITICS * n_batches * 2}
+    want = launches_of(mobius_linear=2 * n_batches * 2,
+                       critic_step_full=tr.N_CRITICS * n_batches * 2)
     if launches != want:
         fail(f"expected launches {want}, got {launches}")
     if not all(np.isfinite(v) for m in logs for v in m.values()):
@@ -387,9 +452,8 @@ def phase_train(device):
     launches_true = read()
     print(f"[train] one epoch with fused_critics=True: kernel launches "
           f"{launches_true}")
-    want = {"mobius_linear": (tr.N_CRITICS + 2) * n_batches,
-            "kde_argmax": 0, "critics_fused_grads": tr.N_CRITICS * n_batches,
-            "critic_step_full": 0}
+    want = launches_of(mobius_linear=(tr.N_CRITICS + 2) * n_batches,
+                       critics_fused_grads=tr.N_CRITICS * n_batches)
     if launches_true != want:
         fail(f"expected launches {want}, got {launches_true}")
     return {"launches": launches, "launches_fused_true": launches_true,
@@ -529,9 +593,9 @@ def phase_main_path(device):
     print(f"[main] detect_univariate, {N_WINDOWS} windows of {WIDTH}, "
           f"combination mult, on {device}: {seconds:.3f} s (first call); "
           f"kernel launches {launches}")
-    if launches != {"mobius_linear": 2, "kde_argmax": 1,
-                    "critics_fused_grads": 0, "critic_step_full": 0}:
-        fail(f"expected 2 MobiusLinear and 1 KDE launch, got {launches}")
+    if launches != launches_of(mobius_linear=2, kde_argmax=1):
+        fail(f"expected 2 MobiusLinear and 1 KDE (K2) launch, got "
+             f"{launches}")
     scores = got["scores"]
     if scores.shape != (N_WINDOWS,) or not np.all(np.isfinite(scores)):
         fail(f"scores of shape {scores.shape}, finite: "
@@ -548,9 +612,210 @@ def phase_main_path(device):
     return launches, X, model
 
 
-def phase_timing(device, X, model):
-    """Warm detect throughput, and each kernel beside its plain version at
-    the path's shapes. Returns per-kernel timing dicts."""
+def init_model(device, hyperbolic):
+    """The full-width model of seed SEED on ``device``."""
+    import torch
+
+    from hypad_tpu_torch.models.tadgan import init_tadgan
+
+    return init_tadgan(torch.Generator().manual_seed(SEED), WIDTH,
+                       hyperbolic=hyperbolic, device=device)
+
+
+def phase_eucl_detect(device):
+    """The Euclidean detector (K3) on the card for each rec_error with
+    zeroed counters, each against the same call on the CPU; returns
+    ({rec_error: launches}, model)."""
+    import numpy as np
+    import torch
+
+    from hypad_tpu_torch.data.pipeline import synthetic_detect_input
+    from hypad_tpu_torch.detect.detector import detect_univariate
+
+    X, index, known = synthetic_detect_input(N_WINDOWS, WIDTH, seed=SEED)
+    model, cpu_model = init_model(device, False), init_model("cpu", False)
+    launches = {}
+    for rec_error in REC_ERRORS:
+        kwargs = dict(combination="mult", hyperbolic=False,
+                      rec_error=rec_error, kde_version="v2")
+        read = zero_counters()
+        t0 = time.perf_counter()
+        got = detect_univariate(model, X, index, known, device=device,
+                                **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[rec_error] = read()
+        print(f"[eucl] detect_univariate, Euclidean, rec_error {rec_error}, "
+              f"{N_WINDOWS} windows, mult, kde_version v2, on {device}: "
+              f"{seconds:.3f} s (first call); kernel launches "
+              f"{launches[rec_error]}")
+        if launches[rec_error] != launches_of(kde_argmax_v2=1):
+            fail(f"expected 1 KDE (K3) launch, got {launches[rec_error]}")
+        scores = got["scores"]
+        if (scores.shape != (N_WINDOWS + WIDTH - 1,)
+                or not np.all(np.isfinite(scores))):
+            fail(f"Euclidean scores of shape {scores.shape}, finite: "
+                 f"{np.isfinite(scores).all()}")
+        t0 = time.perf_counter()
+        want = detect_univariate(cpu_model, X, index, known, device="cpu",
+                                 **kwargs)
+        print(f"[eucl] the same call on the CPU: "
+              f"{time.perf_counter() - t0:.3f} s")
+        check_same_detection(got, want, known, tag=f"eucl {rec_error}")
+    return launches, model
+
+
+def phase_eucl_train(device):
+    """The Euclidean training path on the card with zeroed counters, then
+    detection with the trained weights (K3) on the card and the CPU."""
+    import numpy as np
+    import torch
+
+    from hypad_tpu_torch.data.pipeline import (
+        A1_BATCH_SIZE as TRAIN_BATCH,
+        A1_WINDOWS,
+        synthetic_detect_input,
+    )
+    from hypad_tpu_torch.detect.detector import detect_univariate
+    from hypad_tpu_torch.train import trainer as tr
+
+    X, index, known = synthetic_detect_input(A1_WINDOWS, WIDTH,
+                                             anomaly_len=50, seed=SEED)
+    n_batches = X.shape[0] // TRAIN_BATCH
+    logs = []
+    read = zero_counters()
+    t0 = time.perf_counter()
+    state = tr.train_tadgan(init_model(device, False), X, lr=TRAIN_LR,
+                            hyperbolic=False, batch_size=TRAIN_BATCH,
+                            n_epochs=2, device=device,
+                            log_cb=lambda e, m: logs.append(m))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read()
+    print(f"[train-eucl] train_tadgan, Euclidean, {X.shape[0]} windows, "
+          f"batch {TRAIN_BATCH}, 2 epochs, fused_critics='full', on "
+          f"{device}: {seconds:.3f} s (first call); kernel launches "
+          f"{launches}")
+    for e, m in enumerate(logs, 1):
+        print(f"[train-eucl] epoch {e}: {m}")
+    want = launches_of(critic_step_full=tr.N_CRITICS * n_batches * 2)
+    if launches != want:
+        fail(f"expected launches {want}, got {launches}")
+    if not all(np.isfinite(v) for m in logs for v in m.values()):
+        fail(f"a Euclidean training loss is not finite: {logs}")
+
+    cpu_trained = init_model("cpu", False)
+    cpu_trained.load_state_dict({k: v.cpu() for k, v in
+                                 state.model.state_dict().items()})
+    kwargs = dict(combination="mult", hyperbolic=False, rec_error="point",
+                  kde_version="v2")
+    read = zero_counters()
+    got = detect_univariate(state.model, X, index, known, device=device,
+                            **kwargs)
+    detect_launches = read()
+    if detect_launches != launches_of(kde_argmax_v2=1):
+        fail(f"expected 1 KDE (K3) launch, got {detect_launches}")
+    want_det = detect_univariate(cpu_trained, X, index, known, device="cpu",
+                                 **kwargs)
+    f1 = check_same_detection(got, want_det, known, tag="train-eucl")
+    return {"launches": launches, "detect_launches": detect_launches,
+            "logs": logs, "trained_f1": f1, "first_call_s": seconds}
+
+
+def phase_staged(device, X, eucl_model, hyper_model):
+    """run_inference then score_anomalies_* against detect_scores' one
+    call, for both geometries at the detect shape: (a) the chunked forward
+    within FORWARD_TOL of the one call's; (b) the staged scorer on the one
+    call's own forward outputs within SCORE_TOL of its scores; (c) the
+    staged path end to end with the one call's zero and NaN positions and
+    intervals. Its scores are held at tie level only: a batch of 1,024
+    rows and one of 20,000 sum the forward's products in other orders, and
+    a last-bit change of a critic value can flip a KDE tie."""
+    import numpy as np
+    import torch
+
+    from hypad_tpu_torch.detect import intervals as iv
+    from hypad_tpu_torch.detect import scorer as sc
+
+    for label, model, hyperbolic, kde_version in (
+            ("Euclidean", eucl_model, False, "v2"),
+            ("hyperbolic", hyper_model, True, "v1")):
+        one, one_inf = sc.detect_scores(model, X, hyperbolic, "mult",
+                                        kde_version=kde_version,
+                                        device=device)
+
+        def staged_scores(inf):
+            if hyperbolic:
+                return sc.score_anomalies_hyperbolic(inf, "mult", kde_version,
+                                                     device=device)
+            return sc.score_anomalies_euclidean(
+                inf.true_signal, inf.recons_signal, inf.critic_score, "point",
+                "mult", kde_version=kde_version, device=device)
+
+        t0 = time.perf_counter()
+        inf = sc.run_inference(model, X, hyperbolic, device=device)
+        staged = staged_scores(inf)
+        seconds = time.perf_counter() - t0
+        for a, b in zip(inf, one_inf):
+            if a is not None and not np.allclose(a, b, **FORWARD_TOL):
+                fail(f"{label} run_inference differs from the one call's "
+                     f"forward by {np.max(np.abs(a - b)):.3e}")
+        forward_diff = max(float(np.max(np.abs(a - b)))
+                           for a, b in zip(inf, one_inf) if a is not None)
+        same_inputs = staged_scores(one_inf)
+        if not (np.array_equal(np.isnan(same_inputs), np.isnan(one))
+                and np.allclose(same_inputs, one, equal_nan=True,
+                                **SCORE_TOL)):
+            fail(f"{label} staged scorer on the one call's forward differs "
+                 f"from its scores (tolerance {SCORE_TOL})")
+        # KDE maxima that moved by more than the critic's last bits
+        kde = [sc.kde_argmax_rows_fused(
+            *sc._critic_antidiag(torch.as_tensor(c, device=device), len(X),
+                                 X.shape[1]), kde_version).cpu().numpy()
+            for c in (inf.critic_score, one_inf.critic_score)]
+        kde_flips = int(np.sum(np.abs(kde[0] - kde[1]) > 1e-6))
+        rel = float(np.max(np.abs(staged - one)
+                           / np.maximum(np.abs(one), 1e-6)))
+        same_rel = float(np.max(np.abs(same_inputs - one)
+                                / np.maximum(np.abs(one), 1e-6)))
+        index = np.arange(len(one), dtype=np.float64)
+        intervals = [np.asarray(iv.find_anomalies(
+            s, index, window_size_portion=0.33, window_step_size_portion=0.1,
+            fixed_threshold=True)).reshape(-1, 3) for s in (staged, one)]
+        print(f"[staged] {label}: run_inference (chunks of 1,024) and "
+              f"score_anomalies in {seconds:.3f} s; forward within "
+              f"{forward_diff:.3e} of the one call's; {kde_flips} KDE tie "
+              f"flips between the two forwards' critics; scores within "
+              f"{rel:.3e} relative (on the one call's forward: "
+              f"{same_rel:.3e}); intervals {intervals[0][:, :2].tolist()}")
+        if not (np.array_equal(staged == 0, one == 0)
+                and np.array_equal(np.isnan(staged), np.isnan(one))):
+            fail(f"{label} staged scores' zero or NaN positions differ from "
+                 f"the one call's")
+        if not np.array_equal(intervals[0][:, :2], intervals[1][:, :2]):
+            fail(f"{label} staged intervals {intervals[0].tolist()} differ "
+                 f"from the one call's {intervals[1].tolist()}")
+
+
+def warm_detect_ms(calls, rounds=7):
+    """{label: [wall ms of each round]} of warm detect calls, each
+    ``calls[label]()`` once a round, in turns, after one warm-up each.
+    Each call returns host scores, so it ends synchronised."""
+    for call in calls.values():
+        call()
+    walls = {label: [] for label in calls}
+    for _ in range(rounds):
+        for label, call in calls.items():
+            t0 = time.perf_counter()
+            call()
+            walls[label].append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def phase_timing(device, X, model, eucl_model):
+    """Warm detect throughput (hyperbolic under K2 and K3, Euclidean for
+    each rec_error), and each detect kernel beside its plain version at the
+    path's shapes. Returns (throughputs, per-kernel timing dicts)."""
     import numpy as np
     import torch
 
@@ -559,22 +824,33 @@ def phase_timing(device, X, model):
         mobius_linear,
         mobius_linear_kernel,
     )
-    from hypad_tpu_torch.ops.kde import kde_argmax_rows_parts
-    from hypad_tpu_torch.ops.kde_kernel import kde_argmax_kernel
+    from hypad_tpu_torch.ops.kde import (
+        kde_argmax_rows_parts,
+        kde_argmax_rows_v2_parts,
+    )
+    from hypad_tpu_torch.ops.kde_kernel import (
+        kde_argmax_kernel,
+        kde_argmax_v2_kernel,
+    )
     from hypad_tpu_torch.profile_detect import cuda_ms
 
-    detect_scores(model, X, True, "mult", fetch_inference=False,
-                  device=device)
-    walls = []
-    for _ in range(7):
-        t0 = time.perf_counter()
-        detect_scores(model, X, True, "mult", fetch_inference=False,
-                      device=device)  # returns host scores: synchronised
-        walls.append(time.perf_counter() - t0)
-    wps = N_WINDOWS / statistics.median(walls)
-    print(f"[timing] warm detect_scores at {N_WINDOWS} windows: median "
-          f"{statistics.median(walls) * 1e3:.3f} ms, {wps:.0f} windows/s "
-          f"(runs in ms: {[round(w * 1e3, 3) for w in walls]})")
+    def detect(m, hyperbolic, **kw):
+        return lambda: detect_scores(m, X, hyperbolic, "mult",
+                                     fetch_inference=False, device=device,
+                                     **kw)
+
+    calls = {"hyperbolic v1": detect(model, True, kde_version="v1"),
+             "hyperbolic v2": detect(model, True, kde_version="v2")}
+    calls.update({f"euclidean {r} v2": detect(eucl_model, False,
+                                              rec_error=r, kde_version="v2")
+                  for r in REC_ERRORS})
+    wps = {}
+    for label, walls in warm_detect_ms(calls).items():
+        median = statistics.median(walls)
+        wps[label] = N_WINDOWS / median * 1e3
+        print(f"[timing] warm detect_scores, {label}, {N_WINDOWS} windows: "
+              f"median {median:.3f} ms, {wps[label]:.0f} windows/s (runs in "
+              f"ms: {[round(w, 3) for w in walls]})")
 
     head = model["decoder"].hyperbolic_linear
     w, b = head.w.detach(), head.b.detach()
@@ -586,13 +862,19 @@ def phase_timing(device, X, model):
               "plain_ms": cuda_ms(lambda: mobius_linear(Xt, w, b), 50)}
         k1["max_abs_err"] = (mobius_linear_kernel(Xt, w, b)
                              - mobius_linear(Xt, w, b)).abs().max().item()
-        k2 = {"ms": cuda_ms(lambda: kde_argmax_kernel(vals, mask), 50),
-              "plain_ms": cuda_ms(lambda: kde_argmax_rows_parts(vals, mask),
-                                  5)}
-        got, _ = kde_argmax_kernel(vals, mask)
-        want, _ = kde_argmax_rows_parts(vals, mask)
-        k2["tie_flips"] = tie_flips(got, want, vals, mask)
-        k2["max_abs_err"] = (got - want).abs().max().item()
+        kde = {}
+        for name, kernel, plain in (
+                ("kde_argmax", kde_argmax_kernel, kde_argmax_rows_parts),
+                ("kde_argmax_v2", kde_argmax_v2_kernel,
+                 kde_argmax_rows_v2_parts)):
+            k = {"ms": cuda_ms(lambda: kernel(vals, mask), 50),
+                 "plain_ms": cuda_ms(lambda: plain(vals, mask), 5)}
+            got, _ = kernel(vals, mask)
+            want, _ = plain(vals, mask)
+            k["tie_flips"] = tie_flips(got, want, vals, mask)
+            k["max_abs_err"] = (got - want).abs().max().item()
+            kde[name] = k
+    k2, k3 = kde["kde_argmax"], kde["kde_argmax_v2"]
 
     rows, din = Xt.shape
     dout = w.shape[0]
@@ -601,24 +883,34 @@ def phase_timing(device, X, model):
     k1["bytes"] = 4 * (rows * din + dout * din + dout + rows * dout)
     k1["ops"] = 2 * rows * din * dout + 16 * rows * dout
     # vals (f32) and mask (bool) read once, kde_val (f32) and use (bool)
-    # written once; per pair of samples of a row: difference, square, scale,
-    # exp, sum; plus ~8 operations per sample for mean and variance
+    # written once. K2, per ordered pair of samples of a row: difference,
+    # square, scale, exp, sum; K3, per unordered pair: the same and one
+    # more sum; both plus ~8 operations per sample for mean and variance
     cnt = mask.sum(dim=1).double()
-    k2["bytes"] = 5 * vals.numel() + 5 * vals.shape[0]
-    k2["ops"] = int(5 * (cnt * cnt).sum().item() + 8 * cnt.sum().item())
+    pairs = (cnt * (cnt - 1) / 2).sum().item()
+    for k in (k2, k3):
+        k["bytes"] = 5 * vals.numel() + 5 * vals.shape[0]
     k2["exps"] = int((cnt * cnt).sum().item())
-    for k in (k1, k2):
+    k2["ops"] = int(5 * k2["exps"] + 8 * cnt.sum().item())
+    k3["exps"] = int(pairs)
+    k3["ops"] = int(6 * pairs + 8 * cnt.sum().item())
+    for k in (k1, k2, k3):
         t_bytes = k["bytes"] / H100_BYTES_PER_S * 1e3
         t_ops = k["ops"] / H100_F32_FLOP_PER_S * 1e3
         k["bound_ms"] = max(t_bytes, t_ops)
         k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    for name, k in (("K1 mobius_linear", k1), ("K2 kde_argmax", k2)):
+    for k in (k2, k3):
+        k["sfu_ms"] = k["exps"] / H100_SFU_EXP_PER_S * 1e3
+    for name, k in (("K1 mobius_linear", k1), ("K2 kde_argmax", k2),
+                    ("K3 kde_argmax_v2", k3)):
+        sfu = (f"; SFU estimate {k['sfu_ms']:.5f} ms for {k['exps']} exps"
+               if "sfu_ms" in k else "")
         print(f"[timing] {name}: kernel {k['ms']:.5f} ms, plain "
               f"{k['plain_ms']:.5f} ms, bound {k['bound_ms']:.5f} ms "
-              f"({k['bound_by']}: {k['bytes']} bytes, {k['ops']} ops)")
-    if not np.isfinite([k1["ms"], k2["ms"]]).all():
+              f"({k['bound_by']}: {k['bytes']} bytes, {k['ops']} ops){sfu}")
+    if not np.isfinite([k1["ms"], k2["ms"], k3["ms"]]).all():
         fail("a kernel time is not finite")
-    return wps, k1, k2
+    return wps, k1, k2, k3
 
 
 def gpu_name_and_power_limit():
@@ -646,16 +938,23 @@ def main():
     t_start = time.perf_counter()
 
     phase_build()
-    k1_err, k2_flips = phase_kernels(device)
+    k1_err, kde_flips = phase_kernels(device)
     k45_err = phase_critic_kernels(device)
     launches, X, model = phase_main_path(device)
+    eucl_launches, eucl_model = phase_eucl_detect(device)
     train = phase_train(device)
-    wps, k1, k2 = phase_timing(device, X, model)
+    eucl_train = phase_eucl_train(device)
+    phase_staged(device, X, eucl_model, model)
+    wps, k1, k2, k3 = phase_timing(device, X, model, eucl_model)
     epochs, k4, k5 = phase_train_timing(device, train["X"])
-    by_path = {name: {"detect": launches[name],
-                      "train": train["launches"][name],
-                      "train_fused_critics_true":
-                          train["launches_fused_true"][name]}
+    paths = {"detect": launches,
+             **{f"detect_euclidean_{r}": eucl_launches[r]
+                for r in REC_ERRORS},
+             "train": train["launches"],
+             "train_fused_critics_true": train["launches_fused_true"],
+             "train_euclidean": eucl_train["launches"],
+             "detect_euclidean_trained": eucl_train["detect_launches"]}
+    by_path = {name: {path: counts[name] for path, counts in paths.items()}
                for name in launches}
     tol_text = "loss rtol {0[rtol]} atol {0[atol]}, grads rtol {1[rtol]} " \
                "atol {1[atol]} against autograd; two launches bitwise equal"
@@ -681,10 +980,28 @@ def main():
          "max_abs_err": k2["max_abs_err"],
          "tolerance": "tie level: a differing value is a sample of its own "
                       "row, at most 1% of rows differ",
-         "tie_flips": k2["tie_flips"], "edge_case_tie_flips": k2_flips,
-         "exps": k2["exps"],
+         "tie_flips": k2["tie_flips"],
+         "edge_case_tie_flips": kde_flips["kde_argmax"],
+         "exps": k2["exps"], "sfu_ms": k2["sfu_ms"],
          "ms": k2["ms"], "kernel_ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": None},
+        {"name": "kde_argmax_v2", "route": "cuda",
+         "source": "hypad_tpu_torch/csrc/kde_argmax_v2.cu",
+         "replaces": "hypad_tpu/ops/kde_pallas.py:91",
+         "launches": eucl_launches["point"]["kde_argmax_v2"],
+         "launches_per_call": eucl_launches["point"]["kde_argmax_v2"],
+         "launches_path": "detect, Euclidean, rec_error point, "
+                          "kde_version v2",
+         "launches_by_path": by_path["kde_argmax_v2"],
+         "max_abs_err": k3["max_abs_err"],
+         "tolerance": "tie level: a differing value is a sample of its own "
+                      "row, at most 1% of rows differ; use flags bitwise",
+         "tie_flips": k3["tie_flips"],
+         "edge_case_tie_flips": kde_flips["kde_argmax_v2"],
+         "exps": k3["exps"], "sfu_ms": k3["sfu_ms"],
+         "ms": k3["ms"], "kernel_ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "library_ms": None},
         {"name": "critics_fused_grads", "route": "cuda",
          "source": "hypad_tpu_torch/csrc/critic_step.cu",
@@ -710,13 +1027,16 @@ def main():
          "library_ms": None},
     ]
     OUT_DIR.mkdir(exist_ok=True)
-    summary = {"card": card, "detect_20k_wps": wps,
+    summary = {"card": card, "detect_20k_wps": wps["hyperbolic v1"],
+               "detect_20k_wps_by_path": wps,
                "train_epoch_s": epochs,
                "train_losses": train["logs"],
                "train_first_call_s": train["first_call_s"],
                "epoch_card_vs_cpu_max_abs_diff": train["epoch_max_abs_diff"],
                "epoch_card_vs_cpu_max_rel_diff": train["epoch_max_rel_diff"],
                "trained_detect_f1": train["trained_f1"],
+               "euclidean_train_losses": eucl_train["logs"],
+               "euclidean_trained_detect_f1": eucl_train["trained_f1"],
                "kernels": kernels,
                "seconds": time.perf_counter() - t_start}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

@@ -20,22 +20,19 @@
 // shared memory; lane l owns samples l, l+32, l+64, l+96 (W <= 128) and sums
 // exp over j in ascending order, reading v_j as a shared-memory broadcast.
 // Mean, variance and the argmax are warp shuffles; the argmax keeps the
-// smallest index among equal maxima (first-max-wins). `expf` (not `__expf`)
-// keeps the densities within ulps of the plain PyTorch version, so the two
-// can differ only where densities tie to the last bits (a different sample
-// of the same row). Not yet done: computing each symmetric pair's exp once
-// (the TPU's v2 kernel, hypad_tpu/ops/kde_pallas.py:91).
+// smallest index among equal maxima (first-max-wins); both live in
+// kde_row.cuh, shared with K3. `expf` (not `__expf`) keeps the densities
+// within ulps of the plain PyTorch version, so the two can differ only
+// where densities tie to the last bits (a different sample of the same
+// row). K3 (kde_argmax_v2.cu) computes each symmetric pair's exp once.
 
-#include <math.h>
-
-#include "common.cuh"
+#include "kde_row.cuh"
 
 namespace {
 
-constexpr int kMaxW = 128;
-constexpr int kPerLane = kMaxW / 32;
+constexpr int kMaxW = hypad::kKdeMaxW;
+constexpr int kPerLane = hypad::kKdePerLane;
 constexpr int kWarps = 8;  // rows per block
-constexpr float kSentinel = 1e18f;
 
 __global__ void __launch_bounds__(kWarps * 32)
 kde_argmax_kernel(const float* __restrict__ vals,
@@ -47,73 +44,28 @@ kde_argmax_kernel(const float* __restrict__ vals,
   const int row = blockIdx.x * kWarps + warp;
   if (row >= rows) return;  // whole warp; no block-wide barrier follows
   const float* v = vals + (size_t)row * width;
-  const unsigned char* m = mask + (size_t)row * width;
+  const hypad::KdeRow s = hypad::kde_load_row(
+      v, mask + (size_t)row * width, width, lane, vs[warp]);
 
-  float vi[kPerLane];
-  bool mi[kPerLane];
-  float cnt = 0.0f, sum = 0.0f;
+  float dens[kPerLane];
 #pragma unroll
   for (int q = 0; q < kPerLane; ++q) {
     const int i = lane + 32 * q;
-    vi[q] = i < width ? v[i] : 0.0f;
-    mi[q] = i < width && m[i] != 0;
-    cnt += mi[q] ? 1.0f : 0.0f;
-    sum += mi[q] ? vi[q] : 0.0f;
-  }
-  cnt = hypad::warp_sum(cnt);
-  sum = hypad::warp_sum(sum);
-  const float cnt_f = fmaxf(cnt, 1.0f);
-  const float mean = sum / cnt_f;
-  float ss = 0.0f;
-#pragma unroll
-  for (int q = 0; q < kPerLane; ++q) {
-    const float c = mi[q] ? vi[q] - mean : 0.0f;
-    ss += c * c;
-  }
-  const float var = hypad::warp_sum(ss) / fmaxf(cnt_f - 1.0f, 1.0f);
-  const float h2 = var * powf(cnt_f, -0.4f);
-  const float scale = -0.5f / (h2 > 0.0f ? h2 : 1.0f);
-
-#pragma unroll
-  for (int q = 0; q < kPerLane; ++q) {
-    const int i = lane + 32 * q;
-    if (i < width) vs[warp][i] = mi[q] ? vi[q] : kSentinel;
-  }
-  __syncwarp();
-
-  float best = -INFINITY;
-  int best_i = 0x7fffffff;
-#pragma unroll
-  for (int q = 0; q < kPerLane; ++q) {
-    const int i = lane + 32 * q;
-    if (i >= width) continue;
-    float dens = -INFINITY;
-    if (mi[q]) {
+    dens[q] = -INFINITY;
+    if (i < width && s.mi[q]) {
       const float x = vs[warp][i];
-      dens = 0.0f;
+      float acc = 0.0f;
       for (int j = 0; j < width; ++j) {
         const float d = x - vs[warp][j];
-        dens += expf(scale * (d * d));
+        acc += expf(s.scale * (d * d));
       }
-    }
-    // ascending i per lane: a strict > keeps the first of equal maxima
-    if (dens > best || best_i == 0x7fffffff) {
-      best = dens;
-      best_i = i;
+      dens[q] = acc;
     }
   }
-#pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    const float ob = __shfl_xor_sync(hypad::kFullMask, best, offset);
-    const int oi = __shfl_xor_sync(hypad::kFullMask, best_i, offset);
-    if (ob > best || (ob == best && oi < best_i)) {
-      best = ob;
-      best_i = oi;
-    }
-  }
+  const int best_i = hypad::kde_first_max(dens, width, lane);
   if (lane == 0) {
     kde_val[row] = v[best_i];
-    use[row] = (cnt > 1.0f && var > 0.0f) ? 1 : 0;
+    use[row] = (s.cnt > 1.0f && s.var > 0.0f) ? 1 : 0;
   }
 }
 

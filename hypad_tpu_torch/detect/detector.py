@@ -1,10 +1,10 @@
-"""Univariate hyperbolic detection: scores -> intervals -> metrics.
+"""Univariate detection: scores -> intervals -> metrics.
 
 Port of the univariate path of ``hypad_tpu.detect.detector.detect``: the
-one-call scorer, fixed-threshold interval extraction with the reference's
-univariate parameters, and the contextual confusion matrix and F1. Artifact
-persistence, results CSVs, plots and ``load: true`` re-scoring are not
-ported.
+scorer (hyperbolic or Euclidean), fixed-threshold interval extraction with
+the reference's univariate parameters over the signal's whole timeline, and
+the contextual confusion matrix and F1. Artifact persistence, results CSVs,
+plots and ``load: true`` re-scoring are not ported.
 """
 
 from __future__ import annotations
@@ -32,17 +32,23 @@ def _confusion_and_metrics(known_anomalies, pred, verbose=True):
 
 
 def detect_univariate(model, X, index, known_anomalies, combination="mult",
+                      hyperbolic=True, rec_error="point", kde_version="v1",
                       device="cuda", verbose=False):
     """Detect anomalies in the (N, W) windows ``X`` of one univariate
-    signal with the hyperbolic model ``model`` (on ``device``).
+    signal with ``model`` (on ``device``), hyperbolic or Euclidean.
 
-    ``index``: the aggregated timeline (at least N entries) that maps score
-    positions to timestamps; ``known_anomalies``: ground-truth (start, end)
-    pairs, a list or a (k, 2) array. Returns a dict with the scores (N,),
-    the intervals ((k, 3) start, end, score), the confusion matrix
-    (tn, fp, fn, tp) and the metrics (None when undefined)."""
-    scores, _ = detect_scores(model, X, True, combination,
-                              fetch_inference=False, device=device)
+    ``index``: the aggregated timeline (N + W entries from the pipeline)
+    that maps score positions to timestamps: the hyperbolic scores cover
+    its first N, the Euclidean scores N + W - 1. ``known_anomalies``:
+    ground-truth (start, end) pairs, a list or a (k, 2) array.
+    ``rec_error`` (point, area, dtw) applies to the Euclidean scores;
+    ``kde_version`` picks the KDE kernel, "v1" (K2) or "v2" (K3). Returns a
+    dict with the scores, the intervals ((k, 3) start, end, score), the
+    confusion matrix (tn, fp, fn, tp) and the metrics (None when
+    undefined)."""
+    scores, _ = detect_scores(model, X, hyperbolic, combination,
+                              rec_error=rec_error, fetch_inference=False,
+                              kde_version=kde_version, device=device)
     intervals = iv.find_anomalies(scores.reshape(-1), np.asarray(index),
                                   **_UNIVARIATE_FA_KW)
     confusion, metrics = _confusion_and_metrics(known_anomalies, intervals,

@@ -7,6 +7,11 @@ n^-0.4) evaluated at those same samples; the sample where the density peaks
 variance. The scale-multiply form (``scale = -0.5 / h2``, then
 ``scale * diff^2``) and the 1e18 masked-entry sentinel are kept as they are
 there. This is the plain version of the kernel in ``ops/kde_kernel.py``.
+
+``kde_argmax_rows_v2_parts`` is the plain version of the second kernel
+there: the same densities summed by offset, one exp per symmetric pair, as
+``hypad_tpu.ops.kde_pallas._kernel_v2`` sums them. Its additions run in
+another order, so it agrees with the first form at tie level only.
 """
 
 from __future__ import annotations
@@ -46,6 +51,28 @@ def kde_argmax_rows_parts(vals, mask, block=1024):
         kde_vals.append(torch.gather(vb, -1, arg[:, None])[:, 0])
         uses.append((cnt > 1) & (var > 0))
     return torch.cat(kde_vals), torch.cat(uses)
+
+
+def kde_argmax_rows_v2_parts(vals, mask):
+    """(kde_val, use_kde) per row, the densities summed by offset: dens
+    starts at 1 (the self pair), then for r = 1..W-1 the exp of each pair
+    (i, i-r) is added to lane i and, rolled back by r, to lane i-r, in that
+    order. ``torch.roll`` moves like ``jnp.roll``, so ``vr[i] = vs[i - r]``;
+    the lanes that wrap are exactly those with col < r, zeroed, so no (W, W)
+    tensor and no padding to 128 lanes is needed."""
+    cnt, var, scale = kde_stats(vals, mask)
+    vs = torch.where(mask, vals, SENTINEL)
+    width = vals.shape[1]
+    col = torch.arange(width, device=vals.device)
+    scale = scale[:, None]
+    dens = torch.ones_like(vals)
+    for r in range(1, width):
+        d = vs - torch.roll(vs, r, dims=1)
+        e = torch.where(col >= r, torch.exp(scale * (d * d)), 0.0)
+        dens = dens + e + torch.roll(e, width - r, dims=1)
+    dens = torch.where(mask, dens, -torch.inf)
+    arg = torch.argmax(dens, dim=-1)
+    return torch.gather(vals, -1, arg[:, None])[:, 0], (cnt > 1) & (var > 0)
 
 
 def kde_argmax_rows(vals, mask, block=1024):

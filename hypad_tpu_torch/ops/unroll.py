@@ -1,7 +1,9 @@
 """Anti-diagonal unrolling of window-stacked values.
 
 Port of ``hypad_tpu.ops.unroll``: ``antidiagonal_gather`` (the gather-free
-pad-reshape skew) and ``masked_median``.
+pad-reshape skew), ``masked_median``, and the two series the Euclidean
+reconstruction errors compare, ``unroll_median`` and ``true_series``. The
+ragged (padded fleet) form is not ported yet.
 """
 
 from __future__ import annotations
@@ -40,3 +42,15 @@ def masked_median(vals, mask):
     lo = torch.gather(s, -1, torch.remainder((cnt - 1) // 2, width)[:, None])
     hi = torch.gather(s, -1, torch.remainder(cnt // 2, width)[:, None])
     return 0.5 * (lo[:, 0] + hi[:, 0])
+
+
+def unroll_median(y_hat):
+    """Per-timestep median of every window's prediction for it: (N, W) ->
+    (T,), T = N + W - 1."""
+    return masked_median(*antidiagonal_gather(y_hat))
+
+
+def true_series(y):
+    """The signal the windows were cut from: the first sample of every
+    window, then the rest of the last window. (N, W) -> (T,)."""
+    return torch.cat([y[:, 0], y[-1, 1:]])

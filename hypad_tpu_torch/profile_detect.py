@@ -1,9 +1,11 @@
-"""Where the time of one warm hyperbolic detect call goes, on a GPU.
+"""Where the time of one warm detect call goes, on a GPU.
 
     python3 -m hypad_tpu_torch.profile_detect [--windows 20000]
+        [--rec-error point|area|dtw] [--kde-version v1|v2]
 
 Two views of ``detect_scores(..., "mult", fetch_inference=False)`` at full
-model width on a seeded synthetic signal:
+model width on a seeded synthetic signal, hyperbolic by default or, with
+``--rec-error``, Euclidean with that reconstruction error:
 
 * stages: each step of the call (upload, forwards, the two kernels, the
   critic pipeline, combination, download) run on its own and timed with
@@ -48,13 +50,14 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def stage_times(model, X, device, reps=20):
-    """{stage: device ms} for the steps of one detect call, in order."""
+def stage_times(model, X, device, reps=20, kde_version="v1"):
+    """{stage: device ms} for the steps of one hyperbolic detect call, in
+    order."""
     from hypad_tpu_torch.detect import scorer
     from hypad_tpu_torch.manifold import stereographic as st
-    from hypad_tpu_torch.ops.kde_kernel import kde_argmax_kernel
     from hypad_tpu_torch.ops.unroll import masked_median
 
+    kernel = _kde_kernel(kde_version)
     n, width = X.shape
     smooth = max(math.trunc(n * 0.01), 1)
     with torch.inference_mode():
@@ -65,7 +68,7 @@ def stage_times(model, X, device, reps=20):
         hyper_x = model["decoder"].hyperbolic_linear(Xt)
         rec = st.acosh_poincare_distance(hyper, hyper_x)
         vals, mask = scorer._critic_antidiag(critic, n, width)
-        kde_val, use = kde_argmax_kernel(vals, mask)
+        kde_val, use = kernel(vals, mask)
         kde_max = torch.where(use, kde_val, masked_median(vals, mask))
         critic_scores = scorer._critic_scores_from_kde(kde_max, smooth)[:n]
         scores = scorer._combine_device("mult", critic_scores, rec, hyper)
@@ -81,7 +84,8 @@ def stage_times(model, X, device, reps=20):
                                                                  hyper_x),
             "anti-diagonal skew": lambda: scorer._critic_antidiag(critic, n,
                                                                   width),
-            "KDE argmax (K2)": lambda: kde_argmax_kernel(vals, mask),
+            f"KDE argmax ({_KDE_NAMES[kde_version]})":
+                lambda: kernel(vals, mask),
             "masked median (sort)": lambda: masked_median(vals, mask),
             "IQR mean, std, rolling mean":
                 lambda: scorer._critic_scores_from_kde(kde_max, smooth),
@@ -145,21 +149,106 @@ def profile_calls(call, calls, tag, chrome_trace=True):
     return top, busy_share, wall_ms
 
 
-def trace(model, X, device, calls=5):
+_KDE_NAMES = {"v1": "K2", "v2": "K3"}
+
+
+def _kde_kernel(kde_version):
+    from hypad_tpu_torch.ops import kde_kernel
+
+    return {"v1": kde_kernel.kde_argmax_kernel,
+            "v2": kde_kernel.kde_argmax_v2_kernel}[kde_version]
+
+
+def eucl_stage_times(model, X, device, rec_error, kde_version="v2",
+                     reps=20):
+    """{stage: device ms} for the steps of one Euclidean detect call, in
+    order."""
+    from hypad_tpu_torch.detect import scorer
+    from hypad_tpu_torch.ops.dtw import dtw_errors
+    from hypad_tpu_torch.ops.rolling import (
+        rolling_mean_centered,
+        rolling_trapz_centered,
+        zscore,
+    )
+    from hypad_tpu_torch.ops.unroll import (
+        masked_median,
+        true_series,
+        unroll_median,
+    )
+
+    kernel = _kde_kernel(kde_version)
+    n, width = X.shape
+    smooth = max(math.trunc(n * 0.01), 1)
+    raw_error = {
+        "point": lambda t, p: (t - p).abs(),
+        "area": lambda t, p: (rolling_trapz_centered(t, 10, 5)
+                              - rolling_trapz_centered(p, 10, 5)).abs(),
+        "dtw": lambda t, p: dtw_errors(t, p, 10)}[rec_error]
+    with torch.inference_mode():
+        Xt = torch.as_tensor(X, device=device)
+        z = model["encoder"](Xt)
+        critic = model["critic_x"](Xt)[:, 0]
+        recon = model["decoder"](z)
+        true, pred = true_series(Xt), unroll_median(recon)
+        errors = raw_error(true, pred)
+        smoothed = rolling_mean_centered(errors, smooth, max(smooth // 2, 1))
+        rec = zscore(smoothed).clamp_min(0.0) + 1.0
+        vals, mask = scorer._critic_antidiag(critic, n, width)
+        kde_val, use = kernel(vals, mask)
+        kde_max = torch.where(use, kde_val, masked_median(vals, mask))
+        critic_scores = scorer._critic_scores_from_kde(kde_max, smooth)
+        scores = critic_scores * rec
+        stages = {
+            "upload windows (pageable H2D)":
+                lambda: torch.as_tensor(X, device=device),
+            "encoder (bi-LSTM, dense)": lambda: model["encoder"](Xt),
+            "critic_x (5 dense)": lambda: model["critic_x"](Xt),
+            "decoder (dense, 2 bi-LSTM, dense)": lambda: model["decoder"](z),
+            "true series, median unroll (sort)":
+                lambda: (true_series(Xt), unroll_median(recon)),
+            f"{rec_error} error": lambda: raw_error(true, pred),
+            "error rolling mean, z-score":
+                lambda: zscore(rolling_mean_centered(
+                    errors, smooth, max(smooth // 2, 1))).clamp_min(0.0),
+            "anti-diagonal skew": lambda: scorer._critic_antidiag(critic, n,
+                                                                  width),
+            f"KDE argmax ({_KDE_NAMES[kde_version]})":
+                lambda: kernel(vals, mask),
+            "masked median (sort)": lambda: masked_median(vals, mask),
+            "IQR mean, std, rolling mean":
+                lambda: scorer._critic_scores_from_kde(kde_max, smooth),
+            "combine (mult)": lambda: critic_scores * rec,
+            "download scores (D2H)": lambda: scores.cpu(),
+        }
+        return {name: cuda_ms(fn, reps) for name, fn in stages.items()}
+
+
+def trace(model, X, device, calls=5, hyperbolic=True, rec_error="point",
+          kde_version="v1"):
     """:func:`profile_calls` over warm detect calls."""
     from hypad_tpu_torch.detect.scorer import detect_scores
 
     def call():
-        return detect_scores(model, X, True, "mult", fetch_inference=False,
-                             device=device)
+        return detect_scores(model, X, hyperbolic, "mult",
+                             rec_error=rec_error, fetch_inference=False,
+                             kde_version=kde_version, device=device)
 
-    return profile_calls(call, calls, "detect")
+    tag = "detect" if hyperbolic else f"detect_euclidean_{rec_error}"
+    return profile_calls(call, calls, tag)
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--windows", type=int, default=20_000)
+    parser.add_argument("--rec-error", choices=("point", "area", "dtw"),
+                        help="profile the Euclidean detector with this "
+                             "reconstruction error (default: hyperbolic)")
+    parser.add_argument("--kde-version", choices=("v1", "v2"),
+                        help="KDE kernel: v1 (K2, the hyperbolic default) "
+                             "or v2 (K3, the Euclidean default here)")
     args = parser.parse_args(argv)
+    hyperbolic = args.rec_error is None
+    kde_version = args.kde_version or ("v1" if hyperbolic else "v2")
 
     from hypad_tpu_torch._device import resolve_device
     from hypad_tpu_torch.data.pipeline import synthetic_detect_input
@@ -171,12 +260,18 @@ def main(argv=None):
     device = resolve_device("cuda")
     X, _, _ = synthetic_detect_input(args.windows)
     model = init_tadgan(torch.Generator().manual_seed(0), X.shape[1],
-                        hyperbolic=True, device=device)
-    stages = stage_times(model, X, device)
+                        hyperbolic=hyperbolic, device=device)
+    if hyperbolic:
+        stages = stage_times(model, X, device, kde_version=kde_version)
+    else:
+        stages = eucl_stage_times(model, X, device, args.rec_error,
+                                  kde_version)
     for name, ms in stages.items():
         print(f"[stage] {name}: {ms:.5f} ms")
     print(f"[stage] sum of stages: {sum(stages.values()):.5f} ms")
-    top, busy_share, wall_ms = trace(model, X, device)
+    top, busy_share, wall_ms = trace(model, X, device, hyperbolic=hyperbolic,
+                                     rec_error=args.rec_error or "point",
+                                     kde_version=kde_version)
     for name, ms, count in top[:15]:
         print(f"[kernel] {ms:.5f} ms/call, {count:g} launches/call: "
               f"{name[:110]}")
@@ -187,14 +282,19 @@ def main(argv=None):
     walls = []
     for _ in range(7):
         t0 = time.perf_counter()
-        detect_scores(model, X, True, "mult", fetch_inference=False,
+        detect_scores(model, X, hyperbolic, "mult",
+                      rec_error=args.rec_error or "point",
+                      fetch_inference=False, kde_version=kde_version,
                       device=device)
         walls.append((time.perf_counter() - t0) * 1e3)
     print(json.dumps({
         "card": torch.cuda.get_device_name(0), "windows": args.windows,
+        "hyperbolic": hyperbolic, "rec_error": args.rec_error,
+        "kde_version": kde_version,
         "wall_ms_median": statistics.median(walls), "wall_ms": walls,
         "stages_ms": stages, "busy_share_under_profiler": busy_share,
         "device_ms_per_call": device_ms,
+        "launches_per_call": sum(c for _, _, c in top),
         "top_kernels": [{"name": n, "ms": ms, "launches": c}
                         for n, ms, c in top[:15]]}))
 

@@ -7,10 +7,11 @@ import torch
 
 from hypad_tpu_torch.manifold.kernels import mobius_linear, mobius_linear_kernel
 from hypad_tpu_torch.models.tadgan import init_tadgan
-from hypad_tpu_torch.ops.kde import kde_argmax_rows
+from hypad_tpu_torch.ops.kde import kde_argmax_rows, kde_argmax_rows_v2_parts
 from hypad_tpu_torch.ops.kde_kernel import (
     kde_argmax_kernel,
     kde_argmax_rows_fused,
+    kde_argmax_v2_kernel,
 )
 from hypad_tpu_torch.ops.unroll import antidiagonal_gather
 
@@ -58,6 +59,29 @@ def test_kde_argmax_kernel_matches_plain_at_tie_level(cuda, N, W, const):
     v, m, g = vals.cpu().numpy(), mask.cpu().numpy(), got.cpu().numpy()
     assert all(g[i] in v[i][m[i]] for i in diff)
     assert len(diff) <= max(1, int(0.01 * len(g)))
+
+
+@pytest.mark.parametrize("N,W,const", [(20000, 100, False), (700, 64, False),
+                                       (300, 100, True), (50, 100, False)])
+def test_kde_argmax_v2_kernel_matches_plain_at_tie_level(cuda, N, W, const):
+    """K3 against its plain version on the card: the use flags bitwise,
+    the values at tie level; and against K2 at tie level."""
+    critic = torch.randn(N, generator=torch.Generator().manual_seed(N))
+    if const:
+        critic[10:40] = 0.5
+    vals, mask = antidiagonal_gather(critic.to(cuda)[:, None].expand(N, W))
+    before = kde_argmax_v2_kernel.launches
+    got, use = kde_argmax_v2_kernel(vals, mask)
+    k2, _ = kde_argmax_kernel(vals, mask)
+    torch.cuda.synchronize()
+    assert kde_argmax_v2_kernel.launches == before + 1
+    want, want_use = kde_argmax_rows_v2_parts(vals, mask)
+    assert torch.equal(use, want_use)
+    v, m, g = vals.cpu().numpy(), mask.cpu().numpy(), got.cpu().numpy()
+    for other in (want, k2):
+        diff = torch.nonzero(got != other)[:, 0].cpu().numpy()
+        assert all(g[i] in v[i][m[i]] for i in diff)
+        assert len(diff) <= max(1, int(0.01 * len(g)))
 
 
 def _critic_case(device, hyperbolic, B):

@@ -145,12 +145,6 @@ def test_detect_scores_matches_jax(detect_case, combination):
         np.testing.assert_allclose(got, want, **SCORE_TOL)
 
 
-def test_detect_scores_euclidean_not_ported(detect_case):
-    _, model, X, _, _ = detect_case
-    with pytest.raises(NotImplementedError):
-        ts.detect_scores(model, X, False, "mult", device="cpu")
-
-
 def test_pipeline_copy_matches_jax():
     ts_, values, flags = tpipe.synthetic_signal(1200, seed=3)
     starts, ends = tpipe.extract_known_anomalies(flags, ts_)

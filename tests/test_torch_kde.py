@@ -11,10 +11,15 @@ from hypad_tpu.ops.kde import kde_argmax_rows as jax_kde
 from hypad_tpu.ops.kde_pallas import kde_argmax_rows_pallas
 from hypad_tpu.ops.unroll import antidiagonal_gather as jax_antidiag
 from hypad_tpu.ops.unroll import masked_median as jax_median
-from hypad_tpu_torch.ops.kde import kde_argmax_rows
+from hypad_tpu_torch.ops.kde import (
+    kde_argmax_rows,
+    kde_argmax_rows_parts,
+    kde_argmax_rows_v2_parts,
+)
 from hypad_tpu_torch.ops.kde_kernel import (
     kde_argmax_kernel,
     kde_argmax_rows_fused,
+    kde_argmax_v2_kernel,
 )
 from hypad_tpu_torch.ops.unroll import antidiagonal_gather, masked_median
 
@@ -94,3 +99,58 @@ def test_kde_wrapper_rejects_what_the_kernel_does_not_take(bad):
         vals, mask = vals.T, mask.T
     with pytest.raises((TypeError, ValueError)):
         kde_argmax_rows_fused(vals, mask)
+
+
+# --- K3: the symmetric-pair (offset) form of the KDE argmax ---------------
+
+@pytest.mark.parametrize("N,W,const", [(300, 100, False), (50, 100, False),
+                                       (300, 100, True), (700, 64, False),
+                                       (300, 32, False)])
+def test_kde_v2_plain_matches_jax_pallas_v2_and_jnp(N, W, const):
+    """The plain K3 against JAX's _kernel_v2 in interpret mode and against
+    the jnp KDE, at tie level; the use flags against the first form's
+    bitwise (they come from the same statistics)."""
+    vals, mask = _antidiag(N, W, constant_runs=const)
+    val, use = kde_argmax_rows_v2_parts(vals, mask)
+    np.testing.assert_array_equal(use.numpy(),
+                                  kde_argmax_rows_parts(vals, mask)[1].numpy())
+    got = torch.where(use, val, masked_median(vals, mask)).numpy()
+    jv, jm = jnp.asarray(vals.numpy()), jnp.asarray(mask.numpy())
+    for want in (kde_argmax_rows_pallas(jv, jm, interpret=True,
+                                        version="v2"),
+                 jax_kde(jv, jm)):
+        assert_tie_level_equal(got, np.asarray(want), vals, mask)
+    np.testing.assert_array_equal(
+        kde_argmax_rows_fused(vals, mask, version="v2").numpy(), got)
+
+
+def test_kde_v2_wrapper_on_cpu_is_the_plain_version():
+    vals, mask = _antidiag(300, 100, constant_runs=True)
+    before = (kde_argmax_kernel.launches, kde_argmax_v2_kernel.launches)
+    got_val, got_use = kde_argmax_v2_kernel(vals, mask)
+    want_val, want_use = kde_argmax_rows_v2_parts(vals, mask)
+    np.testing.assert_array_equal(got_val.numpy(), want_val.numpy())
+    np.testing.assert_array_equal(got_use.numpy(), want_use.numpy())
+    assert (kde_argmax_kernel.launches,
+            kde_argmax_v2_kernel.launches) == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "mask", "width", "contiguous"])
+def test_kde_v2_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    vals, mask = _antidiag(50, 64)
+    if bad == "dtype":
+        vals = vals.double()
+    elif bad == "mask":
+        mask = mask.float()
+    elif bad == "width":
+        vals, mask = torch.zeros(4, 200), torch.ones(4, 200, dtype=torch.bool)
+    else:
+        vals, mask = vals.T, mask.T
+    with pytest.raises((TypeError, ValueError)):
+        kde_argmax_v2_kernel(vals, mask)
+
+
+def test_kde_fused_rejects_an_unknown_version():
+    vals, mask = _antidiag(50, 64)
+    with pytest.raises(ValueError, match="kde_version"):
+        kde_argmax_rows_fused(vals, mask, version="v3")

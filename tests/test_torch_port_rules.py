@@ -86,9 +86,20 @@ def test_kernel_sources_are_present_and_name_their_tpu_kernel():
     for name, replaces in (("mobius_linear",
                             ["hypad_tpu/manifold/kernels.py:35"]),
                            ("kde_argmax", ["hypad_tpu/ops/kde_pallas.py:42"]),
+                           ("kde_argmax_v2",
+                            ["hypad_tpu/ops/kde_pallas.py:91"]),
                            ("critic_step",
                             ["hypad_tpu/train/critic_kernel.py:156",
                              "hypad_tpu/train/critic_kernel.py:350"])):
         src = (PORT / "csrc" / f"{name}.cu").read_text()
         assert all(r in src for r in replaces)
         assert 'extern "C"' in src and "cudaGetLastError" in src
+
+
+def test_build_compiles_every_kernel_source():
+    """Every csrc/*.cu is one of _build.KERNEL_SOURCES, built for sm_90a."""
+    from hypad_tpu_torch import _build
+
+    sources = sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
+    assert sorted(_build.KERNEL_SOURCES) == sources
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
