@@ -14,9 +14,11 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    <= 1e-6); the two KDE argmax kernels, K2 and K3 (use flags bitwise,
    values at tie level: a differing value is a sample of its own row, at
    most 1% of rows differ), and K3 against K2 at tie level;
-   and the critic-step kernels K5 and K4 against their plain autograd
-   versions (B = 64 hyperbolic, B = 64 Euclidean, B = 13; the JAX tests'
-   tolerances; two launches bitwise equal);
+   and the critic-step kernels K5 and K4, each launched as 2 clusters of 8
+   blocks, against their plain autograd versions (B = 64 hyperbolic, B = 64
+   Euclidean, B = 13, B = 3 with fewer rows than a cluster's blocks, B =
+   100 with rows split unevenly; the JAX tests' tolerances; two launches
+   bitwise equal);
 3. detect path: a seeded synthetic univariate signal with 3 injected
    anomalies, windowed to 20,000 windows of width 100, through
    ``detect_univariate(..., combination="mult", device="cuda")`` with a
@@ -244,25 +246,6 @@ def check_same_detection(got, want, known, tag="detect"):
     return f1
 
 
-def critic_case(device, hyperbolic, B):
-    """A full-width model and one critic step's inputs from a seed."""
-    import torch
-
-    from hypad_tpu_torch.models.tadgan import init_tadgan
-
-    g = torch.Generator().manual_seed(100 + B + hyperbolic)
-    model = init_tadgan(g, WIDTH, hyperbolic=hyperbolic, device=device)
-    draws = {"z_x": torch.randn(B, 20, generator=g),
-             "a_x": torch.rand(B, WIDTH, generator=g),
-             "z_z": torch.randn(B, 20, generator=g),
-             "a_z": torch.rand(B, 20, generator=g),
-             "m_cx": torch.rand(4, 3 * B, 20, generator=g) < 0.75,
-             "m_cz": torch.rand(2, 3 * B, 20, generator=g) < 0.8,
-             "m_dec": torch.rand(B, 128, generator=g) < 0.8}
-    x = torch.rand(B, WIDTH, generator=g) * 2 - 1
-    return model, x.to(device), {k: v.to(device) for k, v in draws.items()}
-
-
 def critic_err(got, want, tols, what):
     """Largest abs diff of (lx, lz, grads_cx, grads_cz) against ``want``;
     fails where an element is outside |a - b| <= atol + rtol |b|."""
@@ -286,17 +269,27 @@ def bitwise_equal(a, b):
         torch.equal(a[i][k], b[i][k]) for i in (2, 3) for k in a[i])
 
 
+def critic_launch_shape():
+    """K4's and K5's launch shape as the built library reports it."""
+    from hypad_tpu_torch.train import critic_kernel as ck
+
+    clusters, blocks, threads = ck.launch_shape()
+    return (f"{clusters} clusters x {blocks} blocks x {threads} threads")
+
+
 def phase_critic_kernels(device):
     """K5 and K4 against their plain autograd versions; returns the
     largest abs diff of each over the cases."""
     import torch
 
     from hypad_tpu_torch.data.pipeline import A1_BATCH_SIZE as TRAIN_BATCH
+    from hypad_tpu_torch.profile_critic_step import critic_case
     from hypad_tpu_torch.train import critic_kernel as ck
 
+    print(f"[kernels] K5 and K4 launch as {critic_launch_shape()}")
     errs = {"critic_step_full": 0.0, "critics_fused_grads": 0.0}
     for hyperbolic, B in ((True, TRAIN_BATCH), (False, TRAIN_BATCH),
-                          (True, 13)):
+                          (True, 13), (True, 3), (True, 100)):
         model, x, d = critic_case(device, hyperbolic, B)
         want = ck.critic_step_plain(model, x, d, hyperbolic)
         got = ck.critic_step_fused_full(model, x, d, hyperbolic)
@@ -514,6 +507,7 @@ def phase_train_timing(device, X):
     from hypad_tpu_torch.data.pipeline import A1_BATCH_SIZE as TRAIN_BATCH
     from hypad_tpu_torch.models.tadgan import init_tadgan
     from hypad_tpu_torch.profile_detect import cuda_ms
+    from hypad_tpu_torch.profile_critic_step import critic_case
     from hypad_tpu_torch.train import critic_kernel as ck
     from hypad_tpu_torch.train import trainer as tr
 
@@ -554,14 +548,16 @@ def phase_train_timing(device, X):
     # K5 reads x, a_x, z_x, z_z, a_z instead of bigx and bigz
     k5["bytes"] = bx + bz + bg - 4 * 3 * TRAIN_BATCH * (WIDTH + 20)
     k5["ops"] = ox + oz + og
+    shape = critic_launch_shape()
     for name, k in (("K5 critic_step_full", k5), ("K4 critics_fused_grads",
                                                   k4)):
+        k["launch_shape"] = shape
         t_bytes = k["bytes"] / H100_BYTES_PER_S * 1e3
         t_ops = k["ops"] / H100_F32_FLOP_PER_S * 1e3
         k["bound_ms"] = max(t_bytes, t_ops)
         k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"[timing] {name} at B={TRAIN_BATCH}: kernel {k['ms']:.5f} ms,"
-              f" plain {k['plain_ms']:.5f} ms, bound {k['bound_ms']:.6f} ms "
+        print(f"[timing] {name} at B={TRAIN_BATCH}, {shape}: kernel "
+              f"{k['ms']:.5f} ms, plain {k['plain_ms']:.5f} ms, bound {k['bound_ms']:.6f} ms "
               f"({k['bound_by']}: {k['bytes']} bytes, {k['ops']} ops; far "
               f"below launch latency)")
     return epochs, k4, k5
@@ -1011,6 +1007,7 @@ def main():
          "launches_by_path": by_path["critics_fused_grads"],
          "max_abs_err": k45_err["critics_fused_grads"],
          "tolerance": tol_text.format(*K4_TOL),
+         "launch_shape": k4["launch_shape"],
          "ms": k4["ms"], "kernel_ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
          "library_ms": None},
@@ -1022,6 +1019,7 @@ def main():
          "launches_by_path": by_path["critic_step_full"],
          "max_abs_err": k45_err["critic_step_full"],
          "tolerance": tol_text.format(*K5_TOL),
+         "launch_shape": k5["launch_shape"],
          "ms": k5["ms"], "kernel_ms": k5["ms"], "plain_ms": k5["plain_ms"],
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
          "library_ms": None},

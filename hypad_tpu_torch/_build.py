@@ -49,15 +49,22 @@ def build(names=KERNEL_SOURCES):
     ``nvcc`` processes at once. Returns {name: (seconds, ptxas report)};
     raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return compile_sources({name: (CSRC / f"{name}.cu", library_path(name))
+                            for name in names
+                            if not library_path(name).exists()})
+
+
+def compile_sources(jobs):
+    """Compile each ``{name: (source, library)}`` with ``nvcc`` into a
+    shared library, all processes at once, with ``csrc/`` on the include
+    path. Returns {name: (seconds, ptxas report)}; raises with the
+    compiler's output if any build fails."""
     procs = {}
     t0 = time.perf_counter()
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
+    for name, (src, out) in jobs.items():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+               str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

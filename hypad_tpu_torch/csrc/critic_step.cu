@@ -32,33 +32,72 @@
 // Bound on the H100: at B = 64 K4 moves about 0.15 MB and does about 5.5
 // MFLOP, K5 about 0.77 MB and 22 MFLOP (chip_smoke.py's count), which is
 // under a microsecond either way. What limits the kernel is the chain
-// itself: some 40 dependent phases (layers, reductions over the batch),
-// each a few microseconds of latency.
+// itself: each thread's serial run of dependent FMA and L2-load iterations
+// through some 40 phases (layers, reductions over the batch).
 //
-// Design: a grid of two blocks and no grid-wide sync. critic_x needs only x,
-// a_x and the decoder forward; critic_z needs only z_z, a_z and the encoder
-// forward. So block 0 runs the decoder and then critic_x, block 1 the
-// encoder and then critic_z, and each writes its own outputs. The weights
-// are read from global memory, where they stay L2-resident (the generator
-// weights are about 640 KB f32 at the published widths, beyond the 227 KB of
-// shared memory a block may have). Activations, backward diagonals and
-// chains live in a global workspace that the wrapper allocates
-// (critic_step_workspace_floats). Shared memory holds the 33 KB tile of
-// layer input rows and the 68-byte reduction scratch, under the 48 KB a
-// block gets without an opt-in. Arithmetic is f32 FMA in ascending index
-// order, no TF32 and no tensor cores. Every sum over rows is owned by one
-// thread or is a fixed-shape shuffle-and-shared-memory tree, with no
-// atomics, so two launches on the same inputs give the same bits. Not yet
-// done: spreading the decoder's rows over many SMs (clusters and
-// distributed shared memory), and wgmma.
+// Design: two clusters of kClusterBlocks blocks, one per side, and no
+// grid-wide sync. critic_x needs only x, a_x and the decoder forward;
+// critic_z needs only z_z, a_z and the encoder forward. So cluster 0 runs
+// the decoder and then critic_x, cluster 1 the encoder and then critic_z.
+// Rank q of a cluster owns batch rows [q P, q P + P), P = ceil(B / 8), and
+// in every stacked (3B, .) array the same rows of each third (b, B + b,
+// 2B + b), so every row-local phase reads only rows its own block wrote:
+// the generator layers, the bigx / bigz assembly, the critic forward and
+// its diagonals, the GP v-chain (the interpolate rows 2B + b), the e-chain
+// and the u-chain. Those phases need no barrier beyond __syncthreads(), and
+// each output is computed by one thread with the same loop as in a single
+// block, so they give the same bits at any cluster size.
+//
+// Sums over rows are split: each rank reduces its own rows in ascending
+// order into a partial in the global workspace (the scalars wl and sum g^2
+// by a block tree, each gradient entry by one thread), and after a
+// cluster.sync() the owner of each output adds the partials in rank order
+// 0..7, starting from rank 0's (no added zero). A GP-path weight gradient is
+// still (sum of the wl-path partials) + (sum of the GP-path partials). There
+// are two cluster barriers a side: one after the scalar partials (every rank
+// needs wl for the loss and gn for the u-chain's coefficient), placed after
+// the wl-path gradient partials that do not need them; one before the
+// owners' sums. No float atomics: two launches give the same bits. At a
+// cluster size of 1 this is the single-block arithmetic exactly.
+//
+// Memory ordering: cluster.sync() is barrier.cluster.arrive.release plus
+// wait.acquire at cluster scope, which orders the blocks' global writes
+// before the other blocks' reads. The partials, which are the only data one
+// block reads from another, are read with __ldcg (L2, past L1); nothing
+// the kernel writes is read through __ldg or a const __restrict__ pointer.
+//
+// Weights are read from global memory, where they stay L2-resident (the
+// generator weights are about 640 KB f32 at the published widths, beyond
+// the 227 KB of shared memory a block may have). Activations, backward
+// diagonals, chains and partials live in a global workspace that the
+// wrapper allocates (critic_step_workspace_floats). Shared memory holds the
+// 33 KB tile of layer input rows and the 68-byte reduction scratch, under
+// the 48 KB a block gets without an opt-in. Arithmetic is f32 FMA in
+// ascending index order, no TF32 and no tensor cores.
+//
+// Measured at B = 64 on an NVIDIA H100 80GB HBM3 at 700 W
+// (hypad_tpu_torch/profile_critic_step.py: CUDA events over 200 launches,
+// the variants in turns): K5 0.109 ms and K4 0.052 ms a launch, against
+// 0.414 and 0.174 ms for the former layout of one block a side. This code
+// at a cluster size of 1 gives that layout's bits and takes 0.464 and
+// 0.218 ms; at 16 blocks a side, a non-portable cluster, 0.097 and 0.048
+// ms. Halving the rows a block owns again gains 11%, so what is left is
+// mostly each output's serial dot product, a chain of up to 128 FMAs on
+// weights read from L2, which no row split shortens. K5 - K4, about the
+// decoder's forwards, is 0.057 ms. Not yet done: the weights in shared or
+// distributed shared memory, then wgmma.
 
+#include <cooperative_groups.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
+constexpr int kClusterBlocks = 8;  // blocks a side, the portable maximum
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxHead = 128;  // widest MobiusLinear head: 4 lanes a thread
@@ -100,10 +139,44 @@ struct Lstm {
   const float *w, *bi, *bh;  // one direction: w_ih (4H, in), b_ih, b_hh
 };
 
+// The rows one block of a cluster owns: rows [b0, b0 + nb) of a (B, .)
+// array when segs is 1; those rows of each third of a (3B, .) array when
+// segs is 3.
+struct Rows {
+  int b0, nb, B, segs;
+  __device__ int count() const { return segs * nb; }
+  // The t-th owned row, ascending, for t < count().
+  __device__ int at(int t) const {
+    const int s = t / nb;
+    return s * B + b0 + (t - s * nb);
+  }
+};
+
+__device__ Rows rank_rows(int B, int rank, int segs) {
+  const int per = (B + kClusterBlocks - 1) / kClusterBlocks;
+  const int b0 = min(rank * per, B);
+  return Rows{b0, min(per, B - b0), B, segs};
+}
+
+// f(r) for every owned row r, ascending.
+template <typename F>
+__device__ __forceinline__ void each_row(const Rows& rows, F f) {
+  for (int s = 0; s < rows.segs; ++s) {
+    const int r0 = s * rows.B + rows.b0;
+    for (int r = r0; r < r0 + rows.nb; ++r) f(r);
+  }
+}
+
+// Floats of one critic's parameters (and gradient): (w, b) of `L` hidden
+// layers of width H on an `in`-wide input, then the scalar output layer.
+__host__ __device__ int critic_params(int in, int H, int L) {
+  return H * in + H + (L - 1) * (H * H + H) + H + 1;
+}
 __host__ __device__ size_t critic_ws(int R, int B, int in, int H, int L) {
   const int wide = in > H ? in : H;
   return (size_t)2 * L * R * H + R + (size_t)L * B * H + (size_t)2 * B * wide +
-         (size_t)2 * R * H;
+         (size_t)2 * R * H +
+         (size_t)2 * kClusterBlocks * (critic_params(in, H, L) + 1);
 }
 __host__ __device__ size_t decoder_ws(const Args& a) {
   return (size_t)a.B * a.D1 + (size_t)4 * a.B * a.Hd + (size_t)2 * a.B * a.W;
@@ -156,29 +229,30 @@ __device__ __forceinline__ float sigmoid(float x) {
 // sectors each: K5 took 2.61 ms a launch at B = 64 on an H100 80GB HBM3 at
 // 700 W; a warp per output with a shuffle sum, 1.62 ms.)
 
-// Stage rows [r0, r0 + n) of in (rows, din) into `tile` and run
-// body(r0, n, ld) on each stage.
+// Stage the owned rows of in (., din) into `tile`, up to kTileRows at a
+// time, and run body(t0, n, ld) on each stage: tile row r holds owned row
+// rows.at(t0 + r).
 template <typename Body>
-__device__ void for_row_tiles(const float* in, int rows, int din,
+__device__ void for_row_tiles(const float* in, const Rows& rows, int din,
                               float* tile, Body body) {
   const int ld = din | 1;
-  for (int r0 = 0; r0 < rows; r0 += kTileRows) {
-    const int n = rows - r0 < kTileRows ? rows - r0 : kTileRows;
+  for (int t0 = 0; t0 < rows.count(); t0 += kTileRows) {
+    const int n = min(rows.count() - t0, kTileRows);
     __syncthreads();  // the previous stage's readers are done
     for (int idx = threadIdx.x; idx < n * din; idx += blockDim.x) {
       const int r = idx / din, k = idx - r * din;
-      tile[r * ld + k] = in[(size_t)(r0 + r) * din + k];
+      tile[r * ld + k] = in[(size_t)rows.at(t0 + r) * din + k];
     }
     __syncthreads();
-    body(r0, n, ld);
+    body(t0, n, ld);
   }
 }
 
 // out (rows, dout) = in (rows, din) W^T (+ b), tanh'd when `act_tanh`.
-__device__ void linear(const float* in, int rows, int din, const float* W,
-                       const float* b, float* out, int dout, bool act_tanh,
-                       float* tile) {
-  for_row_tiles(in, rows, din, tile, [&](int r0, int n, int ld) {
+__device__ void linear(const float* in, const Rows& rows, int din,
+                       const float* W, const float* b, float* out, int dout,
+                       bool act_tanh, float* tile) {
+  for_row_tiles(in, rows, din, tile, [&](int t0, int n, int ld) {
     for (int idx = threadIdx.x; idx < n * dout; idx += blockDim.x) {
       const int j = idx / n, r = idx - j * n;
       const float* x = tile + r * ld;
@@ -186,18 +260,18 @@ __device__ void linear(const float* in, int rows, int din, const float* W,
       float acc = 0.0f;
       for (int k = 0; k < din; ++k) acc = fmaf(x[k], w[k], acc);
       if (b) acc = acc + b[j];
-      out[(size_t)(r0 + r) * dout + j] = act_tanh ? tanhf(acc) : acc;
+      out[(size_t)rows.at(t0 + r) * dout + j] = act_tanh ? tanhf(acc) : acc;
     }
   });
 }
 
 // One bidirectional LSTM layer at T = 1 with zero state: out (rows, 2H),
 // [forward, reverse] on the feature axis; inverted dropout when `keep`.
-__device__ void bilstm_t1(const float* in, int rows, int din, Lstm fw,
+__device__ void bilstm_t1(const float* in, const Rows& rows, int din, Lstm fw,
                           Lstm bw, int H, const uint8_t* keep, float kscale,
                           float* out, float* tile) {
   const int width = 2 * H;
-  for_row_tiles(in, rows, din, tile, [&](int r0, int n, int ld) {
+  for_row_tiles(in, rows, din, tile, [&](int t0, int n, int ld) {
     for (int idx = threadIdx.x; idx < n * width; idx += blockDim.x) {
       const int c = idx / n, r = idx - c * n;
       const bool rev = c >= H;
@@ -217,7 +291,7 @@ __device__ void bilstm_t1(const float* in, int rows, int din, Lstm fw,
       gi = gi + d.bi[j] + d.bh[j];
       gg = gg + d.bi[2 * H + j] + d.bh[2 * H + j];
       go = go + d.bi[3 * H + j] + d.bh[3 * H + j];
-      const size_t o = (size_t)(r0 + r) * width + c;
+      const size_t o = (size_t)rows.at(t0 + r) * width + c;
       float h = sigmoid(go) * tanhf(sigmoid(gi) * tanhf(gg));
       if (keep) h = keep[o] ? h / kscale : 0.0f;
       out[o] = h;
@@ -227,8 +301,8 @@ __device__ void bilstm_t1(const float* in, int rows, int din, Lstm fw,
 
 // MobiusLinear's clamp chain on u = x W^T (rows, W), one warp a row:
 // expmap0, mobius_add(b) at k = -1, project; as K1 (csrc/mobius_linear.cu).
-__device__ void mobius_rows(const float* u, int rows, int W, const float* mb,
-                            float* out) {
+__device__ void mobius_rows(const float* u, const Rows& rows, int W,
+                            const float* mb, float* out) {
   constexpr int kPer = kMaxHead / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float bj[kPer];
@@ -240,7 +314,8 @@ __device__ void mobius_rows(const float* u, int rows, int W, const float* mb,
     b2 += bj[q] * bj[q];
   }
   b2 = hypad::warp_sum(b2);
-  for (int r = warp; r < rows; r += kWarps) {
+  for (int i = warp; i < rows.count(); i += kWarps) {
+    const int r = rows.at(i);
     const float* ur = u + (size_t)r * W;
     float e[kPer];
     float sq = 0.0f;
@@ -280,9 +355,10 @@ __device__ void mobius_rows(const float* u, int rows, int W, const float* mb,
   }
 }
 
-// Block 0 of K5: the decoder on z_x, then bigx = [x, x_fake, interp_x].
-__device__ void decoder_side(const Args& a, float* ws, float* bigx,
-                             float* tile) {
+// Cluster 0 of K5: the decoder on the block's rows of z_x, then those rows
+// of bigx = [x, x_fake, interp_x].
+__device__ void decoder_side(const Args& a, const Rows& rows, float* ws,
+                             float* bigx, float* tile) {
   const int B = a.B, W = a.W, Hd = a.Hd;
   float* d1 = ws;
   float* h1 = d1 + (size_t)B * a.D1;
@@ -296,50 +372,53 @@ __device__ void decoder_side(const Args& a, float* ws, float* bigx,
   const Lstm l1b{in_ptr(a, DEC + 11), in_ptr(a, DEC + 12),
                  in_ptr(a, DEC + 13)};
 
-  linear(in_ptr(a, ZX), B, a.L, in_ptr(a, DEC), in_ptr(a, DEC + 1), d1, a.D1,
-         false, tile);
+  linear(in_ptr(a, ZX), rows, a.L, in_ptr(a, DEC), in_ptr(a, DEC + 1), d1,
+         a.D1, false, tile);
   __syncthreads();
-  bilstm_t1(d1, B, a.D1, l0f, l0b, Hd,
+  bilstm_t1(d1, rows, a.D1, l0f, l0b, Hd,
             static_cast<const uint8_t*>(a.p[MDEC]), kDecKeep, h1, tile);
   __syncthreads();
-  bilstm_t1(h1, B, 2 * Hd, l1f, l1b, Hd, nullptr, 1.0f, h2, tile);
+  bilstm_t1(h1, rows, 2 * Hd, l1f, l1b, Hd, nullptr, 1.0f, h2, tile);
   __syncthreads();
-  linear(h2, B, 2 * Hd, in_ptr(a, DEC + 14), in_ptr(a, DEC + 15),
+  linear(h2, rows, 2 * Hd, in_ptr(a, DEC + 14), in_ptr(a, DEC + 15),
          a.hyperbolic ? xdec : xfake, W, true, tile);
   __syncthreads();
   if (a.hyperbolic) {
-    linear(xdec, B, W, in_ptr(a, DEC + 16), nullptr, u, W, false, tile);
+    linear(xdec, rows, W, in_ptr(a, DEC + 16), nullptr, u, W, false, tile);
     __syncthreads();
-    mobius_rows(u, B, W, in_ptr(a, DEC + 17), xfake);
+    mobius_rows(u, rows, W, in_ptr(a, DEC + 17), xfake);
     __syncthreads();
   }
   const float* x = in_ptr(a, X);
   const float* ax = in_ptr(a, AX);
-  for (int idx = threadIdx.x; idx < B * W; idx += blockDim.x) {
-    const float xv = x[idx], al = ax[idx];
-    bigx[idx] = xv;
-    bigx[(size_t)2 * B * W + idx] = al * xv + (1.0f - al) * xfake[idx];
+  for (int idx = threadIdx.x; idx < rows.nb * W; idx += blockDim.x) {
+    const size_t o = (size_t)rows.b0 * W + idx;
+    const float xv = x[o], al = ax[o];
+    bigx[o] = xv;
+    bigx[(size_t)2 * B * W + o] = al * xv + (1.0f - al) * xfake[o];
   }
   __syncthreads();
 }
 
-// Block 1 of K5: the encoder on x, then bigz = [z_enc, z_z, interp_z].
-__device__ void encoder_side(const Args& a, float* ws, float* bigz,
-                             float* tile) {
+// Cluster 1 of K5: the encoder on the block's rows of x, then those rows of
+// bigz = [z_enc, z_z, interp_z].
+__device__ void encoder_side(const Args& a, const Rows& rows, float* ws,
+                             float* bigz, float* tile) {
   const int B = a.B, L = a.L;
   const Lstm f{in_ptr(a, ENC), in_ptr(a, ENC + 1), in_ptr(a, ENC + 2)};
   const Lstm b{in_ptr(a, ENC + 3), in_ptr(a, ENC + 4), in_ptr(a, ENC + 5)};
-  bilstm_t1(in_ptr(a, X), B, a.W, f, b, a.He, nullptr, 1.0f, ws, tile);
+  bilstm_t1(in_ptr(a, X), rows, a.W, f, b, a.He, nullptr, 1.0f, ws, tile);
   __syncthreads();
-  linear(ws, B, 2 * a.He, in_ptr(a, ENC + 6), in_ptr(a, ENC + 7), bigz, L,
+  linear(ws, rows, 2 * a.He, in_ptr(a, ENC + 6), in_ptr(a, ENC + 7), bigz, L,
          false, tile);
   __syncthreads();
   const float* zz = in_ptr(a, ZZ);
   const float* az = in_ptr(a, AZ);
-  for (int idx = threadIdx.x; idx < B * L; idx += blockDim.x) {
-    const float z = zz[idx], al = az[idx];
-    bigz[(size_t)B * L + idx] = z;
-    bigz[(size_t)2 * B * L + idx] = al * z + (1.0f - al) * bigz[idx];
+  for (int idx = threadIdx.x; idx < rows.nb * L; idx += blockDim.x) {
+    const size_t o = (size_t)rows.b0 * L + idx;
+    const float z = zz[o], al = az[o];
+    bigz[(size_t)B * L + o] = z;
+    bigz[(size_t)2 * B * L + o] = al * z + (1.0f - al) * bigz[o];
   }
   __syncthreads();
 }
@@ -347,22 +426,28 @@ __device__ void encoder_side(const Args& a, float* ws, float* bigz,
 // One critic's loss and parameter gradients on stacked rows `big` (3B, in):
 // `nl` hidden layers of width H, then the scalar output layer. Parameters
 // and gradients at slots [first, first + 2 (nl + 1)), (w, b) per layer.
-__device__ void critic(const Args& a, const float* big, int in, int H, int nl,
-                       int pslot, int gslot, const uint8_t* masks, float keep,
-                       float sign, float* loss, float* ws, float* red,
-                       float* tile) {
+// Every block of the cluster calls it; `rank` is the block's rank.
+__device__ void critic(const Args& a, int rank, const float* big, int in,
+                       int H, int nl, int pslot, int gslot,
+                       const uint8_t* masks, float keep, float sign,
+                       float* loss, float* ws, float* red, float* tile) {
   const int B = a.B, R = 3 * B;
   const int wide = in > H ? in : H;
+  const Rows rows = rank_rows(B, rank, 3);   // stacked rows b, B + b, 2B + b
+  const Rows brows = rank_rows(B, rank, 1);  // batch rows b
   const float* Wl[5];
   const float* bl[5];
   float* gW[5];
   float* gb[5];
+  int off[6] = {0};  // layer i's w in the flat (P,) gradient, then its b
   for (int i = 0; i <= nl; ++i) {
     Wl[i] = in_ptr(a, pslot + 2 * i);
     bl[i] = in_ptr(a, pslot + 2 * i + 1);
     gW[i] = out_ptr(a, gslot + 2 * i);
     gb[i] = out_ptr(a, gslot + 2 * i + 1);
+    off[i + 1] = off[i] + (i < nl ? H * (i == 0 ? in : H) + H : H + 1);
   }
+  const int P = off[nl + 1];
   float* hs = ws;                                // nl x (R, H)
   float* Ds = hs + (size_t)nl * R * H;           // nl x (R, H)
   float* out = Ds + (size_t)nl * R * H;          // (R,)
@@ -371,6 +456,11 @@ __device__ void critic(const Args& a, const float* big, int in, int H, int nl,
   float* v1 = v0 + (size_t)B * wide;             // (B, wide)
   float* e0 = v1 + (size_t)B * wide;             // (R, H)
   float* e1 = e0 + (size_t)R * H;                // (R, H)
+  float* wlp = e1 + (size_t)R * H;               // kClusterBlocks x (P,)
+  float* gpp = wlp + (size_t)kClusterBlocks * P;   // kClusterBlocks x (P,)
+  float* scal = gpp + (size_t)kClusterBlocks * P;  // wl, then sum g^2, by rank
+  float* my_wl = wlp + (size_t)rank * P;  // this rank's wl-path partials
+  float* my_gp = gpp + (size_t)rank * P;  // this rank's GP-path partials
   auto h_in = [&](int i) { return i == 0 ? big : hs + (size_t)(i - 1) * R * H; };
   auto d_in = [&](int i) { return i == 0 ? in : H; };
   const float* Wo = Wl[nl];
@@ -383,7 +473,7 @@ __device__ void critic(const Args& a, const float* big, int in, int H, int nl,
     float* hi = hs + (size_t)i * R * H;
     float* Di = Ds + (size_t)i * R * H;
     const uint8_t* mi = masks + (size_t)i * R * H;
-    for_row_tiles(h_in(i), R, din, tile, [&](int r0, int n, int ld) {
+    for_row_tiles(h_in(i), rows, din, tile, [&](int t0, int n, int ld) {
       for (int idx = threadIdx.x; idx < n * H; idx += blockDim.x) {
         const int j = idx / n, r = idx - j * n;
         const float* x = tile + r * ld;
@@ -392,7 +482,7 @@ __device__ void critic(const Args& a, const float* big, int in, int H, int nl,
         for (int k = 0; k < din; ++k) acc = fmaf(x[k], w[k], acc);
         const float pre = acc + bl[i][j];
         const bool pos = pre >= 0.0f;
-        const size_t o = (size_t)(r0 + r) * H + j;
+        const size_t o = (size_t)rows.at(t0 + r) * H + j;
         const bool kept = mi[o] != 0;
         hi[o] = kept ? (pos ? pre : kLeaky * pre) / keep : 0.0f;
         Di[o] = kept ? (pos ? 1.0f : kLeaky) / keep : 0.0f;
@@ -401,15 +491,19 @@ __device__ void critic(const Args& a, const float* big, int in, int H, int nl,
     __syncthreads();
   }
   const float* hL = hs + (size_t)(nl - 1) * R * H;
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+  for (int t = threadIdx.x; t < rows.count(); t += blockDim.x) {
+    const int r = rows.at(t);
     float acc = 0.0f;
     for (int j = 0; j < H; ++j) acc = fmaf(hL[(size_t)r * H + j], Wo[j], acc);
     out[r] = acc + bl[nl][0];
   }
   __syncthreads();
   float part = 0.0f;
-  for (int r = threadIdx.x; r < R; r += blockDim.x) part += out[r] * c_of(r);
-  const float wl = block_sum(part, red);
+  for (int t = threadIdx.x; t < rows.count(); t += blockDim.x) {
+    const int r = rows.at(t);
+    part += out[r] * c_of(r);
+  }
+  const float wl_part = block_sum(part, red);
 
   // GP input gradient: the backward chain on the interpolate rows
   const float* v = nullptr;  // null: Wo broadcast over the rows
@@ -417,50 +511,58 @@ __device__ void critic(const Args& a, const float* big, int in, int H, int nl,
   for (int i = nl - 1; i >= 0; --i) {
     const float* Di = Ds + (size_t)i * R * H + (size_t)2 * B * H;
     float* wi = wgp + (size_t)i * B * H;
-    for (int idx = threadIdx.x; idx < B * H; idx += blockDim.x) {
+    for (int idx = threadIdx.x; idx < brows.nb * H; idx += blockDim.x) {
+      const size_t o = (size_t)brows.b0 * H + idx;
       const int j = idx % H;
-      wi[idx] = (v ? v[idx] : Wo[j]) * Di[idx];
+      wi[o] = (v ? v[o] : Wo[j]) * Di[o];
     }
     __syncthreads();
     const int din = d_in(i);
     float* vn = vbuf[i & 1];
-    for (int idx = threadIdx.x; idx < B * din; idx += blockDim.x) {
-      const int r = idx / din, k = idx - r * din;
+    for (int idx = threadIdx.x; idx < brows.nb * din; idx += blockDim.x) {
+      const int o = brows.b0 * din + idx;
+      const int r = o / din, k = o - r * din;
       float acc = 0.0f;
       for (int j = 0; j < H; ++j)
         acc = fmaf(wi[(size_t)r * H + j], Wl[i][(size_t)j * din + k], acc);
-      vn[idx] = acc;
+      vn[o] = acc;
     }
     __syncthreads();
     v = vn;
   }
   float* g = vbuf[0];  // the chain ends at i = 0
   part = 0.0f;
-  for (int idx = threadIdx.x; idx < B * in; idx += blockDim.x)
-    part += g[idx] * g[idx];
-  const float gn = sqrtf(block_sum(part, red) + kGpEps);
-  const float gd = gn - 1.0f;
-  if (threadIdx.x == 0) *loss = wl + kGpWeight * (gd * gd);
+  for (int idx = threadIdx.x; idx < brows.nb * in; idx += blockDim.x) {
+    const float gv = g[(size_t)brows.b0 * in + idx];
+    part += gv * gv;
+  }
+  const float gsq_part = block_sum(part, red);
+  if (threadIdx.x == 0) {
+    scal[rank] = wl_part;
+    scal[kClusterBlocks + rank] = gsq_part;
+  }
 
-  // wl-path gradients: backprop of the cotangent c
+  // wl-path gradient partials: backprop of the cotangent c over the owned
+  // rows; they need no other rank's data, so they run before the barrier
   for (int idx = threadIdx.x; idx <= H; idx += blockDim.x) {
     float acc = 0.0f;
-    if (idx < H) {
-      for (int r = 0; r < R; ++r)
+    if (idx < H)
+      each_row(rows, [&](int r) {
         acc = fmaf(c_of(r), hL[(size_t)r * H + idx], acc);
-      gW[nl][idx] = acc;
-    } else {
-      for (int r = 0; r < R; ++r) acc += c_of(r);
-      gb[nl][0] = acc;
-    }
+      });
+    else
+      each_row(rows, [&](int r) { acc += c_of(r); });
+    my_wl[off[nl] + idx] = acc;
   }
   float* ebuf[2] = {e0, e1};
   const float* e = nullptr;  // null: the per-row cotangent c (R, 1)
   for (int i = nl - 1; i >= 0; --i) {
     const float* Di = Ds + (size_t)i * R * H;
     float* en = ebuf[i & 1];
-    for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
-      const int r = idx / H, j = idx - r * H;
+    for (int idx = threadIdx.x; idx < rows.count() * H; idx += blockDim.x) {
+      const int t = idx / H, j = idx - t * H;
+      const int r = rows.at(t);
+      const size_t o = (size_t)r * H + j;
       float acc;
       if (e) {
         acc = 0.0f;
@@ -470,7 +572,7 @@ __device__ void critic(const Args& a, const float* big, int in, int H, int nl,
       } else {
         acc = c_of(r) * Wo[j];
       }
-      en[idx] = acc * Di[idx];
+      en[o] = acc * Di[o];
     }
     __syncthreads();
     const float* hp = h_in(i);
@@ -479,23 +581,37 @@ __device__ void critic(const Args& a, const float* big, int in, int H, int nl,
       float acc = 0.0f;
       if (idx < H * din) {
         const int j = idx / din, k = idx - j * din;
-        for (int r = 0; r < R; ++r)
+        each_row(rows, [&](int r) {
           acc = fmaf(en[(size_t)r * H + j], hp[(size_t)r * din + k], acc);
-        gW[i][idx] = acc;
+        });
       } else {
         const int j = idx - H * din;
-        for (int r = 0; r < R; ++r) acc += en[(size_t)r * H + j];
-        gb[i][j] = acc;
+        each_row(rows, [&](int r) { acc += en[(size_t)r * H + j]; });
       }
+      my_wl[off[i] + idx] = acc;
     }
     __syncthreads();
     e = en;
   }
 
-  // GP-path gradients: the forward chain run on u_0 = 20 (gn - 1) / gn * g
+  // Barrier 1: every rank's wl and sum g^2 partials are written.
+  cg::this_cluster().sync();
+  float wl = __ldcg(scal), gsq = __ldcg(scal + kClusterBlocks);
+  for (int q = 1; q < kClusterBlocks; ++q) {
+    wl = wl + __ldcg(scal + q);
+    gsq = gsq + __ldcg(scal + kClusterBlocks + q);
+  }
+  const float gn = sqrtf(gsq + kGpEps);
+  const float gd = gn - 1.0f;
+  if (rank == 0 && threadIdx.x == 0) *loss = wl + kGpWeight * (gd * gd);
+
+  // GP-path gradient partials: the forward chain run on
+  // u_0 = 20 (gn - 1) / gn * g over the owned batch rows
   const float coef = (2.0f * kGpWeight * gd) / gn;
-  for (int idx = threadIdx.x; idx < B * in; idx += blockDim.x)
-    g[idx] = coef * g[idx];
+  for (int idx = threadIdx.x; idx < brows.nb * in; idx += blockDim.x) {
+    const size_t o = (size_t)brows.b0 * in + idx;
+    g[o] = coef * g[o];
+  }
   __syncthreads();
   float* u = g;
   for (int i = 0; i < nl; ++i) {
@@ -506,18 +622,19 @@ __device__ void critic(const Args& a, const float* big, int in, int H, int nl,
     for (int idx = threadIdx.x; idx < H * din; idx += blockDim.x) {
       const int j = idx / din, k = idx - j * din;
       float acc = 0.0f;
-      for (int r = 0; r < B; ++r)
+      each_row(brows, [&](int r) {
         acc = fmaf(wi[(size_t)r * H + j], u[(size_t)r * din + k], acc);
-      gW[i][idx] = gW[i][idx] + acc;
+      });
+      my_gp[off[i] + idx] = acc;
     }
-    for_row_tiles(u, B, din, tile, [&](int r0, int n, int ld) {
+    for_row_tiles(u, brows, din, tile, [&](int t0, int n, int ld) {
       for (int idx = threadIdx.x; idx < n * H; idx += blockDim.x) {
         const int j = idx / n, r = idx - j * n;
         const float* x = tile + r * ld;
         const float* w = Wl[i] + (size_t)j * din;
         float acc = 0.0f;
         for (int k = 0; k < din; ++k) acc = fmaf(x[k], w[k], acc);
-        const size_t o = (size_t)(r0 + r) * H + j;
+        const size_t o = (size_t)brows.at(t0 + r) * H + j;
         un[o] = Di[o] * acc;
       }
     });
@@ -526,33 +643,66 @@ __device__ void critic(const Args& a, const float* big, int in, int H, int nl,
   }
   for (int j = threadIdx.x; j < H; j += blockDim.x) {
     float acc = 0.0f;
-    for (int r = 0; r < B; ++r) acc += u[(size_t)r * H + j];
-    gW[nl][j] = gW[nl][j] + acc;
+    each_row(brows, [&](int r) { acc += u[(size_t)r * H + j]; });
+    my_gp[off[nl] + j] = acc;
   }
-  __syncthreads();
+
+  // Barrier 2: every partial is written. Each gradient entry has one owner
+  // thread in the cluster, which adds the ranks' partials in rank order:
+  // (wl-path sum) + (GP-path sum) for a weight, the wl-path sum for a bias.
+  // Entry f of the flat (P,) layout belongs to cluster thread f mod
+  // (kClusterBlocks blockDim). The layer loop has a constant bound, so the
+  // pointer arrays stay in registers.
+  cg::this_cluster().sync();
+  const int me = rank * blockDim.x + threadIdx.x;
+  const int stride = kClusterBlocks * blockDim.x;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    if (i > nl) break;
+    const int wsize = i < nl ? H * d_in(i) : H;
+    for (int f = off[i] + ((me - off[i]) % stride + stride) % stride;
+         f < off[i + 1]; f += stride) {
+      const int k = f - off[i];
+      float acc = __ldcg(wlp + f);
+      for (int q = 1; q < kClusterBlocks; ++q)
+        acc = acc + __ldcg(wlp + (size_t)q * P + f);
+      if (k < wsize) {
+        float gp = __ldcg(gpp + f);
+        for (int q = 1; q < kClusterBlocks; ++q)
+          gp = gp + __ldcg(gpp + (size_t)q * P + f);
+        gW[i][k] = acc + gp;
+      } else {
+        gb[i][k - wsize] = acc;
+      }
+    }
+  }
 }
 
+// Blocks [0, kClusterBlocks) form cluster 0 (the decoder, then critic_x),
+// the rest cluster 1 (the encoder, then critic_z).
 __global__ void __launch_bounds__(kThreads) critic_step_kernel(Args a) {
   __shared__ float red[kWarps + 1];
   __shared__ float tile[kTileRows * (kMaxIn + 1)];  // 33,024 bytes
+  const int rank = (int)cg::this_cluster().block_rank();
+  const Rows rows = rank_rows(a.B, rank, 1);
   float* ws = static_cast<float*>(a.p[WS]);
   float* loss = static_cast<float*>(a.p[LOSS]);
-  if (blockIdx.x == 0) {
+  if (blockIdx.x < kClusterBlocks) {
     float* bigx = static_cast<float*>(a.p[BIGX]);
     float* cws = ws;
     if (a.full)
-      decoder_side(a, cws + critic_ws(3 * a.B, a.B, a.W, a.Hx, 4), bigx,
-                   tile);
-    critic(a, bigx, a.W, a.Hx, 4, CX, GCX,
+      decoder_side(a, rows, cws + critic_ws(3 * a.B, a.B, a.W, a.Hx, 4),
+                   bigx, tile);
+    critic(a, rank, bigx, a.W, a.Hx, 4, CX, GCX,
            static_cast<const uint8_t*>(a.p[MCX]), kCxKeep, +1.0f, loss, cws,
            red, tile);
   } else {
     float* bigz = static_cast<float*>(a.p[BIGZ]);
     float* cws = ws + side_x_ws(a);
     if (a.full)
-      encoder_side(a, cws + critic_ws(3 * a.B, a.B, a.L, a.Hz, 2), bigz,
-                   tile);
-    critic(a, bigz, a.L, a.Hz, 2, CZ, GCZ,
+      encoder_side(a, rows, cws + critic_ws(3 * a.B, a.B, a.L, a.Hz, 2),
+                   bigz, tile);
+    critic(a, rank, bigz, a.L, a.Hz, 2, CZ, GCZ,
            static_cast<const uint8_t*>(a.p[MCZ]), kCzKeep, -1.0f, loss + 1,
            cws, red, tile);
   }
@@ -579,12 +729,27 @@ bool fill(Args* a, void* const* ptrs, const int* dims, int full,
                    2 * a->Hd <= kMaxIn && 2 * a->He <= kMaxIn);
 }
 
+// Two clusters of kClusterBlocks blocks. A refused launch (a cluster the
+// card cannot place, for one) comes back as its error code.
 int launch(void* const* ptrs, const int* dims, int full, int hyperbolic,
            void* stream) {
   Args a;
   if (!fill(&a, ptrs, dims, full, hyperbolic)) return cudaErrorInvalidValue;
-  critic_step_kernel<<<2, kThreads, 0, (cudaStream_t)stream>>>(a);
-  return cudaGetLastError();
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = kClusterBlocks;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * kClusterBlocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, critic_step_kernel, a);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
 }
 
 }  // namespace
@@ -604,9 +769,16 @@ extern "C" long long critic_step_workspace_floats(const int* dims) {
   return (long long)total_ws(a);
 }
 
+// The launch shape of K4 and K5: clusters, blocks a cluster, threads a block.
+extern "C" void critic_step_launch_shape(int* shape) {
+  shape[0] = 2;
+  shape[1] = kClusterBlocks;
+  shape[2] = kThreads;
+}
+
 // K4: both critics' losses and gradients from bigx, bigz, mx, mz. `ptrs`
 // holds the 70 slots of `Slot` (the generator slots are not read). Returns
-// cudaGetLastError() after the launch on `stream`.
+// the launch's error code (cudaGetLastError() after it) on `stream`.
 extern "C" int critics_fused_grads_forward(void* const* ptrs, const int* dims,
                                            void* stream) {
   return launch(ptrs, dims, 0, 0, stream);

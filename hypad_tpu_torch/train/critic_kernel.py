@@ -71,7 +71,12 @@ def critic_step_plain(model, x, draws, hyperbolic):
 def _lib():
     from hypad_tpu_torch import _build
 
-    lib = _build.load("critic_step")
+    return bind(_build.load("critic_step"))
+
+
+def bind(lib):
+    """Set the argument and result types of a library built from
+    ``csrc/critic_step.cu``; returns it."""
     lib.critic_step_workspace_floats.argtypes = [ctypes.c_void_p]
     lib.critic_step_workspace_floats.restype = ctypes.c_longlong
     lib.critics_fused_grads_forward.argtypes = [ctypes.c_void_p] * 3
@@ -80,6 +85,14 @@ def _lib():
                                              + [ctypes.c_int, ctypes.c_void_p])
     lib.critic_step_full_forward.restype = ctypes.c_int
     return lib
+
+
+def launch_shape():
+    """(clusters, blocks a cluster, threads a block) of a K4 or K5 launch,
+    as ``csrc/critic_step.cu`` sets them; builds the library if needed."""
+    shape = (ctypes.c_int * 3)()
+    _lib().critic_step_launch_shape(shape)
+    return tuple(shape)
 
 
 def _check(name, device, **tensors):

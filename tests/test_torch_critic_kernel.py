@@ -75,7 +75,7 @@ def test_k4_wrapper_matches_jax_kernel(hyperbolic, B):
 
 
 @pytest.mark.parametrize("hyperbolic,B", [(True, 16), (False, 16),
-                                          (True, 13)])
+                                          (True, 13), (True, 3)])
 def test_k5_wrapper_matches_jax_kernel(hyperbolic, B):
     """K5 (generator forwards, then both critics) from the same weights and
     draws: losses within 5e-5 relative / 2e-6 absolute, gradients within
@@ -114,3 +114,23 @@ def test_wrappers_check_their_inputs():
         tck.critics_fused_grads(model["critic_x"], model["critic_z"],
                                 torch.zeros(W, 24).T, torch.zeros(24, LATENT),
                                 t["m_cx"], t["m_cz"])
+
+
+def test_profile_tool_rewrites_only_the_cluster_size(tmp_path):
+    """profile_critic_step builds csrc/critic_step.cu at other cluster
+    sizes by replacing its constant; only a size above the portable 8 also
+    allows non-portable clusters, and a baseline source comes first."""
+    from hypad_tpu_torch import profile_critic_step as pcs
+
+    base = tmp_path / "old.cu"
+    base.write_text("// another kernel\n")
+    src = pcs.variant_sources(base, [1, 8, 16])
+    assert list(src) == ["baseline", "cluster1", "cluster8", "cluster16"]
+    assert src["baseline"] == "// another kernel\n"
+    shipped = (pcs._build.CSRC / "critic_step.cu").read_text()
+    assert src["cluster8"] == shipped
+    for n in (1, 16):
+        assert f"constexpr int kClusterBlocks = {n};" in src[f"cluster{n}"]
+        assert pcs.SHIPPED not in src[f"cluster{n}"]
+    assert pcs.NON_PORTABLE not in src["cluster1"]
+    assert src["cluster16"].count(pcs.NON_PORTABLE) == 1

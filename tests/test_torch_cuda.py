@@ -113,11 +113,13 @@ def _assert_bitwise(a, b):
 
 
 @pytest.mark.parametrize("hyperbolic,B", [(True, 64), (False, 64),
-                                          (True, 13)])
+                                          (True, 13), (True, 3),
+                                          (True, 100)])
 def test_critic_step_kernels_match_autograd(cuda, hyperbolic, B):
     """K5 and K4 against their plain autograd versions on the card, within
     the JAX tests' tolerances (tests/test_critic_kernel.py:83-93, :113-122),
-    two launches bitwise equal, one count per launch."""
+    two launches bitwise equal, one count per launch. B = 3 leaves most of
+    a cluster's blocks without rows; B = 100 splits the rows unevenly."""
     from hypad_tpu_torch.train import critic_kernel as ck
 
     model, x, d = _critic_case(cuda, hyperbolic, B)
@@ -127,6 +129,7 @@ def test_critic_step_kernels_match_autograd(cuda, hyperbolic, B):
     again = ck.critic_step_fused_full(model, x, d, hyperbolic)
     torch.cuda.synchronize()
     assert ck.critic_step_fused_full.launches == before + 2
+    assert ck.launch_shape() == (2, 8, 512)  # 2 clusters of 8 blocks
     _assert_critic_close(got, want, dict(rtol=5e-5, atol=2e-6),
                          dict(rtol=1e-4, atol=1e-6))
     _assert_bitwise(got, again)
