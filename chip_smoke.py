@@ -8,12 +8,21 @@ Phases, each failing loudly (a failed check raises and the exit code is not
 0):
 
 1. build: compile the hand-written kernels in hypad_tpu_torch/csrc with nvcc
-   (one process per source, all at once) and print the ptxas report;
+   (one process per source, all at once) and print the ptxas report; an
+   empty kernel (the launch-to-end yardstick) and, where a parent commit's
+   sources are unpacked under _checkout/parent (gitignored), the parent's
+   K1 build in the same round;
 2. kernels against their plain PyTorch versions on the card: the fused
-   MobiusLinear forward at the detect and training shapes (max abs diff
-   <= 1e-6); the two KDE argmax kernels, K2 and K3 (use flags bitwise,
-   values at tie level: a differing value is a sample of its own row, at
-   most 1% of rows differ), and K3 against K2 at tie level;
+   MobiusLinear forward (K1) at the detect and training shapes (max abs
+   diff <= 1e-6; the diff to the parent's K1 printed where it was built);
+   K2, whose one launch also takes the masked-median fallback (use flags
+   bitwise, fallback rows bitwise ``masked_median``, NaN where it is NaN,
+   values elsewhere at tie level: a differing value is a sample of its own
+   row, at most 1% of rows differ; also with NaNs in the critic and at row
+   widths 1, 4 and 5; ``kde_argmax_rows_fused("v1")`` launches K2 alone,
+   no sort, as the profiler shows); K3 as before (use flags bitwise,
+   values at tie level), and K3 against K2 at tie level; the checks of
+   K1 and K2 are ``profile_kernels``' own;
    and the critic-step kernels K5 and K4, each launched as 2 clusters of 8
    blocks, against their plain autograd versions (B = 64 hyperbolic, B = 64
    Euclidean, B = 13, B = 3 with fewer rows than a cluster's blocks, B =
@@ -55,7 +64,9 @@ Phases, each failing loudly (a failed check raises and the exit code is not
 8. timing: warm detect throughput (hyperbolic under K2 and K3, Euclidean
    for each rec_error), warm epoch seconds for each ``fused_critics``
    value, and each kernel's time beside its plain version's and its bound
-   at the path's shapes;
+   at the path's shapes (K1 at the detect shape and at the generator
+   step's two, beside an empty kernel; cuBLAS's f32 x @ w.T as an
+   informative line, not K1's function);
 9. report: one JSON line of the kernels, the card's name and power limit,
    and last the JSON line the GPU check reads.
 
@@ -88,31 +99,33 @@ EPOCH_TOL = dict(rtol=5e-3, atol=2e-4)   # tests/test_critic_kernel.py:227-236
 K4_TOL = (dict(rtol=2e-5, atol=1e-6), dict(rtol=5e-5, atol=5e-7))   # :83-93
 K5_TOL = (dict(rtol=5e-5, atol=2e-6), dict(rtol=1e-4, atol=1e-6))   # :113-122
 OUT_DIR = Path("chiprun_out")
+# a parent commit's kernels, unpacked with ``git archive`` (gitignored); K1
+# is held against its parent's where they are present
+PARENT_CSRC = Path("_checkout/parent/hypad_tpu_torch/csrc")
 
 
 def fail(message):
     raise SystemExit(f"chip_smoke: FAILED: {message}")
 
 
-def tie_flips(got, want, vals, mask):
-    """Rows where the KDE argmax picked another value; raises unless every
-    such value is a sample of its own row and at most 1% of rows differ."""
-    got, want = got.cpu().numpy(), want.cpu().numpy()
-    v, m = vals.cpu().numpy(), mask.cpu().numpy()
-    rows = [int(i) for i in (got != want).nonzero()[0]]
-    foreign = [i for i in rows if got[i] not in v[i][m[i]]]
-    if foreign:
-        fail(f"KDE argmax rows {foreign[:10]} hold no sample of their row")
-    if len(rows) > max(1, int(0.01 * len(got))):
-        fail(f"KDE argmax differs on {len(rows)} of {len(got)} rows")
-    return len(rows)
-
-
 def phase_build():
-    from hypad_tpu_torch import _build
+    """Build the kernels, an empty kernel (the launch-to-end yardstick) and,
+    where a parent commit is unpacked at PARENT_CSRC, the parent's K1 and
+    K3, all nvcc processes at once. Returns {name: library} of the extra
+    builds."""
+    import ctypes
 
+    from hypad_tpu_torch import _build
+    from hypad_tpu_torch.profile_critic_step import variant_jobs
+    from hypad_tpu_torch.profile_kernels import EMPTY_SOURCE
+
+    extra = {"empty": EMPTY_SOURCE}
+    for name in ("mobius_linear", "kde_argmax_v2"):
+        if (PARENT_CSRC / f"{name}.cu").is_file():
+            extra[f"{name}_parent"] = (PARENT_CSRC / f"{name}.cu").read_text()
     t0 = time.perf_counter()
-    report = _build.build()
+    extra_jobs = variant_jobs(extra)
+    report = _build.build(extra_jobs=extra_jobs)
     seconds = time.perf_counter() - t0
     for name in _build.KERNEL_SOURCES:
         _build.load(name)
@@ -120,25 +133,53 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
-    print(f"[build] {len(report)} kernel sources built in {seconds:.2f} s "
-          f"(all nvcc processes at once)")
+    print(f"[build] {len(report)} sources built in {seconds:.2f} s (all nvcc "
+          f"processes at once); parent K1 and K3 "
+          f"{'from ' + str(PARENT_CSRC) if len(extra) > 1 else 'not present'}")
+    return {name: ctypes.CDLL(str(lib)) for name, (_, lib) in
+            extra_jobs.items()}
 
 
-def phase_kernels(device):
+def kde_case(device, n, width, runs, nans=False):
+    """(vals, mask, label) of ``profile_kernels.k2_case``: a seeded
+    critic's anti-diagonal rows, critic[10:runs] set to 0.5 (zero-variance
+    rows, the median fallback, where a run is longer than the window), and
+    with ``nans`` NaNs in the critic (fallback rows whose middle ranks fall
+    on the masked entries' fill or on the NaNs)."""
+    from hypad_tpu_torch.profile_kernels import k2_case
+
+    vals, mask = k2_case(n, width, runs, device, nans)
+    label = (f"T={vals.shape[0]} W={width}"
+             f"{f' constant run of {runs - 10}' if runs else ''}"
+             f"{' NaNs' if nans else ''}")
+    return vals, mask, label
+
+
+def kernels_launched(fn):
+    """Names of the device kernels that ``fn()`` launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def phase_kernels(device, libs):
     """K1, K2 and K3 against their plain versions at the shapes of the
-    detect and training paths and at the edge cases; returns the largest K1
-    diff and the K2 and K3 tie flips summed over the cases."""
+    detect and training paths and at the edge cases, and K1 against the
+    parent's where it was built; returns the largest K1 diffs (plain,
+    parent) and the K2 and K3 tie flips summed over the cases."""
     import torch
 
     from hypad_tpu_torch.data.pipeline import A1_BATCH_SIZE as TRAIN_BATCH
-    from hypad_tpu_torch.manifold.kernels import (
-        mobius_linear,
-        mobius_linear_kernel,
-    )
+    from hypad_tpu_torch.manifold import kernels as mk
     from hypad_tpu_torch.models.tadgan import init_tadgan
     from hypad_tpu_torch.ops.kde import (
         kde_argmax_rows,
-        kde_argmax_rows_parts,
         kde_argmax_rows_v2_parts,
     )
     from hypad_tpu_torch.ops.kde_kernel import (
@@ -146,9 +187,22 @@ def phase_kernels(device):
         kde_argmax_rows_fused,
         kde_argmax_v2_kernel,
     )
-    from hypad_tpu_torch.ops.unroll import antidiagonal_gather, masked_median
+    from hypad_tpu_torch.ops.unroll import masked_median
+    from hypad_tpu_torch.profile_kernels import (
+        check_k1,
+        check_k2,
+        same_values,
+        tie_flips,
+    )
 
-    k1_err = 0.0
+    from hypad_tpu_torch.ops import kde_kernel as kk
+
+    parent = libs.get("mobius_linear_parent")
+    parent_fn = mk.bind(parent) if parent is not None else None
+    parent_k3 = libs.get("kde_argmax_v2_parent")
+    if parent_k3 is not None:
+        parent_k3 = kk.bind(parent_k3, "kde_argmax_v2_forward")
+    k1_err, k1_parent = 0.0, None
     # detect: the decoder head and the target embedding on every window;
     # train: the generator step's decoder head on 2B rows and target
     # embedding on B rows; then an odd shape and a huge weight (the clamps)
@@ -162,56 +216,80 @@ def phase_kernels(device):
         w = (head.w.detach() * w_scale).contiguous()
         b = head.b.detach()
         x = (torch.rand(rows, dim, generator=gen) * 2 - 1).to(device)
-        got = mobius_linear_kernel(x, w, b)
+        got = mk.mobius_linear_kernel(x, w, b)
+        parent_got = (None if parent_fn is None
+                      else mk.launch_with(parent_fn, x, w, b))
         torch.cuda.synchronize()
-        err = (got - mobius_linear(x, w, b)).abs().max().item()
-        print(f"[kernels] K1 mobius_linear ({rows}, {dim}) x ({dim}, {dim})"
-              f"{' w x 1e6' if w_scale != 1.0 else ''}: max abs diff {err:.3e}")
-        if not err <= 1e-6:
-            fail(f"K1 differs from its plain version by {err}")
+        case = (f"({rows}, {dim}) x ({dim}, {dim})"
+                f"{' w x 1e6' if w_scale != 1.0 else ''}")
+        err, d = check_k1(got, x, w, b, parent_got, case)
+        vs_parent = ""
+        if d is not None:
+            k1_parent = max(k1_parent or 0.0, d)
+            vs_parent = f"; {d:.3e} from the parent's kernel"
+        print(f"[kernels] K1 mobius_linear {case}: max abs diff {err:.3e}"
+              f"{vs_parent}")
         k1_err = max(k1_err, err)
 
+    # K2 emits the final value (the median on fallback rows) in one launch;
+    # K3 is checked on the first four cases, as before
     flips_total = {"kde_argmax": 0, "kde_argmax_v2": 0}
-    for n, width, const in ((N_WINDOWS, WIDTH, False), (700, 64, False),
-                            (300, WIDTH, True)):
-        critic = torch.randn(n, generator=torch.Generator().manual_seed(n))
-        if const:
-            critic[10:40] = 0.5  # zero-variance rows: the median fallback
-        vals, mask = antidiagonal_gather(critic.to(device)[:, None]
-                                         .expand(n, width))
-        case = (f"T={vals.shape[0]} W={width}"
-                f"{' constant runs' if const else ''}")
-        results = {}
-        for name, kernel, plain, version in (
-                ("kde_argmax", kde_argmax_kernel, kde_argmax_rows_parts,
-                 "v1"),
-                ("kde_argmax_v2", kde_argmax_v2_kernel,
-                 kde_argmax_rows_v2_parts, "v2")):
-            kde_val, use = kernel(vals, mask)
-            fused = kde_argmax_rows_fused(vals, mask, version)
-            torch.cuda.synchronize()
-            want_val, want_use = plain(vals, mask)
-            if not torch.equal(use, want_use):
-                fail(f"{name} use flags differ from the plain version's at "
-                     f"{case}")
-            flips = tie_flips(kde_val, want_val, vals, mask)
-            tie_flips(fused, torch.where(want_use, want_val,
-                                         masked_median(vals, mask)),
-                      vals, mask)
-            fallback = int((~use).sum().item())
-            print(f"[kernels] {name} {case}: {flips} tie flips against its "
-                  f"plain version, {fallback} rows on the median fallback")
-            flips_total[name] += flips
-            results[name] = (kde_val, use)
-        if not torch.equal(results["kde_argmax"][1],
-                           results["kde_argmax_v2"][1]):
+    for n, width, runs, nans, with_k3 in (
+            (N_WINDOWS, WIDTH, 0, False, True), (700, 64, 0, False, True),
+            (300, WIDTH, 40, False, True), (300, WIDTH, 250, False, False),
+            (300, WIDTH, 0, True, False), (300, 1, 0, False, False),
+            (300, 4, 0, False, False), (300, 5, 0, False, False)):
+        vals, mask, case = kde_case(device, n, width, runs, nans)
+        before = kde_argmax_kernel.launches
+        value, use = kde_argmax_kernel(vals, mask)
+        fused = kde_argmax_rows_fused(vals, mask, "v1")
+        torch.cuda.synchronize()
+        if kde_argmax_kernel.launches != before + 2:
+            fail(f"K2 launched {kde_argmax_kernel.launches - before} times "
+                 f"for two calls at {case}")
+        if not same_values(fused, value):
+            fail(f"kde_argmax_rows_fused 'v1' differs from K2 at {case}")
+        rec = check_k2(value, use, vals, mask, case=case)
+        flips = rec["flips_vs_plain"]
+        print(f"[kernels] kde_argmax {case}: use flags bitwise; "
+              f"{rec['fallback_rows']} rows on the median fallback, bitwise "
+              f"masked_median; {flips} tie flips against its plain version")
+        flips_total["kde_argmax"] += flips
+        if not with_k3:
+            continue
+        kde_val, use3 = kde_argmax_v2_kernel(vals, mask)
+        fused3 = kde_argmax_rows_fused(vals, mask, "v2")
+        torch.cuda.synchronize()
+        want_val, want_use3 = kde_argmax_rows_v2_parts(vals, mask)
+        if not torch.equal(use3, want_use3):
+            fail(f"kde_argmax_v2 use flags differ from the plain version's "
+                 f"at {case}")
+        flips = tie_flips(kde_val, want_val, vals, mask)
+        tie_flips(fused3, torch.where(want_use3, want_val,
+                                      masked_median(vals, mask)), vals, mask)
+        same = ""
+        if parent_k3 is not None:  # a header edit rebuilds K3: same bits
+            old_val, old_use = kk.launch_with(parent_k3, vals, mask)
+            if not (torch.equal(old_val, kde_val)
+                    and torch.equal(old_use, use3)):
+                fail(f"kde_argmax_v2 differs from the parent's K3 at {case}")
+            same = "; bitwise the parent's K3"
+        print(f"[kernels] kde_argmax_v2 {case}: {flips} tie flips against its "
+              f"plain version, {int((~use3).sum())} rows on the median "
+              f"fallback{same}")
+        flips_total["kde_argmax_v2"] += flips
+        if not torch.equal(use, use3):
             fail(f"K2 and K3 use flags differ at {case}")
-        cross = tie_flips(results["kde_argmax_v2"][0],
-                          results["kde_argmax"][0], vals, mask)
-        tie_flips(kde_argmax_rows_fused(vals, mask, "v2"),
-                  kde_argmax_rows(vals, mask), vals, mask)
+        cross = tie_flips(fused3, value, vals, mask)
+        tie_flips(fused3, kde_argmax_rows(vals, mask), vals, mask)
         print(f"[kernels] K3 against K2 {case}: {cross} tie flips")
-    return k1_err, flips_total
+
+    vals, mask, case = kde_case(device, N_WINDOWS, WIDTH, 0)
+    names = kernels_launched(lambda: kde_argmax_rows_fused(vals, mask, "v1"))
+    print(f"[kernels] kde_argmax_rows_fused 'v1' at {case} launches {names}")
+    if len(names) != 1 or "kde_argmax_kernel" not in names[0]:
+        fail(f"kde_argmax_rows_fused 'v1' launched {names}, not K2 alone")
+    return k1_err, k1_parent, flips_total
 
 
 def check_same_detection(got, want, known, tag="detect"):
@@ -808,20 +886,39 @@ def warm_detect_ms(calls, rounds=7):
     return walls
 
 
-def phase_timing(device, X, model, eucl_model):
+def k1_cost(rows, din, dout):
+    """(bytes, operations) of K1: x, W, b read once, out written once; the
+    product plus the ~16 f32 operations of the clamp chain per output."""
+    return (4 * (rows * din + dout * din + dout + rows * dout),
+            2 * rows * din * dout + 16 * rows * dout)
+
+
+def bound(k):
+    """Set k's bound_ms and bound_by from its bytes and ops."""
+    t_bytes = k["bytes"] / H100_BYTES_PER_S * 1e3
+    t_ops = k["ops"] / H100_F32_FLOP_PER_S * 1e3
+    k["bound_ms"] = max(t_bytes, t_ops)
+    k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return k
+
+
+def phase_timing(device, X, model, eucl_model, libs):
     """Warm detect throughput (hyperbolic under K2 and K3, Euclidean for
     each rec_error), and each detect kernel beside its plain version at the
-    path's shapes. Returns (throughputs, per-kernel timing dicts)."""
+    path's shapes: K1 at the detect shape and at the generator step's, with
+    an empty kernel's launch-to-end time beside them. Returns (throughputs,
+    per-kernel timing dicts)."""
     import numpy as np
     import torch
 
+    from hypad_tpu_torch.data.pipeline import A1_BATCH_SIZE as TRAIN_BATCH
     from hypad_tpu_torch.detect.scorer import _critic_antidiag, detect_scores
     from hypad_tpu_torch.manifold.kernels import (
         mobius_linear,
         mobius_linear_kernel,
     )
     from hypad_tpu_torch.ops.kde import (
-        kde_argmax_rows_parts,
+        kde_argmax_rows_and_use,
         kde_argmax_rows_v2_parts,
     )
     from hypad_tpu_torch.ops.kde_kernel import (
@@ -829,6 +926,7 @@ def phase_timing(device, X, model, eucl_model):
         kde_argmax_v2_kernel,
     )
     from hypad_tpu_torch.profile_detect import cuda_ms
+    from hypad_tpu_torch.profile_kernels import empty_launch, tie_flips
 
     def detect(m, hyperbolic, **kw):
         return lambda: detect_scores(m, X, hyperbolic, "mult",
@@ -850,17 +948,38 @@ def phase_timing(device, X, model, eucl_model):
 
     head = model["decoder"].hyperbolic_linear
     w, b = head.w.detach(), head.b.detach()
+    empty = empty_launch(libs["empty"].empty_forward)
     with torch.inference_mode():
         Xt = torch.as_tensor(X, device=device)
         critic = model["critic_x"](Xt)[:, 0]
         vals, mask = _critic_antidiag(critic, N_WINDOWS, WIDTH)
-        k1 = {"ms": cuda_ms(lambda: mobius_linear_kernel(Xt, w, b), 200),
-              "plain_ms": cuda_ms(lambda: mobius_linear(Xt, w, b), 50)}
-        k1["max_abs_err"] = (mobius_linear_kernel(Xt, w, b)
-                             - mobius_linear(Xt, w, b)).abs().max().item()
+        empty_ms = cuda_ms(empty, 200)
+        print(f"[timing] an empty kernel, launch to end: {empty_ms:.5f} ms")
+        by_shape = {}
+        for rows in (N_WINDOWS, 2 * TRAIN_BATCH, TRAIN_BATCH):
+            x = Xt[:rows].contiguous()
+            k = {"ms": cuda_ms(lambda: mobius_linear_kernel(x, w, b), 200),
+                 "plain_ms": cuda_ms(lambda: mobius_linear(x, w, b), 50),
+                 "max_abs_err": (mobius_linear_kernel(x, w, b)
+                                 - mobius_linear(x, w, b)).abs().max().item()}
+            k["bytes"], k["ops"] = k1_cost(rows, x.shape[1], w.shape[0])
+            by_shape[f"({rows}, {WIDTH})"] = bound(k)
+            print(f"[timing] K1 mobius_linear ({rows}, {WIDTH}): kernel "
+                  f"{k['ms']:.5f} ms ({k['ms'] / empty_ms:.2f}x an empty "
+                  f"kernel), plain {k['plain_ms']:.5f} ms, bound "
+                  f"{k['bound_ms']:.6f} ms ({k['bound_by']})")
+        k1 = dict(by_shape[f"({N_WINDOWS}, {WIDTH})"], ms_by_shape={
+            shape: {key: k[key] for key in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by")}
+            for shape, k in by_shape.items()}, empty_kernel_ms=empty_ms)
+        k1["max_abs_err"] = max(k["max_abs_err"] for k in by_shape.values())
+        cublas_ms = cuda_ms(lambda: Xt @ w.T, 200)
+        print(f"[timing] informative, not K1's function: cuBLAS f32 x @ w.T "
+              f"at ({N_WINDOWS}, {WIDTH}) x ({WIDTH}, {WIDTH}): "
+              f"{cublas_ms:.5f} ms")
         kde = {}
         for name, kernel, plain in (
-                ("kde_argmax", kde_argmax_kernel, kde_argmax_rows_parts),
+                ("kde_argmax", kde_argmax_kernel, kde_argmax_rows_and_use),
                 ("kde_argmax_v2", kde_argmax_v2_kernel,
                  kde_argmax_rows_v2_parts)):
             k = {"ms": cuda_ms(lambda: kernel(vals, mask), 50),
@@ -871,39 +990,27 @@ def phase_timing(device, X, model, eucl_model):
             k["max_abs_err"] = (got - want).abs().max().item()
             kde[name] = k
     k2, k3 = kde["kde_argmax"], kde["kde_argmax_v2"]
+    k1["cublas_matmul_ms"] = cublas_ms
 
-    rows, din = Xt.shape
-    dout = w.shape[0]
-    # x, W, b read once, out written once; the product plus the ~16 f32
-    # operations of the clamp chain per output lane
-    k1["bytes"] = 4 * (rows * din + dout * din + dout + rows * dout)
-    k1["ops"] = 2 * rows * din * dout + 16 * rows * dout
-    # vals (f32) and mask (bool) read once, kde_val (f32) and use (bool)
-    # written once. K2, per ordered pair of samples of a row: difference,
-    # square, scale, exp, sum; K3, per unordered pair: the same and one
-    # more sum; both plus ~8 operations per sample for mean and variance
+    # vals (f32) and mask (bool) read once, value (f32) and use (bool)
+    # written once. Both kernels compute each unordered pair of samples of
+    # a row once: difference, square, scale, exp and two sums; plus ~8
+    # operations per sample for mean and variance (K2's in-kernel median
+    # touches the few fallback rows only)
     cnt = mask.sum(dim=1).double()
     pairs = (cnt * (cnt - 1) / 2).sum().item()
     for k in (k2, k3):
         k["bytes"] = 5 * vals.numel() + 5 * vals.shape[0]
-    k2["exps"] = int((cnt * cnt).sum().item())
-    k2["ops"] = int(5 * k2["exps"] + 8 * cnt.sum().item())
-    k3["exps"] = int(pairs)
-    k3["ops"] = int(6 * pairs + 8 * cnt.sum().item())
-    for k in (k1, k2, k3):
-        t_bytes = k["bytes"] / H100_BYTES_PER_S * 1e3
-        t_ops = k["ops"] / H100_F32_FLOP_PER_S * 1e3
-        k["bound_ms"] = max(t_bytes, t_ops)
-        k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    for k in (k2, k3):
+        k["exps"] = int(pairs)
+        k["ops"] = int(6 * pairs + 8 * cnt.sum().item())
+        bound(k)
         k["sfu_ms"] = k["exps"] / H100_SFU_EXP_PER_S * 1e3
-    for name, k in (("K1 mobius_linear", k1), ("K2 kde_argmax", k2),
+    for name, k in (("K2 kde_argmax, median fallback included", k2),
                     ("K3 kde_argmax_v2", k3)):
-        sfu = (f"; SFU estimate {k['sfu_ms']:.5f} ms for {k['exps']} exps"
-               if "sfu_ms" in k else "")
         print(f"[timing] {name}: kernel {k['ms']:.5f} ms, plain "
               f"{k['plain_ms']:.5f} ms, bound {k['bound_ms']:.5f} ms "
-              f"({k['bound_by']}: {k['bytes']} bytes, {k['ops']} ops){sfu}")
+              f"({k['bound_by']}: {k['bytes']} bytes, {k['ops']} ops); SFU "
+              f"estimate {k['sfu_ms']:.5f} ms for {k['exps']} exps")
     if not np.isfinite([k1["ms"], k2["ms"], k3["ms"]]).all():
         fail("a kernel time is not finite")
     return wps, k1, k2, k3
@@ -933,15 +1040,15 @@ def main():
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_start = time.perf_counter()
 
-    phase_build()
-    k1_err, kde_flips = phase_kernels(device)
+    libs = phase_build()
+    k1_err, k1_parent, kde_flips = phase_kernels(device, libs)
     k45_err = phase_critic_kernels(device)
     launches, X, model = phase_main_path(device)
     eucl_launches, eucl_model = phase_eucl_detect(device)
     train = phase_train(device)
     eucl_train = phase_eucl_train(device)
     phase_staged(device, X, eucl_model, model)
-    wps, k1, k2, k3 = phase_timing(device, X, model, eucl_model)
+    wps, k1, k2, k3 = phase_timing(device, X, model, eucl_model, libs)
     epochs, k4, k5 = phase_train_timing(device, train["X"])
     paths = {"detect": launches,
              **{f"detect_euclidean_{r}": eucl_launches[r]
@@ -963,9 +1070,13 @@ def main():
          "launches_per_call": launches["mobius_linear"],
          "launches_by_path": by_path["mobius_linear"],
          "max_abs_err": max(k1_err, k1["max_abs_err"]),
+         "max_abs_diff_to_parent_kernel": k1_parent,
          "tolerance": "max abs diff <= 1e-6",
          "ms": k1["ms"], "kernel_ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "ms_by_shape": k1["ms_by_shape"],
+         "empty_kernel_ms": k1["empty_kernel_ms"],
+         "cublas_matmul_ms_informative": k1["cublas_matmul_ms"],
          "library_ms": None},
         {"name": "kde_argmax", "route": "cuda",
          "source": "hypad_tpu_torch/csrc/kde_argmax.cu",
@@ -974,8 +1085,10 @@ def main():
          "launches_per_call": launches["kde_argmax"],
          "launches_by_path": by_path["kde_argmax"],
          "max_abs_err": k2["max_abs_err"],
-         "tolerance": "tie level: a differing value is a sample of its own "
-                      "row, at most 1% of rows differ",
+         "tolerance": "use flags bitwise; fallback rows bitwise "
+                      "masked_median; elsewhere tie level: a differing value "
+                      "is a sample of its own row, at most 1% of rows differ",
+         "median_fallback": "in the kernel, one launch",
          "tie_flips": k2["tie_flips"],
          "edge_case_tie_flips": kde_flips["kde_argmax"],
          "exps": k2["exps"], "sfu_ms": k2["sfu_ms"],

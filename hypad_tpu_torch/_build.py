@@ -44,14 +44,16 @@ def library_path(name) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names=KERNEL_SOURCES):
-    """Compile every source in ``names`` that has no current library, all
-    ``nvcc`` processes at once. Returns {name: (seconds, ptxas report)};
-    raises with the compiler's output if any build fails."""
+def build(names=KERNEL_SOURCES, extra_jobs=None):
+    """Compile every source in ``names`` that has no current library, and
+    the ``compile_sources`` jobs in ``extra_jobs``, all ``nvcc`` processes
+    at once. Returns {name: (seconds, ptxas report)}; raises with the
+    compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    return compile_sources({name: (CSRC / f"{name}.cu", library_path(name))
-                            for name in names
-                            if not library_path(name).exists()})
+    return compile_sources({**{name: (CSRC / f"{name}.cu", library_path(name))
+                               for name in names
+                               if not library_path(name).exists()},
+                            **(extra_jobs or {})})
 
 
 def compile_sources(jobs):

@@ -132,10 +132,36 @@ def _critic_antidiag(critic, n_windows, width):
     return antidiagonal_gather(critic[:, None].expand(n_windows, width))
 
 
+def quartiles(x):
+    """(0.25, 0.75) quantiles of the 1-D ``x`` from one sort, interpolated
+    linearly as ``jnp.quantile`` does: n taken in f32, pos = q * (n - 1)
+    (within [0, n - 1], so no clamp is needed), floor and ceil, lo * (1 -
+    frac) + hi * frac; NaN if any entry is NaN. Unlike ``torch.quantile``
+    it takes more than 2^24 elements. The positions depend on n alone, so
+    they are computed on the host in f32 and no copy to the device stalls
+    the stream.
+
+    XLA's CPU code contracts the last step into fma(hi, frac, lo * (1 -
+    frac)). The f64 sum below computes that fma for f32 inputs (the f32
+    product is exact in f64; the sum is rounded to f64, then to f32), and
+    gave jnp.quantile's bits at every length from 1 to 2,999 tried."""
+    s = torch.sort(x).values
+    n = np.float32(x.shape[0])
+    out = []
+    for q in (np.float32(0.25), np.float32(0.75)):
+        pos = q * (n - np.float32(1))
+        lo, hi = np.floor(pos), np.ceil(pos)
+        frac = pos - lo
+        low = s[int(lo)] * float(np.float32(1) - frac)
+        out.append((s[int(hi)].double() * float(frac) + low.double())
+                   .to(x.dtype))
+    # NaNs sort last, so the largest entry is NaN when any is
+    return torch.where(torch.isnan(s[-1]), s[-1], torch.stack(out))
+
+
 def _critic_scores_from_kde(kde_max, smooth_window):
     """IQR mean, population std, |z| + 1, centred rolling mean."""
-    lq = torch.quantile(kde_max, 0.25)
-    uq = torch.quantile(kde_max, 0.75)
+    lq, uq = quartiles(kde_max)
     in_range = (kde_max >= lq) & (kde_max <= uq)
     mean = torch.sum(torch.where(in_range, kde_max, 0.0)) / torch.sum(in_range)
     std = kde_max.std(correction=0)

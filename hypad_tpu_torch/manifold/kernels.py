@@ -56,16 +56,36 @@ def _check(x, w, b):
                          f"[1, {MAX_DIM}], got {x.shape[1]}, {w.shape[0]}")
 
 
-@functools.cache
-def _lib():
-    from hypad_tpu_torch import _build
-
-    lib = _build.load("mobius_linear")
+def bind(lib):
+    """``mobius_linear_forward`` of a library built from
+    ``csrc/mobius_linear.cu`` (or a source of the same interface), with its
+    argument types set."""
     fn = lib.mobius_linear_forward
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _lib():
+    from hypad_tpu_torch import _build
+
+    return bind(_build.load("mobius_linear"))
+
+
+def launch_with(fn, x, w, b):
+    """Launch the bound entry ``fn`` on checked CUDA tensors; returns the
+    output. Raises on a CUDA error."""
+    out = torch.empty((x.shape[0], w.shape[0]), dtype=torch.float32,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 x.shape[0], x.shape[1], w.shape[0], stream)
+    if err != 0:
+        raise RuntimeError(f"mobius_linear_forward failed: CUDA error {err}")
+    return out
 
 
 def mobius_linear_kernel(x, w, b):
@@ -78,15 +98,7 @@ def mobius_linear_kernel(x, w, b):
     if x.device.type != "cuda":
         raise ValueError(f"mobius_linear_kernel: unsupported device "
                          f"{x.device}")
-    out = torch.empty((x.shape[0], w.shape[0]), dtype=torch.float32,
-                      device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib()(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                     out.data_ptr(), x.shape[0], x.shape[1], w.shape[0],
-                     stream)
-    if err != 0:
-        raise RuntimeError(f"mobius_linear_forward failed: CUDA error {err}")
+    out = launch_with(_lib(), x, w, b)
     mobius_linear_kernel.launches += 1
     return out
 

@@ -6,7 +6,9 @@ n^-0.4) evaluated at those same samples; the sample where the density peaks
 (first-max-wins), or the masked median when the row has one sample or zero
 variance. The scale-multiply form (``scale = -0.5 / h2``, then
 ``scale * diff^2``) and the 1e18 masked-entry sentinel are kept as they are
-there. This is the plain version of the kernel in ``ops/kde_kernel.py``.
+there. ``kde_argmax_rows_and_use`` is the plain version of the K2 kernel
+in ``ops/kde_kernel.py``: the value with the fallback folded in, and the
+use flag.
 
 ``kde_argmax_rows_v2_parts`` is the plain version of the second kernel
 there: the same densities summed by offset, one exp per symmetric pair, as
@@ -75,8 +77,15 @@ def kde_argmax_rows_v2_parts(vals, mask):
     return torch.gather(vals, -1, arg[:, None])[:, 0], (cnt > 1) & (var > 0)
 
 
+def kde_argmax_rows_and_use(vals, mask, block=1024):
+    """(value, use_kde) per row: the density-argmax sample where the KDE
+    applies, else the masked median; and where it applies. The plain
+    version of the K2 kernel's output (``ops/kde_kernel.py``)."""
+    kde_val, use_kde = kde_argmax_rows_parts(vals, mask, block)
+    return torch.where(use_kde, kde_val, masked_median(vals, mask)), use_kde
+
+
 def kde_argmax_rows(vals, mask, block=1024):
     """Per-row KDE-argmax sample. vals (T, W) float, mask (T, W) bool ->
     (T,). Rows where the KDE does not apply take the masked median."""
-    kde_val, use_kde = kde_argmax_rows_parts(vals, mask, block)
-    return torch.where(use_kde, kde_val, masked_median(vals, mask))
+    return kde_argmax_rows_and_use(vals, mask, block)[0]

@@ -1,14 +1,16 @@
 """KDE argmax through the hand-written CUDA kernels ``csrc/kde_argmax.cu``
 (K2) and ``csrc/kde_argmax_v2.cu`` (K3).
 
-Counterpart of ``hypad_tpu.ops.kde_pallas.kde_argmax_rows_pallas``: each
-kernel emits each row's density-argmax sample and its use flag; the
-masked-median fallback, which needs a sort, stays outside the kernels. K2
-replaces the Pallas v1 kernel (``hypad_tpu/ops/kde_pallas.py:42``), which
-sums the full (W, W) pair tensor; K3 replaces v2 (``:91``), which computes
-each symmetric pair's exp once. On a CUDA tensor a wrapper launches its
-kernel (or raises); on a CPU tensor it runs the plain version,
-``hypad_tpu_torch.ops.kde.kde_argmax_rows_parts`` or
+Counterpart of ``hypad_tpu.ops.kde_pallas.kde_argmax_rows_pallas``. K2
+replaces the Pallas v1 kernel (``hypad_tpu/ops/kde_pallas.py:42``) and the
+masked-median fallback that JAX takes outside it (``:230-235``): it emits
+each row's final value (the density-argmax sample, or the masked median
+where the KDE does not apply) and its use flag, in one launch and with no
+sort. K3 replaces v2 (``:91``), which computes each symmetric pair's exp
+once; it emits the density-argmax sample and the use flag, and the median
+fallback stays outside it. On a CUDA tensor a wrapper launches its kernel
+(or raises); on a CPU tensor it runs the plain version,
+``hypad_tpu_torch.ops.kde.kde_argmax_rows_and_use`` or
 ``kde_argmax_rows_v2_parts``.
 
 A kernel's densities agree with its plain version's to within ulps, so
@@ -24,7 +26,7 @@ import functools
 import torch
 
 from hypad_tpu_torch.ops.kde import (
-    kde_argmax_rows_parts,
+    kde_argmax_rows_and_use,
     kde_argmax_rows_v2_parts,
 )
 from hypad_tpu_torch.ops.unroll import masked_median
@@ -51,43 +53,49 @@ def _check(vals, mask, name):
                          f"got {vals.shape[1]}")
 
 
-@functools.cache
-def _lib(source, symbol):
-    from hypad_tpu_torch import _build
-
-    fn = getattr(_build.load(source), symbol)
+def bind(lib, symbol):
+    """The entry ``symbol`` of a library built from a KDE kernel source,
+    with its argument types set."""
+    fn = getattr(lib, symbol)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(source, symbol, vals, mask):
-    """Launch ``symbol`` of ``csrc/<source>.cu`` on CUDA tensors; returns
+@functools.cache
+def _lib(source, symbol):
+    from hypad_tpu_torch import _build
+
+    return bind(_build.load(source), symbol)
+
+
+def launch_with(fn, vals, mask):
+    """Launch the bound entry ``fn`` on checked CUDA tensors; returns
     (kde_val, use). Raises on an unsupported device or a CUDA error."""
     if vals.device.type != "cuda":
-        raise ValueError(f"{symbol}: unsupported device {vals.device}")
+        raise ValueError(f"{fn.__name__}: unsupported device {vals.device}")
     T, W = vals.shape
     kde_val = torch.empty(T, dtype=torch.float32, device=vals.device)
     use = torch.empty(T, dtype=torch.bool, device=vals.device)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib(source, symbol)(vals.data_ptr(), mask.data_ptr(),
-                                   kde_val.data_ptr(), use.data_ptr(), T, W,
-                                   stream)
+        err = fn(vals.data_ptr(), mask.data_ptr(), kde_val.data_ptr(),
+                 use.data_ptr(), T, W, stream)
     if err != 0:
-        raise RuntimeError(f"{symbol} failed: CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
     return kde_val, use
 
 
 def kde_argmax_kernel(vals, mask):
-    """(kde_val (T,) float32, use_kde (T,) bool) of each row: through
-    ``csrc/kde_argmax.cu`` (K2) for CUDA tensors, through the plain
-    :func:`kde_argmax_rows_parts` for CPU tensors."""
+    """(value (T,) float32, use_kde (T,) bool) of each row, the value the
+    density-argmax sample where use_kde holds and the masked median where it
+    does not: through ``csrc/kde_argmax.cu`` (K2) for CUDA tensors, through
+    the plain :func:`kde_argmax_rows_and_use` for CPU tensors."""
     _check(vals, mask, "kde_argmax_kernel")
     if vals.device.type == "cpu":
-        return kde_argmax_rows_parts(vals, mask)
-    out = _launch("kde_argmax", "kde_argmax_forward", vals, mask)
+        return kde_argmax_rows_and_use(vals, mask)
+    out = launch_with(_lib("kde_argmax", "kde_argmax_forward"), vals, mask)
     kde_argmax_kernel.launches += 1
     return out
 
@@ -102,7 +110,8 @@ def kde_argmax_v2_kernel(vals, mask):
     _check(vals, mask, "kde_argmax_v2_kernel")
     if vals.device.type == "cpu":
         return kde_argmax_rows_v2_parts(vals, mask)
-    out = _launch("kde_argmax_v2", "kde_argmax_v2_forward", vals, mask)
+    out = launch_with(_lib("kde_argmax_v2", "kde_argmax_v2_forward"), vals,
+                      mask)
     kde_argmax_v2_kernel.launches += 1
     return out
 
@@ -111,15 +120,15 @@ kde_argmax_v2_kernel.launches = 0
 
 
 def kde_argmax_rows_fused(vals, mask, version="v1"):
-    """Per-row KDE-argmax sample with the masked-median fallback outside the
-    kernel. ``version`` picks the kernel as JAX's
-    ``kde_argmax_rows_pallas(version=...)`` does: "v1" K2, "v2" K3. vals
-    (T, W) float32, mask (T, W) bool -> (T,)."""
+    """Per-row KDE-argmax sample with the masked-median fallback. ``version``
+    picks the kernel as JAX's ``kde_argmax_rows_pallas(version=...)`` does:
+    "v1" K2, one launch with the fallback inside; "v2" K3, with the
+    fallback's sort outside. vals (T, W) float32, mask (T, W) bool ->
+    (T,)."""
     if version == "v1":
-        kde_val, use_kde = kde_argmax_kernel(vals, mask)
-    elif version == "v2":
-        kde_val, use_kde = kde_argmax_v2_kernel(vals, mask)
-    else:
+        return kde_argmax_kernel(vals, mask)[0]
+    if version != "v2":
         raise ValueError(f"unknown kde_version {version!r}; expected one of "
                          f"{KDE_VERSIONS}")
+    kde_val, use_kde = kde_argmax_v2_kernel(vals, mask)
     return torch.where(use_kde, kde_val, masked_median(vals, mask))

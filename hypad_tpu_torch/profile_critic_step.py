@@ -55,21 +55,34 @@ def variant_sources(baseline, sizes):
     return out
 
 
-def build(sources):
-    """{name: ctypes library}, all nvcc processes at once; prints each
-    variant's ptxas lines."""
+def variant_jobs(sources):
+    """``_build.compile_sources`` jobs of {name: CUDA source text}: each
+    text written to ``_build/variants/<name>.cu`` (so ``csrc/`` is its
+    include path), its library beside it."""
     OUT.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name, text in sources.items():
         src = OUT / f"{name}.cu"
         src.write_text(text)
         jobs[name] = (src, OUT / f"lib{name}.so")
+    return jobs
+
+
+def compile_variants(sources):
+    """{name: ctypes.CDLL} of {name: CUDA source text}, built with all nvcc
+    processes at once; prints each variant's ptxas lines."""
+    jobs = variant_jobs(sources)
     for name, (_, log) in _build.compile_sources(jobs).items():
         for line in log.splitlines():
             if "registers" in line or "stack frame" in line:
                 print(f"[build] {name}: {line.strip()}")
-    return {name: ck.bind(ctypes.CDLL(str(lib)))
-            for name, (_, lib) in jobs.items()}
+    return {name: ctypes.CDLL(str(lib)) for name, (_, lib) in jobs.items()}
+
+
+def build(sources):
+    """{name: bound critic-step library} of {name: source text}."""
+    return {name: ck.bind(lib)
+            for name, lib in compile_variants(sources).items()}
 
 
 def launcher(lib, fn, ptrs, dims, extra):

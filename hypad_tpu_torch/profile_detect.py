@@ -55,9 +55,7 @@ def stage_times(model, X, device, reps=20, kde_version="v1"):
     order."""
     from hypad_tpu_torch.detect import scorer
     from hypad_tpu_torch.manifold import stereographic as st
-    from hypad_tpu_torch.ops.unroll import masked_median
 
-    kernel = _kde_kernel(kde_version)
     n, width = X.shape
     smooth = max(math.trunc(n * 0.01), 1)
     with torch.inference_mode():
@@ -68,8 +66,7 @@ def stage_times(model, X, device, reps=20, kde_version="v1"):
         hyper_x = model["decoder"].hyperbolic_linear(Xt)
         rec = st.acosh_poincare_distance(hyper, hyper_x)
         vals, mask = scorer._critic_antidiag(critic, n, width)
-        kde_val, use = kernel(vals, mask)
-        kde_max = torch.where(use, kde_val, masked_median(vals, mask))
+        kde_max, kde_stages = _kde_stages(kde_version, vals, mask)
         critic_scores = scorer._critic_scores_from_kde(kde_max, smooth)[:n]
         scores = scorer._combine_device("mult", critic_scores, rec, hyper)
         stages = {
@@ -84,9 +81,7 @@ def stage_times(model, X, device, reps=20, kde_version="v1"):
                                                                  hyper_x),
             "anti-diagonal skew": lambda: scorer._critic_antidiag(critic, n,
                                                                   width),
-            f"KDE argmax ({_KDE_NAMES[kde_version]})":
-                lambda: kernel(vals, mask),
-            "masked median (sort)": lambda: masked_median(vals, mask),
+            **kde_stages,
             "IQR mean, std, rolling mean":
                 lambda: scorer._critic_scores_from_kde(kde_max, smooth),
             "combine (mult)": lambda: scorer._combine_device(
@@ -149,14 +144,23 @@ def profile_calls(call, calls, tag, chrome_trace=True):
     return top, busy_share, wall_ms
 
 
-_KDE_NAMES = {"v1": "K2", "v2": "K3"}
-
-
-def _kde_kernel(kde_version):
+def _kde_stages(kde_version, vals, mask):
+    """(kde_max, {stage: fn}) of the KDE step: "v1" is K2 alone, which
+    takes the median fallback inside; "v2" is K3, then the fallback's
+    sort."""
     from hypad_tpu_torch.ops import kde_kernel
+    from hypad_tpu_torch.ops.unroll import masked_median
 
-    return {"v1": kde_kernel.kde_argmax_kernel,
-            "v2": kde_kernel.kde_argmax_v2_kernel}[kde_version]
+    if kde_version == "v1":
+        kernel = kde_kernel.kde_argmax_kernel
+        return kernel(vals, mask)[0], {
+            "KDE argmax and median fallback (K2, one launch)":
+                lambda: kernel(vals, mask)}
+    kernel = kde_kernel.kde_argmax_v2_kernel
+    kde_val, use = kernel(vals, mask)
+    return torch.where(use, kde_val, masked_median(vals, mask)), {
+        "KDE argmax (K3)": lambda: kernel(vals, mask),
+        "masked median (sort)": lambda: masked_median(vals, mask)}
 
 
 def eucl_stage_times(model, X, device, rec_error, kde_version="v2",
@@ -170,13 +174,8 @@ def eucl_stage_times(model, X, device, rec_error, kde_version="v2",
         rolling_trapz_centered,
         zscore,
     )
-    from hypad_tpu_torch.ops.unroll import (
-        masked_median,
-        true_series,
-        unroll_median,
-    )
+    from hypad_tpu_torch.ops.unroll import true_series, unroll_median
 
-    kernel = _kde_kernel(kde_version)
     n, width = X.shape
     smooth = max(math.trunc(n * 0.01), 1)
     raw_error = {
@@ -194,8 +193,7 @@ def eucl_stage_times(model, X, device, rec_error, kde_version="v2",
         smoothed = rolling_mean_centered(errors, smooth, max(smooth // 2, 1))
         rec = zscore(smoothed).clamp_min(0.0) + 1.0
         vals, mask = scorer._critic_antidiag(critic, n, width)
-        kde_val, use = kernel(vals, mask)
-        kde_max = torch.where(use, kde_val, masked_median(vals, mask))
+        kde_max, kde_stages = _kde_stages(kde_version, vals, mask)
         critic_scores = scorer._critic_scores_from_kde(kde_max, smooth)
         scores = critic_scores * rec
         stages = {
@@ -212,9 +210,7 @@ def eucl_stage_times(model, X, device, rec_error, kde_version="v2",
                     errors, smooth, max(smooth // 2, 1))).clamp_min(0.0),
             "anti-diagonal skew": lambda: scorer._critic_antidiag(critic, n,
                                                                   width),
-            f"KDE argmax ({_KDE_NAMES[kde_version]})":
-                lambda: kernel(vals, mask),
-            "masked median (sort)": lambda: masked_median(vals, mask),
+            **kde_stages,
             "IQR mean, std, rolling mean":
                 lambda: scorer._critic_scores_from_kde(kde_max, smooth),
             "combine (mult)": lambda: critic_scores * rec,

@@ -7,13 +7,17 @@ import torch
 
 from hypad_tpu_torch.manifold.kernels import mobius_linear, mobius_linear_kernel
 from hypad_tpu_torch.models.tadgan import init_tadgan
-from hypad_tpu_torch.ops.kde import kde_argmax_rows, kde_argmax_rows_v2_parts
+from hypad_tpu_torch.ops.kde import (
+    kde_argmax_rows,
+    kde_argmax_rows_and_use,
+    kde_argmax_rows_v2_parts,
+)
 from hypad_tpu_torch.ops.kde_kernel import (
     kde_argmax_kernel,
     kde_argmax_rows_fused,
     kde_argmax_v2_kernel,
 )
-from hypad_tpu_torch.ops.unroll import antidiagonal_gather
+from hypad_tpu_torch.ops.unroll import antidiagonal_gather, masked_median
 
 pytestmark = pytest.mark.cuda
 
@@ -28,7 +32,9 @@ def cuda():
 
 
 @pytest.mark.parametrize("B,D,scale", [(20000, 100, 1.0), (130, 64, 1.0),
-                                       (8, 100, 1e6), (1, 128, 1.0)])
+                                       (8, 100, 1e6), (1, 128, 1.0),
+                                       (128, 100, 1.0), (64, 100, 1.0),
+                                       (50000, 100, 1.0)])
 def test_mobius_linear_kernel_matches_plain(cuda, B, D, scale):
     g = torch.Generator().manual_seed(B)
     model = init_tadgan(g, D, hyperbolic=True, device=cuda)
@@ -43,20 +49,40 @@ def test_mobius_linear_kernel_matches_plain(cuda, B, D, scale):
     assert (got - want).abs().max().item() <= 1e-6
 
 
-@pytest.mark.parametrize("N,W,const", [(20000, 100, False), (700, 64, False),
-                                       (300, 100, True), (50, 100, False)])
-def test_kde_argmax_kernel_matches_plain_at_tie_level(cuda, N, W, const):
+@pytest.mark.parametrize("N,W,const,nans", [
+    (20000, 100, False, False), (700, 64, False, False),
+    (300, 100, True, False), (50, 100, False, False),
+    (300, 100, False, True), (300, 1, False, False), (300, 4, False, False),
+    (300, 5, False, False)])
+def test_kde_argmax_kernel_matches_plain_at_tie_level(cuda, N, W, const,
+                                                      nans):
+    """K2 on the card: use flags bitwise, fallback rows bitwise
+    masked_median (NaN where it is NaN: with NaNs in the critic, middle
+    ranks fall on the masked entries' fill and on the NaNs), the other
+    rows at tie level; row widths down to 1, where a block is under a
+    warp of row blocks."""
     critic = torch.randn(N, generator=torch.Generator().manual_seed(N))
     if const:
         critic[10:40] = 0.5
+    if nans:
+        critic[:2] = critic[100:200] = float("nan")
     vals, mask = antidiagonal_gather(critic.to(cuda)[:, None].expand(N, W))
     before = kde_argmax_kernel.launches
     got = kde_argmax_rows_fused(vals, mask)
     torch.cuda.synchronize()
     assert kde_argmax_kernel.launches == before + 1
     want = kde_argmax_rows(vals, mask)
+    _, use = kde_argmax_kernel(vals, mask)
+    _, want_use = kde_argmax_rows_and_use(vals, mask)
+    assert torch.equal(use, want_use)
+    torch.testing.assert_close(got[~use], masked_median(vals, mask)[~use],
+                               rtol=0, atol=0, equal_nan=True)
+    if nans:
+        assert torch.isnan(got[~use]).any() and torch.isinf(got[~use]).any()
+    got, want = got[use], want[use]
     diff = torch.nonzero(got != want)[:, 0].cpu().numpy()
-    v, m, g = vals.cpu().numpy(), mask.cpu().numpy(), got.cpu().numpy()
+    v, m, g = (vals[use].cpu().numpy(), mask[use].cpu().numpy(),
+               got.cpu().numpy())
     assert all(g[i] in v[i][m[i]] for i in diff)
     assert len(diff) <= max(1, int(0.01 * len(g)))
 
@@ -72,14 +98,16 @@ def test_kde_argmax_v2_kernel_matches_plain_at_tie_level(cuda, N, W, const):
     vals, mask = antidiagonal_gather(critic.to(cuda)[:, None].expand(N, W))
     before = kde_argmax_v2_kernel.launches
     got, use = kde_argmax_v2_kernel(vals, mask)
-    k2, _ = kde_argmax_kernel(vals, mask)
+    k2 = kde_argmax_rows_fused(vals, mask, "v1")  # K2 folds in the median
     torch.cuda.synchronize()
     assert kde_argmax_v2_kernel.launches == before + 1
     want, want_use = kde_argmax_rows_v2_parts(vals, mask)
     assert torch.equal(use, want_use)
-    v, m, g = vals.cpu().numpy(), mask.cpu().numpy(), got.cpu().numpy()
-    for other in (want, k2):
-        diff = torch.nonzero(got != other)[:, 0].cpu().numpy()
+    fused = torch.where(use, got, masked_median(vals, mask))
+    v, m = vals.cpu().numpy(), mask.cpu().numpy()
+    for mine, other in ((got, want), (fused, k2)):
+        g = mine.cpu().numpy()
+        diff = torch.nonzero(mine != other)[:, 0].cpu().numpy()
         assert all(g[i] in v[i][m[i]] for i in diff)
         assert len(diff) <= max(1, int(0.01 * len(g)))
 

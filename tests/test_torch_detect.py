@@ -53,6 +53,28 @@ def test_zscore_is_population():
     np.testing.assert_allclose(got, (x - x.mean()) / x.std(), rtol=1e-12)
 
 
+@pytest.mark.parametrize("n", [1, 2, 7, 100, 1000, 20099, 2**24 + 1])
+def test_quartiles_match_jnp_quantile(n):
+    """The IQR's quartiles from one sort, bitwise jnp.quantile's, also above
+    2^24 elements where torch.quantile raises (there n rounds to 2^24 in
+    f32, as in jnp.quantile). The large vector comes sorted, which both
+    sorts take faster; the small ones do not."""
+    x = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    if n > 2**24:
+        x = np.sort(x)
+    got = ts.quartiles(torch.from_numpy(x)).numpy()
+    want = jnp.quantile(jnp.asarray(x),
+                        jnp.asarray([0.25, 0.75], jnp.float32))
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_quartiles_are_nan_with_a_nan():
+    x = np.random.default_rng(0).standard_normal(11).astype(np.float32)
+    x[4] = np.nan
+    assert np.isnan(ts.quartiles(torch.from_numpy(x)).numpy()).all()
+    assert np.isnan(np.asarray(jnp.quantile(jnp.asarray(x), 0.25)))
+
+
 @pytest.mark.parametrize("N,W", [(300, 32), (90, 100)])
 def test_critic_scores_core_matches_jax(N, W):
     critic = np.random.default_rng(N).standard_normal(N).astype(np.float32)

@@ -13,6 +13,7 @@ from hypad_tpu.ops.unroll import antidiagonal_gather as jax_antidiag
 from hypad_tpu.ops.unroll import masked_median as jax_median
 from hypad_tpu_torch.ops.kde import (
     kde_argmax_rows,
+    kde_argmax_rows_and_use,
     kde_argmax_rows_parts,
     kde_argmax_rows_v2_parts,
 )
@@ -70,6 +71,32 @@ def test_kde_argmax_matches_jax_and_pallas(N, W, const):
                  kde_argmax_rows_pallas(jv, jm, interpret=True,
                                         version="v2")):
         assert_tie_level_equal(got, np.asarray(want), vals, mask)
+
+
+@pytest.mark.parametrize("N,W,const", [(300, 100, True), (50, 100, False),
+                                       (700, 64, False), (1, 8, False)])
+def test_kde_value_and_use_match_pallas_v1(N, W, const):
+    """The plain version of K2's one-launch output (value with the median
+    fallback folded in, and the use flag) against JAX's v1 Pallas kernel in
+    interpret mode: the use flags bitwise, the fallback rows bitwise, the
+    rest at tie level."""
+    from hypad_tpu.ops.kde_pallas import _pallas_kde
+
+    vals, mask = _antidiag(N, W, constant_runs=const)
+    got, use = kde_argmax_rows_and_use(vals, mask)
+    jv, jm = jnp.asarray(vals.numpy()), jnp.asarray(mask.numpy())
+    want = np.asarray(kde_argmax_rows_pallas(jv, jm, interpret=True,
+                                             version="v1"))
+    want_use = np.asarray(_pallas_kde(jv, jm, interpret=True)[1])
+    got, use = got.numpy(), use.numpy()
+    np.testing.assert_array_equal(use, want_use)
+    assert (~use).any()  # the edge rows hold one sample each
+    np.testing.assert_array_equal(got[~use], want[~use])
+    assert_tie_level_equal(got, want, vals, mask)
+    before = kde_argmax_kernel.launches
+    for a, b in zip(kde_argmax_kernel(vals, mask), (got, use)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    assert kde_argmax_kernel.launches == before
 
 
 def test_kde_argmax_blocks_do_not_change_the_result():
@@ -154,3 +181,36 @@ def test_kde_fused_rejects_an_unknown_version():
     vals, mask = _antidiag(50, 64)
     with pytest.raises(ValueError, match="kde_version"):
         kde_argmax_rows_fused(vals, mask, version="v3")
+
+
+def test_masked_median_with_nans_matches_jax():
+    """The fallback K2 computes in the kernel, on rows holding NaNs: masked
+    entries filled with the f32 maximum and NaNs sorted last, as JAX's
+    masked_median sorts them (NaN where it is NaN)."""
+    c = _critic(300)
+    c[:2] = c[100:200] = np.nan
+    y = np.ascontiguousarray(np.broadcast_to(c[:, None], (300, 100)))
+    vals, mask = antidiagonal_gather(torch.from_numpy(y))
+    got = masked_median(vals, mask).numpy()
+    want = np.asarray(jax_median(jnp.asarray(vals.numpy()),
+                                 jnp.asarray(mask.numpy())))
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(got).any() and np.isinf(got).any()
+
+
+@pytest.mark.parametrize("W,nans", [(100, True), (1, False), (4, False),
+                                    (5, False)])
+def test_k2_check_holds_fallback_rows_bitwise(W, nans):
+    """``profile_kernels.check_k2``, which holds K2 on the card: the plain
+    output passes, a fallback row off by one ulp fails."""
+    from hypad_tpu_torch.profile_kernels import check_k2, k2_case
+
+    vals, mask = k2_case(300, W, device="cpu", nans=nans)
+    value, use = kde_argmax_kernel(vals, mask)
+    rec = check_k2(value, use, vals, mask, (value, use), case="cpu")
+    assert rec["fallback_rows"] == int((~use).sum()) > 0
+    assert rec["flips_vs_plain"] == rec["flips_vs_baseline"] == 0
+    i = int(torch.nonzero(~use & torch.isfinite(value))[0, 0])
+    value[i] = torch.nextafter(value[i], torch.tensor(np.inf))
+    with pytest.raises(SystemExit, match="fallback rows differ"):
+        check_k2(value, use, vals, mask, case="cpu")

@@ -103,3 +103,21 @@ def test_build_compiles_every_kernel_source():
     sources = sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
     assert sorted(_build.KERNEL_SOURCES) == sources
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_build_compiles_extra_jobs_in_the_same_round(tmp_path, monkeypatch):
+    """``_build.build(extra_jobs=...)`` hands the stale kernel sources and
+    the extra jobs to one ``compile_sources`` round."""
+    from hypad_tpu_torch import _build
+
+    rounds = []
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "compile_sources",
+                        lambda jobs: rounds.append(dict(jobs)) or {})
+    extra = {"empty": (tmp_path / "empty.cu", tmp_path / "libempty.so")}
+    _build.build(extra_jobs=extra)
+    assert len(rounds) == 1
+    assert sorted(rounds[0]) == sorted([*_build.KERNEL_SOURCES, "empty"])
+    assert rounds[0]["empty"] == extra["empty"]
+    assert rounds[0]["kde_argmax"] == (_build.CSRC / "kde_argmax.cu",
+                                       _build.library_path("kde_argmax"))
