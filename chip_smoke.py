@@ -11,18 +11,20 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    (one process per source, all at once) and print the ptxas report; an
    empty kernel (the launch-to-end yardstick) and, where a parent commit's
    sources are unpacked under _checkout/parent (gitignored), the parent's
-   K1 build in the same round;
+   K1, K2 and K3 build in the same round;
 2. kernels against their plain PyTorch versions on the card: the fused
    MobiusLinear forward (K1) at the detect and training shapes (max abs
    diff <= 1e-6; the diff to the parent's K1 printed where it was built);
-   K2, whose one launch also takes the masked-median fallback (use flags
-   bitwise, fallback rows bitwise ``masked_median``, NaN where it is NaN,
-   values elsewhere at tie level: a differing value is a sample of its own
-   row, at most 1% of rows differ; also with NaNs in the critic and at row
-   widths 1, 4 and 5; ``kde_argmax_rows_fused("v1")`` launches K2 alone,
-   no sort, as the profiler shows); K3 as before (use flags bitwise,
-   values at tie level), and K3 against K2 at tie level; the checks of
-   K1 and K2 are ``profile_kernels``' own;
+   K2 and K3, each of whose one launch also takes the masked-median
+   fallback, on eight cases (the detect shape, W = 64, constant runs of 30
+   and 240, NaNs in the critic, row widths 1, 4 and 5): use flags bitwise,
+   fallback rows bitwise ``masked_median``, NaN where it is NaN, values
+   elsewhere at tie level (a differing value is a sample of its own row,
+   at most 1% of rows differ), the flips printed; K3 against K2 at tie
+   level; K2 bitwise the parent's K2 and K3 at tie level against the
+   parent's K3 (its kernel, then the fallback outside it) where built;
+   ``kde_argmax_rows_fused`` launches K2 ("v1") or K3 ("v2") alone, no
+   sort, as the profiler shows; the checks are ``profile_kernels``' own;
    and the critic-step kernels K5 and K4, each launched as 2 clusters of 8
    blocks, against their plain autograd versions (B = 64 hyperbolic, B = 64
    Euclidean, B = 13, B = 3 with fewer rows than a cluster's blocks, B =
@@ -110,21 +112,19 @@ def fail(message):
 
 def phase_build():
     """Build the kernels, an empty kernel (the launch-to-end yardstick) and,
-    where a parent commit is unpacked at PARENT_CSRC, the parent's K1 and
-    K3, all nvcc processes at once. Returns {name: library} of the extra
-    builds."""
+    where a parent commit is unpacked at PARENT_CSRC, the parent's K1, K2
+    and K3 (from where they lie, with the parent's headers), all nvcc
+    processes at once. Returns {name: library} of the extra builds."""
     import ctypes
 
     from hypad_tpu_torch import _build
     from hypad_tpu_torch.profile_critic_step import variant_jobs
-    from hypad_tpu_torch.profile_kernels import EMPTY_SOURCE
+    from hypad_tpu_torch.profile_kernels import EMPTY_SOURCE, baseline_jobs
 
-    extra = {"empty": EMPTY_SOURCE}
-    for name in ("mobius_linear", "kde_argmax_v2"):
-        if (PARENT_CSRC / f"{name}.cu").is_file():
-            extra[f"{name}_parent"] = (PARENT_CSRC / f"{name}.cu").read_text()
+    parent = PARENT_CSRC.is_dir()
+    extra_jobs = {**variant_jobs({"empty": EMPTY_SOURCE}),
+                  **(baseline_jobs(PARENT_CSRC, "parent") if parent else {})}
     t0 = time.perf_counter()
-    extra_jobs = variant_jobs(extra)
     report = _build.build(extra_jobs=extra_jobs)
     seconds = time.perf_counter() - t0
     for name in _build.KERNEL_SOURCES:
@@ -134,8 +134,8 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     print(f"[build] {len(report)} sources built in {seconds:.2f} s (all nvcc "
-          f"processes at once); parent K1 and K3 "
-          f"{'from ' + str(PARENT_CSRC) if len(extra) > 1 else 'not present'}")
+          f"processes at once); parent K1, K2 and K3 "
+          f"{'from ' + str(PARENT_CSRC) if parent else 'not present'}")
     return {name: ctypes.CDLL(str(lib)) for name, (_, lib) in
             extra_jobs.items()}
 
@@ -170,38 +170,39 @@ def kernels_launched(fn):
 
 def phase_kernels(device, libs):
     """K1, K2 and K3 against their plain versions at the shapes of the
-    detect and training paths and at the edge cases, and K1 against the
-    parent's where it was built; returns the largest K1 diffs (plain,
+    detect and training paths and at the edge cases, and against the
+    parent's where they were built; returns the largest K1 diffs (plain,
     parent) and the K2 and K3 tie flips summed over the cases."""
     import torch
 
     from hypad_tpu_torch.data.pipeline import A1_BATCH_SIZE as TRAIN_BATCH
     from hypad_tpu_torch.manifold import kernels as mk
     from hypad_tpu_torch.models.tadgan import init_tadgan
-    from hypad_tpu_torch.ops.kde import (
-        kde_argmax_rows,
-        kde_argmax_rows_v2_parts,
-    )
+    from hypad_tpu_torch.ops import kde_kernel as kk
     from hypad_tpu_torch.ops.kde_kernel import (
         kde_argmax_kernel,
         kde_argmax_rows_fused,
         kde_argmax_v2_kernel,
     )
-    from hypad_tpu_torch.ops.unroll import masked_median
     from hypad_tpu_torch.profile_kernels import (
+        bind_k3,
         check_k1,
         check_k2,
+        check_k3,
+        kernel_then_median,
         same_values,
         tie_flips,
     )
 
-    from hypad_tpu_torch.ops import kde_kernel as kk
-
     parent = libs.get("mobius_linear_parent")
     parent_fn = mk.bind(parent) if parent is not None else None
-    parent_k3 = libs.get("kde_argmax_v2_parent")
-    if parent_k3 is not None:
-        parent_k3 = kk.bind(parent_k3, "kde_argmax_v2_forward")
+    parent_k2 = parent_k3 = None
+    if "kde_argmax_parent" in libs:
+        parent_k2 = kk.bind(libs["kde_argmax_parent"], "kde_argmax_forward")
+        k3_fn, outside = bind_k3(libs, "parent")
+        parent_k3 = ((lambda v, m: kernel_then_median(k3_fn, v, m))
+                     if outside else
+                     (lambda v, m: kk.launch_with(k3_fn, v, m)))
     k1_err, k1_parent = 0.0, None
     # detect: the decoder head and the target embedding on every window;
     # train: the generator step's decoder head on 2B rows and target
@@ -231,64 +232,69 @@ def phase_kernels(device, libs):
               f"{vs_parent}")
         k1_err = max(k1_err, err)
 
-    # K2 emits the final value (the median on fallback rows) in one launch;
-    # K3 is checked on the first four cases, as before
+    # K2 and K3 each emit the final value (the median on fallback rows) in
+    # one launch
     flips_total = {"kde_argmax": 0, "kde_argmax_v2": 0}
-    for n, width, runs, nans, with_k3 in (
-            (N_WINDOWS, WIDTH, 0, False, True), (700, 64, 0, False, True),
-            (300, WIDTH, 40, False, True), (300, WIDTH, 250, False, False),
-            (300, WIDTH, 0, True, False), (300, 1, 0, False, False),
-            (300, 4, 0, False, False), (300, 5, 0, False, False)):
+    for n, width, runs, nans in (
+            (N_WINDOWS, WIDTH, 0, False), (700, 64, 0, False),
+            (300, WIDTH, 40, False), (300, WIDTH, 250, False),
+            (300, WIDTH, 0, True), (300, 1, 0, False), (300, 4, 0, False),
+            (300, 5, 0, False)):
         vals, mask, case = kde_case(device, n, width, runs, nans)
-        before = kde_argmax_kernel.launches
-        value, use = kde_argmax_kernel(vals, mask)
-        fused = kde_argmax_rows_fused(vals, mask, "v1")
-        torch.cuda.synchronize()
-        if kde_argmax_kernel.launches != before + 2:
-            fail(f"K2 launched {kde_argmax_kernel.launches - before} times "
-                 f"for two calls at {case}")
-        if not same_values(fused, value):
-            fail(f"kde_argmax_rows_fused 'v1' differs from K2 at {case}")
+        outs = {}
+        for name, kernel, version in (("kde_argmax", kde_argmax_kernel, "v1"),
+                                      ("kde_argmax_v2", kde_argmax_v2_kernel,
+                                       "v2")):
+            before = kernel.launches
+            value, use = kernel(vals, mask)
+            fused = kde_argmax_rows_fused(vals, mask, version)
+            torch.cuda.synchronize()
+            if kernel.launches != before + 2:
+                fail(f"{name} launched {kernel.launches - before} times for "
+                     f"two calls at {case}")
+            if not same_values(fused, value):
+                fail(f"kde_argmax_rows_fused {version!r} differs from "
+                     f"{name} at {case}")
+            outs[name] = (value, use)
+        (value, use), (value3, use3) = (outs["kde_argmax"],
+                                        outs["kde_argmax_v2"])
         rec = check_k2(value, use, vals, mask, case=case)
-        flips = rec["flips_vs_plain"]
+        same = ""
+        if parent_k2 is not None:
+            old = kk.launch_with(parent_k2, vals, mask)
+            if not (same_values(old[0], value) and torch.equal(old[1], use)):
+                fail(f"kde_argmax differs from the parent's K2 at {case}")
+            same = "; bitwise the parent's K2"
         print(f"[kernels] kde_argmax {case}: use flags bitwise; "
               f"{rec['fallback_rows']} rows on the median fallback, bitwise "
-              f"masked_median; {flips} tie flips against its plain version")
-        flips_total["kde_argmax"] += flips
-        if not with_k3:
-            continue
-        kde_val, use3 = kde_argmax_v2_kernel(vals, mask)
-        fused3 = kde_argmax_rows_fused(vals, mask, "v2")
-        torch.cuda.synchronize()
-        want_val, want_use3 = kde_argmax_rows_v2_parts(vals, mask)
-        if not torch.equal(use3, want_use3):
-            fail(f"kde_argmax_v2 use flags differ from the plain version's "
-                 f"at {case}")
-        flips = tie_flips(kde_val, want_val, vals, mask)
-        tie_flips(fused3, torch.where(want_use3, want_val,
-                                      masked_median(vals, mask)), vals, mask)
-        same = ""
-        if parent_k3 is not None:  # a header edit rebuilds K3: same bits
-            old_val, old_use = kk.launch_with(parent_k3, vals, mask)
-            if not (torch.equal(old_val, kde_val)
-                    and torch.equal(old_use, use3)):
-                fail(f"kde_argmax_v2 differs from the parent's K3 at {case}")
-            same = "; bitwise the parent's K3"
-        print(f"[kernels] kde_argmax_v2 {case}: {flips} tie flips against its "
-              f"plain version, {int((~use3).sum())} rows on the median "
-              f"fallback{same}")
-        flips_total["kde_argmax_v2"] += flips
+              f"masked_median; {rec['flips_vs_plain']} tie flips against its "
+              f"plain version{same}")
+        flips_total["kde_argmax"] += rec["flips_vs_plain"]
+        old3 = parent_k3(vals, mask) if parent_k3 is not None else None
+        rec3 = check_k3(value3, use3, vals, mask, old3, case)
+        vs_parent = ("" if old3 is None else
+                     f", {rec3['flips_vs_baseline']} against the parent's K3")
+        print(f"[kernels] kde_argmax_v2 {case}: use flags bitwise; "
+              f"{rec3['fallback_rows']} rows on the median fallback, bitwise "
+              f"masked_median; {rec3['flips_vs_plain']} tie flips against "
+              f"its plain version{vs_parent}")
+        flips_total["kde_argmax_v2"] += rec3["flips_vs_plain"]
         if not torch.equal(use, use3):
             fail(f"K2 and K3 use flags differ at {case}")
-        cross = tie_flips(fused3, value, vals, mask)
-        tie_flips(fused3, kde_argmax_rows(vals, mask), vals, mask)
-        print(f"[kernels] K3 against K2 {case}: {cross} tie flips")
+        cross = tie_flips(value3[use], value[use], vals[use], mask[use])
+        print(f"[kernels] K3 against K2 {case}: {cross} tie flips (the "
+              f"fallback rows are bitwise masked_median in both)")
 
     vals, mask, case = kde_case(device, N_WINDOWS, WIDTH, 0)
-    names = kernels_launched(lambda: kde_argmax_rows_fused(vals, mask, "v1"))
-    print(f"[kernels] kde_argmax_rows_fused 'v1' at {case} launches {names}")
-    if len(names) != 1 or "kde_argmax_kernel" not in names[0]:
-        fail(f"kde_argmax_rows_fused 'v1' launched {names}, not K2 alone")
+    for version, kernel in (("v1", "kde_argmax_kernel"),
+                            ("v2", "kde_argmax_v2_kernel")):
+        names = kernels_launched(
+            lambda: kde_argmax_rows_fused(vals, mask, version))
+        print(f"[kernels] kde_argmax_rows_fused {version!r} at {case} "
+              f"launches {names}")
+        if len(names) != 1 or kernel not in names[0]:
+            fail(f"kde_argmax_rows_fused {version!r} launched {names}, not "
+                 f"{kernel} alone")
     return k1_err, k1_parent, flips_total
 
 
@@ -919,7 +925,7 @@ def phase_timing(device, X, model, eucl_model, libs):
     )
     from hypad_tpu_torch.ops.kde import (
         kde_argmax_rows_and_use,
-        kde_argmax_rows_v2_parts,
+        kde_argmax_rows_v2_and_use,
     )
     from hypad_tpu_torch.ops.kde_kernel import (
         kde_argmax_kernel,
@@ -981,7 +987,7 @@ def phase_timing(device, X, model, eucl_model, libs):
         for name, kernel, plain in (
                 ("kde_argmax", kde_argmax_kernel, kde_argmax_rows_and_use),
                 ("kde_argmax_v2", kde_argmax_v2_kernel,
-                 kde_argmax_rows_v2_parts)):
+                 kde_argmax_rows_v2_and_use)):
             k = {"ms": cuda_ms(lambda: kernel(vals, mask), 50),
                  "plain_ms": cuda_ms(lambda: plain(vals, mask), 5)}
             got, _ = kernel(vals, mask)
@@ -995,7 +1001,7 @@ def phase_timing(device, X, model, eucl_model, libs):
     # vals (f32) and mask (bool) read once, value (f32) and use (bool)
     # written once. Both kernels compute each unordered pair of samples of
     # a row once: difference, square, scale, exp and two sums; plus ~8
-    # operations per sample for mean and variance (K2's in-kernel median
+    # operations per sample for mean and variance (the in-kernel median
     # touches the few fallback rows only)
     cnt = mask.sum(dim=1).double()
     pairs = (cnt * (cnt - 1) / 2).sum().item()
@@ -1006,7 +1012,7 @@ def phase_timing(device, X, model, eucl_model, libs):
         bound(k)
         k["sfu_ms"] = k["exps"] / H100_SFU_EXP_PER_S * 1e3
     for name, k in (("K2 kde_argmax, median fallback included", k2),
-                    ("K3 kde_argmax_v2", k3)):
+                    ("K3 kde_argmax_v2, median fallback included", k3)):
         print(f"[timing] {name}: kernel {k['ms']:.5f} ms, plain "
               f"{k['plain_ms']:.5f} ms, bound {k['bound_ms']:.5f} ms "
               f"({k['bound_by']}: {k['bytes']} bytes, {k['ops']} ops); SFU "
@@ -1096,7 +1102,7 @@ def main():
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": None},
         {"name": "kde_argmax_v2", "route": "cuda",
-         "source": "hypad_tpu_torch/csrc/kde_argmax_v2.cu",
+         "source": "hypad_tpu_torch/csrc/kde_argmax.cu",
          "replaces": "hypad_tpu/ops/kde_pallas.py:91",
          "launches": eucl_launches["point"]["kde_argmax_v2"],
          "launches_per_call": eucl_launches["point"]["kde_argmax_v2"],
@@ -1104,8 +1110,10 @@ def main():
                           "kde_version v2",
          "launches_by_path": by_path["kde_argmax_v2"],
          "max_abs_err": k3["max_abs_err"],
-         "tolerance": "tie level: a differing value is a sample of its own "
-                      "row, at most 1% of rows differ; use flags bitwise",
+         "tolerance": "use flags bitwise; fallback rows bitwise "
+                      "masked_median; elsewhere tie level: a differing value "
+                      "is a sample of its own row, at most 1% of rows differ",
+         "median_fallback": "in the kernel, one launch",
          "tie_flips": k3["tie_flips"],
          "edge_case_tie_flips": kde_flips["kde_argmax_v2"],
          "exps": k3["exps"], "sfu_ms": k3["sfu_ms"],

@@ -22,8 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("mobius_linear", "kde_argmax", "kde_argmax_v2",
-                  "critic_step")
+KERNEL_SOURCES = ("mobius_linear", "kde_argmax", "critic_step")
 
 
 def _nvcc():

@@ -1,11 +1,13 @@
 // Batched Gaussian-KDE argmax over the critic's anti-diagonal rows, with the
-// masked-median fallback, on Hopper.
+// masked-median fallback, on Hopper: K2 (densities summed by sample) and K3
+// (summed by offset), which share everything but the density phase.
 //
-// Replaces: hypad_tpu/ops/kde_pallas.py:42 `_kernel` (v1; launched by
-// `_pallas_kde`, public entry `kde_argmax_rows_pallas`), together with the
-// fallback that `_kde_argmax_rows_pallas_impl` (:230-235) takes outside the
-// kernel. Per row of the (T, W) anti-diagonal matrix, over its masked-in
-// samples:
+// Replaces: hypad_tpu/ops/kde_pallas.py:42 `_kernel` (v1, K2) and
+// hypad_tpu/ops/kde_pallas.py:91 `_kernel_v2` (v2, K3), both launched through
+// the public entry `kde_argmax_rows_pallas(version=...)`, together with the
+// fallback that `_kde_argmax_rows_pallas_impl` (:230-235) takes outside
+// either kernel. Per row of the (T, W) anti-diagonal matrix, over its
+// masked-in samples:
 //   mean; unbiased variance; Scott bandwidth h^2 = var * n^-0.4;
 //   dens_i = sum_j exp(scale * (v_i - v_j)^2), scale = -0.5 / h^2
 //   (masked entries become a 1e18 sentinel, so any pair touching one adds
@@ -13,92 +15,189 @@
 //   density argmax where use holds, else the masked median (np.median
 //   semantics, 0.5 * (lo + hi) in f32, as `masked_median` computes it).
 //
-// What bounds it on the H100: instruction issue. At the detector's shape
-// (T = 20,099, W = 100) the rows are 10 MB (3 us at 3.35 TB/s) and need 2.0e8
-// ordered pairs. Accurate `expf` is about 8 instructions (one of them on the
-// special-function unit), so each pair costs about 11 issue slots when
-// summed per ordered pair.
+// The two differ only in the order of each density's sum:
+// - v1 (K2) follows no fixed order of JAX's; it agrees with its plain
+//   version (hypad_tpu_torch/ops/kde.py `kde_argmax_rows_and_use`) at tie
+//   level.
+// - v2 (K3) keeps `_kernel_v2`'s order term by term: dens_i starts at 1,
+//   then for r = 1..W-1 it adds the exp of pair (i, i-r), then that of pair
+//   (i+r, i) (`dens = dens + e + back`, kde_pallas.py:124-133), a term
+//   outside the row being exactly 0. Adding +0 to a density (>= 1) is
+//   exact, so K3 skips no term that matters and adds zeros where it must;
+//   only `expf` against the host's exp differs, in the last bits
+//   (hypad_tpu_torch/ops/kde.py `kde_argmax_rows_v2_and_use`).
 //
-// Design:
+// What bounds it on the H100: instruction issue. At the detector's shape
+// (T = 20,099, W = 100) the rows are 10 MB (3 us at 3.35 TB/s) and hold
+// 9.9e7 unordered pairs. Accurate `expf` is about 8 instructions (one of
+// them on the special-function unit), so a pair costs about 11 issue slots
+// and two adds.
+//
+// Shared design:
 // - Each unordered pair's exp is computed once and added to both samples'
-//   densities: (v_i - v_j)^2 equals (v_j - v_i)^2 bit for bit, so each
-//   term is the plain version's; only the order of the sums differs. `expf`
-//   stays at full accuracy (`__expf` would move densities by ~1e-6
-//   relative, far above the last-ulp ties the tie-level check allows).
-// - A row's samples form nb = max(ceil(W / 4), 2) blocks of 4 (padding
-//   holds the sentinel). One thread owns one block of one row: its 4
-//   densities stay in registers. A thread block of 16 rows has 16 * nb
-//   threads, so at least one full warp (400 at W = 100: 12 full warps and a
-//   half one, which sits out the warp-wide phases). At most 32 registers a
-//   thread; at W = 100 a block takes 13 warps' slots, so 4 share an SM
-//   (1,257 blocks: 2.4 waves over 132 SMs). On the H100, 32-row blocks at
-//   39 registers took 0.081 ms and at 32 registers 0.073 ms, as this layout
-//   did with a lane-per-candidate median; two offsets a barrier round took
-//   0.075.
-// - The block pairs follow a round-robin: in round r (1 <= r <= nb / 2)
-//   block I pairs with block I + r (mod nb), 16 exps, adding the row
-//   partials to its own registers and handing the 4 column partials to block
-//   I + r's thread through shared memory (two buffers, one barrier a round;
-//   the receiver adds them in round order, so the sums are deterministic).
-//   With nb even, round nb / 2 is taken by the lower half only. Each of a
-//   thread's samples is read once from shared memory per round.
-// - Mean, variance, the Scott scale and the use flag come from
-//   kde_row.cuh, as in K3, so the use flags stay those of the plain
-//   version. The argmax keeps the smallest index among equal maxima.
-// - Rows flagged use = 0 (a single sample, zero variance, or a NaN) take
-//   the masked median in the same launch: one warp selects the two middle
-//   order statistics by counting ranks over the row with ballots (no
-//   sort). The row is ranked as the plain version sorts it: masked entries
-//   filled with the f32 maximum, NaNs last. A fallback row's warp ends its
-//   block, and a block in the last wave ends the launch: counting each
-//   candidate's rank in one lane over the whole row took 0.105 ms, the
-//   ballots 0.069.
+//   densities: (v_i - v_j)^2 equals (v_j - v_i)^2 bit for bit, so each term
+//   is the plain version's. `expf` stays at full accuracy (`__expf` would
+//   move densities by ~1e-6 relative, far above the last-ulp ties the
+//   tie-level check allows).
+// - A row's samples form nb blocks of 4 (padding holds the sentinel). One
+//   thread owns one block of one row: its 4 densities stay in registers. A
+//   thread block of R rows (K2 16, K3 32) has R * nb threads, nb at least
+//   32 / R so that it holds a full warp (R * nb = 400 at W = 100 in K2: 12
+//   full warps and a half one, which sits out the warp-wide phases).
+// - Phase 1 (one warp a row) loads the row, its mean, variance, Scott scale
+//   and use flag; phase 3 takes each block's first max; phase 4 (one warp a
+//   row) the row's first max, the smallest index among equal maxima, or,
+//   on rows flagged use = 0 (a single sample, zero variance, or a NaN), the
+//   masked median: one warp selects the two middle order statistics by
+//   counting ranks over the row with ballots (no sort). The row is ranked
+//   as the plain version sorts it: masked entries filled with the f32
+//   maximum, NaNs last. A fallback row's warp ends its block, and a block
+//   in the last wave ends the launch: counting each candidate's rank in one
+//   lane over the whole row took 0.105 ms in K2, the ballots 0.069.
+//
+// K2's density phase (thread (r, I) = threadIdx r * nb + I): the block pairs
+// follow a round-robin. In round k (1 <= k <= nb / 2) block I pairs with
+// block I + k (mod nb), 16 exps, adding the row partials to its own
+// registers and handing the 4 column partials to block I + k's thread
+// through shared memory (two buffers, one barrier a round; the receiver adds
+// them in round order, so the sums are deterministic). With nb even, round
+// nb / 2 is taken by the lower half only. At most 32 registers a thread; at
+// W = 100 a block takes 13 warps' slots, so 4 share an SM (1,257 blocks:
+// 2.4 waves over 132 SMs). On the H100, 32-row blocks at 39 registers took
+// 0.081 ms and at 32 registers 0.073 ms; two offsets a barrier round 0.075.
+//
+// K3's density phase (thread (r, I) = threadIdx I * R + r; with R = 32,
+// warp I holds block I of every row, so every branch on I is uniform
+// across it): the
+// wrapping round-robin would break v2's order, so block I pairs in round D
+// (1 <= D <= nb) with block I - D only, and keeps the 16 exps, its own
+// forward terms (pair (i, i - r)), in registers; it hands them, transposed,
+// to block I - D's thread, whose back terms (pair (i + r, i)) they are,
+// through shared memory (two buffers, one barrier a round). Round D brings
+// sample a of the block the forward terms at offsets 4D + a - 3..4D + a
+// and the back terms at 4D - a..4D + 3 - a, so each sample adds its 8
+// terms of offsets 4D - 3..4D (samples 0 and 3) or 4D - 2..4D + 1 (samples
+// 1 and 2) in v2's order and carries the 1-3 terms a side that belong to
+// round D + 1 in registers (8 a thread); round 0 (the in-block pairs)
+// starts them, the round after a thread's last partner flushes them. A
+// thread with no partner on a side skips that side's terms. Warps with no
+// partner left (I < D) compute no exps and leave their issue slots to the
+// others: the schedule is a triangle, with nb rounds and barriers against
+// K2's nb / 2. At W = 100, 64 registers and 1 block of 800 threads an SM
+// (629 blocks, 4.8 waves). On an H100 80GB HBM3 at 700 W, in one call of
+// profile_kernels.py --k3-variant: these 0.1040 ms, 16-row blocks (two an
+// SM) 0.1050-0.1053, 8-row blocks (four an SM) 0.1141.
 
 #include <float.h>
+#include <math.h>
 
-#include "kde_row.cuh"
+#include "common.cuh"
 
 namespace {
 
-constexpr int kMaxW = hypad::kKdeMaxW;
-constexpr int kPerLane = hypad::kKdePerLane;  // a row's entries a lane
-constexpr int kRows = 16;  // rows per block
-constexpr float kSentinel = hypad::kKdeSentinel;
+constexpr int kMaxW = 128;
+constexpr int kPerLane = kMaxW / 32;  // a row's entries a lane
+constexpr float kSentinel = 1e18f;
+constexpr int kK2Rows = 16;  // rows per block of K2
+// K3's launch: rows per block, and the blocks an SM its register budget is
+// set for (K2: 4, 32 registers); profile_kernels.py --k3-variant times
+// other values beside these.
+constexpr int kK3Rows = 32;
+constexpr int kByOffsetBlocksPerSM = 1;
 
 struct Smem {
-  float4* col;          // (2, kRows, nb) column partials, double-buffered
-  float* vs;            // (kRows, 4 nb) sentinel-substituted samples
-  float* best;          // (kRows, nb) each block's best density
-  float* scale;         // (kRows,)
-  float* cnt;           // (kRows,)
-  int* best_i;          // (kRows, nb) and its sample index
-  unsigned char* in;    // (kRows, 4 nb) mask
-  unsigned char* use;   // (kRows,)
+  float4* col;          // K2: (2, R, nb) column partials; K3: (2, R,
+                        // 4 nb + 1) handed terms; double-buffered
+  float* vs;            // (R, 4 nb) sentinel-substituted samples
+  float* best;          // (R, nb) each block's best density
+  float* scale;         // (R,)
+  float* cnt;           // (R,)
+  int* best_i;          // (R, nb) and its sample index
+  unsigned char* in;    // (R, 4 nb) mask
+  unsigned char* use;   // (R,)
 };
 
-// Blocks of 4 samples a row: at least 2, so that a block of kRows rows
+// Blocks of 4 samples a row: at least 32 / R, so that a block of R rows
 // holds a full warp for the warp-wide phases.
+template <int R>
 __host__ __device__ inline int row_blocks(int width) {
-  return width > 8 ? (width + 3) / 4 : 2;
+  return max((width + 3) / 4, 32 / R);
 }
 
-__host__ __device__ inline size_t smem_bytes(int nb) {
-  return sizeof(float4) * 2 * kRows * nb +
-         sizeof(float) * (kRows * 4 * nb + kRows * nb + 2 * kRows) +
-         sizeof(int) * kRows * nb + kRows * 4 * nb + kRows;
+// float4s of one row's handed terms in K3: 4 a block, plus one so that the
+// 8 rows of a quarter warp fall on distinct banks
+__host__ __device__ inline int hand_stride(int nb) { return 4 * nb + 1; }
+
+template <int R>
+__host__ __device__ inline int col_float4s(int nb, bool by_offset) {
+  return 2 * R * (by_offset ? hand_stride(nb) : nb);
 }
 
-__device__ inline Smem carve(unsigned char* raw, int nb) {
+template <int R>
+__host__ __device__ inline size_t smem_bytes(int nb, bool by_offset) {
+  return sizeof(float4) * col_float4s<R>(nb, by_offset) +
+         sizeof(float) * (R * 4 * nb + R * nb + 2 * R) +
+         sizeof(int) * R * nb + R * 4 * nb + R;
+}
+
+template <int R>
+__device__ inline Smem carve(unsigned char* raw, int nb, bool by_offset) {
   Smem m;
   m.col = reinterpret_cast<float4*>(raw);
-  m.vs = reinterpret_cast<float*>(m.col + 2 * kRows * nb);
-  m.best = m.vs + kRows * 4 * nb;
-  m.scale = m.best + kRows * nb;
-  m.cnt = m.scale + kRows;
-  m.best_i = reinterpret_cast<int*>(m.cnt + kRows);
-  m.in = reinterpret_cast<unsigned char*>(m.best_i + kRows * nb);
-  m.use = m.in + kRows * 4 * nb;
+  m.vs = reinterpret_cast<float*>(m.col + col_float4s<R>(nb, by_offset));
+  m.best = m.vs + R * 4 * nb;
+  m.scale = m.best + R * nb;
+  m.cnt = m.scale + R;
+  m.best_i = reinterpret_cast<int*>(m.cnt + R);
+  m.in = reinterpret_cast<unsigned char*>(m.best_i + R * nb);
+  m.use = m.in + R * 4 * nb;
   return m;
+}
+
+// A row's statistics as one warp computes them, lane l holding entries
+// l, l+32, l+64, l+96.
+struct RowStats {
+  float vi[kPerLane];
+  bool mi[kPerLane];
+  float cnt, var, scale;
+};
+
+// Loads the lane's samples; mean, unbiased variance and the Scott scale
+// -0.5 / h^2 (h^2 = var * cnt^-0.4, 1 where it is not positive) as warp
+// shuffles; writes the row with masked entries set to the 1e18 sentinel
+// to `vs` (the row's W floats of shared memory).
+__device__ __forceinline__ RowStats load_row(const float* v,
+                                             const unsigned char* m,
+                                             int width, int lane, float* vs) {
+  RowStats s;
+  float cnt = 0.0f, sum = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kPerLane; ++q) {
+    const int i = lane + 32 * q;
+    s.vi[q] = i < width ? v[i] : 0.0f;
+    s.mi[q] = i < width && m[i] != 0;
+    cnt += s.mi[q] ? 1.0f : 0.0f;
+    sum += s.mi[q] ? s.vi[q] : 0.0f;
+  }
+  s.cnt = hypad::warp_sum(cnt);
+  sum = hypad::warp_sum(sum);
+  const float cnt_f = fmaxf(s.cnt, 1.0f);
+  const float mean = sum / cnt_f;
+  float ss = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kPerLane; ++q) {
+    const float c = s.mi[q] ? s.vi[q] - mean : 0.0f;
+    ss += c * c;
+  }
+  s.var = hypad::warp_sum(ss) / fmaxf(cnt_f - 1.0f, 1.0f);
+  const float h2 = s.var * powf(cnt_f, -0.4f);
+  s.scale = -0.5f / (h2 > 0.0f ? h2 : 1.0f);
+#pragma unroll
+  for (int q = 0; q < kPerLane; ++q) {
+    const int i = lane + 32 * q;
+    if (i < width) vs[i] = s.mi[q] ? s.vi[q] : kSentinel;
+  }
+  return s;
 }
 
 // The k-th order statistic (0 <= k < W) of a row held as y, entry
@@ -154,60 +253,16 @@ __device__ __noinline__ float row_median(const float* v,
   return 0.5f * (order_stat(y, cand, k_lo) + order_stat(y, cand, cnt / 2));
 }
 
-__global__ void __launch_bounds__(kRows * kMaxW / 4, 4)
-kde_argmax_kernel(const float* __restrict__ vals,
-                  const unsigned char* __restrict__ mask,
-                  float* __restrict__ kde_val, unsigned char* __restrict__ use,
-                  int rows, int width) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nb = row_blocks(width), wp = 4 * nb;
-  const Smem m = carve(smem_raw, nb);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;  // full warps; a partial one idles
-  const int row0 = blockIdx.x * kRows;
-
-  // 1. statistics and the sentinel row, one full warp per row
-  for (int r = warp; warp < nwarps && r < kRows; r += nwarps) {
-    const int row = row0 + r;
-    float* vrow = m.vs + r * wp;
-    unsigned char* irow = m.in + r * wp;
-    if (row < rows) {
-      const hypad::KdeRow s = hypad::kde_load_row(
-          vals + (size_t)row * width, mask + (size_t)row * width, width, lane,
-          vrow);
-#pragma unroll
-      for (int q = 0; q < hypad::kKdePerLane; ++q)
-        if (lane + 32 * q < width) irow[lane + 32 * q] = s.mi[q];
-      if (lane == 0) {
-        m.scale[r] = s.scale;
-        m.cnt[r] = s.cnt;
-        m.use[r] = (s.cnt > 1.0f && s.var > 0.0f) ? 1 : 0;
-      }
-    } else {  // past the last row: computed on sentinels, never written
-      for (int i = lane; i < width; i += 32) {
-        vrow[i] = kSentinel;
-        irow[i] = 0;
-      }
-      if (lane == 0) {
-        m.scale[r] = -0.5f;
-        m.cnt[r] = 0.0f;
-        m.use[r] = 1;
-      }
-    }
-    for (int i = width + lane; i < wp; i += 32) {
-      vrow[i] = kSentinel;
-      irow[i] = 0;
-    }
-  }
-  __syncthreads();
-
-  // 2. densities: thread (r, I) owns samples 4I..4I+3 of row r
-  const int r = threadIdx.x / nb, I = threadIdx.x - r * nb;
+// K2's densities of samples 4I..4I+3 of row r, summed by sample.
+__device__ __forceinline__ void densities_by_sample(const Smem& m, int r,
+                                                    int I, int nb, int wp,
+                                                    float (&p)[4]) {
   const float sc = m.scale[r];
   const float4* vrow4 = reinterpret_cast<const float4*>(m.vs + r * wp);
   const float4 v4 = vrow4[I];
   const float vi[4] = {v4.x, v4.y, v4.z, v4.w};
-  float p[4] = {1.0f, 1.0f, 1.0f, 1.0f};  // the self pairs: exp(0) = 1
+#pragma unroll
+  for (int a = 0; a < 4; ++a) p[a] = 1.0f;  // the self pairs: exp(0) = 1
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -220,7 +275,7 @@ kde_argmax_kernel(const float* __restrict__ vals,
   const int half = nb / 2;
   for (int off = 1; off <= half; ++off) {
     const bool last_even = 2 * off == nb;  // the pairs of round nb / 2 once
-    float4* slot = m.col + ((off & 1) * kRows + r) * nb;
+    float4* slot = m.col + ((off & 1) * kK2Rows + r) * nb;
     if (!(last_even && I >= half)) {
       const int J = I + off < nb ? I + off : I + off - nb;
       const float4 w4 = vrow4[J];
@@ -245,6 +300,211 @@ kde_argmax_kernel(const float* __restrict__ vals,
       p[2] += c.z;
       p[3] += c.w;
     }
+  }
+}
+
+// exp(scale * (x - y)^2), the term of one pair
+__device__ __forceinline__ float pair_term(float sc, float x, float y) {
+  const float d = x - y;
+  return expf(sc * (d * d));
+}
+
+// The terms a K3 thread carries into the next round, in ascending offset:
+// back terms of samples 0 (3) and 1 (1), forward terms of samples 2 (1) and
+// 3 (3).
+struct Carry {
+  float b0[3], b1, f2, f3[3];
+};
+
+// One round of K3's ordered adds for samples 4I..4I+3: f[a][b] is the
+// forward term of pair (4I + a, 4(I - D) + b), offset 4D + a - b, and
+// gh[a] holds the back terms g[a][b] of pairs (4(I + D) + b, 4I + a),
+// offset 4D + b - a. Without a left (kF) or right (kG) partner those terms
+// are 0, and adding +0 to a density changes no bit, so they are skipped.
+template <bool kF, bool kG>
+__device__ __forceinline__ void add_round(float (&p)[4], Carry& c,
+                                          const float (&f)[4][4],
+                                          const float4* gh) {
+  float g[4][4];
+  if (kG) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const float4 h = gh[a];
+      g[a][0] = h.x;
+      g[a][1] = h.y;
+      g[a][2] = h.z;
+      g[a][3] = h.w;
+    }
+  }
+  // sample 0: offsets 4D-3..4D
+  if (kF) p[0] = p[0] + f[0][3];
+  p[0] = p[0] + c.b0[0];
+  if (kF) p[0] = p[0] + f[0][2];
+  p[0] = p[0] + c.b0[1];
+  if (kF) p[0] = p[0] + f[0][1];
+  p[0] = p[0] + c.b0[2];
+  if (kF) p[0] = p[0] + f[0][0];
+  if (kG) p[0] = p[0] + g[0][0];
+  // sample 1: offsets 4D-2..4D+1
+  if (kF) p[1] = p[1] + f[1][3];
+  p[1] = p[1] + c.b1;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (kF) p[1] = p[1] + f[1][2 - k];
+    if (kG) p[1] = p[1] + g[1][k];
+  }
+  // sample 2: offsets 4D-2..4D+1
+  p[2] = p[2] + c.f2;
+  if (kG) p[2] = p[2] + g[2][0];
+#pragma unroll
+  for (int k = 1; k < 4; ++k) {
+    if (kF) p[2] = p[2] + f[2][4 - k];
+    if (kG) p[2] = p[2] + g[2][k];
+  }
+  // sample 3: offsets 4D-3..4D
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    p[3] = p[3] + c.f3[k];
+    if (kG) p[3] = p[3] + g[3][k];
+  }
+  if (kF) p[3] = p[3] + f[3][3];
+  if (kG) p[3] = p[3] + g[3][3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    c.b0[k] = kG ? g[0][k + 1] : 0.0f;
+    c.f3[k] = kF ? f[3][2 - k] : 0.0f;
+  }
+  c.b1 = kG ? g[1][3] : 0.0f;
+  c.f2 = kF ? f[2][0] : 0.0f;
+}
+
+// K3's densities of samples 4I..4I+3 of row r, summed in v2's order: for
+// each offset ascending, the forward term (pair (i, i - r)), then the back
+// term (pair (i + r, i)). Terms of pairs with a sample past the row are 0.
+__device__ __forceinline__ void densities_by_offset(const Smem& m, int r,
+                                                    int I, int nb, int wp,
+                                                    int width,
+                                                    float (&p)[4]) {
+  const float sc = m.scale[r];
+  const float4* vrow4 = reinterpret_cast<const float4*>(m.vs + r * wp);
+  const float4 v4 = vrow4[I];
+  const float vi[4] = {v4.x, v4.y, v4.z, v4.w};
+  const int inside = width - 4 * I;  // below 4 only in the last block
+  // round 0, the in-block pairs e[a][b] (a > b, offset a - b); a pair whose
+  // upper sample lies past the row is 0
+  float e[4][4];
+#pragma unroll
+  for (int a = 1; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < a; ++b)
+      e[a][b] = a < inside ? pair_term(sc, vi[a], vi[b]) : 0.0f;
+  p[0] = 1.0f;  // the self pairs: exp(0) = 1
+  p[1] = (1.0f + e[1][0]) + e[2][1];
+  p[2] = (1.0f + e[2][1]) + e[3][2];
+  p[3] = 1.0f;
+  Carry c = {{e[1][0], e[2][0], e[3][0]}, e[3][1], e[2][0],
+             {e[3][2], e[3][1], e[3][0]}};
+
+  // rounds 1..I have a left partner, rounds 1..nb-1-I a right one; the
+  // round after both ends adds the last carried terms
+  const int last = max(I, nb - 1 - I) + 1;
+  const int stride = hand_stride(nb);
+  for (int D = 1; D <= nb; ++D) {
+    float4* hand = m.col + ((D & 1) * kK3Rows + r) * stride;
+    const bool left = D <= I, right = I + D < nb;
+    float f[4][4];
+    if (left) {
+      const float4 w4 = vrow4[I - D];
+      const float vj[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) f[a][b] = pair_term(sc, vi[a], vj[b]);
+      if (inside < 4) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          if (a >= inside)
+#pragma unroll
+            for (int b = 0; b < 4; ++b) f[a][b] = 0.0f;
+      }
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        hand[4 * (I - D) + b] = make_float4(f[0][b], f[1][b], f[2][b],
+                                            f[3][b]);
+    }
+    __syncthreads();
+    const float4* gh = hand + 4 * I;
+    if (left && right) {
+      add_round<true, true>(p, c, f, gh);
+    } else if (left) {
+      add_round<true, false>(p, c, f, gh);
+    } else if (right) {
+      add_round<false, true>(p, c, f, gh);
+    } else if (D == last) {
+      add_round<false, false>(p, c, f, gh);
+    }
+  }
+}
+
+template <bool kByOffset>
+__device__ __forceinline__ void kde_argmax_body(
+    const float* __restrict__ vals, const unsigned char* __restrict__ mask,
+    float* __restrict__ kde_val, unsigned char* __restrict__ use, int rows,
+    int width) {
+  constexpr int kRows = kByOffset ? kK3Rows : kK2Rows;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nb = row_blocks<kRows>(width), wp = 4 * nb;
+  const Smem m = carve<kRows>(smem_raw, nb, kByOffset);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;  // full warps; a partial one idles
+  const int row0 = blockIdx.x * kRows;
+
+  // 1. statistics and the sentinel row, one full warp per row
+  for (int r = warp; warp < nwarps && r < kRows; r += nwarps) {
+    const int row = row0 + r;
+    float* vrow = m.vs + r * wp;
+    unsigned char* irow = m.in + r * wp;
+    if (row < rows) {
+      const RowStats s = load_row(vals + (size_t)row * width,
+                                  mask + (size_t)row * width, width, lane,
+                                  vrow);
+#pragma unroll
+      for (int q = 0; q < kPerLane; ++q)
+        if (lane + 32 * q < width) irow[lane + 32 * q] = s.mi[q];
+      if (lane == 0) {
+        m.scale[r] = s.scale;
+        m.cnt[r] = s.cnt;
+        m.use[r] = (s.cnt > 1.0f && s.var > 0.0f) ? 1 : 0;
+      }
+    } else {  // past the last row: computed on sentinels, never written
+      for (int i = lane; i < width; i += 32) {
+        vrow[i] = kSentinel;
+        irow[i] = 0;
+      }
+      if (lane == 0) {
+        m.scale[r] = -0.5f;
+        m.cnt[r] = 0.0f;
+        m.use[r] = 1;
+      }
+    }
+    for (int i = width + lane; i < wp; i += 32) {
+      vrow[i] = kSentinel;
+      irow[i] = 0;
+    }
+  }
+  __syncthreads();
+
+  // 2. densities of samples 4I..4I+3 of row r
+  int r, I;
+  float p[4];
+  if constexpr (kByOffset) {
+    I = threadIdx.x / kRows;
+    r = threadIdx.x - I * kRows;
+    densities_by_offset(m, r, I, nb, wp, width, p);
+  } else {
+    r = threadIdx.x / nb;
+    I = threadIdx.x - r * nb;
+    densities_by_sample(m, r, I, nb, wp, p);
   }
 
   // 3. first max over the block's samples (masked: -inf), ascending
@@ -297,26 +557,57 @@ kde_argmax_kernel(const float* __restrict__ vals,
   }
 }
 
+__global__ void __launch_bounds__(kK2Rows * kMaxW / 4, 4)
+kde_argmax_kernel(const float* __restrict__ vals,
+                  const unsigned char* __restrict__ mask,
+                  float* __restrict__ kde_val, unsigned char* __restrict__ use,
+                  int rows, int width) {
+  kde_argmax_body<false>(vals, mask, kde_val, use, rows, width);
+}
+
+__global__ void __launch_bounds__(kK3Rows * kMaxW / 4, kByOffsetBlocksPerSM)
+kde_argmax_v2_kernel(const float* __restrict__ vals,
+                     const unsigned char* __restrict__ mask,
+                     float* __restrict__ kde_val,
+                     unsigned char* __restrict__ use, int rows, int width) {
+  kde_argmax_body<true>(vals, mask, kde_val, use, rows, width);
+}
+
+template <bool kByOffset>
+int launch(const float* vals, const unsigned char* mask, float* kde_val,
+           unsigned char* use, int rows, int width, void* stream) {
+  if (rows < 0 || width < 1 || width > kMaxW) return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  constexpr int kRows = kByOffset ? kK3Rows : kK2Rows;
+  const auto kernel = kByOffset ? kde_argmax_v2_kernel : kde_argmax_kernel;
+  const int nb = row_blocks<kRows>(width);
+  const size_t smem = smem_bytes<kRows>(nb, kByOffset);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (rows + kRows - 1) / kRows;
+  kernel<<<blocks, kRows * nb, smem, (cudaStream_t)stream>>>(
+      vals, mask, kde_val, use, rows, width);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // vals (rows, width) f32, mask (rows, width) bool bytes -> kde_val (rows,)
 // f32 (the density argmax, or the masked median where use is 0), use
 // (rows,) bool bytes; contiguous, on the device. Launches on `stream` and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for shapes it does
-// not take).
+// not take). K2: the densities summed by sample.
 extern "C" int kde_argmax_forward(const float* vals, const unsigned char* mask,
                                   float* kde_val, unsigned char* use, int rows,
                                   int width, void* stream) {
-  if (rows < 0 || width < 1 || width > kMaxW) return cudaErrorInvalidValue;
-  if (rows == 0) return cudaSuccess;
-  const int nb = row_blocks(width);
-  const size_t smem = smem_bytes(nb);
-  cudaError_t err = cudaFuncSetAttribute(
-      kde_argmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (rows + kRows - 1) / kRows;
-  kde_argmax_kernel<<<blocks, kRows * nb, smem, (cudaStream_t)stream>>>(
-      vals, mask, kde_val, use, rows, width);
-  return cudaGetLastError();
+  return launch<false>(vals, mask, kde_val, use, rows, width, stream);
+}
+
+// The same with K3: the densities summed by offset, in v2's order.
+extern "C" int kde_argmax_v2_forward(const float* vals,
+                                     const unsigned char* mask,
+                                     float* kde_val, unsigned char* use,
+                                     int rows, int width, void* stream) {
+  return launch<true>(vals, mask, kde_val, use, rows, width, stream);
 }

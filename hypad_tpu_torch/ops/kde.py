@@ -10,10 +10,11 @@ there. ``kde_argmax_rows_and_use`` is the plain version of the K2 kernel
 in ``ops/kde_kernel.py``: the value with the fallback folded in, and the
 use flag.
 
-``kde_argmax_rows_v2_parts`` is the plain version of the second kernel
-there: the same densities summed by offset, one exp per symmetric pair, as
-``hypad_tpu.ops.kde_pallas._kernel_v2`` sums them. Its additions run in
-another order, so it agrees with the first form at tie level only.
+``kde_argmax_rows_v2_parts`` sums the same densities by offset, one exp
+per symmetric pair, as ``hypad_tpu.ops.kde_pallas._kernel_v2`` sums them;
+``kde_argmax_rows_v2_and_use``, the plain version of the K3 kernel there,
+folds the median fallback into it. Its additions run in another order, so
+it agrees with the first form at tie level only.
 """
 
 from __future__ import annotations
@@ -82,6 +83,14 @@ def kde_argmax_rows_and_use(vals, mask, block=1024):
     applies, else the masked median; and where it applies. The plain
     version of the K2 kernel's output (``ops/kde_kernel.py``)."""
     kde_val, use_kde = kde_argmax_rows_parts(vals, mask, block)
+    return torch.where(use_kde, kde_val, masked_median(vals, mask)), use_kde
+
+
+def kde_argmax_rows_v2_and_use(vals, mask):
+    """(value, use_kde) per row with the densities summed by offset: the
+    plain version of the K3 kernel's output (``ops/kde_kernel.py``), the
+    v2 counterpart of :func:`kde_argmax_rows_and_use`."""
+    kde_val, use_kde = kde_argmax_rows_v2_parts(vals, mask)
     return torch.where(use_kde, kde_val, masked_median(vals, mask)), use_kde
 
 

@@ -1,17 +1,16 @@
-"""KDE argmax through the hand-written CUDA kernels ``csrc/kde_argmax.cu``
-(K2) and ``csrc/kde_argmax_v2.cu`` (K3).
+"""KDE argmax through the hand-written CUDA kernels of ``csrc/kde_argmax.cu``:
+K2 (densities summed by sample) and K3 (summed by offset).
 
 Counterpart of ``hypad_tpu.ops.kde_pallas.kde_argmax_rows_pallas``. K2
-replaces the Pallas v1 kernel (``hypad_tpu/ops/kde_pallas.py:42``) and the
-masked-median fallback that JAX takes outside it (``:230-235``): it emits
-each row's final value (the density-argmax sample, or the masked median
-where the KDE does not apply) and its use flag, in one launch and with no
-sort. K3 replaces v2 (``:91``), which computes each symmetric pair's exp
-once; it emits the density-argmax sample and the use flag, and the median
-fallback stays outside it. On a CUDA tensor a wrapper launches its kernel
-(or raises); on a CPU tensor it runs the plain version,
-``hypad_tpu_torch.ops.kde.kde_argmax_rows_and_use`` or
-``kde_argmax_rows_v2_parts``.
+replaces the Pallas v1 kernel (``hypad_tpu/ops/kde_pallas.py:42``), K3 the
+v2 kernel (``:91``), which computes each symmetric pair's exp once and sums
+each density by offset. Each also replaces the masked-median fallback that
+JAX takes outside the kernel (``:230-235``): it emits each row's final value
+(the density-argmax sample, or the masked median where the KDE does not
+apply) and its use flag, in one launch and with no sort. On a CUDA tensor a
+wrapper launches its kernel (or raises); on a CPU tensor it runs the plain
+version, ``hypad_tpu_torch.ops.kde.kde_argmax_rows_and_use`` or
+``kde_argmax_rows_v2_and_use``.
 
 A kernel's densities agree with its plain version's to within ulps, so
 where densities tie to the last bits the argmax may pick another sample of
@@ -27,11 +26,10 @@ import torch
 
 from hypad_tpu_torch.ops.kde import (
     kde_argmax_rows_and_use,
-    kde_argmax_rows_v2_parts,
+    kde_argmax_rows_v2_and_use,
 )
-from hypad_tpu_torch.ops.unroll import masked_median
 
-MAX_WIDTH = 128  # widest row either kernel takes (csrc/kde_row.cuh)
+MAX_WIDTH = 128  # widest row either kernel takes (csrc/kde_argmax.cu)
 KDE_VERSIONS = ("v1", "v2")
 
 
@@ -104,13 +102,15 @@ kde_argmax_kernel.launches = 0
 
 
 def kde_argmax_v2_kernel(vals, mask):
-    """(kde_val (T,) float32, use_kde (T,) bool) of each row, one exp per
-    symmetric pair: through ``csrc/kde_argmax_v2.cu`` (K3) for CUDA tensors,
-    through the plain :func:`kde_argmax_rows_v2_parts` for CPU tensors."""
+    """(value (T,) float32, use_kde (T,) bool) of each row, as
+    :func:`kde_argmax_kernel` gives them, with the densities summed by
+    offset, one exp per symmetric pair: through ``csrc/kde_argmax.cu``'s K3
+    for CUDA tensors, through the plain :func:`kde_argmax_rows_v2_and_use`
+    for CPU tensors."""
     _check(vals, mask, "kde_argmax_v2_kernel")
     if vals.device.type == "cpu":
-        return kde_argmax_rows_v2_parts(vals, mask)
-    out = launch_with(_lib("kde_argmax_v2", "kde_argmax_v2_forward"), vals,
+        return kde_argmax_rows_v2_and_use(vals, mask)
+    out = launch_with(_lib("kde_argmax", "kde_argmax_v2_forward"), vals,
                       mask)
     kde_argmax_v2_kernel.launches += 1
     return out
@@ -120,15 +120,12 @@ kde_argmax_v2_kernel.launches = 0
 
 
 def kde_argmax_rows_fused(vals, mask, version="v1"):
-    """Per-row KDE-argmax sample with the masked-median fallback. ``version``
-    picks the kernel as JAX's ``kde_argmax_rows_pallas(version=...)`` does:
-    "v1" K2, one launch with the fallback inside; "v2" K3, with the
-    fallback's sort outside. vals (T, W) float32, mask (T, W) bool ->
-    (T,)."""
-    if version == "v1":
-        return kde_argmax_kernel(vals, mask)[0]
-    if version != "v2":
+    """Per-row KDE-argmax sample with the masked-median fallback, one
+    launch and no sort. ``version`` picks the kernel as JAX's
+    ``kde_argmax_rows_pallas(version=...)`` does: "v1" K2, "v2" K3. vals
+    (T, W) float32, mask (T, W) bool -> (T,)."""
+    if version not in KDE_VERSIONS:
         raise ValueError(f"unknown kde_version {version!r}; expected one of "
                          f"{KDE_VERSIONS}")
-    kde_val, use_kde = kde_argmax_v2_kernel(vals, mask)
-    return torch.where(use_kde, kde_val, masked_median(vals, mask))
+    kernel = kde_argmax_kernel if version == "v1" else kde_argmax_v2_kernel
+    return kernel(vals, mask)[0]

@@ -145,22 +145,16 @@ def profile_calls(call, calls, tag, chrome_trace=True):
 
 
 def _kde_stages(kde_version, vals, mask):
-    """(kde_max, {stage: fn}) of the KDE step: "v1" is K2 alone, which
-    takes the median fallback inside; "v2" is K3, then the fallback's
-    sort."""
+    """(kde_max, {stage: fn}) of the KDE step: K2 ("v1") or K3 ("v2"), each
+    of which takes the median fallback inside."""
     from hypad_tpu_torch.ops import kde_kernel
-    from hypad_tpu_torch.ops.unroll import masked_median
 
-    if kde_version == "v1":
-        kernel = kde_kernel.kde_argmax_kernel
-        return kernel(vals, mask)[0], {
-            "KDE argmax and median fallback (K2, one launch)":
-                lambda: kernel(vals, mask)}
-    kernel = kde_kernel.kde_argmax_v2_kernel
-    kde_val, use = kernel(vals, mask)
-    return torch.where(use, kde_val, masked_median(vals, mask)), {
-        "KDE argmax (K3)": lambda: kernel(vals, mask),
-        "masked median (sort)": lambda: masked_median(vals, mask)}
+    kernel = (kde_kernel.kde_argmax_kernel if kde_version == "v1"
+              else kde_kernel.kde_argmax_v2_kernel)
+    name = "K2" if kde_version == "v1" else "K3"
+    return kernel(vals, mask)[0], {
+        f"KDE argmax and median fallback ({name}, one launch)":
+            lambda: kernel(vals, mask)}
 
 
 def eucl_stage_times(model, X, device, rec_error, kde_version="v2",

@@ -1,37 +1,45 @@
-"""K1 (MobiusLinear) and K2 (KDE argmax) of the tree beside a baseline's, on
-a GPU.
+"""K1 (MobiusLinear), K2 and K3 (KDE argmax) of the tree beside a
+baseline's, on a GPU.
 
-    python3 -m hypad_tpu_torch.profile_kernels --baseline-dir DIR [--reps N]
+    python3 -m hypad_tpu_torch.profile_kernels --baseline-dir DIR
+        [--reps N] [--k3-variant kK3Rows=8,kByOffsetBlocksPerSM=4 ...]
 
 ``DIR`` holds another ``mobius_linear.cu`` and ``kde_argmax.cu`` of the same
 C interfaces, for example a parent commit's ``hypad_tpu_torch/csrc``
-unpacked with ``git archive`` into the gitignored ``_checkout/``. Both pairs
-and an empty kernel are built at once (``csrc/`` on the include path).
+unpacked with ``git archive`` into the gitignored ``_checkout/``. Its K3 is
+``kde_argmax_v2_forward`` of ``DIR/kde_argmax_v2.cu`` where that file exists
+(a K3 without the median fallback inside, which then runs after it), else
+of ``DIR/kde_argmax.cu``. The baseline's sources build where they lie, so
+they include their own headers; the tree's, an empty kernel and, with
+``--k3-variant``, the tree's source with K3's launch constants
+(``kK3Rows``, ``kByOffsetBlocksPerSM``) set otherwise build at once with
+them.
 
 Checks, at the main path's shapes:
 
 * K1 at (20,000, 100), (128, 100) and (64, 100), the full model's head:
   the tree's kernel within 1e-6 of the plain version and of the baseline's;
-* K2 at T = 20,099, W = 100 on a random critic, at T = 399 with a constant
-  run of 240 (143 fallback rows), with NaNs in the critic, and at row
-  widths 1, 4 and 5: the tree's use flags equal the plain version's and
+* K2 and K3 at T = 20,099, W = 100 on a random critic, at T = 399 with a
+  constant run of 240 (143 fallback rows), with NaNs in the critic, and at
+  row widths 1, 4 and 5: the tree's use flags equal the plain version's and
   the baseline's bit for bit, its fallback rows equal ``masked_median``
   bit for bit (NaN where it is NaN), and its other rows equal the plain
-  version's and the baseline's final values (the baseline's kernel, then
-  the masked-median fallback outside it, as a baseline without the
-  fallback inside runs it) at tie level.
+  version's and the baseline's final values at tie level; K2's values and
+  use flags equal the baseline K2's bit for bit; each K3 variant's equal
+  the tree's K3's bit for bit.
 
-``check_k1``, ``check_k2`` and ``tie_flips`` are the checks
+``check_k1``, ``check_k2``, ``check_k3`` and ``tie_flips`` are the checks
 ``chip_smoke.py`` holds the kernels to as well.
 
 Then times, with CUDA events, in turns (baseline, tree, tree, baseline):
-K1 at each shape, an empty kernel's launch-to-end time, K2 as the detector
-runs it (the baseline's kernel plus the fallback's sort against the tree's
-one launch), and the scorer's IQR quartiles and its whole IQR stage on
-K2's output, with two ``torch.quantile`` calls as the baseline against
-``scorer.quartiles``' one sort. Prints one line per check and time, then
-the card and one JSON line. Needs CUDA; the libraries go under
-``hypad_tpu_torch/_build/variants/``.
+K1 at each shape, an empty kernel's launch-to-end time, K2 and K3 as the
+detector runs them (one launch of the tree's against the baseline's, its
+kernel plus the fallback's sort where the fallback is outside it), and the
+scorer's IQR quartiles and its whole IQR stage on K2's output, with two
+``torch.quantile`` calls as the baseline against ``scorer.quartiles``' one
+sort; then the K3 variants in turns (in order, then reversed, twice).
+Prints one line per check and time, then the card and one JSON line. Needs
+CUDA; the libraries go under ``hypad_tpu_torch/_build/variants/``.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 from pathlib import Path
 
@@ -48,9 +57,12 @@ from hypad_tpu_torch import _build
 from hypad_tpu_torch.detect import scorer
 from hypad_tpu_torch.manifold import kernels as mk
 from hypad_tpu_torch.ops import kde_kernel as kk
-from hypad_tpu_torch.ops.kde import kde_argmax_rows_and_use
+from hypad_tpu_torch.ops.kde import (
+    kde_argmax_rows_and_use,
+    kde_argmax_rows_v2_and_use,
+)
 from hypad_tpu_torch.ops.unroll import antidiagonal_gather, masked_median
-from hypad_tpu_torch.profile_critic_step import compile_variants
+from hypad_tpu_torch.profile_critic_step import OUT, variant_jobs
 from hypad_tpu_torch.profile_detect import cuda_ms
 
 EMPTY_SOURCE = """
@@ -69,23 +81,76 @@ K2_CASES = ((20_000, WIDTH, 0, False), (300, WIDTH, 250, False),
             (300, WIDTH, 0, True), (300, 1, 0, False), (300, 4, 0, False),
             (300, 5, 0, False))
 SMOOTH = 200  # the scorer's smoothing window at 20,000 windows
+K3_CONSTANTS = ("kK3Rows", "kByOffsetBlocksPerSM")
 
 
-def build(baseline_dir):
-    """{"k1": (baseline fn, tree fn), "k2": (...), "empty": fn}."""
+def k3_variant_source(text, spec):
+    """``text`` (csrc/kde_argmax.cu) with the K3 launch constants that
+    ``spec`` ("name=value,name=value") names set to its values."""
+    for item in spec.split(","):
+        name, value = item.split("=")
+        if name not in K3_CONSTANTS:
+            raise ValueError(f"{name} is not one of {K3_CONSTANTS}")
+        text, n = re.subn(rf"constexpr int {name} = \d+;",
+                          f"constexpr int {name} = {int(value)};", text)
+        if n != 1:
+            raise RuntimeError(f"csrc/kde_argmax.cu no longer defines "
+                               f"{name} once")
+    return text
+
+
+def build(baseline_dir, k3_variants=()):
+    """{"k1": (baseline fn, tree fn), "k2": (...), "k3": (...),
+    "k3_fallback_outside": bool, "k3_variants": {spec: fn}, "empty": fn}:
+    every library built at once, the baseline's from where it lies."""
     base = Path(baseline_dir)
-    sources = {"empty": EMPTY_SOURCE}
-    for name in ("mobius_linear", "kde_argmax"):
-        sources[f"{name}_baseline"] = (base / f"{name}.cu").read_text()
-        sources[f"{name}_tree"] = (_build.CSRC / f"{name}.cu").read_text()
-    libs = compile_variants(sources)
+    tree = (_build.CSRC / "kde_argmax.cu").read_text()
+    sources = {"empty": EMPTY_SOURCE,
+               "mobius_linear_tree": (_build.CSRC
+                                      / "mobius_linear.cu").read_text(),
+               "kde_argmax_tree": tree}
+    for i, spec in enumerate(k3_variants):
+        sources[f"k3_variant{i}"] = k3_variant_source(tree, spec)
+    jobs = {**variant_jobs(sources), **baseline_jobs(base, "baseline")}
+    for name, (_, log) in _build.compile_sources(jobs).items():
+        for line in log.splitlines():
+            if "registers" in line or "stack frame" in line:
+                print(f"[build] {name}: {line.strip()}")
+    libs = {name: ctypes.CDLL(str(lib)) for name, (_, lib) in jobs.items()}
     empty = libs["empty"].empty_forward
     empty.argtypes = [ctypes.c_void_p]
     k1 = tuple(mk.bind(libs[f"mobius_linear_{v}"])
                for v in ("baseline", "tree"))
     k2 = tuple(kk.bind(libs[f"kde_argmax_{v}"], "kde_argmax_forward")
                for v in ("baseline", "tree"))
-    return {"k1": k1, "k2": k2, "empty": empty}
+    k3_base, k3_outside = bind_k3(libs, "baseline")
+    k3 = (k3_base, kk.bind(libs["kde_argmax_tree"], "kde_argmax_v2_forward"))
+    variants = {spec: kk.bind(libs[f"k3_variant{i}"],
+                              "kde_argmax_v2_forward")
+                for i, spec in enumerate(k3_variants)}
+    return {"k1": k1, "k2": k2, "k3": k3, "k3_fallback_outside": k3_outside,
+            "k3_variants": variants, "empty": empty}
+
+
+def baseline_jobs(base, tag):
+    """``_build.compile_sources`` jobs of the K1 and KDE sources in the
+    directory ``base`` (and its K3 without the fallback, where it has one),
+    built where they lie so that they include their own headers; the
+    libraries are named ``<source>_<tag>``."""
+    names = ["mobius_linear", "kde_argmax"]
+    if (base / "kde_argmax_v2.cu").is_file():
+        names.append("kde_argmax_v2")
+    OUT.mkdir(parents=True, exist_ok=True)
+    return {f"{name}_{tag}": (base / f"{name}.cu",
+                              OUT / f"lib{name}_{tag}.so") for name in names}
+
+
+def bind_k3(libs, tag):
+    """(the K3 entry of the ``baseline_jobs`` libraries ``libs`` tagged
+    ``tag``, whether the median fallback runs outside it)."""
+    outside = f"kde_argmax_v2_{tag}" in libs
+    lib = libs[f"kde_argmax_v2_{tag}" if outside else f"kde_argmax_{tag}"]
+    return kk.bind(lib, "kde_argmax_v2_forward"), outside
 
 
 def empty_launch(fn):
@@ -160,32 +225,57 @@ def check_k1(got, x, w, b, baseline=None, case=""):
     return err, vs
 
 
-def check_k2(value, use, vals, mask, baseline=None, case=""):
-    """K2's one-launch output against the plain version and, where given,
-    the ``baseline``'s (value, use): use flags bitwise, fallback rows
-    bitwise ``masked_median``, the other rows at tie level. Returns the
-    fallback rows and the tie flips."""
-    plain, plain_use = kde_argmax_rows_and_use(vals, mask)
+def check_kde(name, plain_fn, value, use, vals, mask, baseline=None,
+              case=""):
+    """A KDE kernel's one-launch output against its plain version
+    ``plain_fn`` and, where given, the ``baseline``'s (value, use): use
+    flags bitwise, fallback rows bitwise ``masked_median``, the other rows
+    at tie level. Returns the fallback rows and the tie flips."""
+    plain, plain_use = plain_fn(vals, mask)
     if not torch.equal(use, plain_use):
-        fail(f"K2 use flags differ from the plain version's at {case}")
+        fail(f"{name} use flags differ from the plain version's at {case}")
     fallback = ~use
     if not same_values(value[fallback], masked_median(vals, mask)[fallback]):
-        fail(f"K2 fallback rows differ from masked_median at {case}")
+        fail(f"{name} fallback rows differ from masked_median at {case}")
     rows = (value[use], vals[use], mask[use])
     rec = {"fallback_rows": int(fallback.sum()),
            "flips_vs_plain": tie_flips(rows[0], plain[use], *rows[1:])}
     if baseline is not None:
         if not torch.equal(use, baseline[1]):
-            fail(f"K2 use flags differ from the baseline's at {case}")
+            fail(f"{name} use flags differ from the baseline's at {case}")
         rec["flips_vs_baseline"] = tie_flips(rows[0], baseline[0][use],
                                              *rows[1:])
     return rec
 
 
-def baseline_k2(fn, vals, mask):
-    """The baseline's detector step: its kernel, then the fallback's sort."""
+def check_k2(value, use, vals, mask, baseline=None, case=""):
+    """K2's output, held as ``check_kde`` holds it."""
+    return check_kde("K2", kde_argmax_rows_and_use, value, use, vals, mask,
+                     baseline, case)
+
+
+def check_k3(value, use, vals, mask, baseline=None, case=""):
+    """K3's output, held as ``check_kde`` holds it, against the plain
+    densities summed by offset."""
+    return check_kde("K3", kde_argmax_rows_v2_and_use, value, use, vals,
+                     mask, baseline, case)
+
+
+def kernel_then_median(fn, vals, mask):
+    """A KDE kernel without the fallback inside, as the detector ran it:
+    the kernel, then the fallback's sort."""
     kde_val, use = kk.launch_with(fn, vals, mask)
     return torch.where(use, kde_val, masked_median(vals, mask)), use
+
+
+def baseline_k3(fns):
+    """A function (vals, mask) -> (value, use) of the baseline's K3 as the
+    detector runs it: one launch, or the kernel and then the fallback's
+    sort where the fallback lies outside it."""
+    fn = fns["k3"][0]
+    if fns["k3_fallback_outside"]:
+        return lambda vals, mask: kernel_then_median(fn, vals, mask)
+    return lambda vals, mask: kk.launch_with(fn, vals, mask)
 
 
 def check(fns):
@@ -203,22 +293,43 @@ def check(fns):
               f"{vs_baseline:.3e} from the baseline (baseline "
               f"{rec['baseline_vs_plain']:.3e} from plain)")
         records[f"k1_{rows}"] = rec
+    k3_base = baseline_k3(fns)
     for n, width, runs, nans in K2_CASES:
         vals, mask = k2_case(n, width, runs, nans=nans)
         case = (f"T={vals.shape[0]} W={width}"
                 f"{' constant run' if runs else ''}{' NaNs' if nans else ''}")
-        old = baseline_k2(fns["k2"][0], vals, mask)
+        old = kk.launch_with(fns["k2"][0], vals, mask)
         new, use = kk.launch_with(fns["k2"][1], vals, mask)
         torch.cuda.synchronize()
-        rec = check_k2(new, use, vals, mask, old, case)
-        rec["baseline_flips_vs_plain"] = check_k2(*old, vals, mask,
-                                                  case=case)["flips_vs_plain"]
-        print(f"[check] K2 {case}: use flags bitwise; {rec['fallback_rows']} "
-              f"fallback rows bitwise masked_median; tie flips "
-              f"{rec['flips_vs_baseline']} against the baseline, "
-              f"{rec['flips_vs_plain']} against plain (baseline "
-              f"{rec['baseline_flips_vs_plain']})")
+        if not (same_values(new, old[0]) and torch.equal(use, old[1])):
+            fail(f"K2 differs from the baseline K2's bits at {case}")
+        rec = check_k2(new, use, vals, mask, case=case)
+        print(f"[check] K2 {case}: bitwise the baseline's; use flags "
+              f"bitwise; {rec['fallback_rows']} fallback rows bitwise "
+              f"masked_median; {rec['flips_vs_plain']} tie flips against "
+              f"plain")
         records[f"k2 {case}"] = rec
+
+        old3 = k3_base(vals, mask)
+        new3, use3 = kk.launch_with(fns["k3"][1], vals, mask)
+        torch.cuda.synchronize()
+        rec = check_k3(new3, use3, vals, mask, old3, case)
+        rec["baseline_flips_vs_plain"] = check_k3(
+            *old3, vals, mask, case=case)["flips_vs_plain"]
+        rec["flips_vs_k2"] = tie_flips(new3[use3], new[use3], vals[use3],
+                                       mask[use3])
+        for spec, fn in fns["k3_variants"].items():
+            got = kk.launch_with(fn, vals, mask)
+            if not (same_values(got[0], new3) and torch.equal(got[1], use3)):
+                fail(f"K3 variant {spec} differs from the tree's K3 at "
+                     f"{case}")
+        print(f"[check] K3 {case}: use flags bitwise; "
+              f"{rec['fallback_rows']} fallback rows bitwise masked_median; "
+              f"tie flips {rec['flips_vs_baseline']} against the baseline, "
+              f"{rec['flips_vs_plain']} against plain (baseline "
+              f"{rec['baseline_flips_vs_plain']}), {rec['flips_vs_k2']} "
+              f"against K2; variants {sorted(fns['k3_variants'])} bitwise")
+        records[f"k3 {case}"] = rec
     return records
 
 
@@ -252,11 +363,14 @@ def time_all(fns, reps, stage_reps=20):
             (lambda f=f, x=x, w=w, b=b: mk.launch_with(f, x, w, b))
             for f in fns["k1"])
     vals, mask = k2_case(20_000)
-    calls["K2 with fallback (T=20099)"] = (
-        lambda: baseline_k2(fns["k2"][0], vals, mask),
-        lambda: kk.launch_with(fns["k2"][1], vals, mask))
-    calls["K2 kernel alone (T=20099)"] = tuple(
+    calls["K2, one launch (T=20099)"] = tuple(
         (lambda f=f: kk.launch_with(f, vals, mask)) for f in fns["k2"])
+    k3_base = baseline_k3(fns)
+    calls["K3 with fallback (T=20099)"] = (
+        lambda: k3_base(vals, mask),
+        lambda: kk.launch_with(fns["k3"][1], vals, mask))
+    calls["K3 kernel alone (T=20099)"] = tuple(
+        (lambda f=f: kk.launch_with(f, vals, mask)) for f in fns["k3"])
     calls = {label: (*pair, reps) for label, pair in calls.items()}
     kde_max = kk.launch_with(fns["k2"][1], vals, mask)[0]
     calls["IQR quartiles (T=20099)"] = (
@@ -277,6 +391,15 @@ def time_all(fns, reps, stage_reps=20):
         times[label] = t
         print(f"[time] {label}: baseline ms {t['baseline']}, tree ms "
               f"{t['tree']}")
+    variants = {"tree": fns["k3"][1], **fns["k3_variants"]}
+    if len(variants) > 1:
+        t = {name: [] for name in variants}
+        order = list(variants)
+        for name in order + order[::-1] + order + order[::-1]:
+            t[name].append(cuda_ms(
+                lambda f=variants[name]: kk.launch_with(f, vals, mask), reps))
+        times["K3 variants (T=20099)"] = t
+        print(f"[time] K3 variants (T=20099): {t}")
     return times
 
 
@@ -284,13 +407,17 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--baseline-dir", required=True,
                         help="directory of the baseline's mobius_linear.cu "
-                             "and kde_argmax.cu")
+                             "and kde_argmax.cu (and kde_argmax_v2.cu)")
     parser.add_argument("--reps", type=int, default=200)
+    parser.add_argument("--k3-variant", nargs="*", default=(),
+                        help="also build the tree's K3 with these launch "
+                        "constants (name=value,...), check that it gives "
+                        "the tree's bits, and time it")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    fns = build(args.baseline_dir)
+    fns = build(args.baseline_dir, args.k3_variant)
     records = check(fns)
     times = time_all(fns, args.reps)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

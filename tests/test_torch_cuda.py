@@ -10,7 +10,7 @@ from hypad_tpu_torch.models.tadgan import init_tadgan
 from hypad_tpu_torch.ops.kde import (
     kde_argmax_rows,
     kde_argmax_rows_and_use,
-    kde_argmax_rows_v2_parts,
+    kde_argmax_rows_v2_and_use,
 )
 from hypad_tpu_torch.ops.kde_kernel import (
     kde_argmax_kernel,
@@ -87,27 +87,37 @@ def test_kde_argmax_kernel_matches_plain_at_tie_level(cuda, N, W, const,
     assert len(diff) <= max(1, int(0.01 * len(g)))
 
 
-@pytest.mark.parametrize("N,W,const", [(20000, 100, False), (700, 64, False),
-                                       (300, 100, True), (50, 100, False)])
-def test_kde_argmax_v2_kernel_matches_plain_at_tie_level(cuda, N, W, const):
-    """K3 against its plain version on the card: the use flags bitwise,
-    the values at tie level; and against K2 at tie level."""
+@pytest.mark.parametrize("N,W,const,nans", [
+    (20000, 100, False, False), (700, 64, False, False),
+    (300, 100, True, False), (50, 100, False, False),
+    (300, 100, False, True), (300, 1, False, False), (300, 4, False, False),
+    (300, 5, False, False)])
+def test_kde_argmax_v2_kernel_matches_plain_at_tie_level(cuda, N, W, const,
+                                                         nans):
+    """K3 on the card, one launch with the median fallback inside: use
+    flags bitwise, fallback rows bitwise masked_median (NaN where it is
+    NaN), the other rows at tie level against its plain version and
+    against K2."""
     critic = torch.randn(N, generator=torch.Generator().manual_seed(N))
     if const:
         critic[10:40] = 0.5
+    if nans:
+        critic[:2] = critic[100:200] = float("nan")
     vals, mask = antidiagonal_gather(critic.to(cuda)[:, None].expand(N, W))
     before = kde_argmax_v2_kernel.launches
-    got, use = kde_argmax_v2_kernel(vals, mask)
-    k2 = kde_argmax_rows_fused(vals, mask, "v1")  # K2 folds in the median
+    got = kde_argmax_rows_fused(vals, mask, "v2")
     torch.cuda.synchronize()
     assert kde_argmax_v2_kernel.launches == before + 1
-    want, want_use = kde_argmax_rows_v2_parts(vals, mask)
+    _, use = kde_argmax_v2_kernel(vals, mask)
+    want, want_use = kde_argmax_rows_v2_and_use(vals, mask)
     assert torch.equal(use, want_use)
-    fused = torch.where(use, got, masked_median(vals, mask))
-    v, m = vals.cpu().numpy(), mask.cpu().numpy()
-    for mine, other in ((got, want), (fused, k2)):
-        g = mine.cpu().numpy()
-        diff = torch.nonzero(mine != other)[:, 0].cpu().numpy()
+    torch.testing.assert_close(got[~use], masked_median(vals, mask)[~use],
+                               rtol=0, atol=0, equal_nan=True)
+    k2 = kde_argmax_rows_fused(vals, mask, "v1")
+    v, m = vals[use].cpu().numpy(), mask[use].cpu().numpy()
+    for other in (want, k2):
+        g = got[use].cpu().numpy()
+        diff = torch.nonzero(got[use] != other[use])[:, 0].cpu().numpy()
         assert all(g[i] in v[i][m[i]] for i in diff)
         assert len(diff) <= max(1, int(0.01 * len(g)))
 

@@ -85,9 +85,8 @@ def test_detect_scores_defaults_to_cuda():
 def test_kernel_sources_are_present_and_name_their_tpu_kernel():
     for name, replaces in (("mobius_linear",
                             ["hypad_tpu/manifold/kernels.py:35"]),
-                           ("kde_argmax", ["hypad_tpu/ops/kde_pallas.py:42"]),
-                           ("kde_argmax_v2",
-                            ["hypad_tpu/ops/kde_pallas.py:91"]),
+                           ("kde_argmax", ["hypad_tpu/ops/kde_pallas.py:42",
+                                           "hypad_tpu/ops/kde_pallas.py:91"]),
                            ("critic_step",
                             ["hypad_tpu/train/critic_kernel.py:156",
                              "hypad_tpu/train/critic_kernel.py:350"])):
