@@ -55,7 +55,28 @@ Phases, each failing loudly (a failed check raises and the exit code is not
 6. Euclidean training path: the same 2 epochs with ``hyperbolic=False``
    (K5 200, K1 0), then detection with the trained weights (point, mult,
    K3) on the card and on the CPU: the same intervals and F1;
-7. staged path: at 20,000 windows, ``run_inference`` (chunks of 1,024)
+7. command line ([cli]): ``hypad_tpu_torch.cli.main`` at the published
+   widths on a Yahoo A1 CSV and a NAB-style CSV (1,420 samples each, 1,320
+   windows) written to a temporary directory, counters zeroed around each
+   command: hyperbolic ``train`` as configs/yahoo_a1_hyper.yaml with 2
+   epochs and fused_critics "full" (K5 200, K1 82, K2 1; state_1.pt,
+   state_final.pt, train_log.jsonl, anomalies.csv, inference.npz and the
+   results CSV written; detection reads the training windows already on
+   the card), its ``detect --device cpu`` (the card's intervals,
+   confusion and F1) and ``detect`` on the card (K1 2, K2 1), and under
+   ``load: true`` from its inference.npz staged on the card (K2 1, K1 0;
+   the same intervals); ``resume:
+   true`` from state_1.pt within 5e-3 relative / 2e-4 absolute of the
+   straight run; Euclidean ``train`` on the NAB-style CSV (rec_error dtw,
+   1 epoch, HYPAD_KDE_PALLAS=1: K5 100, K3 1, K1 0); ``detect
+   --rec-errors point,area,dtw --combinations all`` (12 cells, K3 1, K1 0,
+   each cell's confusion equal to a single-cell ``detect``) and the
+   hyperbolic ``--combinations all`` grid (8 cells, K1 2, K2 1); ``train``
+   under fused_critics false (no critic kernel; K1 142, since the critic
+   steps' generator forwards run it too) and true (K4 100); the CLI's
+   wall-clock lines and stage table beside the card's name and power
+   limit (each command's stdout in OUT_DIR, cli_*.log);
+8. staged path: at 20,000 windows, ``run_inference`` (chunks of 1,024)
    must give the one call's forward outputs within 1e-5 relative / 1e-6
    absolute; ``score_anomalies_euclidean`` (Euclidean model) and
    ``score_anomalies_hyperbolic`` (hyperbolic model) on the one call's
@@ -63,13 +84,13 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    tolerance; on ``run_inference``'s output, the same zero and NaN
    positions and intervals (chunks sum the forward in another order, and a
    last-bit change of a critic value can flip a KDE tie);
-8. timing: warm detect throughput (hyperbolic under K2 and K3, Euclidean
+9. timing: warm detect throughput (hyperbolic under K2 and K3, Euclidean
    for each rec_error), warm epoch seconds for each ``fused_critics``
    value, and each kernel's time beside its plain version's and its bound
    at the path's shapes (K1 at the detect shape and at the generator
    step's two, beside an empty kernel; cuBLAS's f32 x @ w.T as an
    informative line, not K1's function);
-9. report: one JSON line of the kernels, the card's name and power limit,
+10. report: one JSON line of the kernels, the card's name and power limit,
    and last the JSON line the GPU check reads.
 
 TF32 is switched off for matmuls and cuDNN: every product runs in full f32,
@@ -298,9 +319,43 @@ def phase_kernels(device, libs):
     return k1_err, k1_parent, flips_total
 
 
-def check_same_detection(got, want, known, tag="detect"):
+def interval_score_atol(scores, rel):
+    """The most that a relative change of at most ``rel`` in every score
+    can move an interval score, to first order. An interval score is
+    (max - threshold) / (mean + std) of its threshold window, with the
+    threshold mean + 4 std: the run's max moves by at most rel max|s|, the
+    mean by rel mean|s| and the std by rel rms(s), so the numerator by
+    rel (max|s| + mean|s| + 4 rms) and the denominator by rel (mean|s| +
+    rms). Taken over the detector's threshold windows; a merged interval
+    averages window scores, so it stays within the largest, as long as no
+    window gains or prunes a run."""
+    import numpy as np
+
+    from hypad_tpu_torch.detect import intervals as iv
+    from hypad_tpu_torch.detect.detector import _UNIVARIATE_FA_KW as kw
+
+    s = np.asarray(scores, np.float64).reshape(-1)
+    size, step = iv._window_geometry(len(s), None, kw["window_size_portion"],
+                                     None, kw["window_step_size_portion"])
+    worst, start, end = 0.0, 0, 0
+    while end < len(s):
+        end = start + size
+        w = s[start:end]
+        mean_abs, rms, max_abs = (np.abs(w).mean(), np.sqrt(np.mean(w * w)),
+                                  np.abs(w).max())
+        den = abs(w.mean() + w.std())
+        num = max_abs + mean_abs + 4 * rms   # also bounds |max - threshold|
+        worst = max(worst, rel * (num + num / den * (mean_abs + rms)) / den)
+        start += step
+    return float(worst)
+
+
+def check_same_detection(got, want, known, tag="detect",
+                         atol_from_scores=False):
     """Fail unless two detect_univariate results give the same intervals,
-    confusion and F1 (and interval scores within 1e-3 relative)."""
+    confusion and F1, and interval scores within 1e-3 relative. Under
+    ``atol_from_scores`` they may also differ by what the measured relative
+    score difference can make of them (:func:`interval_score_atol`)."""
     import numpy as np
 
     scores = got["scores"]
@@ -309,6 +364,11 @@ def check_same_detection(got, want, known, tag="detect"):
     print(f"[{tag}] scores: max relative diff to the CPU {score_diff:.3e}; "
           f"exact zeros at the same positions: "
           f"{np.array_equal(scores == 0, want['scores'] == 0)}")
+    score_atol = 0.0
+    if atol_from_scores:
+        score_atol = interval_score_atol(want["scores"], score_diff)
+        print(f"[{tag}] interval-score limit from that difference: "
+              f"{score_atol:.3e} absolute")
     # no interval comes back as an empty (0,) array
     iv, want_iv = (np.asarray(r["intervals"]).reshape(-1, 3)
                    for r in (got, want))
@@ -319,7 +379,9 @@ def check_same_detection(got, want, known, tag="detect"):
     if iv.shape != want_iv.shape or not np.array_equal(iv[:, :2],
                                                        want_iv[:, :2]):
         fail(f"intervals differ from the CPU's: {want_iv.tolist()}")
-    if not np.allclose(iv[:, 2], want_iv[:, 2], rtol=1e-3):
+    print(f"[{tag}] interval scores: max abs diff to the CPU "
+          f"{float(np.max(np.abs(iv[:, 2] - want_iv[:, 2]), initial=0)):.3e}")
+    if not np.allclose(iv[:, 2], want_iv[:, 2], rtol=1e-3, atol=score_atol):
         fail(f"interval scores differ from the CPU's: {want_iv.tolist()}")
     if tuple(got["confusion"]) != tuple(want["confusion"]):
         fail(f"confusion differs from the CPU's {want['confusion']}")
@@ -802,6 +864,315 @@ def phase_eucl_train(device):
             "logs": logs, "trained_f1": f1, "first_call_s": seconds}
 
 
+def write_config(path, cfg):
+    """``cfg`` as flat YAML, checked to read back as it was written."""
+    from hypad_tpu_torch.utils.config import parse_flat_yaml
+
+    def scalar(v):
+        if isinstance(v, str):
+            return "'" + v.replace("'", "''") + "'"
+        return "null" if v is None else repr(v)
+
+    path.write_text("".join(f"{k}: {scalar(v)}\n" for k, v in cfg.items()))
+    if parse_flat_yaml(path.read_text()) != cfg:
+        fail(f"the config written to {path} does not read back")
+    return str(path)
+
+
+def cli_inputs(root):
+    """The [cli] phase's two signal CSVs under ``root/data``: Yahoo A1
+    ``real_1`` (timestamp,value,is_anomaly; 1,420 samples, the length of
+    the real one) and a NAB-style ``nab_sig`` (timestamp,value; 1,420
+    samples 21,600 s apart, so interval 21600 keeps each) with its
+    anomalies.csv. Returns the NAB signal's known anomalies."""
+    import numpy as np
+
+    from hypad_tpu_torch.data.pipeline import (
+        A1_WINDOWS,
+        extract_known_anomalies,
+        synthetic_signal,
+    )
+
+    n = A1_WINDOWS + WIDTH
+    _, values, flags = synthetic_signal(n, anomaly_len=50, seed=SEED)
+    yahoo = root / "data" / "YAHOO" / "A1Benchmark"
+    yahoo.mkdir(parents=True)
+    (yahoo / "real_1.csv").write_text(
+        "timestamp,value,is_anomaly\n" + "".join(
+            f"{i + 1},{float(v)!r},{f}\n"
+            for i, (v, f) in enumerate(zip(values, flags))))
+    stamps = 1_400_000_000 + 21600 * np.arange(n)
+    _, values, flags = synthetic_signal(n, anomaly_len=50, seed=SEED + 1)
+    (root / "data" / "nab_sig.csv").write_text("timestamp,value\n" + "".join(
+        f"{t},{float(v)!r}\n" for t, v in zip(stamps, values)))
+    known = np.stack(extract_known_anomalies(flags, stamps), axis=1)
+    (root / "data" / "anomalies.csv").write_text(
+        'signal,events\nnab_sig,"'
+        + json.dumps([[int(a), int(b)] for a, b in known]) + '"\n')
+    return known
+
+
+def run_cli(argv, log_name, card, env=None):
+    """``hypad_tpu_torch.cli.main(argv)`` in this process with zeroed launch
+    counters (and ``env`` set around it); its stdout goes to
+    OUT_DIR/cli_{log_name}.log and its wall-clock lines are printed beside
+    the card. Returns (result, launches)."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from hypad_tpu_torch import cli
+
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    out = io.StringIO()
+    read = zero_counters()
+    try:
+        with contextlib.redirect_stdout(out):
+            result = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launches = read()
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / f"cli_{log_name}.log").write_text(out.getvalue())
+    for line in out.getvalue().splitlines():
+        if "wall-clock" in line:
+            print(f"[cli] {log_name}: {line} ({card})")
+    print(f"[cli] {log_name}: kernel launches {launches}")
+    return result, launches
+
+
+def state_diff(a, b):
+    """Largest abs diff between two TrainStates' parameters and optimizer
+    moments, and whether every element is within EPOCH_TOL."""
+    def tensors(state):
+        out = dict(state.model.state_dict())
+        for name in ("opt_cx", "opt_cz", "opt_gen"):
+            opt = getattr(state, name)
+            for m in ("mu", "nu"):
+                moments = getattr(opt, m)
+                items = (moments.items() if isinstance(moments, dict)
+                         else [("", moments)])
+                out.update({f"{name}.{m}.{k}": v for k, v in items})
+        return out
+
+    ta, tb = tensors(a), tensors(b)
+    worst, within = 0.0, True
+    for key, want in tb.items():
+        diff = (ta[key] - want).abs()
+        worst = max(worst, diff.max().item())
+        within &= bool((diff <= EPOCH_TOL["atol"]
+                        + EPOCH_TOL["rtol"] * want.abs()).all())
+    return worst, within
+
+
+def phase_cli(device, card):
+    """The command line, ``python -m hypad_tpu_torch.cli``'s ``main``, at
+    the published widths on a Yahoo A1 and a NAB-style CSV, with launch
+    counters zeroed around each command: hyperbolic ``train`` (K5, K1,
+    K2), its ``detect`` on the CPU and on the card, ``resume``, Euclidean
+    ``train`` under HYPAD_KDE_PALLAS=1 (K5, K3), the grids of both
+    geometries, and ``train`` under fused_critics false and true. Returns
+    {path: launches} and the numbers it printed."""
+    import csv
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from hypad_tpu_torch.data.pipeline import A1_WINDOWS
+    from hypad_tpu_torch.detect import scorer as sc
+    from hypad_tpu_torch.detect.scorer import COMBINATIONS, EUCL_COMBOS
+    from hypad_tpu_torch.train import trainer as tr
+    from hypad_tpu_torch.utils.config import parse_flat_yaml, run_dir
+    from hypad_tpu_torch.utils.config import load_config
+    from hypad_tpu_torch.utils.profiling import report, reset_stages
+
+    n_batches = A1_WINDOWS // 64
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    paths, info = {}, {}
+    try:
+        nab_known = cli_inputs(root)
+        reset_stages()
+
+        # 1. hyperbolic train on Yahoo A1, as configs/yahoo_a1_hyper.yaml
+        # with 2 epochs and K5; the windows it puts on the card are the
+        # ones detection reads
+        hyper = parse_flat_yaml(Path("configs/yahoo_a1_hyper.yaml")
+                                .read_text())
+        hyper.update(epochs=2, fused_critics="full",
+                     data_root=str(root / "data"),
+                     output_root=str(root / "hyper"))
+        cfg_h = write_config(root / "hyper.yaml", hyper)
+        seen = {}
+        train_tadgan, detect_scores = tr.train_tadgan, sc.detect_scores
+
+        def spy_train(model, X, **kw):
+            seen["train_X"] = X
+            return train_tadgan(model, X, **kw)
+
+        def spy_detect(params, X, *a, **kw):
+            seen["detect_X"] = X
+            return detect_scores(params, X, *a, **kw)
+
+        tr.train_tadgan, sc.detect_scores = spy_train, spy_detect
+        try:
+            (state, run, trained), paths["cli_train_hyper"] = run_cli(
+                ["train", "--config", cfg_h, "--profile"], "train_hyper",
+                card)
+        finally:
+            tr.train_tadgan, sc.detect_scores = train_tadgan, detect_scores
+        reused = seen["detect_X"] is seen["train_X"]
+        print(f"[cli] detection after train read the training windows "
+              f"already on the card: {reused}")
+        if not reused:
+            fail("detection after train uploaded the windows again")
+        want = launches_of(critic_step_full=tr.N_CRITICS * n_batches * 2,
+                           mobius_linear=2 * n_batches * 2 + 2, kde_argmax=1)
+        if paths["cli_train_hyper"] != want:
+            fail(f"hyperbolic train: expected launches {want}")
+        files = sorted(p.name for p in Path(run).iterdir())
+        print(f"[cli] run directory {Path(run).relative_to(root)}: {files}")
+        for name in ("state_1.pt", "state_final.pt", "train_log.jsonl",
+                     "anomalies.csv", "inference.npz", "config.yaml"):
+            if name not in files:
+                fail(f"hyperbolic train wrote no {name}")
+        log_rows = (Path(run) / "train_log.jsonl").read_text().splitlines()
+        results_csv = root / "hyper" / "results" / hyper["filename"]
+        if len(log_rows) != 2 or not results_csv.is_file():
+            fail(f"{len(log_rows)} train_log rows; results CSV present: "
+                 f"{results_csv.is_file()}")
+        scores = trained["scores"]
+        if scores.shape != (A1_WINDOWS,) or not np.isfinite(scores).all():
+            fail(f"hyperbolic scores of shape {scores.shape}")
+        known = np.asarray([[float(r[1]), float(r[2])] for r in list(
+            csv.reader(open(root / "data" / "YAHOO" / "A1Benchmark"
+                            / "real_1_known_anomalies.csv")))[1:]])
+        cpu, _ = run_cli(["detect", "--config", cfg_h, "--device", "cpu"],
+                         "detect_hyper_cpu", card)
+        # an interval's score is a difference of near-equal scores in units
+        # of their spread, so the scores' card-CPU difference reaches a
+        # small interval score as an absolute, not a relative, difference
+        info["train_hyper_f1"] = check_same_detection(
+            trained, cpu, known, tag="cli hyper", atol_from_scores=True)
+
+        # 2. detect re-enters from state_final.pt on the card
+        again, paths["cli_detect_hyper"] = run_cli(
+            ["detect", "--config", cfg_h], "detect_hyper", card)
+        if paths["cli_detect_hyper"] != launches_of(mobius_linear=2,
+                                                    kde_argmax=1):
+            fail("hyperbolic detect: expected K1 2, K2 1")
+        check_same_detection(again, trained, known, tag="cli detect")
+
+        # the cached path: load: true reads inference.npz, stages it on
+        # the card once and scores it there (K2 1, no forward, so no K1)
+        load_cfg = write_config(root / "hyper_load.yaml",
+                                dict(hyper, load=True))
+        cached, paths["cli_detect_hyper_load"] = run_cli(
+            ["detect", "--config", load_cfg], "detect_hyper_load", card)
+        if paths["cli_detect_hyper_load"] != launches_of(kde_argmax=1):
+            fail("load: true detect: expected K2 1 and nothing else")
+        check_same_detection(cached, trained, known, tag="cli load")
+
+        # 3. resume from state_1.pt: the straight run's state within the
+        # card's epoch tolerance
+        resumed_cfg = write_config(root / "hyper_resume.yaml",
+                                   dict(hyper, resume=True))
+        (resumed, _, _), paths["cli_resume_hyper"] = run_cli(
+            ["train", "--config", resumed_cfg], "resume_hyper", card)
+        worst, within = state_diff(resumed, state)
+        info["resume_max_abs_diff"] = worst
+        print(f"[cli] resume from state_1.pt against the straight 2 "
+              f"epochs: largest parameter or moment diff {worst:.3e} "
+              f"(tolerance {EPOCH_TOL})")
+        if resumed.epoch != 2 or not within:
+            fail("the resumed run left another state")
+        if paths["cli_resume_hyper"] != launches_of(
+                critic_step_full=tr.N_CRITICS * n_batches,
+                mobius_linear=2 * n_batches + 2, kde_argmax=1):
+            fail("resume: expected K5 100, K1 42, K2 1")
+
+        # 4. Euclidean train on the NAB-style CSV, K3 by JAX's switch
+        eucl = parse_flat_yaml(Path("configs/nab_euclidean.yaml")
+                               .read_text())
+        eucl.update(signal="nab_sig", epochs=1, rec_error="dtw",
+                    fused_critics="full", data_root=str(root / "data"),
+                    output_root=str(root / "eucl"))
+        cfg_e = write_config(root / "eucl.yaml", eucl)
+        k3 = {"HYPAD_KDE_PALLAS": "1"}
+        (_, _, eucl_res), paths["cli_train_eucl"] = run_cli(
+            ["train", "--config", cfg_e], "train_eucl", card, env=k3)
+        if paths["cli_train_eucl"] != launches_of(
+                critic_step_full=tr.N_CRITICS * n_batches, kde_argmax_v2=1):
+            fail("Euclidean train: expected K5 100, K3 1, K1 0")
+        if eucl_res["scores"].shape != (A1_WINDOWS + WIDTH - 1,):
+            fail(f"Euclidean scores of shape {eucl_res['scores'].shape}")
+
+        # 5. the grids: one forward pass and one KDE launch each; every
+        # cell's confusion is a single-cell detect's
+        grid, paths["cli_grid_eucl"] = run_cli(
+            ["detect", "--config", cfg_e, "--rec-errors", "point,area,dtw",
+             "--combinations", "all"], "grid_eucl", card, env=k3)
+        if paths["cli_grid_eucl"] != launches_of(kde_argmax_v2=1):
+            fail("Euclidean grid: expected K3 1 and nothing else")
+        rows = list(csv.DictReader(open(Path(run_dir(load_config(cfg_e)))
+                                        / "grid_results.csv")))
+        if len(grid) != 3 * len(EUCL_COMBOS) or len(rows) != len(grid):
+            fail(f"{len(grid)} cells, {len(rows)} grid_results.csv rows")
+        for (re_, cb), cell in grid.items():
+            single_cfg = write_config(root / "eucl_cell.yaml",
+                                      dict(eucl, rec_error=re_,
+                                           combination=cb))
+            single, _ = run_cli(["detect", "--config", single_cfg],
+                                f"detect_eucl_{re_}_{cb}", card, env=k3)
+            if tuple(single["confusion"]) != tuple(cell["confusion"]):
+                fail(f"grid cell {re_}/{cb}: confusion {cell['confusion']}"
+                     f", single-cell detect {single['confusion']}")
+        print(f"[cli] Euclidean grid: {len(grid)} cells, each cell's "
+              f"confusion equal to its single-cell detect's; nab_sig known "
+              f"anomalies {nab_known.tolist()}")
+        hgrid, paths["cli_grid_hyper"] = run_cli(
+            ["detect", "--config", cfg_h, "--combinations", "all"],
+            "grid_hyper", card)
+        if (len(hgrid) != len(COMBINATIONS) or paths["cli_grid_hyper"]
+                != launches_of(mobius_linear=2, kde_argmax=1)):
+            fail("hyperbolic grid: expected 8 cells, K1 2, K2 1")
+        if tuple(hgrid[(None, hyper["combination"])]["confusion"]) != tuple(
+                again["confusion"]):
+            fail("the hyperbolic grid's config cell differs from detect")
+
+        # 6. the configs' default critic step (autograd) and K4, 1 epoch;
+        # the critic steps' generator forwards run K1 in both
+        for mode, key in ((False, "cli_train_fused_false"),
+                          (True, "cli_train_fused_true")):
+            cfg = write_config(root / f"{key}.yaml",
+                               dict(hyper, epochs=1, fused_critics=mode,
+                                    output_root=str(root / key)))
+            _, paths[key] = run_cli(["train", "--config", cfg],
+                                    key.removeprefix("cli_"), card)
+            want = launches_of(
+                mobius_linear=(tr.N_CRITICS + 2) * n_batches + 2,
+                kde_argmax=1,
+                critics_fused_grads=tr.N_CRITICS * n_batches if mode else 0)
+            if paths[key] != want:
+                fail(f"fused_critics {mode}: expected launches {want}")
+
+        # 7. the stages of every command above
+        print(f"[cli] stage table ({card}):")
+        for line in report().splitlines():
+            print(f"[cli]   {line}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return paths, info
+
+
 def phase_staged(device, X, eucl_model, hyper_model):
     """run_inference then score_anomalies_* against detect_scores' one
     call, for both geometries at the detect shape: (a) the chunked forward
@@ -1053,6 +1424,7 @@ def main():
     eucl_launches, eucl_model = phase_eucl_detect(device)
     train = phase_train(device)
     eucl_train = phase_eucl_train(device)
+    cli_paths, cli_info = phase_cli(device, card)
     phase_staged(device, X, eucl_model, model)
     wps, k1, k2, k3 = phase_timing(device, X, model, eucl_model, libs)
     epochs, k4, k5 = phase_train_timing(device, train["X"])
@@ -1062,7 +1434,8 @@ def main():
              "train": train["launches"],
              "train_fused_critics_true": train["launches_fused_true"],
              "train_euclidean": eucl_train["launches"],
-             "detect_euclidean_trained": eucl_train["detect_launches"]}
+             "detect_euclidean_trained": eucl_train["detect_launches"],
+             **cli_paths}
     by_path = {name: {path: counts[name] for path, counts in paths.items()}
                for name in launches}
     tol_text = "loss rtol {0[rtol]} atol {0[atol]}, grads rtol {1[rtol]} " \
@@ -1156,6 +1529,7 @@ def main():
                "trained_detect_f1": train["trained_f1"],
                "euclidean_train_losses": eucl_train["logs"],
                "euclidean_trained_detect_f1": eucl_train["trained_f1"],
+               "cli": cli_info,
                "kernels": kernels,
                "seconds": time.perf_counter() - t_start}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

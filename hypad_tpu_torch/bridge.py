@@ -57,13 +57,19 @@ def from_jax_params(tree, device="cuda"):
     """The port's ``nn.ModuleDict`` of encoder, decoder, critic_x and
     critic_z carrying the weights of a JAX ``init_tadgan`` pytree (leaves
     as numpy arrays, or anything ``np.asarray`` takes)."""
-    signal_shape = int(np.shape(tree["encoder"]["lstm"][0]["w_ih"])[1])
-    latent_dim = int(np.shape(tree["encoder"]["dense"]["w"])[0])
-    hyperbolic = "hyperbolic_linear" in tree["decoder"]
+    return model_from_state_dict(
+        {path.replace("/", "."): torch.from_numpy(np.array(leaf,
+                                                           dtype=np.float32))
+         for path, leaf in flatten_tree(tree).items()}, device=device)
+
+
+def model_from_state_dict(state, device="cuda"):
+    """The port's modules built to the shapes of ``state`` (a
+    ``state_dict`` of an ``init_tadgan`` model) and carrying its weights."""
+    signal_shape = int(state["encoder.lstm.0.w_ih"].shape[1])
+    latent_dim = int(state["encoder.dense.w"].shape[0])
+    hyperbolic = "decoder.hyperbolic_linear.w" in state
     model = build_tadgan(signal_shape, latent_dim, hyperbolic, device)
-    state = {path.replace("/", "."): torch.from_numpy(
-        np.array(leaf, dtype=np.float32))
-        for path, leaf in flatten_tree(tree).items()}
     model.load_state_dict(state, strict=True)
     return model
 

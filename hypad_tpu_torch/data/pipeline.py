@@ -1,15 +1,29 @@
-"""Signal preprocessing for the detector, numpy only.
+"""Signal loading and preprocessing, numpy and the standard library only.
 
-A copy of the stages of ``hypad_tpu.data.pipeline`` that the detector's
-input needs (the port imports nothing of the JAX package): synthetic
-timestamps, per-interval mean aggregation, mean imputation, (-1, 1) min-max
-scaling and rolling windows; plus ``extract_known_anomalies``, which returns
-start/end arrays instead of a DataFrame so no pandas is needed.
+Port of ``hypad_tpu.data.pipeline`` (the port imports nothing of the JAX
+package, and the card's machine has no pandas): signal CSVs are read with
+``csv`` and numpy, keeping ``pandas.read_csv``'s semantics where the
+pipeline reads them (an empty or NA field is NaN; a column of integers
+stays int64, one with a NaN or a fraction is float64). Stages: Yahoo's
+linear detrend, synthetic timestamps and known-anomaly runs, per-interval
+mean aggregation, mean imputation, (-1, 1) min-max scaling and rolling
+windows. Known anomalies are ``(k, 2)`` start/end arrays; the
+``*_known_anomalies.csv`` file is written in pandas' ``to_csv`` layout (an
+index column, then ``start,end``). The JAX package's native C++ engine
+(numerically identical) is not ported (ROADMAP A12).
 """
 
 from __future__ import annotations
 
+import csv
+import dataclasses
+import json
+import math
+import os
+import re
+import stat
 from datetime import datetime
+from typing import Any, Optional
 
 import numpy as np
 
@@ -19,6 +33,53 @@ import numpy as np
 # configs/univariate.yaml's 64.
 A1_WINDOWS = 1320
 A1_BATCH_SIZE = 64
+
+# the strings pandas.read_csv reads as NaN by default
+_NA_VALUES = frozenset((
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null"))
+_INT_TEXT = re.compile(r"^[+-]?[0-9]+$")
+
+
+def read_csv_columns(path):
+    """{column name: list of field strings} of a CSV with a header row."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    if not rows:
+        raise ValueError(f"{path}: empty CSV")
+    header, body = rows[0], rows[1:]
+    return {name: [row[i] if i < len(row) else "" for row in body]
+            for i, name in enumerate(header)}
+
+
+def numeric_column(fields):
+    """A numeric CSV column as pandas reads it: int64 when every field is
+    an integer, else float64 with NaN for the NA strings. Text that is not
+    a number raises ValueError."""
+    if fields and all(_INT_TEXT.match(f) for f in fields):
+        return np.array([int(f) for f in fields], dtype=np.int64)
+    out = np.empty(len(fields), dtype=np.float64)
+    for i, f in enumerate(fields):
+        f = f.strip()
+        if f in _NA_VALUES:
+            out[i] = math.nan
+        elif "_" in f:
+            raise ValueError(f"not a number: {f!r}")
+        else:
+            out[i] = float(f)
+    return out
+
+
+def detrend(values):
+    """Linear least-squares detrend (scipy.signal.detrend(type="linear"))."""
+    values = np.asarray(values, dtype=np.float64)
+    n = len(values)
+    t = np.arange(n, dtype=np.float64)
+    t_mean = t.mean()
+    v_mean = values.mean()
+    slope = ((t - t_mean) * (values - v_mean)).sum() / ((t - t_mean) ** 2).sum()
+    return values - (v_mean + slope * (t - t_mean))
 
 
 def synthetic_timestamps(n: int) -> np.ndarray:
@@ -111,14 +172,122 @@ def rolling_windows(X, index, window_size=100, target_size=1, step_size=1,
     return out_X, out_y, X_index, y_index
 
 
+def _windows(values, timestamps, interval, window_size):
+    """Aggregate, impute, scale to (-1, 1), window: (X (M, window_size)
+    float32, y (M, 1) float32, X_index, y_index, index)."""
+    agg, index = time_segments_aggregate(values, timestamps, interval)
+    X = minmax_scale(impute_mean(agg))
+    out_X, out_y, X_index, y_index = rolling_windows(
+        X, index, window_size=window_size)
+    return (out_X.astype(np.float32), out_y.astype(np.float32), X_index,
+            y_index, index)
+
+
 def prepare_univariate(values, timestamps, interval, window_size=100):
     """The preprocessing of ``load_signal_dataset`` on arrays: aggregate,
     impute, scale to (-1, 1), window. Returns (windows (M, window_size)
     float32, aggregated timeline (n_buckets,))."""
-    agg, index = time_segments_aggregate(values, timestamps, interval)
-    X = minmax_scale(impute_mean(agg))
-    windows, _, _, _ = rolling_windows(X, index, window_size=window_size)
-    return windows.astype(np.float32), index
+    X, _, _, _, index = _windows(values, timestamps, interval, window_size)
+    return X, index
+
+
+@dataclasses.dataclass
+class SignalData:
+    """A preprocessed univariate signal. ``X_device`` is a copy of ``X``
+    on the card, set by whoever uploads it once (the CLI's ``train``) so
+    that detection reuses it."""
+    X: np.ndarray            # (M, window) float32 windows
+    y: np.ndarray            # (M, 1) targets
+    X_index: np.ndarray      # (M,) window-start timestamps
+    y_index: np.ndarray      # (M,) target timestamps
+    index: np.ndarray        # (n_buckets,) aggregated timeline
+    known_anomalies: Optional[np.ndarray] = None   # (k, 2) start, end
+    X_device: Any = None
+
+    def __len__(self):
+        return len(self.X)
+
+
+def write_intervals_csv(path, intervals, columns):
+    """``intervals`` (k, len(columns)) in pandas' ``DataFrame.to_csv``
+    layout: a header with an empty index name, then ``i,v0,v1,...`` rows,
+    floats in their shortest round-trip form."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(["", *columns])
+        for i, row in enumerate(np.asarray(intervals).reshape(
+                -1, len(columns)).tolist()):
+            w.writerow([i, *(repr(v) for v in row)])
+
+
+def _save_known_anomalies(path, known, cache_dir):
+    """Write ``known`` beside the source CSV as ``*_known_anomalies.csv``,
+    through a temporary file and ``os.replace`` so a failed write never
+    leaves a truncated file; when the source directory's mode bits mark it
+    read-only (checked on the bits, since root passes any access check),
+    write it into ``cache_dir`` instead."""
+    src_dir = os.path.dirname(os.path.abspath(path))
+    writable = bool(os.stat(src_dir).st_mode & stat.S_IWUSR)
+    try:
+        if writable:
+            dst = path[:-4] + "_known_anomalies.csv"
+            tmp = dst + ".tmp"
+            try:
+                write_intervals_csv(tmp, known, ("start", "end"))
+                os.replace(tmp, dst)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+    except OSError:
+        writable = False
+    if not writable and cache_dir:
+        os.makedirs(cache_dir, exist_ok=True)
+        base = os.path.basename(path)[:-4] + "_known_anomalies.csv"
+        write_intervals_csv(os.path.join(cache_dir, base), known,
+                            ("start", "end"))
+
+
+def load_signal_dataset(path, interval=21600, window_size=100, yahoo=False,
+                        cache_dir=None) -> SignalData:
+    """A signal CSV (``timestamp,value``) -> :class:`SignalData`.
+
+    ``yahoo``: the Yahoo layout (``value`` and ``is_anomaly``, or A3/A4's
+    ``timestamps``/``value``/``anomaly``): the values are detrended, given
+    synthetic per-second timestamps (in place of any timestamp column), and
+    the runs of the anomaly flag become the known anomalies, which are also
+    written to ``*_known_anomalies.csv`` (see ``_save_known_anomalies``).
+    The caller passes ``interval=1`` for Yahoo."""
+    cols = read_csv_columns(path)
+    known = None
+    if yahoo:
+        values = detrend(numeric_column(cols["value"]))
+        timestamps = synthetic_timestamps(len(values))
+        flag_col = ("anomaly" if "is_anomaly" not in cols and "anomaly" in cols
+                    else "is_anomaly")
+        known = np.stack(extract_known_anomalies(
+            numeric_column(cols[flag_col]), timestamps), axis=1)
+        _save_known_anomalies(path, known, cache_dir)
+    else:
+        timestamps = numeric_column(cols["timestamp"])
+        values = numeric_column(cols["value"])
+    X, y, X_index, y_index, index = _windows(values, timestamps, interval,
+                                             window_size)
+    return SignalData(X=X, y=y, X_index=X_index, y_index=y_index,
+                      index=index, known_anomalies=known)
+
+
+def load_anomalies(signal, data_root):
+    """Ground-truth (k, 2) start/end intervals of ``signal`` from
+    ``data_root/anomalies.csv`` (columns ``signal`` and ``events``, a JSON
+    list of [start, end] pairs); a signal not listed raises KeyError."""
+    cols = read_csv_columns(os.path.join(data_root, "anomalies.csv"))
+    # pandas' set_index("signal").loc[signal].values[0]: the first column
+    # after ``signal``, on the signal's row
+    other = next(name for name in cols if name != "signal")
+    for name, events in zip(cols["signal"], cols[other]):
+        if name == signal:
+            return np.asarray(json.loads(events)).reshape(-1, 2)
+    raise KeyError(signal)
 
 
 def synthetic_signal(n, n_anomalies=3, anomaly_len=50, seed=0):

@@ -1,19 +1,39 @@
-"""Univariate detection: scores -> intervals -> metrics.
+"""Univariate detection: scores -> intervals -> metrics -> files.
 
-Port of the univariate path of ``hypad_tpu.detect.detector.detect``: the
-scorer (hyperbolic or Euclidean), fixed-threshold interval extraction with
-the reference's univariate parameters over the signal's whole timeline, and
-the contextual confusion matrix and F1. Artifact persistence, results CSVs,
-plots and ``load: true`` re-scoring are not ported.
+Port of the univariate path of ``hypad_tpu.detect.detector``:
+
+* :func:`detect`, the CLI's detection: ground truth (a Yahoo signal's own
+  runs, else ``anomalies.csv``), the one-call scorer with the inference
+  artifacts saved (or, under ``load: true``, the cached artifacts staged
+  on the device once and the scores cached per variant), fixed-threshold
+  intervals over the signal's whole timeline, ``anomalies.csv``, the
+  contextual confusion matrix and F1, and the cumulative results CSV under
+  ``output_root/results/``;
+* :func:`detect_grid`: every (rec_error x combination) cell from one
+  forward pass, intervals for all cells at once, ``grid_results.csv``;
+* :func:`detect_univariate`: the same scores -> intervals -> metrics on
+  arrays, without files.
+
+The CSV files keep pandas' ``to_csv`` layouts, written with ``csv``.
+Multivariate input (ROADMAP A11), precomputed fleet scores (A10) and plots
+(A12) are not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import csv
+import os
 
+import numpy as np
+import torch
+
+from hypad_tpu_torch._device import resolve_device
+from hypad_tpu_torch.data.pipeline import load_anomalies, write_intervals_csv
+from hypad_tpu_torch.data.registry import YAHOO_DATASETS, is_multivariate
 from hypad_tpu_torch.detect import intervals as iv
 from hypad_tpu_torch.detect import metrics as mt
-from hypad_tpu_torch.detect.scorer import detect_scores
+from hypad_tpu_torch.detect import scorer as sc
+from hypad_tpu_torch.utils import artifacts
 
 # univariate interval extraction: 0.33/0.1 threshold windows, fixed threshold
 _UNIVARIATE_FA_KW = dict(window_size_portion=0.33,
@@ -22,13 +42,192 @@ _UNIVARIATE_FA_KW = dict(window_size_portion=0.33,
 
 def _confusion_and_metrics(known_anomalies, pred, verbose=True):
     """Confusion matrix and metrics; no predictions or no ground truth
-    leaves the metrics undefined (None), as in the reference detector."""
-    confusion = mt.contextual_confusion_matrix(known_anomalies, pred)
+    leaves the metrics undefined (None) and the confusion (0, 0, 0, 0), as
+    in the reference detector."""
     try:
+        confusion = mt.contextual_confusion_matrix(known_anomalies, pred)
         return confusion, mt.metrics_from_confusion(confusion,
                                                     verbose=verbose)
     except ZeroDivisionError:
         return (0, 0, 0, 0), None
+
+
+def _univariate_intervals(scores, true_index):
+    return iv.find_anomalies(np.asarray(scores).reshape(-1), true_index,
+                             **_UNIVARIATE_FA_KW)
+
+
+def _check_univariate(params, save_plots=None, precomputed=None):
+    if is_multivariate(params):
+        raise NotImplementedError("multivariate detection is not ported yet "
+                                  "(ROADMAP A11)")
+    if precomputed is not None:
+        raise NotImplementedError("precomputed fleet scores are not ported "
+                                  "yet (ROADMAP A10)")
+    if save_plots:
+        raise NotImplementedError("plots are not ported yet (ROADMAP A12)")
+
+
+def _ground_truth(params, test_data, known_anomalies):
+    if known_anomalies is not None:
+        return known_anomalies
+    if params.dataset in YAHOO_DATASETS:
+        return test_data.known_anomalies
+    return load_anomalies(params.signal, params.data_root)
+
+
+def _windows_on_device(test_data, device):
+    """The test windows on ``device``, uploaded once and kept on the
+    dataset (the CLI's ``train`` has already put them there when one CSV
+    trains and tests); None above the one-call limit, where the scorer
+    runs chunks from the host array."""
+    X_dev = test_data.X_device
+    if X_dev is not None and X_dev.device == device:
+        return X_dev
+    if len(test_data.X) > sc.ONE_CALL_MAX_WINDOWS:
+        return None
+    X_dev = torch.as_tensor(np.asarray(test_data.X, np.float32),
+                            device=device)
+    test_data.X_device = X_dev
+    return X_dev
+
+
+def detect(params, model, test_data, run_path, known_anomalies=None,
+           save_plots=None, precomputed_scores=None, device="cuda"):
+    """Detection of the config ``params`` with ``model`` (on ``device``) on
+    ``test_data`` (a ``SignalData``), writing into ``run_path``. Returns
+    {"scores", "intervals", "confusion", "metrics"} (metrics None when
+    undefined). The KDE kernel follows ``HYPAD_KDE_PALLAS``."""
+    _check_univariate(params, save_plots, precomputed_scores)
+    device = resolve_device(device)
+    kde_version = sc.kde_version_from_env()
+    os.makedirs(run_path, exist_ok=True)
+    known_anomalies = _ground_truth(params, test_data, known_anomalies)
+
+    one_call_scores = None
+    save_artifacts = getattr(params, "save_artifacts", True) or params.load
+    cached = artifacts.load_inference(run_path) if params.load else None
+    if cached is not None:
+        inference, true_index = cached
+        inference = sc.stage_inference(inference, device)
+    else:
+        X_dev = _windows_on_device(test_data, device)
+        one_call_scores, inference = sc.detect_scores(
+            model, test_data.X if X_dev is None else X_dev,
+            params.hyperbolic, params.combination, rec_error=params.rec_error,
+            fetch_inference=save_artifacts, kde_version=kde_version,
+            device=device,
+            artifact_dtype=getattr(params, "artifact_dtype", "float32"),
+            artifact_set=getattr(params, "artifact_set", "full"))
+        # the whole aggregated timeline (N + W entries) maps the T = N + W
+        # - 1 unrolled score positions to timestamps
+        true_index = np.asarray(test_data.index)
+        if save_artifacts:
+            artifacts.save_inference(run_path, inference, true_index)
+
+    # the scores are cached per variant under load: true, JAX's file names
+    def compute():
+        if one_call_scores is not None:
+            return one_call_scores
+        if params.hyperbolic:
+            return sc.score_anomalies_hyperbolic(
+                inference, params.combination, kde_version, device)
+        return sc.score_anomalies_euclidean(
+            inference.true_signal, inference.recons_signal,
+            inference.critic_score, params.rec_error, params.combination,
+            kde_version=kde_version, device=device)
+
+    cache_key = (f"scores_hyper_{params.combination}" if params.hyperbolic
+                 else f"scores_eucl_{params.rec_error}_{params.combination}")
+    final_scores = artifacts.cache_scores(run_path, cache_key, compute,
+                                          enabled=params.load)
+    intervals = _univariate_intervals(final_scores, true_index)
+
+    write_intervals_csv(os.path.join(run_path, "anomalies.csv"), intervals,
+                        ("start", "end", "score"))
+    confusion, metrics = _confusion_and_metrics(known_anomalies, intervals)
+    if params.save_result:
+        _append_results_csv(params, confusion)
+    return {"scores": np.asarray(final_scores), "intervals": intervals,
+            "confusion": confusion, "metrics": metrics}
+
+
+def _write_rows(path, rows):
+    """``rows`` (dicts) as ``DataFrame(rows).to_csv(path, index=False)``
+    writes them: the columns in order of first appearance, None and
+    missing keys as empty fields."""
+    columns = list(dict.fromkeys(k for row in rows for k in row))
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(columns)
+        for row in rows:
+            w.writerow(["" if row.get(k) is None else row[k]
+                        for k in columns])
+
+
+def detect_grid(params, model, test_data, run_path, rec_errors=None,
+                combinations=None, known_anomalies=None, device="cuda"):
+    """Every (rec_error x combination) cell of the config's signal from one
+    forward pass (:func:`scorer.detect_scores_grid`), the intervals of all
+    cells in one batch, each cell's confusion and metrics, and
+    ``grid_results.csv`` in ``run_path``. Returns {(rec_error or None,
+    combination): result dict as :func:`detect` gives}."""
+    _check_univariate(params)
+    device = resolve_device(device)
+    os.makedirs(run_path, exist_ok=True)
+    known_anomalies = _ground_truth(params, test_data, known_anomalies)
+    combinations = combinations or [params.combination]
+    rec_errors = rec_errors or [params.rec_error]
+
+    X_dev = _windows_on_device(test_data, device)
+    grid = sc.detect_scores_grid(
+        model, test_data.X if X_dev is None else X_dev, params.hyperbolic,
+        combinations, rec_errors=rec_errors,
+        kde_version=sc.kde_version_from_env(), device=device)
+    cells = list(grid)
+    score_matrix = np.stack([grid[c].reshape(-1) for c in cells])
+    all_intervals = iv.find_anomalies_batch(
+        score_matrix, np.asarray(test_data.index), **_UNIVARIATE_FA_KW)
+
+    rows, results = [], {}
+    for (re_, cb), scores, intervals in zip(cells, score_matrix,
+                                            all_intervals):
+        confusion, metrics = _confusion_and_metrics(
+            known_anomalies, intervals, verbose=False)
+        results[(re_, cb)] = {"scores": scores, "intervals": intervals,
+                              "confusion": confusion, "metrics": metrics}
+        m = metrics or {}
+        rows.append({"rec_error": re_ or "", "combination": cb,
+                     "tn": confusion[0], "fp": confusion[1],
+                     "fn": confusion[2], "tp": confusion[3],
+                     **{k: round(float(m[k]), 6) for k in
+                        ("precision", "recall", "f1", "gmean") if k in m}})
+        cell = cb if re_ is None else f"{re_}/{cb}"
+        f1 = f"f1={m['f1']:.4f}" if "f1" in m else "no metrics"
+        print(f"[grid] {cell}: {f1} "
+              f"(tp={confusion[3]} fp={confusion[1]} fn={confusion[2]})")
+    _write_rows(os.path.join(run_path, "grid_results.csv"), rows)
+    return results
+
+
+def _append_results_csv(params, confusion):
+    """Add ``signal,tn,fp,fn,tp`` to ``output_root/results/{filename or
+    results.csv}`` unless the signal already has a row."""
+    results_dir = os.path.join(params.output_root, "results")
+    os.makedirs(results_dir, exist_ok=True)
+    file_place = os.path.join(results_dir, params.filename or "results.csv")
+    header, rows = ["signal", "tn", "fp", "fn", "tp"], []
+    if os.path.isfile(file_place):
+        with open(file_place, newline="") as f:
+            header, *rows = list(csv.reader(f))
+    if params.signal in [row[header.index("signal")] for row in rows]:
+        return
+    rows.append([params.signal, *("" if v is None else v
+                                  for v in confusion)])
+    with open(file_place, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(header)
+        w.writerows(rows)
 
 
 def detect_univariate(model, X, index, known_anomalies, combination="mult",
@@ -46,11 +245,10 @@ def detect_univariate(model, X, index, known_anomalies, combination="mult",
     dict with the scores, the intervals ((k, 3) start, end, score), the
     confusion matrix (tn, fp, fn, tp) and the metrics (None when
     undefined)."""
-    scores, _ = detect_scores(model, X, hyperbolic, combination,
-                              rec_error=rec_error, fetch_inference=False,
-                              kde_version=kde_version, device=device)
-    intervals = iv.find_anomalies(scores.reshape(-1), np.asarray(index),
-                                  **_UNIVARIATE_FA_KW)
+    scores, _ = sc.detect_scores(model, X, hyperbolic, combination,
+                                 rec_error=rec_error, fetch_inference=False,
+                                 kde_version=kde_version, device=device)
+    intervals = _univariate_intervals(scores, np.asarray(index))
     confusion, metrics = _confusion_and_metrics(known_anomalies, intervals,
                                                 verbose=verbose)
     return {"scores": scores, "intervals": intervals, "confusion": confusion,

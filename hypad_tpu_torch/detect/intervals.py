@@ -6,9 +6,10 @@ package): sliding threshold windows over the score series; per window the
 fixed threshold mean + 4 sigma; above-threshold run extraction with
 padding; max-error ranking; percent-separation pruning; scoring
 (max - thr) / (mean + std); weighted merging; finally positions are mapped
-to timestamps through the index. numpy only. The dynamic (Nelder-Mead)
-threshold, the lower threshold and ``find_anomalies_batch`` are not ported
-yet.
+to timestamps through the index. numpy only. ``find_anomalies_batch`` runs
+the same chain for the cells of a detection grid at once, bitwise equal per
+cell. The dynamic (Nelder-Mead) threshold and the lower threshold are not
+ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -175,8 +176,8 @@ def find_anomalies(errors, index, window_size=None, window_size_portion=None,
     mapping."""
     if not fixed_threshold:
         raise NotImplementedError(
-            "only the fixed threshold is ported; the dynamic threshold comes "
-            "with a later slice")
+            "only the fixed threshold is ported; the dynamic threshold is "
+            "ROADMAP A12")
     errors = np.asarray(errors, dtype=np.float64)
     window_size, window_step_size = _window_geometry(
         len(errors), window_size, window_size_portion, window_step_size,
@@ -196,3 +197,15 @@ def find_anomalies(errors, index, window_size=None, window_size_portion=None,
     anomalies = [[index[int(start)], index[int(stop)], score]
                  for start, stop, score in merged]
     return np.asarray(anomalies)
+
+
+def find_anomalies_batch(errors, index, fixed_threshold=None, **kw):
+    """:func:`find_anomalies` over each row of ``errors`` (C, T), the cells
+    of one grid sharing the score length and the timestamp ``index``.
+    Returns a list of C interval arrays."""
+    if not fixed_threshold:
+        raise NotImplementedError(
+            "only the fixed threshold is ported; the dynamic threshold is "
+            "ROADMAP A12")
+    return [find_anomalies(row, index, fixed_threshold=True, **kw)
+            for row in np.asarray(errors)]

@@ -19,13 +19,18 @@ the CPU through their plain versions. Above ``ONE_CALL_MAX_WINDOWS`` the
 forward runs in chunks (``run_inference``) and the staged
 ``score_anomalies_*`` score its host arrays.
 
-Not ported yet: grid, fleet and multivariate detection, and the artifact
-options of the JAX ``detect_scores``.
+``detect_scores_grid`` scores every (rec_error x combination) cell from one
+forward pass and one critic KDE launch. ``stage_inference`` puts a cached
+artifact set on the device once, for the staged scorers to take as it is.
+
+Not ported yet: fleet and multivariate detection (ROADMAP A10, A11).
 """
 
 from __future__ import annotations
 
 import math
+import os
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -66,10 +71,26 @@ class InferenceOutput(NamedTuple):
 
 
 def _as_device(x, device):
-    """A float32 tensor of ``x`` (numpy or tensor) on ``device``."""
+    """A float32 tensor of ``x`` (numpy or tensor) on ``device``; a float32
+    contiguous tensor already there is returned as it is."""
     if torch.is_tensor(x):
         return x.to(device=device, dtype=torch.float32).contiguous()
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def kde_version_from_env():
+    """The KDE kernel the JAX package's switch selects: ``HYPAD_KDE_PALLAS=1``
+    (its hand-tiled v2 kernel) gives "v2" (K3), anything else "v1" (K2)."""
+    return "v2" if os.environ.get("HYPAD_KDE_PALLAS") == "1" else "v1"
+
+
+def stage_inference(inference: "InferenceOutput", device="cuda"):
+    """``inference`` (a cached artifact set) with every field as a float32
+    tensor on ``device``, copied there once: the staged
+    ``score_anomalies_*`` then take its fields without another copy."""
+    device = resolve_device(device)
+    return InferenceOutput(*(None if t is None else _as_device(t, device)
+                             for t in inference))
 
 
 # ---------------------------------------------------------------------------
@@ -279,12 +300,24 @@ def _eucl_scores_core(y, y_hat, critic, rec_error_type, comb, width,
     reconstruction errors (z-scored, clipped at 0, plus 1), combined. The
     critic pipeline is skipped for ``rec``, which does not read it."""
     _check_combination(False, comb)
+    rec_scores = _eucl_rec_scores(y, y_hat, rec_error_type, smooth_window)
+    critic_scores = None
+    if comb != "rec":
+        critic_scores = _critic_scores_core(critic, width, smooth_window,
+                                            kde_version)
+    return _eucl_combine(comb, critic_scores, rec_scores, lambda_rec)
+
+
+def _eucl_rec_scores(y, y_hat, rec_error_type, smooth_window):
+    """The smoothed reconstruction errors, z-scored, clipped at 0, plus 1."""
     errors, _ = _rec_errors_core(y, y_hat, rec_error_type, smooth_window)
-    rec_scores = zscore(errors).clamp_min(0.0) + 1.0
+    return zscore(errors).clamp_min(0.0) + 1.0
+
+
+def _eucl_combine(comb, critic_scores, rec_scores, lambda_rec=0.5):
+    """The Euclidean combination of the critic and rec scores (T,)."""
     if comb == "rec":
         return rec_scores
-    critic_scores = _critic_scores_core(critic, width, smooth_window,
-                                        kde_version)
     if comb == "critic":
         return critic_scores
     if comb == "mult":
@@ -375,8 +408,23 @@ def _check_params_device(params, device):
         raise ValueError(f"params lie on {params_device}, not on {device}")
 
 
+def _apply_artifact_opts(inference, artifact_dtype, artifact_set,
+                         hyperbolic):
+    """The artifact options on a host ``InferenceOutput``: drop
+    eucl_recons and gt_signal of a hyperbolic run under "minimal", cast the
+    (N, W) arrays to float16 under "float16" (the critic stays float32)."""
+    if hyperbolic and artifact_set == "minimal":
+        inference = inference._replace(eucl_recons=None, gt_signal=None)
+    if artifact_dtype == "float16":
+        inference = InferenceOutput(*(
+            t.astype(np.float16) if t is not None and np.ndim(t) > 1 else t
+            for t in inference))
+    return inference
+
+
 def detect_scores(params, X, hyperbolic, combination, rec_error="point",
-                  fetch_inference=True, kde_version="v1", device="cuda"):
+                  fetch_inference=True, kde_version="v1", device="cuda",
+                  artifact_dtype="float32", artifact_set="full"):
     """The whole detection compute on ``device``: returns (final scores as
     numpy, InferenceOutput of numpy arrays or None). The scores are (N,)
     hyperbolic and (N + W - 1,) Euclidean.
@@ -387,7 +435,10 @@ def detect_scores(params, X, hyperbolic, combination, rec_error="point",
     ``max(trunc(N * 0.01), 1)``. ``rec_error`` (point, area, dtw) applies to
     the Euclidean scores only. ``kde_version`` picks the KDE kernel, "v1"
     (K2) or "v2" (K3). ``fetch_inference=False`` returns (scores, None) and
-    copies only the scores to the host.
+    copies only the scores to the host. ``artifact_dtype`` and
+    ``artifact_set`` shape the returned inference as
+    :func:`_apply_artifact_opts` says; the scores are computed in float32
+    either way.
 
     Above ``ONE_CALL_MAX_WINDOWS`` windows the forward runs in chunks
     (:func:`run_inference`) and :func:`score_anomalies_hyperbolic` or
@@ -407,7 +458,10 @@ def detect_scores(params, X, hyperbolic, combination, rec_error="point",
                 inference.true_signal, inference.recons_signal,
                 inference.critic_score, rec_error, combination,
                 kde_version=kde_version, device=device)
-        return scores, (inference if fetch_inference else None)
+        if not fetch_inference:
+            return scores, None
+        return scores, _apply_artifact_opts(inference, artifact_dtype,
+                                            artifact_set, hyperbolic)
     X_host = None if torch.is_tensor(X) else np.asarray(X, np.float32)
     Xt = _as_device(X if X_host is None else X_host, device)
     n, w = Xt.shape
@@ -423,10 +477,106 @@ def detect_scores(params, X, hyperbolic, combination, rec_error="point",
         X_host = Xt.cpu().numpy()
     if hyperbolic:
         hyper, eucl, hyper_x, critic = outs
-        return scores, InferenceOutput(recons_signal=hyper,
-                                       true_signal=hyper_x,
-                                       critic_score=critic, eucl_recons=eucl,
-                                       gt_signal=X_host)
-    recon, critic = outs
-    return scores, InferenceOutput(recons_signal=recon, true_signal=X_host,
-                                   critic_score=critic)
+        inference = InferenceOutput(recons_signal=hyper, true_signal=hyper_x,
+                                    critic_score=critic, eucl_recons=eucl,
+                                    gt_signal=X_host)
+    else:
+        recon, critic = outs
+        inference = InferenceOutput(recons_signal=recon, true_signal=X_host,
+                                    critic_score=critic)
+    return scores, _apply_artifact_opts(inference, artifact_dtype,
+                                        artifact_set, hyperbolic)
+
+
+# ---------------------------------------------------------------------------
+# grid detection: every (rec_error x combination) cell from one forward pass
+# ---------------------------------------------------------------------------
+
+def _validate_grid(hyperbolic, combinations, rec_errors):
+    """The cells deduplicated in order; an unknown combination for the
+    path or an unknown rec_error raises."""
+    combinations = tuple(dict.fromkeys(combinations))
+    valid = COMBINATIONS if hyperbolic else EUCL_COMBOS
+    bad = [cb for cb in combinations if cb not in valid]
+    if bad:
+        raise ValueError(f"unknown combination(s) {bad} for this path; "
+                         f"valid: {sorted(valid)}")
+    rec_errors = tuple(dict.fromkeys(rec_errors))
+    for re_ in rec_errors:
+        if re_ not in REC_ERRORS:
+            raise ValueError(f"unknown rec_error {re_!r}")
+    return combinations, rec_errors
+
+
+def _grid_core(model, X, hyperbolic, combinations, rec_errors, width,
+               smooth_window, kde_version="v1", lambda_rec=0.5):
+    """One forward pass, one critic pipeline (one KDE launch, only if a
+    combination reads it), one reconstruction error per rec_error, then
+    every combination's tail, each the same operations as the single-cell
+    scorer's. Returns {(rec_error or None, combination): (T,) tensor}."""
+    outs = _forward_chunk(model, X, hyperbolic)
+    critic_scores = None
+    if any(cb in CRITIC_COMBOS for cb in combinations):
+        critic_scores = _critic_scores_core(outs[-1], width, smooth_window,
+                                            kde_version)
+    if hyperbolic:
+        recons, _, hyper_x, _ = outs
+        rec_scores = st.acosh_poincare_distance(recons, hyper_x)
+        if critic_scores is not None:
+            critic_scores = critic_scores[: rec_scores.shape[0]]
+        return {(None, cb): _combine_device(cb, critic_scores, rec_scores,
+                                            recons)
+                for cb in combinations}
+    out = {}
+    for rec_error in rec_errors:
+        rec_scores = _eucl_rec_scores(X, outs[0], rec_error, smooth_window)
+        for cb in combinations:
+            out[(rec_error, cb)] = _eucl_combine(cb, critic_scores,
+                                                 rec_scores, lambda_rec)
+    return out
+
+
+def detect_scores_grid(params, X, hyperbolic, combinations,
+                       rec_errors=("point",), kde_version="v1",
+                       device="cuda"):
+    """Every (rec_error x combination) detection cell of the (N, W) windows
+    ``X`` (numpy or a tensor on ``device``) from one forward pass and one
+    critic KDE launch: each rec_error's unroll and error are computed once,
+    and only the combination tails fan out. Each cell equals
+    :func:`detect_scores` for that cell.
+
+    Returns ``{(rec_error or None, combination): numpy scores}``: the
+    rec_error slot is None for hyperbolic cells, whose rec scores take no
+    rec_error. Above ``ONE_CALL_MAX_WINDOWS`` the forward runs in chunks
+    (:func:`run_inference`) and each cell is scored from its output."""
+    combinations, rec_errors = _validate_grid(hyperbolic, combinations,
+                                              rec_errors)
+    if hyperbolic and len(rec_errors) > 1:
+        warnings.warn(
+            "rec_errors apply only to the euclidean univariate path; the "
+            "hyperbolic grid keys cells by combination alone and the "
+            "requested rec_error sweep collapses to one row per combination",
+            stacklevel=2)
+    device = resolve_device(device)
+    _check_params_device(params, device)
+    if len(X) > ONE_CALL_MAX_WINDOWS:
+        inference = run_inference(params, X, hyperbolic, device=device)
+        if hyperbolic:
+            return {(None, cb): score_anomalies_hyperbolic(
+                        inference, cb, kde_version, device)
+                    for cb in combinations}
+        return {(re_, cb): score_anomalies_euclidean(
+                    inference.true_signal, inference.recons_signal,
+                    inference.critic_score, re_, cb,
+                    kde_version=kde_version, device=device)
+                for cb in combinations for re_ in rec_errors}
+    Xt = _as_device(X, device)
+    n, w = Xt.shape
+    with torch.inference_mode():
+        out = _grid_core(params, Xt, hyperbolic, combinations, rec_errors, w,
+                         max(math.trunc(n * 0.01), 1), kde_version)
+        # JAX's cell order: its one-call grid comes back as a dict keyed
+        # "comb" or "rec_error/comb", which the device fetch sorts
+        order = sorted(out, key=lambda c: c[1] if c[0] is None
+                       else f"{c[0]}/{c[1]}")
+        return {cell: out[cell].cpu().numpy() for cell in order}

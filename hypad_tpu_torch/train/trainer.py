@@ -228,7 +228,9 @@ def train_tadgan(model, X, *, lr, hyperbolic, batch_size, n_epochs, seed=0,
     from its ``epoch`` up to ``n_epochs``. ``log_cb(epoch, metrics)`` fires
     after every epoch; ``checkpoint_cb(epoch, state)`` after every 10th and
     after epoch ``n_epochs - 1``. Returns the final :class:`TrainState`.
-    The model must lie on ``device``; a CUDA device without CUDA raises."""
+    The model must lie on ``device``; a CUDA device without CUDA raises.
+    ``X`` may be numpy or a tensor; a float32 tensor on ``device`` is used
+    as it is, without a copy."""
     device = resolve_device(device)
     state = (model if isinstance(model, TrainState)
              else init_train_state(model, lr, hyperbolic))
@@ -236,7 +238,8 @@ def train_tadgan(model, X, *, lr, hyperbolic, batch_size, n_epochs, seed=0,
     if any(p.device != device for p in params):
         raise ValueError(f"train_tadgan: the model is on {params[0].device}, "
                          f"not on {device}")
-    X = torch.as_tensor(np.asarray(X, np.float32), device=device)
+    X = (X.to(device, torch.float32) if torch.is_tensor(X)
+         else torch.as_tensor(np.asarray(X, np.float32), device=device))
     while state.epoch < n_epochs:
         draws = epoch_draws(epoch_generator(seed, state.epoch), X.shape[0],
                             batch_size, state.model)

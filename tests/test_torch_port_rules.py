@@ -120,3 +120,62 @@ def test_build_compiles_extra_jobs_in_the_same_round(tmp_path, monkeypatch):
     assert rounds[0]["empty"] == extra["empty"]
     assert rounds[0]["kde_argmax"] == (_build.CSRC / "kde_argmax.cu",
                                        _build.library_path("kde_argmax"))
+
+
+def test_cli_runs_with_pandas_yaml_orbax_and_jax_blocked(tmp_path):
+    """``python -m hypad_tpu_torch.cli train`` then ``detect`` on the CPU,
+    in interpreters in which importing pandas, yaml, orbax, jax or
+    hypad_tpu fails: the card's machine has no pandas, PyYAML or orbax."""
+    n = 160
+    rng = np.random.default_rng(0)
+    values = np.sin(np.arange(n) / 4.0) + 0.1 * rng.standard_normal(n)
+    values[100:106] += 4.0
+    stamps = 1_400_000_000 + 21600 * np.arange(n)
+    (tmp_path / "sig.csv").write_text("timestamp,value\n" + "".join(
+        f"{s},{float(v)!r}\n" for s, v in zip(stamps, np.round(values, 6))))
+    (tmp_path / "anomalies.csv").write_text(
+        f'signal,events\nsig,"[[{stamps[100]}, {stamps[105]}]]"\n')
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(
+        "dataset: 'NAB'\nsignal: 'sig'  # a comment\nepochs: 1\n"
+        "hyperbolic: True\nsignal_shape: 100\nlr: 0.0005\nbatch_size: 16\n"
+        "save_result: True\nfilename: 'r.csv'\nrec_error: 'point'\n"
+        "combination: 'mult'\ninterval: 21600\nunique_dataset: True\n"
+        f"devices: 1\ndata_root: '{tmp_path}'\noutput_root: '{tmp_path}'\n")
+    blocked = ("jax", "jaxlib", "hypad_tpu", "pandas", "yaml", "orbax",
+               "tensorstore", "triton")
+    # one thread a process: the suite runs in several worker processes
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    for argv in (["train"], ["detect"],
+                 ["detect", "--rec-errors", "point", "--combinations",
+                  "mult,rec"]):
+        code = (
+            "import runpy, sys\n"
+            f"for name in {blocked!r}:\n"
+            "    sys.modules[name] = None\n"
+            f"sys.argv = ['cli', *{argv!r}, '--config', {str(cfg)!r}, "
+            "'--device', 'cpu']\n"
+            "runpy.run_module('hypad_tpu_torch.cli', run_name='__main__')\n"
+            f"assert not any(sys.modules.get(m) for m in {blocked!r})\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                             env=env, capture_output=True, text=True,
+                             timeout=300)
+        assert out.returncode == 0, out.stderr[-3000:]
+        assert "wall-clock" in out.stdout
+    run = tmp_path / "trained_models" / "models_hyper_NAB_1_0.0005" / "NAB"
+    names = sorted(os.listdir(run / "sig"))
+    assert names == ["anomalies.csv", "config.yaml", "grid_results.csv",
+                     "inference.npz", "state_final.pt", "train_log.jsonl"]
+    assert (tmp_path / "results" / "r.csv").is_file()
+
+
+def test_cli_defaults_to_cuda(tmp_path):
+    from hypad_tpu_torch import cli
+
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available, so the default device is usable")
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(f"output_root: '{tmp_path}'\n")
+    for command in ("train", "detect"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main([command, "--config", str(cfg)])
