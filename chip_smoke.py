@@ -76,7 +76,35 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    steps' generator forwards run it too) and true (K4 100); the CLI's
    wall-clock lines and stage table beside the card's name and power
    limit (each command's stdout in OUT_DIR, cli_*.log);
-8. staged path: at 20,000 windows, ``run_inference`` (chunks of 1,024)
+8. fleet ([fleet]): K1, K5 and K4 with a signal axis at S = 1, 3 and 9
+   (K1 at the generator step's 2B = 128 rows a signal, K5 and K4 at B =
+   64), each one launch whose every signal is bitwise that signal's
+   single-signal launch and within the plain version's tolerance, timed
+   against S single launches; K1 also at fleet detection's (9, 2,280,
+   100); a 2-epoch hyperbolic seed band (S = 3,
+   1,320 windows, batch 64, "full") through ``train_fleet`` with zeroed
+   counters (K5 200, K1 80: one signal's launches), each signal held
+   against ``train_tadgan(seed=i)`` on the card within 5e-3 / 2e-4; one
+   ragged fleet epoch (640, 448 and 0 windows) on the card, each signal
+   element-wise its single-model epoch on the card, its mean losses
+   within 1e-3 / 1e-4 of the CPU's from the same weights and draws; warm
+   fleet epochs at S = 1, 3 and
+   9 (host seconds, all device launches an epoch under torch.profiler)
+   beside a warm single-model epoch; ``detect_scores_fleet`` of 9 signals
+   (K1 2, K2 1), each signal's intervals, confusion, F1 and zero and NaN
+   positions those of its own ``detect_scores`` call on the card and of
+   the CPU's ``detect_scores_fleet``, then timed against 9
+   ``detect_scores`` calls, warm windows/s;
+9. sweep ([sweep]): ``sweep`` of configs/nab_sweep.yaml (9 signals,
+   Euclidean, cut to 1 epoch) through ``hypad_tpu_torch.cli.main`` on 9
+   NAB-style CSVs of 1,420 to 2,380 samples (K2 1: the one fleet
+   detection), then ``sweep --detect-only --device cpu`` on the card's
+   checkpoints: every signal's intervals, confusion and F1 equal, interval
+   scores within the limit the measured score difference allows; then on
+   the card ``sweep --detect-only`` (the same detections), ``detect``
+   re-entering a sweep run directory, and ``--signals`` x ``--seeds 0,1``
+   (runs under seed_0/ and seed_1/), each one K2 launch;
+10. staged path: at 20,000 windows, ``run_inference`` (chunks of 1,024)
    must give the one call's forward outputs within 1e-5 relative / 1e-6
    absolute; ``score_anomalies_euclidean`` (Euclidean model) and
    ``score_anomalies_hyperbolic`` (hyperbolic model) on the one call's
@@ -84,13 +112,14 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    tolerance; on ``run_inference``'s output, the same zero and NaN
    positions and intervals (chunks sum the forward in another order, and a
    last-bit change of a critic value can flip a KDE tie);
-9. timing: warm detect throughput (hyperbolic under K2 and K3, Euclidean
+11. timing: warm detect throughput (hyperbolic under K2 and K3, Euclidean
    for each rec_error), warm epoch seconds for each ``fused_critics``
    value, and each kernel's time beside its plain version's and its bound
    at the path's shapes (K1 at the detect shape and at the generator
    step's two, beside an empty kernel; cuBLAS's f32 x @ w.T as an
    informative line, not K1's function);
-10. report: one JSON line of the kernels, the card's name and power limit,
+12. report: one JSON line of the kernels (with each signal-axis kernel's
+   times at S = 1, 3 and 9), the card's name and power limit,
    and last the JSON line the GPU check reads.
 
 TF32 is switched off for matmuls and cuDNN: every product runs in full f32,
@@ -119,6 +148,9 @@ WIDTH = 100
 SEED = 0
 TRAIN_LR = 5e-4
 EPOCH_TOL = dict(rtol=5e-3, atol=2e-4)   # tests/test_critic_kernel.py:227-236
+# an epoch's mean losses: test_torch_train.py's
+# test_epoch_tracks_jax_with_injected_draws
+METRIC_TOL = dict(rtol=1e-3, atol=1e-4)
 K4_TOL = (dict(rtol=2e-5, atol=1e-6), dict(rtol=5e-5, atol=5e-7))   # :83-93
 K5_TOL = (dict(rtol=5e-5, atol=2e-6), dict(rtol=1e-4, atol=1e-6))   # :113-122
 OUT_DIR = Path("chiprun_out")
@@ -664,7 +696,7 @@ def phase_train_timing(device, X):
                             hyperbolic=True, device=device)
         state = tr.init_train_state(model, TRAIN_LR, True)
         walls = []
-        for e in range(4):  # one warm-up epoch, then three timed
+        for e in range(3):  # one warm-up epoch, then two timed
             t0 = time.perf_counter()
             draws = tr.epoch_draws(tr.epoch_generator(SEED, e), X.shape[0],
                                    TRAIN_BATCH, model)
@@ -752,6 +784,702 @@ def phase_main_path(device):
           f"{time.perf_counter() - t0:.3f} s")
     check_same_detection(got, want, known)
     return launches, X, model
+
+
+FLEET_SIZES = (1, 3, 9)
+# the windows of the 9 signals fleet detection scores (1,320 to 2,280)
+FLEET_DETECT_LENS = tuple(1320 + 120 * i for i in range(9))
+FLEET_TOL = dict(rtol=3e-4, atol=1e-5)   # tests/test_fleet_detect.py
+
+
+def fleet_models(device, S, hyperbolic=True, seed0=0):
+    """S full-width models of seeds seed0 .. seed0 + S - 1."""
+    import torch
+
+    from hypad_tpu_torch.models.tadgan import init_tadgan
+
+    return [init_tadgan(torch.Generator().manual_seed(seed0 + i), WIDTH,
+                        hyperbolic=hyperbolic, device=device)
+            for i in range(S)]
+
+
+def fleet_step_case(device, S, B, hyperbolic=True):
+    """S full-width models, their stacked parameters, x (S, B, W) and one
+    critic step's draws with a leading S, each signal its own."""
+    import torch
+
+    from hypad_tpu_torch.train import fleet as fl
+
+    models = fleet_models(device, S, hyperbolic, seed0=50)
+    g = torch.Generator().manual_seed(100 + S)
+    d = {"z_x": torch.randn(S, B, 20, generator=g),
+         "a_x": torch.rand(S, B, WIDTH, generator=g),
+         "z_z": torch.randn(S, B, 20, generator=g),
+         "a_z": torch.rand(S, B, 20, generator=g),
+         "m_cx": torch.rand(S, 4, 3 * B, 20, generator=g) < 0.75,
+         "m_cz": torch.rand(S, 2, 3 * B, 20, generator=g) < 0.8,
+         "m_dec": torch.rand(S, B, 128, generator=g) < 0.8}
+    x = torch.rand(S, B, WIDTH, generator=g) * 2 - 1
+    return (models, fl.stack_models(models), x.to(device),
+            {k: v.to(device) for k, v in d.items()})
+
+
+def fleet_kernel_checks(device):
+    """K1, K5 and K4 with a signal axis at S = 1, 3 and 9: one launch each,
+    each signal bitwise its single-signal launch, the plain version's
+    tolerance; timed against S single launches. Returns {kernel: {S:
+    record}}."""
+    import torch
+
+    from hypad_tpu_torch.data.pipeline import A1_BATCH_SIZE as TRAIN_BATCH
+    from hypad_tpu_torch.manifold.kernels import (
+        mobius_linear,
+        mobius_linear_kernel,
+    )
+    from hypad_tpu_torch.profile_detect import cuda_ms
+    from hypad_tpu_torch.train import critic_kernel as ck
+    from hypad_tpu_torch.train import fleet as fl
+
+    def k1_check(xs, w, b, what):
+        """One K1 launch over xs (S, rows, W): each signal bitwise its own
+        single-signal launch, within 1e-6 of the plain version. Returns
+        the max abs diff to plain."""
+        S = xs.shape[0]
+        read = zero_counters()
+        got = mobius_linear_kernel(xs, w, b)
+        torch.cuda.synchronize()
+        if read()["mobius_linear"] != 1:
+            fail(f"K1 {what} launched {read()['mobius_linear']} times")
+        singles = [mobius_linear_kernel(xs[i].contiguous(), w[i], b[i])
+                   for i in range(S)]
+        if not all(torch.equal(got[i], singles[i]) for i in range(S)):
+            fail(f"K1 {what}: a signal differs from its own launch")
+        err = (got - mobius_linear(xs, w, b)).abs().max().item()
+        if err > 1e-6:
+            fail(f"K1 {what}: max abs diff {err:.3e} to plain > 1e-6")
+        return err
+
+    out = {"mobius_linear": {}, "critic_step_full": {},
+           "critics_fused_grads": {}}
+    B = TRAIN_BATCH
+    for S in FLEET_SIZES:
+        models, P, x, d = fleet_step_case(device, S, B)
+        # K1 at the generator step's decoder-head shape, 2B rows a signal
+        w = P["decoder.hyperbolic_linear.w"]
+        b = P["decoder.hyperbolic_linear.b"]
+        xs = torch.cat([x, x.flip(1)], dim=1).contiguous()
+        err = k1_check(xs, w, b, f"with S={S}")
+        rows = xs.shape[1]
+        one = [(xs[i].contiguous(), w[i], b[i]) for i in range(S)]
+        rec = {"ms": cuda_ms(lambda: mobius_linear_kernel(xs, w, b), 100),
+               "single_launches_ms": cuda_ms(
+                   lambda: [mobius_linear_kernel(*a) for a in one], 100),
+               "plain_ms": cuda_ms(lambda: mobius_linear(xs, w, b), 20),
+               "max_abs_err": err, "rows_a_signal": rows}
+        rec["bytes"], rec["ops"] = (v * S for v in k1_cost(rows, WIDTH,
+                                                           WIDTH))
+        out["mobius_linear"][S] = bound(rec)
+
+        # K5 and K4 at B = 64 a signal
+        read = zero_counters()
+        got5 = ck.critic_step_fused_full_fleet(P, x, d, True)
+        bigx, bigz = ck.critic_step_inputs_fleet(P, x, d, True)
+        got4 = ck.critics_fused_grads_fleet(P, bigx, bigz, d["m_cx"],
+                                            d["m_cz"])
+        torch.cuda.synchronize()
+        n = read()
+        if (n["critic_step_full"], n["critics_fused_grads"]) != (1, 1):
+            fail(f"K5 / K4 with S={S} launched {n}")
+        args = []
+        for i, m in enumerate(models):
+            di = {k: v[i] for k, v in d.items()}
+            one5 = ck.critic_step_fused_full(m, x[i], di, True)
+            a4 = (m["critic_x"], m["critic_z"], bigx[i], bigz[i],
+                  di["m_cx"], di["m_cz"])
+            one4 = ck.critics_fused_grads(*a4)
+            args.append((m, x[i], di, a4))
+            for name, fleet_out, single in (("K5", got5, one5),
+                                            ("K4", got4, one4)):
+                same = (torch.equal(fleet_out[0][i], single[0])
+                        and torch.equal(fleet_out[1][i], single[1])
+                        and all(torch.equal(fleet_out[j][k][i], single[j][k])
+                                for j in (2, 3) for k in single[j]))
+                if not same:
+                    fail(f"{name} with S={S}: signal {i} differs from its "
+                         "own single-signal launch")
+        plain5 = ck.critic_step_fleet_plain(P, x, d, True)
+        plain4 = ck.critics_fused_grads_fleet_plain(P, bigx, bigz, d["m_cx"],
+                                                    d["m_cz"])
+        e5 = critic_err(got5, plain5, K5_TOL, f"K5 with S={S}")
+        e4 = critic_err(got4, plain4, K4_TOL, f"K4 with S={S}")
+        r5 = {"ms": cuda_ms(lambda: ck.critic_step_fused_full_fleet(
+                  P, x, d, True), 100),
+              "single_launches_ms": cuda_ms(lambda: [
+                  ck.critic_step_fused_full(m, xi, di, True)
+                  for m, xi, di, _ in args], 100),
+              "plain_ms": cuda_ms(lambda: ck.critic_step_fleet_plain(
+                  P, x, d, True), 10), "max_abs_err": e5}
+        r4 = {"ms": cuda_ms(lambda: ck.critics_fused_grads_fleet(
+                  P, bigx, bigz, d["m_cx"], d["m_cz"]), 100),
+              "single_launches_ms": cuda_ms(lambda: [
+                  ck.critics_fused_grads(*a4) for *_, a4 in args], 100),
+              "plain_ms": cuda_ms(lambda: ck.critics_fused_grads_fleet_plain(
+                  P, bigx, bigz, d["m_cx"], d["m_cz"]), 10),
+              "max_abs_err": e4}
+        bx, ox = critic_cost(B, models[0]["critic_x"], WIDTH)
+        bz, oz = critic_cost(B, models[0]["critic_z"], 20)
+        bg, og = generator_cost(models[0], B)
+        r4["bytes"], r4["ops"] = S * (bx + bz), S * (ox + oz)
+        r5["bytes"] = S * (bx + bz + bg - 4 * 3 * B * (WIDTH + 20))
+        r5["ops"] = S * (ox + oz + og)
+        out["critic_step_full"][S] = bound(r5)
+        out["critics_fused_grads"][S] = bound(r4)
+        for name, r in (("K1 (2B rows a signal)", rec),
+                        ("K5", r5), ("K4", r4)):
+            print(f"[fleet] {name} with S={S}: one launch {r['ms']:.5f} ms "
+                  f"against {S} single launches {r['single_launches_ms']:.5f}"
+                  f" ms; plain {r['plain_ms']:.5f} ms; bound "
+                  f"{r['bound_ms']:.6f} ms ({r['bound_by']}); each signal "
+                  f"bitwise its single launch; max abs diff to plain "
+                  f"{r['max_abs_err']:.3e}")
+
+    # K1 at fleet detection's shape: 9 signals padded to the longest's
+    # 2,280 rows, which takes K1's large-tile path
+    S, rows = len(FLEET_DETECT_LENS), max(FLEET_DETECT_LENS)
+    P = fl.stack_models(fleet_models(device, S, seed0=20))
+    g = torch.Generator().manual_seed(7)
+    xs = (torch.rand(S, rows, WIDTH, generator=g) * 2 - 1).to(device)
+    err = k1_check(xs, P["decoder.hyperbolic_linear.w"],
+                   P["decoder.hyperbolic_linear.b"],
+                   f"at fleet detection's shape ({S}, {rows}, {WIDTH})")
+    out["mobius_linear_detect_shape"] = {"signals": S, "rows_a_signal": rows,
+                                         "max_abs_err": err}
+    print(f"[fleet] K1 at fleet detection's shape ({S}, {rows}, {WIDTH}): "
+          f"one launch, each signal bitwise its single launch; max abs diff "
+          f"to plain {err:.3e}")
+    return out
+
+
+def ragged_epoch_card_vs_cpu(device, X):
+    """One ragged hyperbolic fleet epoch (640, 448 and 0 windows of ``X``)
+    from the same weights and draws on the card (K5 with a signal axis),
+    on the card signal by signal (``run_epoch``), on the CPU in f32 (the
+    plain path) and on the CPU in f64 (the plain path, the MobiusLinear
+    head as its plain composition).
+
+    The gates: the fleet on the card gives each signal its single-model
+    epoch on the card within EPOCH_TOL, element by element; the card's
+    (S,) epoch metrics lie within METRIC_TOL of the CPU f32's; step
+    counters equal; the dummy signal unchanged. The parameters against the
+    CPU are information only: element-wise EPOCH_TOL cannot hold there,
+    since GAN training turns a last-bit change into up to a step of Adam's
+    lr wherever a gradient is near zero, and on these windows the CPU's own
+    f32 epoch lies up to 4x EPOCH_TOL from its f64 epoch, at elements that
+    differ from run to run. Printed: the largest card - CPU f32 and CPU f32
+    - f64 diffs, and how many elements of each lie outside EPOCH_TOL of the
+    f64 epoch. Returns (largest card - CPU f32 diff, largest CPU f32 - f64
+    diff)."""
+    import torch
+
+    from hypad_tpu_torch.data.pipeline import A1_BATCH_SIZE as TRAIN_BATCH
+    from hypad_tpu_torch.manifold.kernels import mobius_linear
+    from hypad_tpu_torch.models import fleet as mf
+    from hypad_tpu_torch.train import fleet as fl
+    from hypad_tpu_torch.train import trainer as tr
+
+    Xs, n_real = fl.pad_and_stack([X[:640], X[:448], X[:0]])
+    runs = {}
+    for label, dev, dtype in (("card", device, torch.float32),
+                              ("cpu", torch.device("cpu"), torch.float32),
+                              ("cpu_f64", torch.device("cpu"),
+                               torch.float64)):
+        models = [m.to(dtype) for m in fleet_models(dev, 3, seed0=30)]
+        state = fl.init_fleet_state(models, TRAIN_LR, True)
+        draws = tr.fleet_epoch_draws([0, 1, 2], 0, n_real, TRAIN_BATCH,
+                                     state.params)
+        draws = {k: v.to(dtype) if v.is_floating_point() else v
+                 for k, v in draws.items()}
+        head = mf.mobius_linear_fused
+        if dtype == torch.float64:   # K1's wrapper takes f32 only
+            mf.mobius_linear_fused = mobius_linear
+        try:
+            t0 = time.perf_counter()
+            state, metrics = tr.run_fleet_epoch(
+                state, torch.as_tensor(Xs, device=dev, dtype=dtype), n_real,
+                draws, lr=TRAIN_LR, hyperbolic=True,
+                fused_critics="full" if dtype == torch.float32 else False)
+            runs[label] = (state, time.perf_counter() - t0, metrics)
+        finally:
+            mf.mobius_linear_fused = head
+    card, cpu, exact = (runs[k][0] for k in ("card", "cpu", "cpu_f64"))
+    single_diff = 0.0
+    for i in (0, 1):
+        model = fleet_models(device, 3, seed0=30)[i]
+        one = tr.init_train_state(model, TRAIN_LR, True)
+        n = int(n_real[i])
+        one, _ = tr.run_epoch(
+            one, torch.as_tensor(Xs[i, :n], device=device),
+            tr.epoch_draws(tr.epoch_generator(i, 0), n, TRAIN_BATCH, model),
+            lr=TRAIN_LR, hyperbolic=True)
+        for key, want in one.model.state_dict().items():
+            diff = (card.params[key][i] - want).abs()
+            if not bool((diff <= EPOCH_TOL["atol"]
+                         + EPOCH_TOL["rtol"] * want.abs()).all()):
+                fail(f"fleet epoch signal {i} {key} differs from its "
+                     f"single-model epoch on the card by "
+                     f"{diff.max().item():.3e} (tolerance {EPOCH_TOL})")
+            single_diff = max(single_diff, diff.max().item())
+    import numpy as np
+
+    card_m, cpu_m = runs["card"][2], runs["cpu"][2]
+    for key, want in cpu_m.items():
+        # the dummy signal's metrics are 0 / 0
+        got, want = card_m[key][:2], want[:2]
+        if not np.allclose(got, want, **METRIC_TOL):
+            fail(f"fleet epoch {key} {got.tolist()} differs from the CPU's "
+                 f"{want.tolist()} beyond {METRIC_TOL}")
+    diff_cpu = spread = 0.0
+    outside = {"card": 0, "cpu": 0}
+    for key, ref in exact.params.items():
+        c = card.params[key].cpu().double()
+        h = cpu.params[key].double()
+        limit = EPOCH_TOL["atol"] + EPOCH_TOL["rtol"] * ref.abs()
+        for label, t in (("card", c), ("cpu", h)):
+            outside[label] += int(((t - ref).abs() > limit).sum())
+        diff_cpu = max(diff_cpu, (c - h).abs().max().item())
+        spread = max(spread, (h - ref).abs().max().item())
+    for key, p0 in fleet_models(torch.device("cpu"), 3, seed0=30)[2] \
+            .state_dict().items():
+        if not torch.equal(card.params[key][2].cpu(), p0):
+            fail(f"fleet epoch: the dummy signal's {key} changed")
+    if not (list(card.opt_gen.step) == list(cpu.opt_gen.step) == [10, 7, 0]):
+        fail(f"fleet epoch generator steps {list(card.opt_gen.step)}, "
+             f"expected [10, 7, 0]")
+    n_el = sum(t[:2].numel() for t in exact.params.values())
+    print(f"[fleet] one ragged fleet epoch (640, 448 and 0 windows): on the "
+          f"card ({runs['card'][1]:.3f} s) against each signal's single-model"
+          f" epoch on the card: largest parameter diff {single_diff:.3e}; "
+          f"metrics within {METRIC_TOL} of the CPU's; generator steps [10, "
+          f"7, 0]; the dummy signal unchanged. Information: parameters "
+          f"against the CPU f32 ({runs['cpu'][1]:.3f} s) {diff_cpu:.3e}, "
+          f"the CPU f32 against its f64 epoch {spread:.3e}; elements outside"
+          f" EPOCH_TOL of the f64 epoch: card {outside['card']}, CPU f32 "
+          f"{outside['cpu']} of {n_el}")
+    return diff_cpu, spread
+
+
+def device_work(fn):
+    """(device launches, device ms, host ms) of one ``fn()`` under
+    torch.profiler tracing the card's activity only (kernels, copies and
+    sets; no host events, which at ~20,000 launches an epoch would take
+    longer to collect than the epoch)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        fail("torch.profiler recorded no device activity")
+    return (len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3,
+            wall_ms)
+
+
+def fleet_epoch_timing(device, X):
+    """Warm fleet epochs (hyperbolic, "full") at S = 1, 3 and 9 on the A1
+    windows: host seconds (median of 2 after a warm-up), the draws' share
+    of them, and all device
+    launches of one epoch (torch.profiler), beside a warm single-model
+    epoch. Returns the records."""
+    import statistics as stats
+
+    import torch
+
+    from hypad_tpu_torch.data.pipeline import A1_BATCH_SIZE as TRAIN_BATCH
+    from hypad_tpu_torch.train import fleet as fl
+    from hypad_tpu_torch.train import trainer as tr
+
+    Xt = torch.as_tensor(X, device=device)
+    model = fleet_models(device, 1)[0]
+    state = tr.init_train_state(model, TRAIN_LR, True)
+    walls = []
+    for e in range(3):
+        t0 = time.perf_counter()
+        draws = tr.epoch_draws(tr.epoch_generator(SEED, e), X.shape[0],
+                               TRAIN_BATCH, model)
+        state, _ = tr.run_epoch(state, Xt, draws, lr=TRAIN_LR,
+                                hyperbolic=True)
+        walls.append(time.perf_counter() - t0)
+    single = stats.median(walls[1:])
+    print(f"[fleet] warm single-model epoch: median {single:.4f} s (runs "
+          f"{walls[1:]})")
+    out = {"single_epoch_s": single, "single_runs_s": walls[1:]}
+    for S in FLEET_SIZES:
+        Xs = Xt[None].expand(S, *Xt.shape).contiguous()
+        n_real = [X.shape[0]] * S
+        state = fl.init_fleet_state(fleet_models(device, S), TRAIN_LR, True)
+
+        draw_s = []
+
+        def epoch():
+            t0 = time.perf_counter()
+            draws = tr.fleet_epoch_draws(list(range(S)), state.epoch, n_real,
+                                         TRAIN_BATCH, state.params)
+            draw_s.append(time.perf_counter() - t0)
+            tr.run_fleet_epoch(state, Xs, n_real, draws, lr=TRAIN_LR,
+                               hyperbolic=True)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            epoch()   # reads the metrics: synchronises
+            walls.append(time.perf_counter() - t0)
+        read = zero_counters()
+        launches, device_ms, wall_ms = device_work(epoch)
+        counts = read()
+        busy = device_ms / wall_ms
+        rec = {"median_s": stats.median(walls[1:]), "runs_s": walls[1:],
+               "draws_median_s": stats.median(draw_s[1:3]),
+               "launches": launches, "device_ms": device_ms,
+               "busy_share": busy, "kernel_launches": counts,
+               "single_epochs_s": S * single}
+        out[S] = rec
+        print(f"[fleet] warm fleet epoch S={S}: median {rec['median_s']:.4f}"
+              f" s (runs {walls[1:]}), of which the draws on the host "
+              f"{rec['draws_median_s']:.4f} s, against {S} single epochs "
+              f"{S * single:.4f} s; {rec['launches']} device launches an "
+              f"epoch (profiler), device work {rec['device_ms']:.3f} ms, "
+              f"busy {busy:.4f} of the profiled epoch; kernel counts "
+              f"{counts}")
+    return out
+
+
+def detection_of(scores, index, known):
+    """detect_univariate's result dict for ``scores`` computed elsewhere:
+    the intervals on ``index``, the confusion and the metrics."""
+    from hypad_tpu_torch.detect import detector
+
+    intervals = detector._univariate_intervals(scores, index)
+    confusion, metrics = detector._confusion_and_metrics(known, intervals,
+                                                         verbose=False)
+    return {"scores": scores, "intervals": intervals, "confusion": confusion,
+            "metrics": metrics}
+
+
+def same_zeros_and_nans(got, want, what):
+    import numpy as np
+
+    for name, f in (("NaN", np.isnan), ("exact-zero", lambda v: v == 0)):
+        if not np.array_equal(f(got), f(want)):
+            fail(f"{what}: {name} positions differ at "
+                 f"{np.nonzero(f(got) != f(want))[0][:10].tolist()}")
+
+
+def fleet_detect_timing(device):
+    """A 9-signal hyperbolic family (1,320 to 2,280 windows): one
+    ``detect_scores_fleet`` (K1 2, K2 1), held per signal against the
+    signal's own ``detect_scores`` on the card (``canonical=False``, which
+    snaps nothing, as the single call does) and against the CPU's
+    ``detect_scores_fleet`` (the default, with the 256-ulp snap): the same
+    intervals, confusion and F1, interval scores within what the measured
+    score difference allows, NaN and exact-zero positions equal. Then timed
+    against 9 ``detect_scores`` calls, warm, windows/s of each (medians of
+    5)."""
+    import numpy as np
+    import torch
+
+    from hypad_tpu_torch.data.pipeline import synthetic_detect_input
+    from hypad_tpu_torch.detect.scorer import (
+        detect_scores,
+        detect_scores_fleet,
+    )
+    from hypad_tpu_torch.train import fleet as fl
+
+    lens = list(FLEET_DETECT_LENS)
+    inputs = [synthetic_detect_input(n, WIDTH, anomaly_len=50, seed=SEED + i)
+              for i, n in enumerate(lens)]
+    X_list = [x for x, _, _ in inputs]
+    models = fleet_models(device, 9, seed0=20)
+    P = fl.stack_models(models)
+    read = zero_counters()
+    got = detect_scores_fleet(P, X_list, True, "mult", device=device)
+    torch.cuda.synchronize()
+    counts = read()
+    if counts != launches_of(mobius_linear=2, kde_argmax=1):
+        fail(f"fleet detection launched {counts}, expected K1 2, K2 1")
+    if not all(g.shape == (n,) and np.isfinite(g).all()
+               for g, n in zip(got, lens)):
+        fail("fleet detection: scores of another shape, or not finite")
+    unsnapped = detect_scores_fleet(P, X_list, True, "mult", canonical=False,
+                                    device=device)
+    single = [detect_scores(m, X, True, "mult", fetch_inference=False,
+                            device=device)[0]
+              for m, X in zip(models, X_list)]
+    cpu = torch.device("cpu")
+    on_cpu = detect_scores_fleet({k: v.to(cpu) for k, v in P.items()},
+                                 X_list, True, "mult", device=cpu)
+    rel = {}
+    f1 = []
+    for i, (_, index, known) in enumerate(inputs):
+        index = np.asarray(index)
+        for label, a, b in (("single", unsnapped[i], single[i]),
+                            ("cpu", got[i], on_cpu[i])):
+            what = f"fleet detect signal {i} against {label}"
+            same_zeros_and_nans(a, b, what)
+            check_same_detection(detection_of(a, index, known),
+                                 detection_of(b, index, known), known,
+                                 tag=what, atol_from_scores=True)
+            rel[label] = max(rel.get(label, 0.0), float(np.max(
+                np.abs(a - b) / np.maximum(np.abs(b), 1e-6))))
+        f1.append((detection_of(got[i], index, known)["metrics"]
+                   or {}).get("f1"))
+
+    def fleet_call():
+        detect_scores_fleet(P, X_list, True, "mult", device=device)
+
+    def single_calls():
+        for m, X in zip(models, X_list):
+            detect_scores(m, X, True, "mult", fetch_inference=False,
+                          device=device)
+    walls = warm_detect_ms({"fleet": fleet_call, "9 single": single_calls},
+                           rounds=5)
+    n_win = sum(lens)
+    rec = {label: {"median_ms": statistics.median(w),
+                   "windows_per_s": n_win / statistics.median(w) * 1e3,
+                   "runs_ms": w} for label, w in walls.items()}
+    rec.update(windows=n_win, launches=counts,
+               max_rel_diff_to_single=rel["single"],
+               max_rel_diff_to_cpu=rel["cpu"], f1=f1)
+    print(f"[fleet] detection of 9 signals, {n_win} windows: one "
+          f"detect_scores_fleet {rec['fleet']['median_ms']:.3f} ms "
+          f"({rec['fleet']['windows_per_s']:.0f} windows/s) against 9 "
+          f"detect_scores {rec['9 single']['median_ms']:.3f} ms "
+          f"({rec['9 single']['windows_per_s']:.0f} windows/s); launches "
+          f"{counts}; every signal's intervals, confusion and F1 equal its "
+          f"single call's and the CPU fleet's, NaN and zero positions "
+          f"equal; scores' max relative diff to the single calls "
+          f"{rel['single']:.3e}, to the CPU {rel['cpu']:.3e}; F1 {f1}")
+    return rec
+
+
+def phase_fleet(device):
+    """[fleet]: the signal-axis kernels, a 2-epoch hyperbolic seed band
+    (S = 3) against ``train_tadgan(seed=i)`` on the card, one ragged fleet
+    epoch against the CPU's, and the fleet's epoch and detection timing.
+    Returns what it saw."""
+    import numpy as np
+    import torch
+
+    from hypad_tpu_torch.data.pipeline import (
+        A1_BATCH_SIZE as TRAIN_BATCH,
+        A1_WINDOWS,
+        synthetic_detect_input,
+    )
+    from hypad_tpu_torch.train import fleet as fl
+    from hypad_tpu_torch.train import trainer as tr
+
+    t0 = time.perf_counter()
+    kernels = fleet_kernel_checks(device)
+    print(f"[time] fleet kernels: {time.perf_counter() - t0:.1f} s")
+
+    X, _, _ = synthetic_detect_input(A1_WINDOWS, WIDTH, anomaly_len=50,
+                                     seed=SEED)
+    S, n_batches = 3, A1_WINDOWS // TRAIN_BATCH
+    kwargs = dict(lr=TRAIN_LR, hyperbolic=True, batch_size=TRAIN_BATCH,
+                  n_epochs=2, device=device)
+    logs = []
+    state = fl.init_fleet_state(fleet_models(device, S), TRAIN_LR, True)
+    read = zero_counters()
+    t0 = time.perf_counter()
+    state = fl.train_fleet(state, [X] * S, seeds=list(range(S)),
+                           log_cb=lambda e, m: logs.append(m), **kwargs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read()
+    print(f"[fleet] seed band S={S}, {A1_WINDOWS} windows, batch "
+          f"{TRAIN_BATCH}, 2 epochs, fused_critics='full': {seconds:.3f} s "
+          f"(first call); kernel launches {launches}")
+    want = launches_of(mobius_linear=2 * n_batches * 2,
+                       critic_step_full=tr.N_CRITICS * n_batches * 2)
+    if launches != want:
+        fail(f"expected launches {want} (one signal's), got {launches}")
+    if not all(np.isfinite(v).all() for m in logs for v in m.values()):
+        fail(f"a fleet loss is not finite: {logs}")
+    worst = 0.0
+    for i in range(S):
+        single = tr.train_tadgan(fleet_models(device, S)[i], X, seed=i,
+                                 **{k: v for k, v in kwargs.items()})
+        got = fl.unstack_state(state, i)
+        diff, within = state_diff(got, single)
+        bit = all(torch.equal(v, single.model.state_dict()[k])
+                  for k, v in got.model.state_dict().items())
+        print(f"[fleet] band signal {i} against train_tadgan(seed={i}) on the"
+              f" card: largest diff {diff:.3e} (parameters and moments), "
+              f"bitwise {bit}")
+        if not within:
+            fail(f"band signal {i} differs from train_tadgan(seed={i}) "
+                 f"beyond {EPOCH_TOL}")
+        worst = max(worst, diff)
+
+    t0 = time.perf_counter()
+    epoch_diff, epoch_spread = ragged_epoch_card_vs_cpu(device, X)
+    print(f"[time] fleet ragged epoch, card and CPU: "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    epochs = fleet_epoch_timing(device, X)
+    print(f"[time] fleet epochs: {time.perf_counter() - t0:.1f} s")
+    detect = fleet_detect_timing(device)
+    return {"kernels": kernels, "band_launches": launches,
+            "k1_detect_shape": kernels.pop("mobius_linear_detect_shape"),
+            "band_first_call_s": seconds, "band_max_diff": worst,
+            "band_logs": [{k: v.tolist() for k, v in m.items()}
+                          for m in logs],
+            "epoch_card_vs_cpu_max_abs_diff": epoch_diff,
+            "epoch_cpu_f32_vs_f64_max_abs_diff": epoch_spread,
+            "epochs": epochs, "detect": detect}
+
+
+def sweep_inputs(root, signals):
+    """NAB-style CSVs under ``root/data`` for ``signals``, of 1,420 to 2,380
+    samples (1,320 to 2,280 windows), 21,600 s apart, each with 3
+    injected level shifts, and their anomalies.csv. Returns {signal:
+    known anomalies}."""
+    import numpy as np
+
+    from hypad_tpu_torch.data.pipeline import (
+        extract_known_anomalies,
+        synthetic_signal,
+    )
+
+    data = root / "data"
+    data.mkdir(parents=True)
+    rows, known = [], {}
+    for i, sig in enumerate(signals):
+        n = 1320 + 120 * i + WIDTH
+        _, values, flags = synthetic_signal(n, anomaly_len=50,
+                                            seed=SEED + 10 + i)
+        stamps = 1_400_000_000 + 21600 * np.arange(n)
+        (data / f"{sig}.csv").write_text("timestamp,value\n" + "".join(
+            f"{t},{float(v)!r}\n" for t, v in zip(stamps, values)))
+        known[sig] = np.stack(extract_known_anomalies(flags, stamps), axis=1)
+        rows.append(f'{sig},"' + json.dumps(
+            [[int(a), int(b)] for a, b in known[sig]]) + '"')
+    (data / "anomalies.csv").write_text("signal,events\n"
+                                        + "\n".join(rows) + "\n")
+    return known
+
+
+def phase_sweep(device, card):
+    """[sweep]: ``sweep`` of configs/nab_sweep.yaml (9 signals, cut to 1
+    epoch) on the card through the CLI, then ``sweep --detect-only
+    --device cpu`` on the card's checkpoints: every signal's intervals,
+    confusion and F1 equal, scores within what the measured relative score
+    difference allows (``interval_score_atol``); ``sweep --detect-only``
+    on the card (the same detections), ``detect`` re-entering the first
+    signal's run directory, and ``--signals`` x ``--seeds 0,1`` (four runs
+    under seed_0/ and seed_1/), each one K2 launch. Returns (launches,
+    info)."""
+    import shutil
+    import tempfile
+
+    from hypad_tpu_torch.detect import detector
+    from hypad_tpu_torch.utils.config import (
+        dump_flat_yaml,
+        load_config,
+        parse_flat_yaml,
+        run_dir,
+    )
+
+    cfg = parse_flat_yaml(Path("configs/nab_sweep.yaml").read_text())
+    signals = cfg["signals"]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_sweep_"))
+    seen = []
+    real_detect = detector.detect
+
+    def recording_detect(params, *args, **kw):
+        result = real_detect(params, *args, **kw)
+        seen.append((params.signal, result))
+        return result
+
+    try:
+        known = sweep_inputs(root, signals)
+        cfg.update(epochs=1, data_root=str(root / "data"),
+                   output_root=str(root / "out"), devices=1)
+        card_cfg = root / "sweep_card.yaml"
+        card_cfg.write_text(dump_flat_yaml(cfg))
+        cpu_cfg = root / "sweep_cpu.yaml"
+        cpu_cfg.write_text(dump_flat_yaml(dict(
+            cfg, filename="cpu_" + cfg["filename"])))
+        detector.detect = recording_detect
+        results, launches = run_cli(["sweep", "--config", str(card_cfg)],
+                                    "sweep", card)
+        card_runs = dict(seen)
+        seen.clear()
+        cpu_results, _ = run_cli(["sweep", "--detect-only", "--config",
+                                  str(cpu_cfg), "--device", "cpu"],
+                                 "sweep_detect_only_cpu", card)
+        cpu_runs = dict(seen)
+        seen.clear()
+        _, again_launches = run_cli(["sweep", "--detect-only", "--config",
+                                     str(card_cfg)], "sweep_detect_only",
+                                    card)
+        card_again = dict(seen)
+        seen.clear()
+        first = load_config(str(card_cfg))
+        first.signal = signals[0]
+        _, reentry_launches = run_cli(
+            ["detect", "--config", str(Path(run_dir(first)) / "config.yaml")],
+            "sweep_detect_reentry", card)
+        reentry = dict(seen)
+        band, band_launches = run_cli(
+            ["sweep", "--config", str(card_cfg), "--signals",
+             ",".join(signals[:2]), "--seeds", "0,1"], "sweep_band", card)
+        band_dirs = []
+        for sig, sd, _ in band:
+            p = load_config(str(card_cfg))
+            p.signal, p.output_root = sig, str(root / "out" / f"seed_{sd}")
+            band_dirs.append(all((Path(run_dir(p)) / name).exists() for name
+                                 in ("config.yaml", "state_final.pt",
+                                     "anomalies.csv")))
+    finally:
+        detector.detect = real_detect
+        shutil.rmtree(root, ignore_errors=True)
+    if [r[0] for r in results] != signals or len(card_runs) != 9:
+        fail(f"sweep ran {[r[0] for r in results]}, expected {signals}")
+    for what, n in (("sweep", launches), ("sweep --detect-only",
+                                          again_launches),
+                    ("detect re-entering a sweep run", reentry_launches),
+                    ("sweep --seeds", band_launches)):
+        if n != launches_of(kde_argmax=1):
+            fail(f"{what} (Euclidean, fused_critics false) launched {n}; "
+                 "expected one K2 launch (the detection), no K1")
+    f1s = {}
+    for sig in signals:
+        f1s[sig] = check_same_detection(card_runs[sig], cpu_runs[sig],
+                                        known[sig], tag=f"sweep {sig}",
+                                        atol_from_scores=True)
+        check_same_detection(card_again[sig], card_runs[sig], known[sig],
+                             tag=f"sweep --detect-only {sig}")
+    if [r[2] for r in results] != [r[2] for r in cpu_results]:
+        fail("the CPU's detect-only F1s differ from the card's sweep's")
+    check_same_detection(reentry[signals[0]], card_runs[signals[0]],
+                         known[signals[0]], tag="detect re-entry",
+                         atol_from_scores=True)
+    want = [(sig, sd) for sig in signals[:2] for sd in (0, 1)]
+    if [(r[0], r[1]) for r in band] != want or not all(band_dirs):
+        fail(f"sweep --signals --seeds ran {[(r[0], r[1]) for r in band]} "
+             f"with run directories {band_dirs}; expected {want}, each with "
+             "config.yaml, state_final.pt and anomalies.csv under seed_k/")
+    print(f"[sweep] 9 signals: the card's intervals, confusion and F1 equal "
+          f"the CPU's --detect-only on every one, and the card's "
+          f"--detect-only; detect re-entering {signals[0]}'s run directory "
+          f"agrees; --signals x --seeds ran {want} under seed_0/ and "
+          f"seed_1/; F1 {f1s}")
+    return launches, {"f1": f1s, "band": [list(r) for r in band]}
 
 
 def init_model(device, hyperbolic):
@@ -1417,17 +2145,28 @@ def main():
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_start = time.perf_counter()
 
-    libs = phase_build()
-    k1_err, k1_parent, kde_flips = phase_kernels(device, libs)
-    k45_err = phase_critic_kernels(device)
-    launches, X, model = phase_main_path(device)
-    eucl_launches, eucl_model = phase_eucl_detect(device)
-    train = phase_train(device)
-    eucl_train = phase_eucl_train(device)
-    cli_paths, cli_info = phase_cli(device, card)
-    phase_staged(device, X, eucl_model, model)
-    wps, k1, k2, k3 = phase_timing(device, X, model, eucl_model, libs)
-    epochs, k4, k5 = phase_train_timing(device, train["X"])
+    phase_s = {}
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[fn.__name__] = time.perf_counter() - t0
+        print(f"[time] {fn.__name__}: {phase_s[fn.__name__]:.1f} s")
+        return out
+
+    libs = timed(phase_build)
+    k1_err, k1_parent, kde_flips = timed(phase_kernels, device, libs)
+    k45_err = timed(phase_critic_kernels, device)
+    launches, X, model = timed(phase_main_path, device)
+    eucl_launches, eucl_model = timed(phase_eucl_detect, device)
+    train = timed(phase_train, device)
+    eucl_train = timed(phase_eucl_train, device)
+    cli_paths, cli_info = timed(phase_cli, device, card)
+    fleet = timed(phase_fleet, device)
+    sweep_launches, sweep_info = timed(phase_sweep, device, card)
+    timed(phase_staged, device, X, eucl_model, model)
+    wps, k1, k2, k3 = timed(phase_timing, device, X, model, eucl_model, libs)
+    epochs, k4, k5 = timed(phase_train_timing, device, train["X"])
     paths = {"detect": launches,
              **{f"detect_euclidean_{r}": eucl_launches[r]
                 for r in REC_ERRORS},
@@ -1435,7 +2174,10 @@ def main():
              "train_fused_critics_true": train["launches_fused_true"],
              "train_euclidean": eucl_train["launches"],
              "detect_euclidean_trained": eucl_train["detect_launches"],
-             **cli_paths}
+             **cli_paths,
+             "fleet_seed_band_S3_2_epochs": fleet["band_launches"],
+             "fleet_detect_S9": fleet["detect"]["launches"],
+             "sweep_nab_9_signals_1_epoch": sweep_launches}
     by_path = {name: {path: counts[name] for path, counts in paths.items()}
                for name in launches}
     tol_text = "loss rtol {0[rtol]} atol {0[atol]}, grads rtol {1[rtol]} " \
@@ -1518,6 +2260,13 @@ def main():
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
          "library_ms": None},
     ]
+    for k in kernels:
+        by_s = fleet["kernels"].get(k["name"])
+        if by_s:
+            k["signal_axis"] = {
+                f"S={S}": {key: r[key] for key in (
+                    "ms", "single_launches_ms", "plain_ms", "bound_ms",
+                    "bound_by", "max_abs_err")} for S, r in by_s.items()}
     OUT_DIR.mkdir(exist_ok=True)
     summary = {"card": card, "detect_20k_wps": wps["hyperbolic v1"],
                "detect_20k_wps_by_path": wps,
@@ -1530,7 +2279,10 @@ def main():
                "euclidean_train_losses": eucl_train["logs"],
                "euclidean_trained_detect_f1": eucl_train["trained_f1"],
                "cli": cli_info,
+               "fleet": {k: v for k, v in fleet.items() if k != "kernels"},
+               "sweep": sweep_info,
                "kernels": kernels,
+               "phase_seconds": phase_s,
                "seconds": time.perf_counter() - t_start}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     print(f"[done] all phases passed in {summary['seconds']:.1f} s")

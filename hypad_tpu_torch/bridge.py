@@ -8,6 +8,12 @@ parameters after the pytree, so a leaf at path ``encoder/lstm/0/w_ih`` is the
 renaming. ``save_params_npz`` / ``load_params_npz`` store the same leaves in
 one ``.npz`` keyed by the pytree path, a weight file the detector reads
 without orbax.
+
+A fleet's stacked parameters (JAX's ``stack_states(...).params``, every leaf
+with a leading signal axis S) carry across the same way, to and from the
+port's stacked dict ``{state_dict name: (S, ...) tensor}``
+(``train/fleet.py``): :func:`from_jax_stacked_params` and
+:func:`to_jax_stacked_params`.
 """
 
 from __future__ import annotations
@@ -91,3 +97,21 @@ def load_params_npz(path, device="cuda"):
     with np.load(path) as data:
         flat = {key: data[key] for key in data.files}
     return from_jax_params(unflatten_tree(flat), device=device)
+
+
+def from_jax_stacked_params(tree, device="cuda"):
+    """{state_dict name: (S, ...) float32 tensor on ``device``} of a JAX
+    stacked parameter pytree (leaves with a leading signal axis)."""
+    from hypad_tpu_torch._device import resolve_device
+
+    device = resolve_device(device)
+    return {path.replace("/", "."): torch.from_numpy(
+                np.array(leaf, dtype=np.float32)).to(device)
+            for path, leaf in flatten_tree(tree).items()}
+
+
+def to_jax_stacked_params(params):
+    """The nested dict/list pytree (numpy float32 leaves, leading S) of
+    the port's stacked parameters."""
+    return unflatten_tree({key.replace(".", "/"): v.detach().cpu().numpy()
+                           for key, v in params.items()})

@@ -11,6 +11,16 @@ Port of ``hypad_tpu.cli``'s ``train`` and ``detect``:
   ``state_{resume_epoch}.pt`` under ``resume: true``; with
   ``--rec-errors``/``--combinations`` every cell of the grid from one
   forward pass, into ``grid_results.csv``;
+* ``sweep --config cfg.yaml [--signals a,b] [--seeds 0,1] [--detect-only]``:
+  train a signal family (a ``signals:`` list or ``--signals``), a seed
+  band of the config's signal (``--seeds``) or their cross product as ONE
+  fleet (``train/fleet.py``: one batched step per fleet step for all of
+  them), then detect the whole family in one call
+  (``detect_scores_fleet``); each signal's checkpoints, effective
+  ``config.yaml``, anomalies and results CSV row land in its own run
+  directory (under ``seed_{k}/`` for a band), where ``detect`` re-enters
+  it; ``sweep_log.jsonl`` in the first. ``--detect-only`` re-scores a
+  trained family from its checkpoints;
 * no subcommand means ``train``.
 
 The run directory is the JAX package's
@@ -23,7 +33,9 @@ generator seeded with ``seed``, so a port run does not train the JAX
 run's weights; a JAX checkpoint carried over with
 ``train.state_bridge.train_state_from_jax`` and saved with
 ``utils.checkpoint.save_state`` detects as the JAX CLI does. Not ported:
-``sweep`` and its flags (ROADMAP A10), more than one device (A13).
+the fleet grid (``sweep --rec-errors/--combinations``) and ``sweep
+--canonical`` (ROADMAP A10), multivariate families (A11), more than one
+device (A13).
 """
 
 from __future__ import annotations
@@ -38,7 +50,10 @@ import torch
 
 from hypad_tpu_torch._device import resolve_device
 
-_FLEET = "the fleet `sweep` and its flags are not ported yet (ROADMAP A10)"
+_FLEET_GRID = ("the fleet grid (`sweep --rec-errors/--combinations`) is not "
+               "ported yet (ROADMAP A10)")
+_CANONICAL = ("`sweep --canonical` (the JAX compile cache's padded shapes) "
+              "is not ported (ROADMAP A10)")
 
 
 def _build(params):
@@ -124,7 +139,8 @@ def cmd_train(params, config_path, device="cuda"):
     return state, path, result
 
 
-def _run_detection(params, model, test_data, path, device):
+def _run_detection(params, model, test_data, path, device,
+                   precomputed_scores=None):
     from hypad_tpu_torch.detect.detector import detect
     from hypad_tpu_torch.utils.profiling import stage
 
@@ -132,13 +148,165 @@ def _run_detection(params, model, test_data, path, device):
     with stage("detect"):
         result = detect(params, model, test_data, path,
                         save_plots=getattr(params, "save_plots", None),
-                        device=device)
+                        precomputed_scores=precomputed_scores, device=device)
     wall = time.time() - t0
     print(f"detection wall-clock: {wall:.2f}s "
           f"({len(test_data.X) / wall:.1f} windows/sec)")
     if result["metrics"] is None:
         print("no anomalous intervals predicted (or no ground truth)")
     return result
+
+
+def _sweep_pairs(params, signals, seeds):
+    """The (signal, seed or None) runs of a sweep, as JAX's ``cmd_sweep``
+    pairs them: signals x seeds, a seed band of the config's signal, or
+    the signals alone."""
+    seeds = seeds if seeds is not None else getattr(params, "seeds", None)
+    if seeds is not None and signals:
+        return [(sig, int(sd)) for sig in signals for sd in seeds]
+    if seeds is not None:
+        return [(params.signal, int(sd)) for sd in seeds]
+    signals = signals or getattr(params, "signals", None)
+    if not signals:
+        raise SystemExit("sweep needs a `signals:` list in the config, "
+                         "--signals a,b,c, or --seeds 0,1,2")
+    return [(sig, None) for sig in signals]
+
+
+def cmd_sweep(params, config_path, signals=None, seeds=None,
+              detect_only=False, device="cuda"):
+    """Train a signal family, a seed band or their cross product as one
+    fleet, then detect it in one call (JAX's ``cmd_sweep`` without the
+    grid and ``--canonical``). Returns one ``(signal, seed, f1)`` per run,
+    in run order."""
+    import argparse as ap
+    import copy
+    import json
+
+    from hypad_tpu_torch.data.registry import is_multivariate
+    from hypad_tpu_torch.detect.scorer import detect_scores_fleet
+    from hypad_tpu_torch.train import fleet as fl
+    from hypad_tpu_torch.utils import checkpoint as ck
+    from hypad_tpu_torch.utils.config import run_dir
+    from hypad_tpu_torch.utils.profiling import stage
+
+    device = resolve_device(device)
+    if is_multivariate(params):
+        raise NotImplementedError("multivariate fleets are not ported yet "
+                                  "(ROADMAP A11)")
+    pairs = _sweep_pairs(params, signals, seeds)
+    band = seeds is not None or getattr(params, "seeds", None) is not None
+    if getattr(params, "save_artifacts", True) and not params.load:
+        print("sweep detection is scores-only: inference artifacts are NOT "
+              "persisted (save_artifacts ignored; use per-signal `detect` "
+              "for artifact caching)")
+
+    per, data_cache = [], {}
+    for sig, sd in pairs:
+        p = ap.Namespace(**copy.deepcopy(vars(params)))
+        p.signal = sig
+        if sd is not None:
+            p.seed = sd
+            p.output_root = os.path.join(params.output_root, f"seed_{sd}")
+        if sig in data_cache:
+            train_data, test_data = data_cache[sig]
+            path = run_dir(p)
+        else:
+            train_data, test_data, path = _build(p)
+            data_cache[sig] = (train_data, test_data)
+        if not detect_only:
+            ck.snapshot_effective(path, p)
+        per.append((p, train_data, test_data, path))
+
+    tag = params.resume_epoch if params.resume else "final"
+    staged = fstate = stacked = None
+    if detect_only:
+        if not params.load:
+            missing = [path for (*_, path) in per if not os.path.exists(
+                ck.checkpoint_path(path, tag))]
+            if missing:
+                raise SystemExit(
+                    f"sweep --detect-only: no 'state_{tag}' checkpoint in "
+                    f"{len(missing)}/{len(per)} run dir(s) — train the "
+                    "family first (same config, without --detect-only). "
+                    f"First missing: {missing[0]}")
+            stacked = fl.stack_models([ck.restore_state(path, tag,
+                                                        device).model
+                                       for (*_, path) in per])
+    else:
+        fstate = fl.init_fleet_state(
+            [_init_models(p, device) for (p, *_) in per], lr=params.lr,
+            hyperbolic=params.hyperbolic)
+        log_path = os.path.join(per[0][3], "sweep_log.jsonl")
+
+        def log_cb(epoch, metrics):
+            row = {"epoch": int(epoch),
+                   **{k: [float(x) for x in v] for k, v in metrics.items()}}
+            with open(log_path, "a") as f:
+                f.write(json.dumps(row) + "\n")
+            mean = {k: float(np.mean(v)) for k, v in metrics.items()}
+            print(f"[sweep] epoch {epoch}: "
+                  f"critic x {mean['critic_x_loss']:.3f} "
+                  f"critic z {mean['critic_z_loss']:.3f} "
+                  f"decoder {mean['decoder_loss']:.3f} "
+                  f"rec {mean['rec_loss']:.6f} (mean of {len(per)})")
+
+        def ckpt_cb(epoch, states):
+            for i, (*_, path) in enumerate(per):
+                ck.save_state(path, fl.unstack_state(states, i), epoch)
+
+        t0 = time.time()
+        with stage("sweep_train"):
+            fstate, staged = fl.train_fleet(
+                fstate, [td.X for (_, td, _, _) in per], lr=params.lr,
+                hyperbolic=params.hyperbolic, batch_size=params.batch_size,
+                n_epochs=params.epochs, seed=params.seed,
+                seeds=[sd for (_, sd) in pairs] if band else None,
+                log_cb=log_cb, checkpoint_cb=ckpt_cb, return_staged=True,
+                fused_critics=params.fused_critics, device=device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        wall = time.time() - t0
+        print(f"sweep training wall-clock: {wall:.2f}s for {len(per)} "
+              f"models x {params.epochs} epochs "
+              f"({wall / max(params.epochs, 1):.3f}s/fleet-epoch, "
+              f"{wall / max(params.epochs * len(per), 1):.4f}"
+              f"s/signal-epoch)")
+        stacked = fstate.params
+
+    fleet_scores = [None] * len(per)
+    if not params.load:
+        # a family that tests on its training windows reuses the stack
+        # already on the card
+        reuse = staged if all(td is trd for (_, trd, td, _) in per) else None
+        X_test = [td.X for (_, _, td, _) in per]
+        t0 = time.time()
+        with stage("sweep_detect"):
+            fleet_scores = detect_scores_fleet(
+                stacked, X_test, params.hyperbolic, params.combination,
+                rec_error=params.rec_error, staged=reuse, device=device)
+        dwall = time.time() - t0
+        n_win = sum(len(x) for x in X_test)
+        print(f"fleet detection wall-clock: {dwall:.2f}s for {len(per)} "
+              f"signals / {n_win} windows in one program "
+              f"({n_win / dwall:.1f} windows/sec)")
+
+    results = []
+    for i, (p, _, test_data, path) in enumerate(per):
+        if fstate is not None:
+            ck.save_state(path, fl.unstack_state(fstate, i), "final")
+        model = (fl.unstack_model(stacked, i) if stacked is not None
+                 else ck.restore_state(path, tag, device).model)
+        print(f"--- {p.signal}{f' (seed {p.seed})' if band else ''} ---")
+        res = _run_detection(p, model, test_data, path, device,
+                             precomputed_scores=fleet_scores[i])
+        m = res["metrics"]
+        results.append((p.signal, p.seed, m["f1"] if m else None))
+    scored = [f for _, _, f in results if f is not None]
+    if scored:
+        print(f"sweep mean f1 over {len(scored)}/{len(results)} signals: "
+              f"{float(np.mean(scored)):.4f}")
+    return results
 
 
 def expand_combinations(params, combos):
@@ -200,14 +368,23 @@ def main(argv=None):
                         help="comma-separated combination list for `detect` "
                              "grid detection ('all' = every mode valid for "
                              "the config's geometry)")
-    for flag in ("--signals", "--seeds"):
-        parser.add_argument(flag, type=str, default=None, help=_FLEET)
-    for flag in ("--detect-only", "--canonical"):
-        parser.add_argument(flag, action="store_true", help=_FLEET)
+    parser.add_argument("--signals", type=str, default=None,
+                        help="comma-separated signal list for `sweep` "
+                             "(overrides the config's `signals:`)")
+    parser.add_argument("--seeds", type=str, default=None,
+                        help="comma-separated seed list for `sweep`: train "
+                             "the config's signal as a seed band in one "
+                             "fleet")
+    parser.add_argument("--detect-only", action="store_true",
+                        help="`sweep`: skip training; restore each run's "
+                             "checkpoint and detect the family in one call")
+    parser.add_argument("--canonical", action="store_true",
+                        help=_CANONICAL)
     args = parser.parse_args(argv)
-    if (command == "sweep" or args.signals or args.seeds or args.detect_only
-            or args.canonical):
-        raise NotImplementedError(_FLEET)
+    if command == "sweep" and (args.rec_errors or args.combinations):
+        raise NotImplementedError(_FLEET_GRID)
+    if command == "sweep" and args.canonical:
+        raise NotImplementedError(_CANONICAL)
     device = resolve_device(args.device)
 
     from hypad_tpu_torch.utils.config import load_config
@@ -222,6 +399,13 @@ def main(argv=None):
     recs = args.rec_errors.split(",") if args.rec_errors else None
     if command == "train":
         out = cmd_train(params, args.config, device)
+    elif command == "sweep":
+        out = cmd_sweep(params, args.config,
+                        signals=(args.signals.split(",") if args.signals
+                                 else None),
+                        seeds=(args.seeds.split(",") if args.seeds
+                               else None),
+                        detect_only=args.detect_only, device=device)
     else:
         out = cmd_detect(params, args.config, rec_errors=recs,
                          combinations=combos, device=device)

@@ -87,6 +87,14 @@
 // decoder's forwards, is 0.057 ms. Not yet done: the weights in shared or
 // distributed shared memory, then wgmma.
 
+// Signal axis (the fleet's counterpart of jax.vmap): the grid's y is the
+// signal. Every slot carries a byte stride from one signal's slice to the
+// next (weights, draws, gradients, losses (S, 2) and the workspace alike),
+// and a block offsets each slot it reads or writes by blockIdx.y times that
+// stride. A signal's two clusters run the single-signal launch's code on
+// its own slices, so each signal gets the bits of its own launch; a cluster
+// never spans two signals (clusters are (8, 1, 1)).
+
 #include <cooperative_groups.h>
 #include <math.h>
 #include <stdint.h>
@@ -131,6 +139,7 @@ enum Dim { DB, DW, DL, DHX, DHZ, DHE, DD1, DHD, kDims };
 
 struct Args {
   void* p[kSlots];
+  long long stride[kSlots];  // bytes from one signal's slice to the next
   int B, W, L, Hx, Hz, He, D1, Hd;
   int full, hyperbolic;
 };
@@ -192,11 +201,15 @@ __host__ __device__ size_t total_ws(const Args& a) {
   return side_x_ws(a) + critic_ws(3 * a.B, a.B, a.L, a.Hz, 2) + encoder_ws(a);
 }
 
+// Slot s of this block's signal (blockIdx.y).
+__device__ __forceinline__ void* slot(const Args& a, int s) {
+  return static_cast<char*>(a.p[s]) + (long long)blockIdx.y * a.stride[s];
+}
 __device__ __forceinline__ const float* in_ptr(const Args& a, int s) {
-  return static_cast<const float*>(a.p[s]);
+  return static_cast<const float*>(slot(a, s));
 }
 __device__ __forceinline__ float* out_ptr(const Args& a, int s) {
-  return static_cast<float*>(a.p[s]);
+  return static_cast<float*>(slot(a, s));
 }
 
 // Sum of v over the block, the same bits on every thread and every launch.
@@ -376,7 +389,7 @@ __device__ void decoder_side(const Args& a, const Rows& rows, float* ws,
          a.D1, false, tile);
   __syncthreads();
   bilstm_t1(d1, rows, a.D1, l0f, l0b, Hd,
-            static_cast<const uint8_t*>(a.p[MDEC]), kDecKeep, h1, tile);
+            static_cast<const uint8_t*>(slot(a, MDEC)), kDecKeep, h1, tile);
   __syncthreads();
   bilstm_t1(h1, rows, 2 * Hd, l1f, l1b, Hd, nullptr, 1.0f, h2, tile);
   __syncthreads();
@@ -685,32 +698,35 @@ __global__ void __launch_bounds__(kThreads) critic_step_kernel(Args a) {
   __shared__ float tile[kTileRows * (kMaxIn + 1)];  // 33,024 bytes
   const int rank = (int)cg::this_cluster().block_rank();
   const Rows rows = rank_rows(a.B, rank, 1);
-  float* ws = static_cast<float*>(a.p[WS]);
-  float* loss = static_cast<float*>(a.p[LOSS]);
+  float* ws = out_ptr(a, WS);
+  float* loss = out_ptr(a, LOSS);
   if (blockIdx.x < kClusterBlocks) {
-    float* bigx = static_cast<float*>(a.p[BIGX]);
+    float* bigx = out_ptr(a, BIGX);
     float* cws = ws;
     if (a.full)
       decoder_side(a, rows, cws + critic_ws(3 * a.B, a.B, a.W, a.Hx, 4),
                    bigx, tile);
     critic(a, rank, bigx, a.W, a.Hx, 4, CX, GCX,
-           static_cast<const uint8_t*>(a.p[MCX]), kCxKeep, +1.0f, loss, cws,
-           red, tile);
+           static_cast<const uint8_t*>(slot(a, MCX)), kCxKeep, +1.0f, loss,
+           cws, red, tile);
   } else {
-    float* bigz = static_cast<float*>(a.p[BIGZ]);
+    float* bigz = out_ptr(a, BIGZ);
     float* cws = ws + side_x_ws(a);
     if (a.full)
       encoder_side(a, rows, cws + critic_ws(3 * a.B, a.B, a.L, a.Hz, 2),
                    bigz, tile);
     critic(a, rank, bigz, a.L, a.Hz, 2, CZ, GCZ,
-           static_cast<const uint8_t*>(a.p[MCZ]), kCzKeep, -1.0f, loss + 1,
-           cws, red, tile);
+           static_cast<const uint8_t*>(slot(a, MCZ)), kCzKeep, -1.0f,
+           loss + 1, cws, red, tile);
   }
 }
 
-bool fill(Args* a, void* const* ptrs, const int* dims, int full,
-          int hyperbolic) {
-  for (int s = 0; s < kSlots; ++s) a->p[s] = ptrs[s];
+bool fill(Args* a, void* const* ptrs, const long long* strides,
+          const int* dims, int full, int hyperbolic) {
+  for (int s = 0; s < kSlots; ++s) {
+    a->p[s] = ptrs[s];
+    a->stride[s] = strides ? strides[s] : 0;
+  }
   a->B = dims[DB];
   a->W = dims[DW];
   a->L = dims[DL];
@@ -729,19 +745,22 @@ bool fill(Args* a, void* const* ptrs, const int* dims, int full,
                    2 * a->Hd <= kMaxIn && 2 * a->He <= kMaxIn);
 }
 
-// Two clusters of kClusterBlocks blocks. A refused launch (a cluster the
-// card cannot place, for one) comes back as its error code.
-int launch(void* const* ptrs, const int* dims, int full, int hyperbolic,
-           void* stream) {
+// Two clusters of kClusterBlocks blocks for each of `signals` signals
+// (blockIdx.y). A refused launch (a cluster the card cannot place, for
+// one) comes back as its error code.
+int launch(void* const* ptrs, const long long* strides, const int* dims,
+           int signals, int full, int hyperbolic, void* stream) {
   Args a;
-  if (!fill(&a, ptrs, dims, full, hyperbolic)) return cudaErrorInvalidValue;
+  if (signals < 1 || signals > 65535 ||
+      !fill(&a, ptrs, strides, dims, full, hyperbolic))
+    return cudaErrorInvalidValue;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
   cluster[0].val.clusterDim.x = kClusterBlocks;
   cluster[0].val.clusterDim.y = 1;
   cluster[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2 * kClusterBlocks);
+  cfg.gridDim = dim3(2 * kClusterBlocks, signals);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = (cudaStream_t)stream;
@@ -781,11 +800,29 @@ extern "C" void critic_step_launch_shape(int* shape) {
 // the launch's error code (cudaGetLastError() after it) on `stream`.
 extern "C" int critics_fused_grads_forward(void* const* ptrs, const int* dims,
                                            void* stream) {
-  return launch(ptrs, dims, 0, 0, stream);
+  return launch(ptrs, nullptr, dims, 1, 0, 0, stream);
 }
 
 // K5: the generator forwards, then K4; bigx and bigz are written.
 extern "C" int critic_step_full_forward(void* const* ptrs, const int* dims,
                                         int hyperbolic, void* stream) {
-  return launch(ptrs, dims, 1, hyperbolic, stream);
+  return launch(ptrs, nullptr, dims, 1, 1, hyperbolic, stream);
+}
+
+// K4 and K5 for `signals` signals in one launch (the fleet): slot s of
+// signal i lies at ptrs[s] + i * strides[s] bytes, the workspace slot
+// included (`strides[WS]` at least critic_step_workspace_floats floats).
+// Each signal runs the single-signal launch's blocks and arithmetic.
+extern "C" int critics_fused_grads_signals_forward(void* const* ptrs,
+                                                   const long long* strides,
+                                                   const int* dims,
+                                                   int signals, void* stream) {
+  return launch(ptrs, strides, dims, signals, 0, 0, stream);
+}
+
+extern "C" int critic_step_full_signals_forward(void* const* ptrs,
+                                                const long long* strides,
+                                                const int* dims, int signals,
+                                                int hyperbolic, void* stream) {
+  return launch(ptrs, strides, dims, signals, 1, hyperbolic, stream);
 }

@@ -57,13 +57,10 @@ def _univariate_intervals(scores, true_index):
                              **_UNIVARIATE_FA_KW)
 
 
-def _check_univariate(params, save_plots=None, precomputed=None):
+def _check_univariate(params, save_plots=None):
     if is_multivariate(params):
         raise NotImplementedError("multivariate detection is not ported yet "
                                   "(ROADMAP A11)")
-    if precomputed is not None:
-        raise NotImplementedError("precomputed fleet scores are not ported "
-                                  "yet (ROADMAP A10)")
     if save_plots:
         raise NotImplementedError("plots are not ported yet (ROADMAP A12)")
 
@@ -97,12 +94,23 @@ def detect(params, model, test_data, run_path, known_anomalies=None,
     """Detection of the config ``params`` with ``model`` (on ``device``) on
     ``test_data`` (a ``SignalData``), writing into ``run_path``. Returns
     {"scores", "intervals", "confusion", "metrics"} (metrics None when
-    undefined). The KDE kernel follows ``HYPAD_KDE_PALLAS``."""
-    _check_univariate(params, save_plots, precomputed_scores)
+    undefined). The KDE kernel follows ``HYPAD_KDE_PALLAS``.
+
+    ``precomputed_scores``: the signal's final scores computed elsewhere
+    (``detect_scores_fleet`` of a sweep): no device work runs, only the
+    epilogue (intervals, anomalies.csv, metrics, the results CSV); no
+    inference artifact is written."""
+    _check_univariate(params, save_plots)
     device = resolve_device(device)
     kde_version = sc.kde_version_from_env()
     os.makedirs(run_path, exist_ok=True)
     known_anomalies = _ground_truth(params, test_data, known_anomalies)
+    if precomputed_scores is not None:
+        final_scores = np.asarray(precomputed_scores)
+        return _epilogue(params, final_scores,
+                         _univariate_intervals(final_scores,
+                                               np.asarray(test_data.index)),
+                         known_anomalies, run_path)
 
     one_call_scores = None
     save_artifacts = getattr(params, "save_artifacts", True) or params.load
@@ -142,7 +150,12 @@ def detect(params, model, test_data, run_path, known_anomalies=None,
     final_scores = artifacts.cache_scores(run_path, cache_key, compute,
                                           enabled=params.load)
     intervals = _univariate_intervals(final_scores, true_index)
+    return _epilogue(params, final_scores, intervals, known_anomalies,
+                     run_path)
 
+
+def _epilogue(params, final_scores, intervals, known_anomalies, run_path):
+    """anomalies.csv, the confusion and metrics, the results CSV row."""
     write_intervals_csv(os.path.join(run_path, "anomalies.csv"), intervals,
                         ("start", "end", "score"))
     confusion, metrics = _confusion_and_metrics(known_anomalies, intervals)

@@ -23,7 +23,14 @@ forward runs in chunks (``run_inference``) and the staged
 forward pass and one critic KDE launch. ``stage_inference`` puts a cached
 artifact set on the device once, for the staged scorers to take as it is.
 
-Not ported yet: fleet and multivariate detection (ROADMAP A10, A11).
+``detect_scores_fleet`` detects a whole signal family at once (the
+counterpart of JAX's vmapped fleet program): one batched forward of the
+padded (S, N, W) stack, each signal's real anti-diagonal rows through ONE
+KDE launch, and the scoring tails with every reduction over each signal's
+real prefix (the ragged ops of ``ops/rolling.py`` and ``ops/unroll.py``).
+
+Not ported yet: the fleet grid and multivariate detection (ROADMAP A10,
+A11).
 """
 
 from __future__ import annotations
@@ -40,15 +47,23 @@ from hypad_tpu_torch._device import resolve_device
 from hypad_tpu_torch.manifold import stereographic as st
 from hypad_tpu_torch.ops.dtw import dtw_errors
 from hypad_tpu_torch.ops.kde_kernel import kde_argmax_rows_fused
+from hypad_tpu_torch.models import fleet as mf
 from hypad_tpu_torch.ops.rolling import (
+    masked_quantile,
     rolling_mean_centered,
+    rolling_mean_centered_ragged,
     rolling_trapz_centered,
+    rolling_trapz_centered_ragged,
     zscore,
+    zscore_masked,
 )
 from hypad_tpu_torch.ops.unroll import (
     antidiagonal_gather,
+    antidiagonal_gather_ragged,
     true_series,
+    true_series_ragged,
     unroll_median,
+    unroll_median_ragged,
 )
 
 CRITIC_COMBOS = ("mult", "uncertainty", "sum", "sum_uncertainty", "critic",
@@ -259,26 +274,27 @@ def reconstruction_errors(y, y_hat, rec_error_type="point", score_window=10,
 # ---------------------------------------------------------------------------
 
 def _combine_device(combination, critic_scores, rec_scores, recons):
-    """combine_scores, all 8 modes."""
+    """combine_scores, all 8 modes; a leading signal axis rides along."""
     if combination == "sum":
         return 0.2 * critic_scores + 0.8 * rec_scores
     if combination == "mult":
         return critic_scores * rec_scores
     if combination == "uncertainty":
-        unc = torch.linalg.norm(recons, dim=1)
+        unc = torch.linalg.norm(recons, dim=-1)
         return critic_scores * rec_scores * unc
     if combination == "critic":
         return critic_scores
     if combination == "critic_uncertainty":
-        return critic_scores * torch.linalg.norm(recons, dim=1)
+        return critic_scores * torch.linalg.norm(recons, dim=-1)
     if combination == "sum_uncertainty":
-        unc = torch.linalg.norm(recons, dim=1)
-        n = rec_scores.shape[0]
-        return 0.5 * critic_scores * unc[:n] + 0.5 * rec_scores * unc[:n]
+        unc = torch.linalg.norm(recons, dim=-1)
+        n = rec_scores.shape[-1]
+        return (0.5 * critic_scores * unc[..., :n]
+                + 0.5 * rec_scores * unc[..., :n])
     if combination == "rec":
         return rec_scores
     if combination == "rec_uncertainty":
-        return rec_scores * torch.linalg.norm(recons, dim=1)
+        return rec_scores * torch.linalg.norm(recons, dim=-1)
     raise ValueError(f"unknown combination {combination!r}")
 
 
@@ -580,3 +596,246 @@ def detect_scores_grid(params, X, hyperbolic, combinations,
         order = sorted(out, key=lambda c: c[1] if c[0] is None
                        else f"{c[0]}/{c[1]}")
         return {cell: out[cell].cpu().numpy() for cell in order}
+
+
+# ---------------------------------------------------------------------------
+# fleet detection: a whole signal family at once
+# ---------------------------------------------------------------------------
+
+# The fleet's chunk plan. JAX bounds its fleet program by the (S, T, W, W)
+# KDE pair tensor (FLEET_MAX_PAIR_ELEMS, sized for a v5e's 16 GB); the port's
+# K2 / K3 never build it, and the plain KDE builds it 1,024 rows at a time,
+# so the peak here is the forward's activations and the scoring's (T, W)
+# stacks. Per window at the published widths (W = 100, latent 20, encoder
+# LSTM 50, decoder LSTMs 64, critic 20), in f32 words: the encoder's gates
+# and output 2 * 200 + 100 + 20, the decoder's 50 + 2 * 256 + 128 + 2 * 256
+# + 128 + 100 + 100 + 100 (the ball head), the critic's 4 * 20 + 1, the
+# embedded input 100, and the anti-diagonal values, mask and median sort
+# 100 + 25 + 2 * 100: about 2,660 words, 10.6 KB; FLEET_BYTES_PER_WINDOW
+# rounds it up to 16 KB for the temporaries between them. FLEET_MAX_BYTES
+# keeps a call's peak at 16 GB, a fifth of an H100's 80 GB: about a
+# million windows (9 NAB signals of up to 22,000 windows are 200,000), so
+# a family is one call unless it is very large.
+FLEET_BYTES_PER_WINDOW = 16 * 1024
+FLEET_MAX_BYTES = 16 * 1024 ** 3
+
+_SNAP_ULPS = 256.0
+
+
+def fleet_chunk_plan(S, n_pad):
+    """(chunks, S_c): ``chunks`` None for one call of all S signals, else
+    the (start, size) slices of one fixed size S_c that cover S, the last
+    slid back to end at S (its leading overlap dropped on reassembly)."""
+    per_signal = max(n_pad, 1) * FLEET_BYTES_PER_WINDOW
+    S_c = max(1, FLEET_MAX_BYTES // per_signal)
+    if S_c >= S:
+        return None, S
+    return [(start, S_c) for start in range(0, S, S_c)], S_c
+
+
+def _snap_scores(s, n_valid):
+    """Zero the |scores| at or below 256 ulp of each row's largest |score|
+    over its first ``n_valid`` entries (JAX's ``_snap_scores_device``, the
+    canonical fleet's noise floor). s (S, L); n_valid (S,)."""
+    a = torch.abs(s)
+    valid = torch.arange(s.shape[1], device=s.device)[None, :] < \
+        n_valid.reshape(-1, 1)
+    m = torch.where(valid, a, 0.0).amax(dim=1, keepdim=True)
+    floor = _SNAP_ULPS * torch.finfo(torch.float32).eps * m
+    return torch.where(a <= floor, torch.zeros_like(s), s)
+
+
+def _critic_scores_fleet(critic, n_real, n_host, width, smooth, kde_version):
+    """(S, N) critic values -> (S, T) smoothed critic scores, each signal
+    over its real prefix (scorer.py:145-227 of the JAX package with
+    ``n_real``). Every signal's real anti-diagonal rows go to one KDE
+    launch; the pad rows take no part."""
+    S, N = critic.shape
+    T = N + width - 1
+    vals, mask = antidiagonal_gather_ragged(
+        critic[:, :, None].expand(S, N, width), n_real)
+    t_real = n_real + width - 1
+    rows = torch.as_tensor(np.concatenate(
+        [i * T + np.arange(int(n) + width - 1) for i, n in enumerate(n_host)
+         if n > 0] or [np.zeros(0, np.int64)]), device=critic.device)
+    kde = torch.zeros(S * T, dtype=critic.dtype, device=critic.device)
+    if rows.numel():
+        kde[rows] = kde_argmax_rows_fused(
+            vals.reshape(S * T, width)[rows].contiguous(),
+            mask.reshape(S * T, width)[rows].contiguous(), kde_version)
+    kde = kde.reshape(S, T)
+    rv = torch.arange(T, device=critic.device)[None, :] < t_real[:, None]
+    lq = masked_quantile(kde, rv, 0.25)[:, None]
+    uq = masked_quantile(kde, rv, 0.75)[:, None]
+    in_range = rv & (kde >= lq) & (kde <= uq)
+    mean = (torch.where(in_range, kde, 0.0).sum(dim=1, keepdim=True)
+            / in_range.sum(dim=1, keepdim=True))
+    cnt = rv.sum(dim=1, keepdim=True).to(kde.dtype)
+    m_all = torch.where(rv, kde, 0.0).sum(dim=1, keepdim=True) / cnt
+    std = torch.sqrt(torch.where(rv, (kde - m_all) ** 2, 0.0).sum(
+        dim=1, keepdim=True) / cnt)
+    z = torch.abs((kde - mean) / std) + 1.0
+    return rolling_mean_centered_ragged(z, smooth, t_real,
+                                        (smooth // 2).clamp_min(1))
+
+
+def _rec_errors_fleet(y, y_hat, n_real, rec_error_type, smooth,
+                      score_window=10):
+    """(S, T) smoothed reconstruction errors of each signal's real windows
+    (scorer.py:254-316 of the JAX package with ``n_real``), DTW's window
+    boundary at each signal's real end."""
+    width = y.shape[2]
+    true = true_series_ragged(y, n_real)
+    pred = unroll_median_ragged(y_hat, n_real)
+    t_real = (n_real + width - 1)[:, None]
+    t = torch.arange(true.shape[1], device=y.device)[None, :]
+    half = score_window // 2
+    if rec_error_type == "point":
+        errors = torch.abs(true - pred)
+    elif rec_error_type == "area":
+        errors = torch.abs(
+            rolling_trapz_centered_ragged(true, score_window, t_real, half)
+            - rolling_trapz_centered_ragged(pred, score_window, t_real,
+                                            half))
+    elif rec_error_type == "dtw":
+        # zero past the real end, so a boundary window sees the zero padding
+        # the single-signal call sees, then zero what that call leaves zero
+        rv = t < t_real
+        errors = dtw_errors(torch.where(rv, true, 0.0),
+                            torch.where(rv, pred, 0.0), score_window)
+        length = 2 * half + 1
+        live = (t >= half) & (t < t_real - length + half)
+        errors = torch.where(live, errors, 0.0)
+    else:
+        raise ValueError(f"unknown rec_error_type {rec_error_type!r}")
+    return rolling_mean_centered_ragged(errors, smooth, t_real[:, 0],
+                                        (smooth // 2).clamp_min(1))
+
+
+def _detect_core_fleet(P, Xs, n_real, n_host, hyperbolic, combination,
+                       rec_error, width, smooth, kde_version):
+    """The fleet's forward and scoring: (S, N) hyperbolic or (S, T)
+    Euclidean scores, pad positions unspecified. The outputs of pad
+    windows are zeroed first, so no pad value (a NaN of a poisoned pad
+    row, say) reaches a masked reduction."""
+    S, N, _ = Xs.shape
+    live = (torch.arange(N, device=Xs.device)[None, :]
+            < n_real[:, None])[..., None]
+    outs = [torch.where(live if t.dim() == 3 else live[..., 0], t, 0.0)
+            for t in mf.forward_eval(P, Xs, hyperbolic)]
+    critic = outs[-1]
+    if hyperbolic:
+        hyper, _, hyper_x, _ = outs
+        rec_scores = st.acosh_poincare_distance(hyper, hyper_x)
+        critic_scores = None
+        if combination in CRITIC_COMBOS:
+            critic_scores = _critic_scores_fleet(
+                critic, n_real, n_host, width, smooth, kde_version)[:, :N]
+        return _combine_device(combination, critic_scores, rec_scores, hyper)
+    recon = outs[0]
+    errors = _rec_errors_fleet(torch.where(live, Xs, 0.0), recon, n_real,
+                               rec_error, smooth)
+    T = errors.shape[1]
+    rv = torch.arange(T, device=Xs.device)[None, :] < (n_real + width - 1)[
+        :, None]
+    rec_scores = zscore_masked(errors, rv).clamp_min(0.0) + 1.0
+    critic_scores = None
+    if combination != "rec":
+        critic_scores = _critic_scores_fleet(critic, n_real, n_host, width,
+                                             smooth, kde_version)
+    return _eucl_combine(combination, critic_scores, rec_scores)
+
+
+def _fleet_stage(X_list, staged, device):
+    """The (S, N, W) float32 stack on ``device`` and the (S,) window
+    counts: the staged stack of ``train_fleet(return_staged=True)`` cut to
+    the S signals (checked against ``X_list``), or ``X_list`` padded and
+    stacked on the host and copied over once."""
+    from hypad_tpu_torch.train.fleet import pad_and_stack
+
+    widths = {int(np.shape(x)[1]) for x in X_list}
+    if len(widths) > 1:
+        raise ValueError("fleet signals must share a window width; got "
+                         f"{sorted(widths)}")
+    n_real = np.asarray([len(x) for x in X_list], np.int64)
+    if staged is not None:
+        Xs, n_staged = staged
+        S = len(X_list)
+        if Xs.shape[0] < S or Xs.shape[1] < n_real.max():
+            raise ValueError("staged stack does not cover the requested "
+                             f"family: {tuple(Xs.shape)} vs {S} signals of "
+                             f"up to {int(n_real.max())} windows")
+        if not (np.asarray(n_staged)[:S] == n_real).all():
+            raise ValueError("staged window counts disagree with X_list — "
+                             "stale stack?")
+        return _as_device(Xs[:S], device), n_real
+    Xs, _ = pad_and_stack([x.detach().cpu().numpy() if torch.is_tensor(x)
+                           else np.asarray(x, np.float32) for x in X_list])
+    return torch.as_tensor(Xs, device=device), n_real
+
+
+def detect_scores_fleet(stacked, X_list, hyperbolic, combination,
+                        rec_error="point", staged=None, canonical=True,
+                        kde_version=None, device="cuda"):
+    """The scores of a whole signal family, each signal's as
+    :func:`detect_scores` computes them alone: a list of S numpy vectors
+    sliced to their true lengths (N_i hyperbolic, N_i + W - 1 Euclidean).
+
+    ``stacked``: the fleet's stacked parameters (``train.fleet``
+    ``stack_models`` or a ``FleetState``'s ``params``) on ``device``.
+    ``X_list``: S (N_i, W) window arrays. The family is padded to one
+    (S, N, W) stack and scored at once: one batched forward (K1 with a
+    signal axis for the ball head), ONE KDE launch over every signal's real
+    anti-diagonal rows (``kde_version`` "v1" K2, "v2" K3; None follows
+    ``HYPAD_KDE_PALLAS``), and each reduction over each signal's real
+    prefix. ``staged``: ``train_fleet(return_staged=True)``'s device stack
+    of the same windows, used instead of padding and copying again.
+    ``canonical`` keeps JAX's one observable effect of its canonical
+    shapes: scores within 256 ulp of zero (of each signal's largest) snap
+    to exact zero. The port pads to no shape ladder, so the rest of JAX's
+    canonical path has no counterpart.
+
+    A family whose peak buffer passes ``FLEET_MAX_BYTES`` is scored in
+    chunks of one fixed signal count (``fleet_chunk_plan``), each one KDE
+    launch; the signals are independent, so chunks change no value."""
+    _check_combination(hyperbolic, combination)
+    if not hyperbolic and rec_error not in REC_ERRORS:
+        raise ValueError(f"unknown rec_error_type {rec_error!r}")
+    device = resolve_device(device)
+    P = getattr(stacked, "params", stacked)
+    ref = next(iter(P.values()))
+    if ref.device != device:
+        raise ValueError(f"params lie on {ref.device}, not on {device}")
+    kde_version = kde_version or kde_version_from_env()
+    Xs, n_host = _fleet_stage(X_list, staged, device)
+    S, _, width = Xs.shape
+    if ref.shape[0] < S:
+        raise ValueError(f"{ref.shape[0]} stacked models for {S} signals")
+    smooth_host = np.maximum(np.trunc(n_host * 0.01).astype(np.int64), 1)
+    lens = n_host if hyperbolic else n_host + width - 1
+
+    def run(lo, size):
+        sl = slice(lo, lo + size)
+        n_real = torch.as_tensor(n_host[sl], device=device)
+        with torch.inference_mode():
+            out = _detect_core_fleet(
+                {k: v[sl] for k, v in P.items()}, Xs[sl], n_real,
+                n_host[sl], hyperbolic, combination, rec_error, width,
+                torch.as_tensor(smooth_host[sl], device=device), kde_version)
+            if canonical:
+                out = _snap_scores(out, torch.as_tensor(lens[sl],
+                                                        device=device))
+            return out.cpu().numpy()
+
+    chunks, _ = fleet_chunk_plan(S, Xs.shape[1])
+    if chunks is None:
+        out = run(0, S)
+    else:
+        out = None
+        for start, size in chunks:
+            start_c = min(start, S - size)
+            sub = run(start_c, size)
+            if out is None:
+                out = np.zeros((S,) + sub.shape[1:], sub.dtype)
+            out[start:start_c + size] = sub[start - start_c:]
+    return [out[i, :int(L)] for i, L in enumerate(lens)]

@@ -9,6 +9,10 @@ launches the kernel (or raises), on a CPU tensor it runs the plain version.
 ``mobius_linear_fused`` puts the wrapper under a ``torch.autograd.Function``
 whose backward is autograd of the plain composition, as the JAX
 ``custom_vjp`` does (there is no backward kernel).
+
+All three take a leading signal axis too (the fleet's counterpart of
+``jax.vmap``): x (S, N, in), w (S, out, in), b (S, out) is one launch, in
+which each signal gets the bits of its own single-signal launch.
 """
 
 from __future__ import annotations
@@ -25,10 +29,11 @@ MAX_DIM = 128  # largest Din and Dout the kernel takes (csrc/mobius_linear.cu)
 
 def mobius_linear(x, w, b, k=-1.0):
     """x (..., in), w (out, in), b (out,) on the ball -> (..., out) on the
-    ball."""
-    out = x @ w.T
+    ball; or with a signal axis, x (S, N, in), w (S, out, in), b (S, out)
+    -> (S, N, out)."""
+    out = x @ w.mT
     out = st.expmap0(out, k)
-    out = st.mobius_add(out, b.expand_as(out), k)
+    out = st.mobius_add(out, b[..., None, :].expand_as(out), k)
     return st.project(out, k)
 
 
@@ -43,17 +48,22 @@ def _check(x, w, b):
         if not t.is_contiguous():
             raise ValueError(f"mobius_linear_kernel: {name} must be "
                              "contiguous")
-    if x.dim() != 2 or w.dim() != 2 or b.dim() != 1:
+    lead = x.dim() - 2
+    if (lead not in (0, 1) or w.dim() != 2 + lead or b.dim() != 1 + lead
+            or x.shape[:lead] != w.shape[:lead]
+            or b.shape[:lead] != w.shape[:lead]):
         raise ValueError("mobius_linear_kernel: expected x (B, in), "
-                         f"w (out, in), b (out,); got {tuple(x.shape)}, "
-                         f"{tuple(w.shape)}, {tuple(b.shape)}")
-    if w.shape[1] != x.shape[1] or b.shape[0] != w.shape[0]:
+                         "w (out, in), b (out,), or x (S, B, in), "
+                         "w (S, out, in), b (S, out); got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(b.shape)}")
+    if w.shape[-1] != x.shape[-1] or b.shape[-1] != w.shape[-2]:
         raise ValueError("mobius_linear_kernel: shape mismatch "
                          f"{tuple(x.shape)}, {tuple(w.shape)}, "
                          f"{tuple(b.shape)}")
-    if not (1 <= x.shape[1] <= MAX_DIM and 1 <= w.shape[0] <= MAX_DIM):
+    if not (1 <= x.shape[-1] <= MAX_DIM and 1 <= w.shape[-2] <= MAX_DIM):
         raise ValueError(f"mobius_linear_kernel: in/out widths must be in "
-                         f"[1, {MAX_DIM}], got {x.shape[1]}, {w.shape[0]}")
+                         f"[1, {MAX_DIM}], got {x.shape[-1]}, {w.shape[-2]}")
 
 
 def bind(lib):
@@ -67,6 +77,16 @@ def bind(lib):
     return fn
 
 
+def bind_signals(lib):
+    """``mobius_linear_forward_signals`` (the signal-axis entry) of a
+    library built from ``csrc/mobius_linear.cu``, its argument types set."""
+    fn = lib.mobius_linear_forward_signals
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 @functools.cache
 def _lib():
     from hypad_tpu_torch import _build
@@ -74,15 +94,26 @@ def _lib():
     return bind(_build.load("mobius_linear"))
 
 
+@functools.cache
+def _lib_signals():
+    from hypad_tpu_torch import _build
+
+    return bind_signals(_build.load("mobius_linear"))
+
+
 def launch_with(fn, x, w, b):
     """Launch the bound entry ``fn`` on checked CUDA tensors; returns the
-    output. Raises on a CUDA error."""
-    out = torch.empty((x.shape[0], w.shape[0]), dtype=torch.float32,
+    output. Raises on a CUDA error. ``fn`` is a :func:`bind` entry for 2-D
+    ``x`` and a :func:`bind_signals` entry for a signal axis."""
+    out = torch.empty((*x.shape[:-1], w.shape[-2]), dtype=torch.float32,
                       device=x.device)
+    shape = (x.shape[-2], x.shape[-1], w.shape[-2])
+    if x.dim() == 3:
+        shape = (x.shape[0],) + shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 x.shape[0], x.shape[1], w.shape[0], stream)
+                 *shape, stream)
     if err != 0:
         raise RuntimeError(f"mobius_linear_forward failed: CUDA error {err}")
     return out
@@ -91,14 +122,15 @@ def launch_with(fn, x, w, b):
 def mobius_linear_kernel(x, w, b):
     """Forward of MobiusLinear through ``csrc/mobius_linear.cu`` for a CUDA
     ``x``, through :func:`mobius_linear` for a CPU ``x``. x (B, in),
-    w (out, in), b (out,), all float32 and contiguous."""
+    w (out, in), b (out,), or with a signal axis x (S, B, in),
+    w (S, out, in), b (S, out) in one launch; all float32 and contiguous."""
     _check(x, w, b)
     if x.device.type == "cpu":
         return mobius_linear(x, w, b)
     if x.device.type != "cuda":
         raise ValueError(f"mobius_linear_kernel: unsupported device "
                          f"{x.device}")
-    out = launch_with(_lib(), x, w, b)
+    out = launch_with(_lib() if x.dim() == 2 else _lib_signals(), x, w, b)
     mobius_linear_kernel.launches += 1
     return out
 

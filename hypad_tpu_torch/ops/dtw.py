@@ -54,21 +54,19 @@ def dtw_pair(x, y):
     return _dtw_batch_diag(x[None, :], y[None, :])[0]
 
 
-def _sliding(x, length):
-    """(len(x) - length + 1, length) windows of x, sliding by 1."""
-    return x.unfold(0, length, 1)
-
-
 def dtw_errors(true, pred, score_window=10):
     """The DTW reconstruction error of two (T,) series -> (T,): half a
     window of zeros, the T - L window distances, then zeros to the end
-    (L = score_window // 2 * 2 + 1)."""
+    (L = score_window // 2 * 2 + 1). Leading axes (a fleet's (S, T)) are
+    batched: every window of every series in one wavefront."""
     length = (score_window // 2) * 2 + 1
     half = length // 2
-    T = true.shape[0]
+    T = true.shape[-1]
     n_windows = T - length
-    tw = _sliding(F.pad(true, (half, half)), length)[:n_windows]
-    pw = _sliding(F.pad(pred, (half, half)), length)[:n_windows]
-    out = true.new_zeros(T)
-    out[half:half + n_windows] = _dtw_batch_diag(tw, pw)
+    lead = true.shape[:-1]
+    tw = F.pad(true, (half, half)).unfold(-1, length, 1)[..., :n_windows, :]
+    pw = F.pad(pred, (half, half)).unfold(-1, length, 1)[..., :n_windows, :]
+    out = true.new_zeros(true.shape)
+    out[..., half:half + n_windows] = _dtw_batch_diag(
+        tw.reshape(-1, length), pw.reshape(-1, length)).reshape(*lead, -1)
     return out

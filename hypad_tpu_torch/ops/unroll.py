@@ -2,8 +2,12 @@
 
 Port of ``hypad_tpu.ops.unroll``: ``antidiagonal_gather`` (the gather-free
 pad-reshape skew), ``masked_median``, and the two series the Euclidean
-reconstruction errors compare, ``unroll_median`` and ``true_series``. The
-ragged (padded fleet) form is not ported yet.
+reconstruction errors compare, ``unroll_median`` and ``true_series``.
+
+The ragged forms serve the fleet detector: (S, N, W) windows padded from
+each signal's ``n_real`` real ones; entries drawn from pad windows are
+masked out, so every masked consumer sees each signal's own length-n_real
+structure (JAX's ``n_real`` forms and ``true_series_ragged``).
 """
 
 from __future__ import annotations
@@ -54,3 +58,40 @@ def true_series(y):
     """The signal the windows were cut from: the first sample of every
     window, then the rest of the last window. (N, W) -> (T,)."""
     return torch.cat([y[:, 0], y[-1, 1:]])
+
+
+def antidiagonal_gather_ragged(y_hat, n_real):
+    """(S, N, W) padded window stacks -> (S, T, W) anti-diagonal values and
+    mask, T = N + W - 1, each signal's entries from its first
+    ``n_real[s]`` windows only (``n_real`` an (S,) tensor)."""
+    S, N, W = y_hat.shape
+    T = N + W - 1
+    P = F.pad(y_hat.transpose(1, 2), (0, W))             # (S, W, N + W)
+    vals = P.reshape(S, -1)[:, :-W].reshape(S, W, T).transpose(1, 2)
+    i = torch.arange(T, device=y_hat.device)[:, None]
+    j = torch.arange(W, device=y_hat.device)[None, :]
+    n = (i - j)[None]
+    mask = (n >= 0) & (n < n_real.reshape(-1, 1, 1))
+    return vals.contiguous(), mask
+
+
+def unroll_median_ragged(y_hat, n_real):
+    """Per-timestep median of each signal's real windows: (S, N, W) ->
+    (S, T)."""
+    vals, mask = antidiagonal_gather_ragged(y_hat, n_real)
+    S, T, W = vals.shape
+    return masked_median(vals.reshape(S * T, W),
+                         mask.reshape(S * T, W)).reshape(S, T)
+
+
+def true_series_ragged(y, n_real):
+    """``true_series`` of each signal's first ``n_real[s]`` windows of the
+    padded (S, N, W) ``y`` -> (S, T): positions [0, n) take the window
+    starts, [n, n + W - 1) the tail of window n - 1; later entries are
+    unspecified."""
+    S, N, W = y.shape
+    first = F.pad(y[:, :, 0], (0, W - 1))                # (S, T)
+    last = y[torch.arange(S, device=y.device),
+             (n_real - 1).clamp_min(0)]                  # (S, W)
+    pos = n_real.reshape(-1, 1) + torch.arange(W - 1, device=y.device)
+    return first.scatter(1, pos, last[:, 1:])

@@ -14,6 +14,15 @@ launches in ``.launches``.
 
 Both return ``(lx, lz, grads_cx, grads_cz)``: 0-d loss tensors and dicts of
 gradients keyed like the port's ``state_dict`` (``"critic_x.dense1.w"``).
+
+``critics_fused_grads_fleet`` and ``critic_step_fused_full_fleet`` are the
+same two kernels with a signal axis (the fleet's counterpart of
+``jax.vmap``): the stacked parameters of ``train/fleet.py`` and inputs with a
+leading S go to ONE launch of grid (16, S), each signal's two clusters on
+its own slices, which gives each signal the bits of its own single-signal
+launch. They return (S,) losses and gradients with a leading S, count in the
+same ``.launches`` as the single-signal wrappers, and on CPU tensors run the
+batched autograd composition of ``train/losses.py``.
 """
 
 from __future__ import annotations
@@ -23,7 +32,13 @@ import functools
 
 import torch
 
-from hypad_tpu_torch.train.losses import critic_loss_stacked, critic_step_inputs
+from hypad_tpu_torch.models import fleet as mf
+from hypad_tpu_torch.train.losses import (
+    critic_loss_stacked,
+    critic_step_inputs,
+    critic_step_inputs_fleet,
+    fleet_forwards,
+)
 
 CX_LAYERS = ("dense1", "dense2", "dense3", "dense4", "dense5")
 CZ_LAYERS = ("dense1", "dense2", "dense3")
@@ -84,6 +99,14 @@ def bind(lib):
     lib.critic_step_full_forward.argtypes = ([ctypes.c_void_p] * 2
                                              + [ctypes.c_int, ctypes.c_void_p])
     lib.critic_step_full_forward.restype = ctypes.c_int
+    # a baseline source (profile_critic_step.py) may predate the signal axis
+    if hasattr(lib, "critic_step_full_signals_forward"):
+        lib.critics_fused_grads_signals_forward.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
+        lib.critics_fused_grads_signals_forward.restype = ctypes.c_int
+        lib.critic_step_full_signals_forward.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.critic_step_full_signals_forward.restype = ctypes.c_int
     return lib
 
 
@@ -293,3 +316,244 @@ def critic_step_fused_full(model, x, draws, hyperbolic):
 
 
 critic_step_fused_full.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the signal axis: one launch for a whole fleet
+# ---------------------------------------------------------------------------
+
+CX_KEYS = tuple(f"critic_x.{layer}.{leaf}" for layer in CX_LAYERS
+                for leaf in ("w", "b"))
+CZ_KEYS = tuple(f"critic_z.{layer}.{leaf}" for layer in CZ_LAYERS
+                for leaf in ("w", "b"))
+ENC_KEYS = (tuple(f"encoder.lstm.0.{k}" for k in LSTM_KEYS)
+            + ("encoder.dense.w", "encoder.dense.b"))
+DEC_KEYS = (("decoder.dense1.w", "decoder.dense1.b")
+            + tuple(f"decoder.lstm.{i}.{k}" for i in (0, 1)
+                    for k in LSTM_KEYS)
+            + ("decoder.dense2.w", "decoder.dense2.b"))
+HEAD_KEYS = ("decoder.hyperbolic_linear.w", "decoder.hyperbolic_linear.b")
+
+
+def _critic_grads_fleet(lx, lz, P):
+    """The stacked critic gradients of (S,) losses ``lx + lz``; ``P``'s
+    critic leaves require grad."""
+    keys = CX_KEYS + CZ_KEYS
+    grads = torch.autograd.grad((lx + lz).sum(), [P[k] for k in keys])
+    g = dict(zip(keys, grads))
+    return ({k: g[k] for k in CX_KEYS}, {k: g[k] for k in CZ_KEYS})
+
+
+def _with_critic_grad(P):
+    return {**P, **{k: P[k].detach().requires_grad_(True)
+                    for k in CX_KEYS + CZ_KEYS}}
+
+
+def critics_fused_grads_fleet_plain(P, bigx, bigz, mx, mz):
+    """K4's plain version with a signal axis: autograd of both critics'
+    (S,) WGAN-GP losses (``losses.critic_loss_stacked``)."""
+    with torch.enable_grad():
+        Pg = _with_critic_grad(P)
+        f = fleet_forwards(Pg)
+        lx = critic_loss_stacked(f.critic_x, bigx, mx, +1)
+        lz = critic_loss_stacked(f.critic_z, bigz, mz, -1)
+        gx, gz = _critic_grads_fleet(lx, lz, Pg)
+    return lx.detach(), lz.detach(), gx, gz
+
+
+def critic_step_fleet_plain(P, x, draws, hyperbolic):
+    """K5's plain version with a signal axis: the fleet's generator
+    forwards, then :func:`critics_fused_grads_fleet_plain`."""
+    bigx, bigz = critic_step_inputs_fleet(P, x, draws, hyperbolic)
+    return critics_fused_grads_fleet_plain(P, bigx, bigz, draws["m_cx"],
+                                           draws["m_cz"])
+
+
+def _fleet_leaf_shapes(W, L, Hx, Hz, He=None, D1=None, Hd=None):
+    """{key: per-signal shape} of every stacked leaf a signal-axis launch
+    reads: the critics', and with ``He`` the generator's, from the dims
+    the launch is given."""
+    shapes = {}
+
+    def dense(key, d_out, d_in):
+        shapes[f"{key}.w"], shapes[f"{key}.b"] = (d_out, d_in), (d_out,)
+
+    def lstm(prefix, H, d_in):
+        for s in ("", "_rev"):
+            shapes[f"{prefix}.w_ih{s}"] = (4 * H, d_in)
+            for b in ("b_ih", "b_hh"):
+                shapes[f"{prefix}.{b}{s}"] = (4 * H,)
+
+    for prefix, layers, d_in, H in (("critic_x", CX_LAYERS, W, Hx),
+                                    ("critic_z", CZ_LAYERS, L, Hz)):
+        for i, layer in enumerate(layers):
+            dense(f"{prefix}.{layer}", 1 if i == len(layers) - 1 else H,
+                  d_in if i == 0 else H)
+    if He is not None:
+        lstm("encoder.lstm.0", He, W)
+        dense("encoder.dense", L, 2 * He)
+        dense("decoder.dense1", D1, L)
+        lstm("decoder.lstm.0", Hd, D1)
+        lstm("decoder.lstm.1", Hd, 2 * Hd)
+        dense("decoder.dense2", W, 2 * Hd)
+        dense("decoder.hyperbolic_linear", W, W)
+    return shapes
+
+
+def _check_fleet_leaves(name, P, S, keys, shapes):
+    """Each of ``P``'s leaves ``keys`` is (S, *its per-signal shape)."""
+    for key in keys:
+        _shape(name, key, P[key], (S, *shapes[key]))
+
+
+class _FleetSlots:
+    """The pointer and byte-stride tables of a signal-axis launch over S
+    signals."""
+
+    def __init__(self, device, S):
+        self.ptrs = (ctypes.c_void_p * N_SLOTS)()
+        self.strides = (ctypes.c_longlong * N_SLOTS)()
+        self.device = device
+        self.S = S
+
+    def put(self, slot, t, key, name="fleet critic step"):
+        """Slot ``slot`` <- ``t``, checked as ``_check`` checks ``key``
+        (a name starting with "m" is a bool keep-mask); its leading axis
+        must be the signal axis, or the launch would read or write past
+        it."""
+        _check(name, self.device, **{key: t})
+        if t.dim() == 0 or t.shape[0] != self.S:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected a leading signal axis of {self.S}")
+        self.ptrs[slot] = t.data_ptr()
+        self.strides[slot] = t.stride(0) * t.element_size()
+
+
+def _fleet_critic_slots(slots, P, S, name):
+    """The stacked critic parameters and fresh gradients; returns the
+    gradient dicts and the (S, 2) losses."""
+    gx, gz = {}, {}
+    for base, gbase, keys, grads in ((SLOT_CX, SLOT_GCX, CX_KEYS, gx),
+                                     (SLOT_CZ, SLOT_GCZ, CZ_KEYS, gz)):
+        for i, key in enumerate(keys):
+            g = torch.empty_like(P[key])
+            slots.put(base + i, P[key], key, name)
+            slots.put(gbase + i, g, f"grad {key}", name)
+            grads[key] = g
+    loss = torch.empty((S, 2), dtype=torch.float32, device=slots.device)
+    slots.put(SLOT_LOSS, loss, "loss", name)
+    return gx, gz, loss
+
+
+def _run_fleet(fn_name, slots, dims, S, *extra):
+    lib = _lib()
+    ws = torch.empty((S, int(lib.critic_step_workspace_floats(dims))),
+                     dtype=torch.float32, device=slots.device)
+    slots.put(SLOT_WS, ws, "workspace", fn_name)
+    with torch.cuda.device(slots.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, fn_name)(slots.ptrs, slots.strides, dims, S,
+                                    *extra, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
+
+
+def _fleet_widths(P):
+    """(W, L, Hx, Hz) of stacked parameters."""
+    return (P["critic_x.dense1.w"].shape[2], P["critic_z.dense1.w"].shape[2],
+            P["critic_x.dense1.w"].shape[1], P["critic_z.dense1.w"].shape[1])
+
+
+def critics_fused_grads_fleet(P, bigx, bigz, mx, mz):
+    """(lx (S,), lz (S,), grads_cx, grads_cz) of one fleet critic step:
+    ``csrc``'s K4 with a signal axis, one launch, for CUDA tensors;
+    :func:`critics_fused_grads_fleet_plain` for CPU tensors. ``P``: the
+    stacked parameters; ``bigx`` (S, 3B, W), ``bigz`` (S, 3B, L), ``mx``
+    (S, 4, 3B, Hx), ``mz`` (S, 2, 3B, Hz)."""
+    name = "critics_fused_grads_fleet"
+    S, R = bigx.shape[:2]
+    W, L, Hx, Hz = _fleet_widths(P)
+    for key, t, shape in (("bigx", bigx, (S, R, W)), ("bigz", bigz, (S, R, L)),
+                          ("mx", mx, (S, 4, R, Hx)), ("mz", mz, (S, 2, R, Hz))):
+        _shape(name, key, t, shape)
+    if R % 3 or R == 0:
+        raise ValueError(f"{name}: bigx must be (S, 3B, W), got "
+                         f"{tuple(bigx.shape)}")
+    _widths(name, {"bigx": W, "bigz": L, "critic_x hidden": Hx,
+                   "critic_z hidden": Hz})
+    _check_fleet_leaves(name, P, S, CX_KEYS + CZ_KEYS,
+                        _fleet_leaf_shapes(W, L, Hx, Hz))
+    device = bigx.device
+    _check(name, device, bigx=bigx, bigz=bigz, mx=mx, mz=mz)
+    if device.type == "cpu":
+        return critics_fused_grads_fleet_plain(P, bigx, bigz, mx, mz)
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    slots = _FleetSlots(device, S)
+    for slot, key, t in ((SLOT_BIGX, "bigx", bigx), (SLOT_BIGZ, "bigz", bigz),
+                         (SLOT_MCX, "mx", mx), (SLOT_MCZ, "mz", mz)):
+        slots.put(slot, t, key, name)
+    gx, gz, loss = _fleet_critic_slots(slots, P, S, name)
+    _run_fleet("critics_fused_grads_signals_forward", slots,
+               _dims(R // 3, W, L, Hx, Hz), S)
+    critics_fused_grads.launches += 1
+    return loss[:, 0], loss[:, 1], gx, gz
+
+
+def critic_step_fused_full_fleet(P, x, draws, hyperbolic):
+    """(lx (S,), lz (S,), grads_cx, grads_cz) of one whole fleet critic
+    step, generator forwards included: ``csrc``'s K5 with a signal axis,
+    one launch, for a CUDA ``x``; :func:`critic_step_fleet_plain` for a CPU
+    ``x``. x (S, B, W); ``draws`` one step's z_x, a_x, z_z, a_z, m_cx
+    (S, 4, 3B, Hx), m_cz (S, 2, 3B, Hz), m_dec (S, B, 128)."""
+    name = "critic_step_fused_full_fleet"
+    device = x.device
+    d = {k: draws[k] for k in ("z_x", "a_x", "z_z", "a_z", "m_cx", "m_cz",
+                               "m_dec")}
+    _check(name, device, x=x, **d)
+    if hyperbolic != mf.is_hyperbolic(P):
+        raise ValueError(f"{name}: hyperbolic={hyperbolic} but the "
+                         f"parameters have hyperbolic={mf.is_hyperbolic(P)}")
+    S, B, W = x.shape
+    _, L, Hx, Hz = _fleet_widths(P)
+    He = P["encoder.lstm.0.w_hh"].shape[2]
+    Hd = P["decoder.lstm.0.w_hh"].shape[2]
+    D1 = P["decoder.dense1.w"].shape[1]
+    for key, shape in (("z_x", (S, B, L)), ("a_x", (S, B, W)),
+                       ("z_z", (S, B, L)), ("a_z", (S, B, L)),
+                       ("m_cx", (S, 4, 3 * B, Hx)),
+                       ("m_cz", (S, 2, 3 * B, Hz)),
+                       ("m_dec", (S, B, 2 * Hd))):
+        _shape(name, key, d[key], shape)
+    if mf.n_lstm_layers(P, "decoder.lstm") != 2 or mf.n_lstm_layers(
+            P, "encoder.lstm") != 1:
+        raise ValueError(f"{name}: expected a 1-layer encoder and a 2-layer "
+                         "decoder LSTM")
+    _widths(name, {"signal": W, "latent": L, "critic_x hidden": Hx,
+                   "critic_z hidden": Hz, "decoder dense1": D1,
+                   "decoder LSTM output": 2 * Hd,
+                   "encoder LSTM output": 2 * He})
+    gen = ENC_KEYS + DEC_KEYS + (HEAD_KEYS if hyperbolic else ())
+    _check_fleet_leaves(name, P, S, gen + CX_KEYS + CZ_KEYS,
+                        _fleet_leaf_shapes(W, L, Hx, Hz, He, D1, Hd))
+    if device.type == "cpu":
+        return critic_step_fleet_plain(P, x, d, hyperbolic)
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    slots = _FleetSlots(device, S)
+    for slot, key in ((SLOT_ZX, "z_x"), (SLOT_AX, "a_x"), (SLOT_ZZ, "z_z"),
+                      (SLOT_AZ, "a_z"), (SLOT_MDEC, "m_dec"),
+                      (SLOT_MCX, "m_cx"), (SLOT_MCZ, "m_cz")):
+        slots.put(slot, d[key], key, name)
+    slots.put(SLOT_X, x, "x", name)
+    bigx = torch.empty((S, 3 * B, W), dtype=torch.float32, device=device)
+    bigz = torch.empty((S, 3 * B, L), dtype=torch.float32, device=device)
+    slots.put(SLOT_BIGX, bigx, "bigx", name)
+    slots.put(SLOT_BIGZ, bigz, "bigz", name)
+    for i, key in enumerate(gen):
+        slots.put(SLOT_ENC + i, P[key], key, name)
+    gx, gz, loss = _fleet_critic_slots(slots, P, S, name)
+    _run_fleet("critic_step_full_signals_forward", slots,
+               _dims(B, W, L, Hx, Hz, He, D1, Hd), S, int(bool(hyperbolic)))
+    critic_step_fused_full.launches += 1
+    return loss[:, 0], loss[:, 1], gx, gz

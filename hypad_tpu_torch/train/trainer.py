@@ -23,6 +23,15 @@ m_cx m_cz m_dec`` for every critic step, the generator pass's shuffle,
 ``torch.Generator`` and copied to the device, so one seed gives the same
 draws on the CPU and on the card; :func:`run_epoch` also takes injected
 draws, such as the JAX trainer's.
+
+A fleet epoch (:func:`run_fleet_epoch`, the counterpart of JAX's vmapped
+``_make_epoch_body``) trains S models at once, each fleet step one batched
+step for all S: the critic step is K5 (or K4) with a signal axis, one launch
+whatever S is. Signal i's draws are its own single-model draws
+(:func:`fleet_epoch_draws`) in JAX's ragged layout; a step past a signal's
+own ``5 * (n_i // B)`` critic / ``n_i // B`` generator schedule is a no-op
+for it (its parameters, moments and step counters are kept), so every
+signal trains exactly its single-model schedule.
 """
 
 from __future__ import annotations
@@ -39,22 +48,33 @@ from hypad_tpu_torch.models.tadgan import (
     CZ_DROPOUT,
     DEC_LSTM_DROPOUT,
 )
-from hypad_tpu_torch.optim.radam import adam, riemannian_adam
+from hypad_tpu_torch.optim.radam import (
+    adam,
+    adam_fleet,
+    riemannian_adam,
+    riemannian_adam_fleet,
+)
 from hypad_tpu_torch.train.critic_kernel import (
     critic_params,
+    critic_step_fleet_plain,
     critic_step_fused_full,
+    critic_step_fused_full_fleet,
     critic_step_plain,
     critics_fused_grads,
+    critics_fused_grads_fleet,
 )
 from hypad_tpu_torch.train.losses import (  # noqa: F401  (re-exported)
     N_CRITICS,
     critic_step_inputs,
+    critic_step_inputs_fleet,
     critic_x_loss,
     critic_z_loss,
     generator_loss,
+    generator_loss_fleet,
 )
 
 CRITIC_DRAWS = ("z_x", "a_x", "z_z", "a_z", "m_cx", "m_cz", "m_dec")
+GEN_DRAWS = ("gen_idx", "gen_z", "gen_m_cx", "gen_m_cz", "gen_m_dec")
 
 
 @dataclass
@@ -91,7 +111,15 @@ def init_train_state(model, lr, hyperbolic):
 
 def _widths(model):
     """(signal width, latent, critic_x hidden, critic_z hidden, decoder
-    LSTM output width)."""
+    LSTM output width) of a model, or of a fleet's stacked parameters (a
+    dict keyed like the model's ``state_dict``)."""
+    if isinstance(model, dict):
+        def shape(key):
+            return model[key].shape[-2:]
+        dec_dirs = 2 if "decoder.lstm.0.w_ih_rev" in model else 1
+        return (shape("critic_x.dense1.w")[1], shape("decoder.dense1.w")[1],
+                shape("critic_x.dense1.w")[0], shape("critic_z.dense1.w")[0],
+                shape("decoder.lstm.0.w_hh")[1] * dec_dirs)
     lstm0 = model["decoder"].lstm[0]
     return (model["critic_x"].dense1.w.shape[1],
             model["decoder"].dense1.w.shape[1],
@@ -108,7 +136,8 @@ def epoch_draws(generator, n, batch_size, model):
     (S, B, latent) uniform, keep-masks ``m_cx`` (S, 4, 3B, Hx), ``m_cz``
     (S, 2, 3B, Hz), ``m_dec`` (S, B, 128). Generator steps: ``gen_idx``,
     ``gen_z``, ``gen_m_cx`` (nb, 4, B, Hx), ``gen_m_cz`` (nb, 2, B, Hz),
-    ``gen_m_dec`` (nb, 2B, 128)."""
+    ``gen_m_dec`` (nb, 2B, 128). ``model``: the model, or stacked
+    parameters (only the widths are read)."""
     W, latent, hx, hz, dec_width = _widths(model)
     nb, B = n // batch_size, batch_size
     g = generator
@@ -252,3 +281,151 @@ def train_tadgan(model, X, *, lr, hyperbolic, batch_size, n_epochs, seed=0,
                                           or state.epoch == n_epochs - 1):
             checkpoint_cb(state.epoch, state)
     return state
+
+
+# ---------------------------------------------------------------------------
+# the fleet epoch: S models, one batched step per fleet step
+# ---------------------------------------------------------------------------
+
+def make_fleet_optimizers(lr, hyperbolic):
+    opt_gen = (riemannian_adam_fleet(lr, weight_decay=1e-5, stabilize=10)
+               if hyperbolic else adam_fleet(lr))
+    return adam_fleet(lr), adam_fleet(lr), opt_gen
+
+
+def fleet_valid(n_real, batch_size):
+    """The step-validity masks of a fleet epoch, as JAX's ragged body makes
+    them (hypad_tpu/train/trainer.py:468-476, :512-513): critic (S, 5 nb)
+    = ``tile(j < n_i // B, 5)`` and generator (S, nb), nb = max n_i // B."""
+    nb = np.asarray(n_real, np.int64) // batch_size
+    gen = np.arange(int(nb.max(initial=0)))[None, :] < nb[:, None]
+    return np.tile(gen, (1, N_CRITICS)), gen
+
+
+def fleet_epoch_draws(seeds, epoch, n_real, batch_size, params):
+    """Every draw of one fleet epoch, on the CPU, signal-major (S, steps,
+    ...): signal i's are ``epoch_draws(epoch_generator(seeds[i], epoch),
+    n_real[i], batch_size, params)``, the draws a single-model
+    ``train_tadgan(seed=seeds[i])`` makes, laid out as JAX's ragged epoch
+    lays its steps: critic pass p's step j at ``p * nb + j``, nb = max
+    n_i // B. Steps past a signal's schedule hold zeros (never used)."""
+    B = batch_size
+    nb = [int(n) // B for n in n_real]
+    nb_max = max(nb, default=0)
+    per = [epoch_draws(epoch_generator(int(sd), epoch), int(n), B, params)
+           for sd, n in zip(seeds, n_real)]
+    out = {}
+    for key, ref in per[0].items():
+        steps = N_CRITICS * nb_max if key in CRITIC_DRAWS + (
+            "critic_idx",) else nb_max
+        out[key] = torch.zeros((len(per), steps) + tuple(ref.shape[1:]),
+                               dtype=ref.dtype)
+    for i, d in enumerate(per):
+        for key, v in d.items():
+            if key in GEN_DRAWS:
+                out[key][i, :nb[i]] = v
+            else:
+                for p in range(N_CRITICS):
+                    out[key][i, p * nb_max:p * nb_max + nb[i]] = \
+                        v[p * nb[i]:(p + 1) * nb[i]]
+    return out
+
+
+def _gather_rows(Xs, idx):
+    """Xs (S, N, W), idx (S, B) -> (S, B, W): each signal's batch rows."""
+    return torch.take_along_dim(Xs, idx[..., None].long(), dim=1)
+
+
+def _fleet_critic_step(P, x, d, hyperbolic, fused_critics):
+    if fused_critics == "full":
+        return critic_step_fused_full_fleet(P, x, d, hyperbolic)
+    if fused_critics is True:
+        bigx, bigz = critic_step_inputs_fleet(P, x, d, hyperbolic)
+        return critics_fused_grads_fleet(P, bigx, bigz, d["m_cx"],
+                                         d["m_cz"])
+    return critic_step_fleet_plain(P, x, d, hyperbolic)
+
+
+def _prefixed(P, *prefixes):
+    return {k: v for k, v in P.items() if k.split(".")[0] in prefixes}
+
+
+def _masked_sum(values, valid):
+    """Sum over steps of the (steps, S) ``values`` where ``valid``."""
+    v = torch.stack(values)
+    return torch.where(valid, v, 0.0).sum(dim=0)
+
+
+def run_fleet_epoch(state, Xs, n_real, draws, *, lr, hyperbolic,
+                    fused_critics="full"):
+    """One epoch of S models on the padded windows ``Xs`` (S, N, W) float32
+    on the models' device, signal i's real rows ``[0, n_real[i])``, from
+    ``draws`` as :func:`fleet_epoch_draws` lays them out (on any device).
+    ``state`` is a ``train.fleet.FleetState``, updated in place. Returns
+    ``(state, metrics)``, each metric (S,) numpy: the means over each
+    signal's real steps (sum / (5 nb_i) and sum / nb_i, as
+    hypad_tpu/train/trainer.py:537-545)."""
+    if not (fused_critics == "full" or fused_critics is True
+            or fused_critics is False):
+        raise ValueError('fused_critics must be "full", True or False, '
+                         f"got {fused_critics!r}")
+    B = draws["critic_idx"].shape[-1]
+    valid_c, valid_g = fleet_valid(n_real, B)
+    # step-major on the device, so each step's slice is contiguous
+    d = {k: v.to(Xs.device).transpose(0, 1).contiguous()
+         for k, v in draws.items()}
+    P = state.params
+    p_cx, p_cz = _prefixed(P, "critic_x"), _prefixed(P, "critic_z")
+    p_gen = _prefixed(P, "encoder", "decoder")
+    opt_cx, opt_cz, opt_gen = make_fleet_optimizers(lr, hyperbolic)
+    s_cx = opt_cx.schedule(state.opt_cx, valid_c.T)
+    s_cz = opt_cz.schedule(state.opt_cz, valid_c.T)
+    lxs, lzs = [], []
+    for s in range(valid_c.shape[1]):
+        x = _gather_rows(Xs, d["critic_idx"][s])
+        lx, lz, gx, gz = _fleet_critic_step(
+            P, x, {k: d[k][s] for k in CRITIC_DRAWS}, hyperbolic,
+            fused_critics)
+        state.opt_cx = opt_cx.update(gx, state.opt_cx, p_cx, s_cx, s)
+        state.opt_cz = opt_cz.update(gz, state.opt_cz, p_cz, s_cz, s)
+        lxs.append(lx)
+        lzs.append(lz)
+
+    s_gen = opt_gen.schedule(state.opt_gen, valid_g.T)
+    gen_keys = list(p_gen)
+    lgs, recs = [], []
+    for s in range(valid_g.shape[1]):
+        x = _gather_rows(Xs, d["gen_idx"][s])
+        masks = {"m_cx": d["gen_m_cx"][s], "m_cz": d["gen_m_cz"][s],
+                 "m_dec": d["gen_m_dec"][s]}
+        with torch.enable_grad():
+            Pg = {**P, **{k: P[k].detach().requires_grad_(True)
+                          for k in gen_keys}}
+            loss, rec = generator_loss_fleet(Pg, x, hyperbolic,
+                                             d["gen_z"][s], masks)
+            grads = torch.autograd.grad(loss.sum(),
+                                        [Pg[k] for k in gen_keys])
+        state.opt_gen = opt_gen.update(dict(zip(gen_keys, grads)),
+                                       state.opt_gen, p_gen, s_gen, s)
+        lgs.append(loss.detach())
+        recs.append(rec.detach())
+
+    nb = np.asarray(n_real, np.int64) // B
+    denom_c = torch.as_tensor(np.maximum(N_CRITICS * nb, 1), device=Xs.device,
+                              dtype=torch.float32)
+    denom_g = torch.as_tensor(np.maximum(nb, 1), device=Xs.device,
+                              dtype=torch.float32)
+    sums = []
+    if valid_c.shape[1]:
+        vc = s_cx.valid
+        sums += [_masked_sum(lxs, vc) / denom_c,
+                 _masked_sum(lzs, vc) / denom_c]
+        vg = s_gen.valid
+        sums += [_masked_sum(lgs, vg) / denom_g,
+                 _masked_sum(recs, vg) / denom_g]
+    else:
+        sums = [torch.zeros_like(denom_c)] * 4
+    means = torch.stack(sums).cpu().numpy()
+    state.epoch += 1
+    return state, dict(zip(("critic_x_loss", "critic_z_loss",
+                            "decoder_loss", "rec_loss"), means))

@@ -105,3 +105,14 @@ def snapshot_config(run_dir, config_path):
     os.makedirs(run_dir, exist_ok=True)
     if config_path and os.path.isfile(config_path):
         shutil.copy(config_path, os.path.join(run_dir, "config.yaml"))
+
+
+def snapshot_effective(run_dir, params):
+    """Write the effective ``params`` (a sweep run's signal, seed and
+    ``seed_{k}/`` output root) into the run directory as ``config.yaml``,
+    so that ``detect --config <run>/config.yaml`` re-enters this run."""
+    from hypad_tpu_torch.utils.config import dump_flat_yaml
+
+    os.makedirs(run_dir, exist_ok=True)
+    with open(os.path.join(run_dir, "config.yaml"), "w") as f:
+        f.write(dump_flat_yaml(vars(params)))

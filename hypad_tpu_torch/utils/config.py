@@ -231,6 +231,46 @@ def parse_flat_yaml(text):
     return result or None
 
 
+def _dump_scalar(value):
+    """``value`` as a flat-YAML scalar that this reader and PyYAML both
+    read back as ``value``: strings single-quoted, floats with a dot."""
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if math.isnan(value):
+            return ".nan"
+        if math.isinf(value):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value)
+        mantissa, _, exponent = text.partition("e")
+        if "." not in mantissa:
+            mantissa += ".0"
+        return mantissa + (f"e{exponent}" if exponent else "")
+    if isinstance(value, str):
+        return "'" + value.replace("'", "''") + "'"
+    raise ValueError(f"{value!r} is not a flat scalar")
+
+
+def dump_flat_yaml(mapping):
+    """The flat YAML text of ``mapping`` (scalars and lists of scalars),
+    keys sorted as ``yaml.safe_dump`` sorts them; :func:`parse_flat_yaml`
+    reads it back to ``mapping``, but for an empty list, which it writes
+    as an empty value (read back as None)."""
+    lines = []
+    for key in sorted(mapping):
+        value = mapping[key]
+        if isinstance(value, (list, tuple)):
+            lines.append(f"{key}:")
+            lines.extend(f"- {_dump_scalar(v)}" for v in value)
+        else:
+            lines.append(f"{key}: {_dump_scalar(value)}")
+    return "\n".join(lines) + "\n"
+
+
 # ---------------------------------------------------------------------------
 # configuration
 # ---------------------------------------------------------------------------

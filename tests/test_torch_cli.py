@@ -449,15 +449,18 @@ def test_detect_univariate_is_the_cli_detection_on_arrays(tmp_path):
     np.testing.assert_array_equal(got["scores"], scores)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["sweep"], "A10"), (["train", "--signals", "a,b"], "A10"),
-    (["train", "--seeds", "0,1"], "A10"), (["detect", "--detect-only"],
-                                           "A10"),
-    (["train", "--canonical"], "A10"),
+@pytest.mark.parametrize("argv,override,item", [
+    (["sweep", "--canonical"], {}, "A10"),
+    (["sweep", "--rec-errors", "point,dtw"], {}, "A10"),
+    (["sweep", "--combinations", "all"], {}, "A10"),
+    (["sweep"], {"dataset": "SWAT", "signal": "multivariate"}, "A11"),
+    (["sweep"], {"devices": 2}, "A13"),
 ])
-def test_unported_cli_options_raise_naming_their_roadmap_item(tmp_path, argv,
-                                                              item):
-    cfg = _config(tmp_path, "port")
+def test_unported_cli_options_raise_naming_their_roadmap_item(
+        tmp_path, argv, override, item):
+    """What of ``sweep`` stays unported: ``--canonical`` and the fleet
+    grid (A10), a multivariate family (A11), several cards (A13)."""
+    cfg = _config(tmp_path, "port", signals=["sig"], **override)
     with pytest.raises(NotImplementedError, match=item):
         tcli.main([*argv, "--config", cfg, "--device", "cpu"])
 

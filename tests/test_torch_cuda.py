@@ -122,8 +122,8 @@ def test_kde_argmax_v2_kernel_matches_plain_at_tie_level(cuda, N, W, const,
         assert len(diff) <= max(1, int(0.01 * len(g)))
 
 
-def _critic_case(device, hyperbolic, B):
-    g = torch.Generator().manual_seed(100 + B + hyperbolic)
+def _critic_case(device, hyperbolic, B, seed=0):
+    g = torch.Generator().manual_seed(100 + B + hyperbolic + 1000 * seed)
     model = init_tadgan(g, 100, hyperbolic=hyperbolic, device=device)
     draws = {"z_x": torch.randn(B, 20, generator=g),
              "a_x": torch.rand(B, 100, generator=g),
@@ -184,3 +184,102 @@ def test_critic_step_kernels_match_autograd(cuda, hyperbolic, B):
                          dict(rtol=2e-5, atol=1e-6),
                          dict(rtol=5e-5, atol=5e-7))
     _assert_bitwise(got, again)
+
+
+# ---------------------------------------------------------------------------
+# the signal axis: one launch for a fleet
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S,B", [(1, 64), (3, 128), (9, 20000)])
+def test_mobius_linear_kernel_signal_axis_is_each_signals_launch(cuda, S, B):
+    """K1 with a signal axis: one launch, each signal bitwise its own
+    single-signal launch and within 1e-6 of the plain version."""
+    g = torch.Generator().manual_seed(S)
+    heads = [init_tadgan(g, 100, hyperbolic=True, device=cuda)["decoder"]
+             .hyperbolic_linear for _ in range(S)]
+    w = torch.stack([h.w.detach() for h in heads])
+    b = torch.stack([h.b.detach() for h in heads])
+    x = (torch.rand(S, B, 100, generator=g) * 2 - 1).to(cuda)
+    before = mobius_linear_kernel.launches
+    got = mobius_linear_kernel(x, w, b)
+    torch.cuda.synchronize()
+    assert mobius_linear_kernel.launches == before + 1
+    for i in range(S):
+        assert torch.equal(got[i], mobius_linear_kernel(x[i].contiguous(),
+                                                        w[i], b[i]))
+    assert (got - mobius_linear(x, w, b)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("S,hyperbolic", [(1, True), (3, True), (9, True),
+                                          (3, False)])
+def test_critic_step_kernels_signal_axis_are_each_signals_launch(
+        cuda, S, hyperbolic):
+    """K5 and K4 with a signal axis at B = 64: one launch each for all S
+    signals, each signal's losses and gradients bitwise its single-signal
+    launch, and within the JAX tests' tolerances of the fleet's plain
+    autograd version."""
+    from hypad_tpu_torch.train import critic_kernel as ck
+    from hypad_tpu_torch.train import fleet as fl
+
+    cases = [_critic_case(cuda, hyperbolic, 64, seed=i) for i in range(S)]
+    models = [c[0] for c in cases]
+    P = fl.stack_models(models)
+    x = torch.stack([c[1] for c in cases])
+    d = {k: torch.stack([c[2][k] for c in cases]) for k in cases[0][2]}
+    before = ck.critic_step_fused_full.launches
+    got = ck.critic_step_fused_full_fleet(P, x, d, hyperbolic)
+    torch.cuda.synchronize()
+    assert ck.critic_step_fused_full.launches == before + 1
+    bigx, bigz = ck.critic_step_inputs_fleet(P, x, d, hyperbolic)
+    before = ck.critics_fused_grads.launches
+    got4 = ck.critics_fused_grads_fleet(P, bigx, bigz, d["m_cx"], d["m_cz"])
+    torch.cuda.synchronize()
+    assert ck.critics_fused_grads.launches == before + 1
+    for i, m in enumerate(models):
+        di = {k: v[i] for k, v in d.items()}
+        one = ck.critic_step_fused_full(m, x[i], di, hyperbolic)
+        one4 = ck.critics_fused_grads(m["critic_x"], m["critic_z"], bigx[i],
+                                      bigz[i], di["m_cx"], di["m_cz"])
+        for fleet_out, single in ((got, one), (got4, one4)):
+            assert torch.equal(fleet_out[0][i], single[0])
+            assert torch.equal(fleet_out[1][i], single[1])
+            for j in (2, 3):
+                for k in single[j]:
+                    assert torch.equal(fleet_out[j][k][i], single[j][k]), k
+    plain = ck.critic_step_fleet_plain(P, x, d, hyperbolic)
+    _assert_critic_close(got, plain, dict(rtol=5e-5, atol=2e-6),
+                         dict(rtol=1e-4, atol=1e-6))
+
+
+def test_fleet_epoch_on_the_card_tracks_the_cpu(cuda):
+    """One ragged hyperbolic fleet epoch (K5 with a signal axis) from the
+    same weights and draws on the card and on the CPU: parameters within
+    5e-3 / 2e-4 (tests/test_critic_kernel.py:227-236), step counters
+    equal, one K5 launch a fleet critic step."""
+    import numpy as np
+
+    from hypad_tpu_torch.train import critic_kernel as ck
+    from hypad_tpu_torch.train import fleet as fl
+    from hypad_tpu_torch.train import trainer as tr
+
+    rng = np.random.default_rng(0)
+    Xl = [rng.uniform(-1, 1, (n, 100)).astype(np.float32)
+          for n in (640, 448, 0)]
+    Xs, n_real = fl.pad_and_stack(Xl)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        models = [init_tadgan(torch.Generator().manual_seed(3 + i), 100,
+                              hyperbolic=True, device=dev) for i in range(3)]
+        state = fl.init_fleet_state(models, 5e-4, True)
+        draws = tr.fleet_epoch_draws([0, 1, 2], 0, n_real, 64, state.params)
+        before = ck.critic_step_fused_full.launches
+        state, _ = tr.run_fleet_epoch(state, torch.as_tensor(Xs, device=dev),
+                                      n_real, draws, lr=5e-4,
+                                      hyperbolic=True)
+        if dev.type == "cuda":
+            assert ck.critic_step_fused_full.launches == before + 50
+        out[dev.type] = state
+    for k, v in out["cpu"].params.items():
+        torch.testing.assert_close(out["cuda"].params[k].cpu(), v,
+                                   rtol=5e-3, atol=2e-4, msg=k)
+    assert list(out["cuda"].opt_gen.step) == [10, 7, 0]
