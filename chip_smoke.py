@@ -104,7 +104,30 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    the card ``sweep --detect-only`` (the same detections), ``detect``
    re-entering a sweep run directory, and ``--signals`` x ``--seeds 0,1``
    (runs under seed_0/ and seed_1/), each one K2 launch;
-10. staged path: at 20,000 windows, ``run_inference`` (chunks of 1,024)
+10. multivariate ([mv]; its kernel checks run right after phase 2, before
+   the long profiler traces of [fleet]): the wide instances of K1 (at (64,
+   F), (128, F) and (50,000, F)), K2 and K3 (T = 50,000 + F - 1 rows of width F) and
+   K5 and K4 (B = 64, one signal and three in one launch) at F = 150 and
+   256 against their plain versions (K2 and K3: use flags and fallback
+   rows bitwise, every other differing row a float64 density tie), and
+   at F = 123 the narrow instances, each named by the profiler; the main
+   path, ``cli train`` (1 epoch) then ``detect`` on a WADI-format pair
+   written here (8,000 training and 50,000 test rows of 123 features,
+   three level-shift runs) at configs/multivariate.yaml's widths
+   (hyperbolic, batch 64, fused_critics false: K1 (N_CRITICS + 2) x 125
+   + 2, K2 1), then ``detect --device cpu`` on the card's checkpoint: the
+   same intervals, interval scores within what the score difference
+   allows, the same zeros and NaNs; the warm epoch at that width; the
+   CASAS width, ``detect_scores(multivariate=True)`` at 50,000 rows of
+   150 on the card (the wide K1 2, K2 1) against the CPU and
+   ``detect_grid`` over the 8 combinations; ``sweep`` of 3 CASAS
+   residents (.pt tensors, 2,000 rows of 150, 1 epoch, "full": the wide
+   K5 once a fleet critic step) and its ``--detect-only --device cpu``:
+   each resident's intervals, confusion and F1 equal; the same under
+   HYPAD_KDE_PALLAS=1 (the wide K3), and one resident's ``train`` under
+   fused_critics true (the wide K4); warm detect rows/s at 50,000 rows of
+   51, 123 and 150;
+11. staged path: at 20,000 windows, ``run_inference`` (chunks of 1,024)
    must give the one call's forward outputs within 1e-5 relative / 1e-6
    absolute; ``score_anomalies_euclidean`` (Euclidean model) and
    ``score_anomalies_hyperbolic`` (hyperbolic model) on the one call's
@@ -112,13 +135,15 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    tolerance; on ``run_inference``'s output, the same zero and NaN
    positions and intervals (chunks sum the forward in another order, and a
    last-bit change of a critic value can flip a KDE tie);
-11. timing: warm detect throughput (hyperbolic under K2 and K3, Euclidean
+12. timing: warm detect throughput (hyperbolic under K2 and K3, Euclidean
    for each rec_error), warm epoch seconds for each ``fused_critics``
    value, and each kernel's time beside its plain version's and its bound
    at the path's shapes (K1 at the detect shape and at the generator
    step's two, beside an empty kernel; cuBLAS's f32 x @ w.T as an
-   informative line, not K1's function);
-12. report: one JSON line of the kernels (with each signal-axis kernel's
+   informative line, not K1's function); each wide instance beside its
+   plain version, its bound and the narrow instance at F = 100;
+13. report: one JSON line of the kernels (the wide instances as
+   ``{name}_wide`` entries) (with each signal-axis kernel's
    times at S = 1, 3 and 9), the card's name and power limit,
    and last the JSON line the GPU check reads.
 
@@ -208,17 +233,28 @@ def kde_case(device, n, width, runs, nans=False):
     return vals, mask, label
 
 
-def kernels_launched(fn):
-    """Names of the device kernels that ``fn()`` launches."""
+def kernels_launched(fn, tries=3):
+    """Names of the device kernels that ``fn()`` launches, from a second
+    call: the profiler can miss a kernel's first launch (its module is
+    loaded lazily then). A trace with no device event is taken again, up
+    to ``tries`` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+        print("[kernels] the profiler recorded no device event; tracing "
+              "again")
+    return names
 
 
 def phase_kernels(device, libs):
@@ -351,21 +387,23 @@ def phase_kernels(device, libs):
     return k1_err, k1_parent, flips_total
 
 
-def interval_score_atol(scores, rel):
+def interval_score_atol(scores, rel, multivariate=False):
     """The most that a relative change of at most ``rel`` in every score
     can move an interval score, to first order. An interval score is
     (max - threshold) / (mean + std) of its threshold window, with the
     threshold mean + 4 std: the run's max moves by at most rel max|s|, the
     mean by rel mean|s| and the std by rel rms(s), so the numerator by
     rel (max|s| + mean|s| + 4 rms) and the denominator by rel (mean|s| +
-    rms). Taken over the detector's threshold windows; a merged interval
-    averages window scores, so it stays within the largest, as long as no
-    window gains or prunes a run."""
+    rms). Taken over the detector's threshold windows (univariate, or per
+    timestep for a multivariate run); a merged interval averages window
+    scores, so it stays within the largest, as long as no window gains or
+    prunes a run."""
     import numpy as np
 
+    from hypad_tpu_torch.detect import detector
     from hypad_tpu_torch.detect import intervals as iv
-    from hypad_tpu_torch.detect.detector import _UNIVARIATE_FA_KW as kw
 
+    kw = detector._MV_FA_KW if multivariate else detector._UNIVARIATE_FA_KW
     s = np.asarray(scores, np.float64).reshape(-1)
     size, step = iv._window_geometry(len(s), None, kw["window_size_portion"],
                                      None, kw["window_step_size_portion"])
@@ -383,7 +421,7 @@ def interval_score_atol(scores, rel):
 
 
 def check_same_detection(got, want, known, tag="detect",
-                         atol_from_scores=False):
+                         atol_from_scores=False, multivariate=False):
     """Fail unless two detect_univariate results give the same intervals,
     confusion and F1, and interval scores within 1e-3 relative. Under
     ``atol_from_scores`` they may also differ by what the measured relative
@@ -398,7 +436,8 @@ def check_same_detection(got, want, known, tag="detect",
           f"{np.array_equal(scores == 0, want['scores'] == 0)}")
     score_atol = 0.0
     if atol_from_scores:
-        score_atol = interval_score_atol(want["scores"], score_diff)
+        score_atol = interval_score_atol(want["scores"], score_diff,
+                                         multivariate)
         print(f"[{tag}] interval-score limit from that difference: "
               f"{score_atol:.3e} absolute")
     # no interval comes back as an empty (0,) array
@@ -510,15 +549,23 @@ def zero_counters():
                 "critics_fused_grads": ck.critics_fused_grads,
                 "critic_step_full": ck.critic_step_fused_full}
     for fn in counters.values():
-        fn.launches = 0
-    return lambda: {name: fn.launches for name, fn in counters.items()}
+        fn.launches = fn.wide_launches = 0
+    # each kernel's launches, then those of its wide instance (widths of
+    # 129 to 256) among them as "{name}_wide"
+    return lambda: {**{name: fn.launches for name, fn in counters.items()},
+                    **{f"{name}_wide": fn.wide_launches
+                       for name, fn in counters.items()}}
+
+
+KERNEL_NAMES = ("mobius_linear", "kde_argmax", "kde_argmax_v2",
+                "critics_fused_grads", "critic_step_full")
 
 
 def launches_of(**nonzero):
     """The full launch dict that ``zero_counters``' reader gives: the named
-    counts, every other kernel 0."""
-    want = dict.fromkeys(("mobius_linear", "kde_argmax", "kde_argmax_v2",
-                          "critics_fused_grads", "critic_step_full"), 0)
+    counts, every other kernel (and wide instance) 0."""
+    want = dict.fromkeys(KERNEL_NAMES + tuple(f"{k}_wide"
+                                              for k in KERNEL_NAMES), 0)
     want.update(nonzero)
     return want
 
@@ -1163,7 +1210,7 @@ def detection_of(scores, index, known):
     the intervals on ``index``, the confusion and the metrics."""
     from hypad_tpu_torch.detect import detector
 
-    intervals = detector._univariate_intervals(scores, index)
+    intervals = detector._intervals(scores, index, False)
     confusion, metrics = detector._confusion_and_metrics(known, intervals,
                                                          verbose=False)
     return {"scores": scores, "intervals": intervals, "confusion": confusion,
@@ -1976,6 +2023,658 @@ def phase_staged(device, X, eucl_model, hyper_model):
                  f"from the one call's {intervals[1].tolist()}")
 
 
+# ---------------------------------------------------------------------------
+# [mv]: multivariate HypAD at the published feature counts
+# ---------------------------------------------------------------------------
+
+MV_ROWS = 50_000          # test rows of the main path and the CASAS width
+MV_TRAIN_ROWS = 8_000     # WADI-format training rows
+WADI_F, SWAT_F, CASAS_F = 123, 51, 150
+MV_WIDE = (CASAS_F, 256)  # the wide instances' checks
+CASAS_RESIDENTS = ("kitchen", "bedroom", "bathroom")
+CASAS_ROWS = 2_000        # each resident's test rows, and the normal rows
+MV_BATCH = 64             # configs/multivariate.yaml
+MV_REPEATS = 20           # WADI detections held bitwise against the first
+
+
+def mv_rows(n, F, seed, run_len=200):
+    """Seeded (n, F) rows in the shape of a plant's sensors (random walks
+    around per-feature sines) with three injected level-shift runs of
+    ``run_len`` rows on a third of the features; returns (rows float64,
+    labels (n,) int)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)[:, None]
+    X = (np.sin(2 * np.pi * t / rng.uniform(50, 500, F))
+         + 0.05 * rng.standard_normal((n, F)).cumsum(axis=0) / np.sqrt(n)
+         + 0.05 * rng.standard_normal((n, F)))
+    y = np.zeros(n, int)
+    for k, start in enumerate(np.linspace(0.2 * n, 0.8 * n, 3).astype(int)):
+        X[start:start + run_len, k::3] += 3.0 if k % 2 == 0 else -3.0
+        y[start:start + run_len] = 1
+    return X, y
+
+
+def write_wadi(root, train_rows, test_rows, F, seed=SEED):
+    """A WADI-format pair under root/WADI_downsampled: WADI_train.csv (every
+    column a feature) and WADI_test_mine.csv (Time, the features, label),
+    as reference utils/dataloader_multivariate.py:91-106 reads them.
+    Returns the test labels."""
+    import numpy as np
+
+    base = root / "WADI_downsampled"
+    base.mkdir(parents=True, exist_ok=True)
+    names = ",".join(f"f{i}" for i in range(F))
+    train, _ = mv_rows(train_rows, F, seed)
+    np.savetxt(base / "WADI_train.csv", train, fmt="%.7g", delimiter=",",
+               header=names, comments="")
+    test, y = mv_rows(test_rows, F, seed + 1)
+    table = np.column_stack([np.arange(test_rows), test, y])
+    np.savetxt(base / "WADI_test_mine.csv", table,
+               fmt=["%d"] + ["%.7g"] * F + ["%d"], delimiter=",",
+               header=f"Time,{names},label", comments="")
+    return y
+
+
+def write_casas(root, residents, rows, F, seed=SEED):
+    """A CASAS family under root/DATASETS/CASAS: normal_sequences.pt and,
+    per resident, POINTS/{r}/{r}_sequences_id1.pt and its ground truth.
+    Returns {resident: labels}."""
+    import torch
+
+    base = root / "DATASETS" / "CASAS"
+    base.mkdir(parents=True, exist_ok=True)
+    normal, _ = mv_rows(rows, F, seed, run_len=0)
+    torch.save(torch.tensor(normal.reshape(-1, 4, F), dtype=torch.float32),
+               base / "normal_sequences.pt")
+    labels = {}
+    for i, r in enumerate(residents):
+        X, y = mv_rows(rows, F, seed + 10 + i, run_len=60)
+        points = base / "POINTS" / r
+        points.mkdir(parents=True, exist_ok=True)
+        torch.save(torch.tensor(X, dtype=torch.float32),
+                   points / f"{r}_sequences_id1.pt")
+        torch.save(torch.tensor(y, dtype=torch.float32),
+                   points / f"{r}_groundtruth_id1.pt")
+        labels[r] = y
+    return labels
+
+
+def short_name(name):
+    """A profiler kernel name without its namespace, return type and
+    arguments, e.g. ``mobius_linear_wide_kernel<19, 2>``."""
+    import re
+
+    m = re.search(r"(\w+(?:<[^()]*>)?)\(", name)
+    return m.group(1) if m else name
+
+
+def kernel_named(names, wide):
+    """Whether ``names`` (``kernels_launched``) is one launch, of the wide
+    instance (a ``_wide_kernel`` or ``critic_step_kernel<256>``) or of the
+    narrow one."""
+    if len(names) != 1:
+        return False
+    is_wide = "_wide_kernel" in names[0] or "critic_step_kernel<256>" in \
+        names[0]
+    return is_wide == wide
+
+
+def mv_kernel_checks(device):
+    """The wide instances against their plain versions at F = 150 and 256,
+    at the multivariate path's shapes, and one case of width at most 128
+    launching the narrow instance (by the profiler's kernel names).
+    Returns the largest errors and the tie flips."""
+    import torch
+
+    from hypad_tpu_torch.manifold import kernels as mk
+    from hypad_tpu_torch.models.tadgan import init_tadgan
+    from hypad_tpu_torch.ops.kde import (
+        kde_argmax_rows_and_use,
+        kde_argmax_rows_v2_and_use,
+    )
+    from hypad_tpu_torch.ops.kde_kernel import (
+        is_wide,
+        kde_argmax_kernel,
+        kde_argmax_v2_kernel,
+    )
+    from hypad_tpu_torch.ops.unroll import masked_median
+    from hypad_tpu_torch.profile_critic_step import critic_case
+    from hypad_tpu_torch.profile_kernels import (
+        check_k1,
+        k2_case,
+        near_tie_flips,
+        same_values,
+    )
+    from hypad_tpu_torch.train import critic_kernel as ck
+    from hypad_tpu_torch.train import fleet as fl
+
+    out = {"k1_err": 0.0, "flips": {"kde_argmax": 0, "kde_argmax_v2": 0},
+           "k5_err": 0.0, "k4_err": 0.0}
+    # K1: the generator step's 2B and B rows and a detect call's 50,000,
+    # at the wide widths and at the main path's F = 123 (narrow instance)
+    for F, rows in [(F, r) for F in MV_WIDE + (WADI_F,)
+                    for r in (2 * MV_BATCH, MV_BATCH, MV_ROWS)]:
+        gen = torch.Generator().manual_seed(rows + F)
+        head = init_tadgan(gen, F, hyperbolic=True,
+                           device=device)["decoder"].hyperbolic_linear
+        w, b = head.w.detach(), head.b.detach()
+        x = (torch.rand(rows, F, generator=gen) * 2 - 1).to(device)
+        names = kernels_launched(lambda: mk.mobius_linear_kernel(x, w, b))
+        if not kernel_named(names, mk.is_wide(F, F)):
+            fail(f"K1 at ({rows}, {F}) launched {names}")
+        err, _ = check_k1(mk.mobius_linear_kernel(x, w, b), x, w, b,
+                          case=f"({rows}, {F})")
+        out["k1_err"] = max(out["k1_err"], err)
+        print(f"[mv] K1 mobius_linear ({rows}, {F}) x ({F}, {F}): max abs "
+              f"diff {err:.3e}; launches {short_name(names[0])}")
+    # K2 and K3 on a detect call's anti-diagonal rows, T = 50,000 + F - 1
+    for F, runs in [(F, 40) for F in MV_WIDE] + [(WADI_F, 40)]:
+        vals, mask = k2_case(MV_ROWS, F, runs, device)
+        case = f"T={vals.shape[0]} W={F}"
+        values = {}
+        for name, kernel, plain in (
+                ("kde_argmax", kde_argmax_kernel, kde_argmax_rows_and_use),
+                ("kde_argmax_v2", kde_argmax_v2_kernel,
+                 kde_argmax_rows_v2_and_use)):
+            names = kernels_launched(lambda: kernel(vals, mask))
+            if not kernel_named(names, is_wide(F)):
+                fail(f"{name} at {case} launched {names}")
+            value, use = kernel(vals, mask)
+            want, want_use = plain(vals, mask)
+            if not torch.equal(use, want_use):
+                fail(f"{name} use flags differ from the plain version's at "
+                     f"{case}")
+            if not same_values(value[~use],
+                               masked_median(vals, mask)[~use]):
+                fail(f"{name} fallback rows differ from masked_median at "
+                     f"{case}")
+            flips = near_tie_flips(value[use], want[use], vals[use],
+                                   mask[use])
+            out["flips"][name] += flips
+            values[name] = value
+            print(f"[mv] {name} {case}: use flags bitwise; "
+                  f"{int((~use).sum())} fallback rows bitwise masked_median;"
+                  f" {flips} flips against the plain version, each a float64"
+                  f" density tie; launches {short_name(names[0])}")
+        cross = near_tie_flips(values["kde_argmax_v2"][use],
+                               values["kde_argmax"][use], vals[use],
+                               mask[use])
+        print(f"[mv] K3 against K2 {case}: {cross} flips, each a tie")
+    # K5 and K4 at B = 64: one signal, then three in one launch
+    tols = (K5_TOL, K4_TOL)
+    for F in MV_WIDE + (WADI_F,):
+        model, x, d = critic_case(device, True, MV_BATCH, F)
+        names = kernels_launched(
+            lambda: ck.critic_step_fused_full(model, x, d, True))
+        if not kernel_named(names, F > ck.NARROW_WIDTH):
+            fail(f"K5 at F={F} launched {names}")
+        got = ck.critic_step_fused_full(model, x, d, True)
+        e5 = critic_err(got, ck.critic_step_plain(model, x, d, True),
+                        tols[0], f"K5 (F={F})")
+        if not bitwise_equal(got, ck.critic_step_fused_full(model, x, d,
+                                                            True)):
+            fail(f"two K5 launches differ at F={F}")
+        bigx, bigz = ck.critic_step_inputs(model, x, d, True)
+        args = (model["critic_x"], model["critic_z"], bigx, bigz, d["m_cx"],
+                d["m_cz"])
+        e4 = critic_err(ck.critics_fused_grads(*args),
+                        ck.critics_fused_grads_plain(*args), tols[1],
+                        f"K4 (F={F})")
+        out["k5_err"], out["k4_err"] = (max(out["k5_err"], e5),
+                                        max(out["k4_err"], e4))
+        cases = [critic_case(device, True, MV_BATCH, F, seed=i)
+                 for i in range(3)]
+        P = fl.stack_models([c[0] for c in cases])
+        xs = torch.stack([c[1] for c in cases])
+        ds = {k: torch.stack([c[2][k] for c in cases]) for k in cases[0][2]}
+        got3 = ck.critic_step_fused_full_fleet(P, xs, ds, True)
+        critic_err(got3, ck.critic_step_fleet_plain(P, xs, ds, True),
+                   tols[0], f"K5 S=3 (F={F})")
+        for i, c in enumerate(cases):
+            one = ck.critic_step_fused_full(c[0], c[1], c[2], True)
+            if not (torch.equal(got3[0][i], one[0]) and all(
+                    torch.equal(got3[j][k][i], one[j][k])
+                    for j in (2, 3) for k in one[j])):
+                fail(f"K5 S=3 signal {i} differs from its own launch (F={F})")
+        bx3, bz3 = ck.critic_step_inputs_fleet(P, xs, ds, True)
+        critic_err(ck.critics_fused_grads_fleet(P, bx3, bz3, ds["m_cx"],
+                                                ds["m_cz"]),
+                   ck.critics_fused_grads_fleet_plain(P, bx3, bz3,
+                                                      ds["m_cx"],
+                                                      ds["m_cz"]),
+                   tols[1], f"K4 S=3 (F={F})")
+        print(f"[mv] K5 critic_step_full F={F} B={MV_BATCH}: max abs diff "
+              f"{e5:.3e}; K4 {e4:.3e}; S=3 in one launch within the same "
+              f"tolerances, each signal bitwise its own launch; launches "
+              f"{short_name(names[0])}")
+    return out
+
+
+def check_reentry(state, path, trained, detections, device):
+    """Fail unless ``state_final.pt`` in ``path`` holds ``state``'s weights
+    bit for bit and every card detection from it (``detections``, {name:
+    result}) gives train's own scores bit for bit: one checkpoint, one card,
+    one program."""
+    import numpy as np
+    import torch
+
+    from hypad_tpu_torch.utils import checkpoint as ck
+
+    saved = ck.restore_state(path, "final", device).model.state_dict()
+    live = state.model.state_dict()
+    differ = [k for k, v in live.items() if not torch.equal(v, saved[k])]
+    strided = [k for k, v in live.items() if not v.is_contiguous()]
+    print(f"[mv wadi re-entry] state_final.pt against the trained weights: "
+          f"{len(live) - len(differ)} of {len(live)} tensors bitwise; "
+          f"{len(strided)} non-contiguous in the trainer {strided}")
+    if differ:
+        fail(f"state_final.pt differs from the trained weights in {differ}")
+    want = trained["scores"]
+    for name, result in detections.items():
+        got = result["scores"]
+        off = np.flatnonzero(got != want)
+        print(f"[mv wadi re-entry] {name} from state_final.pt against "
+              f"train's own scores: {len(off)} of {len(want)} differ, max "
+              f"abs diff {float(np.max(np.abs(got - want), initial=0)):.3e}"
+              f"{'' if not len(off) else f', first at {off[:8].tolist()}'}")
+        if len(off):
+            fail(f"WADI {name} from the checkpoint differs from train's own")
+
+
+def mv_detection(scores, labels):
+    """detect's multivariate epilogue on arrays: intervals over the
+    timesteps (0.2 / 0.1 windows, padding 200), the ground truth from
+    ``casas_anomalies``, confusion and metrics."""
+    import numpy as np
+
+    from hypad_tpu_torch.data.multivariate import MultivariateData
+    from hypad_tpu_torch.detect import detector
+
+    known = detector._multivariate_ground_truth(
+        MultivariateData(np.zeros((len(labels), 1)), y=labels))
+    intervals = detector._intervals(scores, None, True)
+    confusion, metrics = detector._confusion_and_metrics(known, intervals,
+                                                         verbose=False)
+    return {"scores": np.asarray(scores), "intervals": intervals,
+            "confusion": confusion, "metrics": metrics}, known
+
+
+def phase_mv(device, card):
+    """[mv]: multivariate HypAD (the wide kernel instances are checked by
+    ``mv_kernel_checks``, earlier). The main path, ``cli train`` (1 epoch)
+    then ``detect``
+    on a WADI-format pair at configs/multivariate.yaml's widths (F = 123),
+    and ``detect --device cpu`` on the card's checkpoint; the CASAS width
+    (F = 150): ``detect_scores(multivariate=True)`` at 50,000 rows, card
+    against CPU, and one ``detect_grid`` over the multivariate
+    combinations; a ``sweep`` of 3 CASAS residents (fused_critics "full")
+    and its ``--detect-only --device cpu``; the warm epoch at the WADI
+    width and the detect rows/s at 50,000 x {51, 123, 150}. Returns
+    ({path: launches}, info)."""
+    import shutil
+    import statistics as stats
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hypad_tpu_torch.data.multivariate import MultivariateData, load_wadi
+    from hypad_tpu_torch.detect import detector
+    from hypad_tpu_torch.detect import scorer as sc
+    from hypad_tpu_torch.models.tadgan import init_tadgan
+    from hypad_tpu_torch.train import trainer as tr
+    from hypad_tpu_torch.utils.config import (
+        dump_flat_yaml,
+        load_config,
+        parse_flat_yaml,
+        run_dir,
+    )
+
+    t_phase = time.perf_counter()
+    info = {}
+    paths = {}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_mv_"))
+    seen = []
+    real_detect = detector.detect
+
+    def recording_detect(params, *args, **kw):
+        result = real_detect(params, *args, **kw)
+        seen.append((params.signal, result))
+        return result
+
+    try:
+        # 1. the main path: configs/multivariate.yaml (WADI, F = 123,
+        # hyperbolic, batch 64, lr 5e-4, fused_critics false, mult), 1 epoch
+        t0 = time.perf_counter()
+        wadi_y = write_wadi(root / "data", MV_TRAIN_ROWS, MV_ROWS, WADI_F)
+        info["wadi_write_s"] = time.perf_counter() - t0
+        cfg = parse_flat_yaml(Path("configs/multivariate.yaml").read_text())
+        cfg.update(epochs=1, data_root=str(root / "data"),
+                   output_root=str(root / "out"), devices=1,
+                   save_plots=False)
+        wadi_cfg = root / "wadi.yaml"
+        wadi_cfg.write_text(dump_flat_yaml(cfg))
+        (state, path, trained), paths["mv_wadi_train"] = run_cli(
+            ["train", "--config", str(wadi_cfg)], "mv_wadi_train", card)
+        n_batches = MV_TRAIN_ROWS // MV_BATCH
+        want = launches_of(mobius_linear=(tr.N_CRITICS + 2) * n_batches + 2,
+                           kde_argmax=1)
+        if paths["mv_wadi_train"] != want:
+            fail(f"WADI train (fused_critics false, F={WADI_F}) launched "
+                 f"{paths['mv_wadi_train']}, expected {want}")
+        cpu_det, _ = run_cli(["detect", "--config", str(wadi_cfg),
+                              "--device", "cpu"], "mv_wadi_detect_cpu", card)
+        card_det, paths["mv_wadi_detect"] = run_cli(
+            ["detect", "--config", str(wadi_cfg)], "mv_wadi_detect", card)
+        if paths["mv_wadi_detect"] != launches_of(mobius_linear=2,
+                                                  kde_argmax=1):
+            fail(f"WADI detect launched {paths['mv_wadi_detect']}")
+        for res in (trained, card_det):
+            s = res["scores"]
+            if s.shape != (MV_ROWS,) or not np.isfinite(s).all():
+                fail(f"WADI scores of shape {s.shape}, finite "
+                     f"{np.isfinite(s).all()}")
+        again, _ = run_cli(["detect", "--config", str(wadi_cfg)],
+                           "mv_wadi_detect_again", card)
+        check_reentry(state, path, trained, {"detect": card_det,
+                                             "detect again": again}, device)
+        check_same_detection(card_det, trained, np.zeros((0, 2)),
+                             tag="mv wadi re-entry", multivariate=True)
+        # the card's detection gives the same bits call after call (a
+        # one-row cumsum through CUB's scan did not: ops.rolling)
+        X_test = load_wadi(str(root / "data"), True).X
+
+        def wadi_scores():
+            return sc.detect_scores(state.model, X_test, True, "mult",
+                                    fetch_inference=False, multivariate=True,
+                                    device=device)[0]
+
+        first = wadi_scores()
+        differ = sum(not np.array_equal(first, wadi_scores(), equal_nan=True)
+                     for _ in range(MV_REPEATS))
+        print(f"[mv] WADI detect_scores repeated {MV_REPEATS} times on the "
+              f"trained weights: {differ} differ from the first in a bit")
+        if differ:
+            fail(f"{differ} of {MV_REPEATS} WADI detections differ from the "
+                 f"first")
+        check_same_detection(card_det, cpu_det, np.zeros((0, 2)),
+                             tag="mv wadi", atol_from_scores=True,
+                             multivariate=True)
+        info["wadi_labels"] = int(wadi_y.sum())
+
+        # the warm epoch at the WADI width: the CLI's epoch above, at the
+        # same shapes in this process, was the warm-up; one timed epoch
+        # (an epoch under false takes seconds at this size)
+        X = torch.as_tensor(load_wadi(str(root / "data"), False).X,
+                            device=device)
+        model = init_tadgan(torch.Generator().manual_seed(SEED), WADI_F,
+                            hyperbolic=True, device=device)
+        state = tr.init_train_state(model, TRAIN_LR, True)
+        t0 = time.perf_counter()
+        draws = tr.epoch_draws(tr.epoch_generator(SEED, 1), X.shape[0],
+                               MV_BATCH, model)
+        tr.run_epoch(state, X, draws, lr=TRAIN_LR, hyperbolic=True,
+                     fused_critics=False)   # run_epoch synchronises
+        wall = time.perf_counter() - t0
+        info["wadi_epoch_s"] = {"s": wall, "rows": MV_TRAIN_ROWS}
+        print(f"[mv] warm epoch at the WADI width ({MV_TRAIN_ROWS} rows of "
+              f"{WADI_F}, batch {MV_BATCH}, fused_critics false): {wall:.4f}"
+              f" s ({card})")
+
+        # 2. the CASAS width: 50,000 rows of 150, card against the CPU
+        Xc, yc = mv_rows(MV_ROWS, CASAS_F, SEED + 5)
+        Xc = MultivariateData(Xc).X
+        models = {dev: init_tadgan(torch.Generator().manual_seed(SEED),
+                                   CASAS_F, hyperbolic=True, device=dev)
+                  for dev in (device, "cpu")}
+        read = zero_counters()
+        card_s, _ = sc.detect_scores(models[device], Xc, True, "mult",
+                                     fetch_inference=False,
+                                     multivariate=True, device=device)
+        paths["mv_casas_detect"] = read()
+        if paths["mv_casas_detect"] != launches_of(
+                mobius_linear=2, mobius_linear_wide=2, kde_argmax=1,
+                kde_argmax_wide=1):
+            fail(f"CASAS-width detect launched {paths['mv_casas_detect']}")
+        cpu_s, _ = sc.detect_scores(models["cpu"], Xc, True, "mult",
+                                    fetch_inference=False,
+                                    multivariate=True, device="cpu")
+        got, known = mv_detection(card_s, yc)
+        want_det, _ = mv_detection(cpu_s, yc)
+        info["casas_f1"] = check_same_detection(
+            got, want_det, known, tag="mv casas", atol_from_scores=True,
+            multivariate=True)
+        params = load_config(dict(cfg, dataset="CASAS", signal="kitchen",
+                                  signal_shape=CASAS_F))
+        read = zero_counters()
+        grid = detector.detect_grid(params, models[device],
+                                    MultivariateData(Xc, y=yc),
+                                    str(root / "grid"),
+                                    combinations=list(sc.COMBINATIONS),
+                                    device=device)
+        paths["mv_casas_grid"] = read()
+        if paths["mv_casas_grid"] != launches_of(
+                mobius_linear=2, mobius_linear_wide=2, kde_argmax=1,
+                kde_argmax_wide=1) or len(grid) != 8:
+            fail(f"CASAS grid of {len(grid)} cells launched "
+                 f"{paths['mv_casas_grid']}")
+        check_same_detection(grid[(None, "mult")], got, known,
+                             tag="mv casas grid mult")
+
+        # 3. a CASAS family as one fleet: sweep, then its detect-only on the
+        # CPU from the card's checkpoints
+        labels = write_casas(root / "data", CASAS_RESIDENTS, CASAS_ROWS,
+                             CASAS_F)
+        scfg = dict(cfg, dataset="CASAS", signal=CASAS_RESIDENTS[0], id=1,
+                    signal_shape=CASAS_F, signals=list(CASAS_RESIDENTS),
+                    fused_critics="full", save_result=True,
+                    filename="mv_sweep.csv")
+        card_cfg = root / "casas_sweep.yaml"
+        card_cfg.write_text(dump_flat_yaml(scfg))
+        cpu_cfg = root / "casas_sweep_cpu.yaml"
+        cpu_cfg.write_text(dump_flat_yaml(dict(scfg,
+                                               filename="mv_sweep_cpu.csv")))
+        detector.detect = recording_detect
+        results, paths["mv_casas_sweep"] = run_cli(
+            ["sweep", "--config", str(card_cfg)], "mv_casas_sweep", card)
+        card_runs = dict(seen)
+        seen.clear()
+        cpu_results, _ = run_cli(["sweep", "--detect-only", "--config",
+                                  str(cpu_cfg), "--device", "cpu"],
+                                 "mv_casas_sweep_cpu", card)
+        cpu_runs = dict(seen)
+        seen.clear()
+        sb = CASAS_ROWS // MV_BATCH
+        want = launches_of(critic_step_full=tr.N_CRITICS * sb,
+                           critic_step_full_wide=tr.N_CRITICS * sb,
+                           mobius_linear=2 * sb + 2,
+                           mobius_linear_wide=2 * sb + 2,
+                           kde_argmax=1, kde_argmax_wide=1)
+        if paths["mv_casas_sweep"] != want:
+            fail(f"CASAS sweep launched {paths['mv_casas_sweep']}, expected "
+                 f"{want}")
+        info["casas_sweep_f1"] = {}
+        for r in CASAS_RESIDENTS:
+            known_r = detector._multivariate_ground_truth(
+                MultivariateData(np.zeros((CASAS_ROWS, 1)), y=labels[r]))
+            info["casas_sweep_f1"][r] = check_same_detection(
+                card_runs[r], cpu_runs[r], known_r, tag=f"mv sweep {r}",
+                atol_from_scores=True, multivariate=True)
+        if [x[2] for x in results] != [x[2] for x in cpu_results]:
+            fail("the CPU's detect-only F1s differ from the card's sweep's")
+        first = load_config(str(card_cfg))
+        if not (Path(run_dir(first)) / "state_final.pt").exists():
+            fail("the sweep left no checkpoint in the first run directory")
+        # K3's wide instance: the family's detection under HYPAD_KDE_PALLAS=1
+        k3_env = {"HYPAD_KDE_PALLAS": "1"}
+        _, paths["mv_casas_sweep_detect_v2"] = run_cli(
+            ["sweep", "--detect-only", "--config", str(card_cfg)],
+            "mv_casas_sweep_detect_v2", card, env=k3_env)
+        card_v2 = dict(seen)
+        seen.clear()
+        run_cli(["sweep", "--detect-only", "--config", str(cpu_cfg),
+                 "--device", "cpu"], "mv_casas_sweep_detect_v2_cpu", card,
+                env=k3_env)
+        cpu_v2 = dict(seen)
+        seen.clear()
+        if paths["mv_casas_sweep_detect_v2"] != launches_of(
+                mobius_linear=2, mobius_linear_wide=2, kde_argmax_v2=1,
+                kde_argmax_v2_wide=1):
+            fail("CASAS sweep --detect-only under HYPAD_KDE_PALLAS=1 "
+                 f"launched {paths['mv_casas_sweep_detect_v2']}")
+        for r in CASAS_RESIDENTS:
+            check_same_detection(card_v2[r], cpu_v2[r], np.zeros((0, 2)),
+                                 tag=f"mv sweep v2 {r}",
+                                 atol_from_scores=True, multivariate=True)
+        # K4's wide instance: one resident's train under fused_critics true
+        k4_cfg = root / "casas_k4.yaml"
+        k4_cfg.write_text(dump_flat_yaml(dict(
+            scfg, fused_critics=True, output_root=str(root / "out_k4"))))
+        detector.detect = real_detect
+        _, paths["mv_casas_train_fused_true"] = run_cli(
+            ["train", "--config", str(k4_cfg)], "mv_casas_train_fused_true",
+            card)
+        want = launches_of(critics_fused_grads=tr.N_CRITICS * sb,
+                           critics_fused_grads_wide=tr.N_CRITICS * sb,
+                           mobius_linear=(tr.N_CRITICS + 2) * sb + 2,
+                           mobius_linear_wide=(tr.N_CRITICS + 2) * sb + 2,
+                           kde_argmax=1, kde_argmax_wide=1)
+        if paths["mv_casas_train_fused_true"] != want:
+            fail(f"CASAS train (fused_critics true) launched "
+                 f"{paths['mv_casas_train_fused_true']}, expected {want}")
+
+        # 4. warm detect rows/s at 50,000 rows of 51, 123 and 150
+        calls = {}
+        for F in (SWAT_F, WADI_F, CASAS_F):
+            m = init_tadgan(torch.Generator().manual_seed(SEED), F,
+                            hyperbolic=True, device=device)
+            XF = MultivariateData(mv_rows(MV_ROWS, F, SEED + F)[0]).X
+
+            def call(m=m, XF=XF):
+                return sc.detect_scores(m, XF, True, "mult",
+                                        fetch_inference=False,
+                                        multivariate=True, device=device)
+            calls[F] = call
+        info["detect_rows_per_s"] = {}
+        for F, walls in warm_detect_ms(calls, rounds=5).items():
+            median = stats.median(walls)
+            info["detect_rows_per_s"][F] = MV_ROWS / median * 1e3
+            print(f"[mv] warm detect_scores(multivariate=True), {MV_ROWS} "
+                  f"rows of {F}, mult: median {median:.3f} ms, "
+                  f"{MV_ROWS / median * 1e3:.0f} rows/s (runs in ms: "
+                  f"{[round(w, 3) for w in walls]}) ({card})")
+    finally:
+        detector.detect = real_detect
+        shutil.rmtree(root, ignore_errors=True)
+    info["seconds"] = time.perf_counter() - t_phase
+    print(f"[mv] all checks passed in {info['seconds']:.1f} s: K1, K2, K3, "
+          f"K4, K5 wide instances against their plain versions; WADI train "
+          f"-> detect equal to the CPU's; CASAS width card = CPU; the CASAS "
+          f"sweep's residents card = CPU ({card})")
+    return paths, info
+
+
+def mv_kernel_timing(device):
+    """Each wide instance's time beside its plain version, its bound and
+    the narrow instance at F = 100, in one call: K1 at (50,000, 150), K2
+    and K3 on the detect call's anti-diagonal rows at W = 150, K5 and K4
+    at B = 64 and F = 150. Returns {name: timing dict}."""
+    import torch
+
+    from hypad_tpu_torch.manifold.kernels import (
+        mobius_linear,
+        mobius_linear_kernel,
+    )
+    from hypad_tpu_torch.models.tadgan import init_tadgan
+    from hypad_tpu_torch.ops.kde import (
+        kde_argmax_rows_and_use,
+        kde_argmax_rows_v2_and_use,
+    )
+    from hypad_tpu_torch.ops.kde_kernel import (
+        kde_argmax_kernel,
+        kde_argmax_v2_kernel,
+    )
+    from hypad_tpu_torch.profile_critic_step import critic_case
+    from hypad_tpu_torch.profile_detect import cuda_ms
+    from hypad_tpu_torch.profile_kernels import k2_case
+    from hypad_tpu_torch.train import critic_kernel as ck
+
+    out = {}
+    heads = {}
+    for F in (CASAS_F, WIDTH):
+        gen = torch.Generator().manual_seed(F)
+        head = init_tadgan(gen, F, hyperbolic=True,
+                           device=device)["decoder"].hyperbolic_linear
+        x = (torch.rand(MV_ROWS, F, generator=gen) * 2 - 1).to(device)
+        heads[F] = (x, head.w.detach(), head.b.detach())
+    x, w, b = heads[CASAS_F]
+    k = {"ms": cuda_ms(lambda: mobius_linear_kernel(x, w, b), 100),
+         "plain_ms": cuda_ms(lambda: mobius_linear(x, w, b), 20),
+         "narrow_ms_at_F100": cuda_ms(
+             lambda: mobius_linear_kernel(*heads[WIDTH]), 100),
+         "max_abs_err": (mobius_linear_kernel(x, w, b)
+                         - mobius_linear(x, w, b)).abs().max().item(),
+         "shape": f"({MV_ROWS}, {CASAS_F})"}
+    k["bytes"], k["ops"] = k1_cost(MV_ROWS, CASAS_F, CASAS_F)
+    out["mobius_linear_wide"] = bound(k)
+    for name, kernel, plain in (
+            ("kde_argmax_wide", kde_argmax_kernel, kde_argmax_rows_and_use),
+            ("kde_argmax_v2_wide", kde_argmax_v2_kernel,
+             kde_argmax_rows_v2_and_use)):
+        vals, mask = k2_case(MV_ROWS, CASAS_F, 0, device)
+        nv, nm = k2_case(MV_ROWS, WIDTH, 0, device)
+        got, use = kernel(vals, mask)
+        want, _ = plain(vals, mask)
+        k = {"ms": cuda_ms(lambda: kernel(vals, mask), 30),
+             "plain_ms": cuda_ms(lambda: plain(vals, mask), 3),
+             "narrow_ms_at_F100": cuda_ms(lambda: kernel(nv, nm), 30),
+             "max_abs_err": (got[use] - want[use]).abs().max().item(),
+             "shape": f"({vals.shape[0]}, {CASAS_F})"}
+        cnt = mask.sum(dim=1).double()
+        pairs = (cnt * (cnt - 1) / 2).sum().item()
+        k["bytes"] = 5 * vals.numel() + 5 * vals.shape[0]
+        k["exps"] = int(pairs)
+        k["ops"] = int(6 * pairs + 8 * cnt.sum().item())
+        out[name] = bound(k)
+    model, xc, d = critic_case(device, True, MV_BATCH, CASAS_F)
+    nmodel, nx, nd = critic_case(device, True, MV_BATCH, WIDTH)
+    bigx, bigz = ck.critic_step_inputs(model, xc, d, True)
+    args = (model["critic_x"], model["critic_z"], bigx, bigz, d["m_cx"],
+            d["m_cz"])
+    nbx, nbz = ck.critic_step_inputs(nmodel, nx, nd, True)
+    nargs = (nmodel["critic_x"], nmodel["critic_z"], nbx, nbz, nd["m_cx"],
+             nd["m_cz"])
+    bx, ox = critic_cost(MV_BATCH, model["critic_x"], CASAS_F)
+    bz, oz = critic_cost(MV_BATCH, model["critic_z"], 20)
+    bg, og = generator_cost(model, MV_BATCH)
+    k5 = {"ms": cuda_ms(lambda: ck.critic_step_fused_full(model, xc, d,
+                                                          True), 100),
+          "plain_ms": cuda_ms(lambda: ck.critic_step_plain(model, xc, d,
+                                                           True), 20),
+          "narrow_ms_at_F100": cuda_ms(
+              lambda: ck.critic_step_fused_full(nmodel, nx, nd, True), 100),
+          "bytes": bx + bz + bg - 4 * 3 * MV_BATCH * (CASAS_F + 20),
+          "ops": ox + oz + og, "shape": f"B={MV_BATCH}, F={CASAS_F}"}
+    k4 = {"ms": cuda_ms(lambda: ck.critics_fused_grads(*args), 100),
+          "plain_ms": cuda_ms(lambda: ck.critics_fused_grads_plain(*args),
+                              20),
+          "narrow_ms_at_F100": cuda_ms(lambda: ck.critics_fused_grads(*nargs),
+                                       100),
+          "bytes": bx + bz, "ops": ox + oz,
+          "shape": f"B={MV_BATCH}, F={CASAS_F}"}
+    out["critic_step_full_wide"] = bound(k5)
+    out["critics_fused_grads_wide"] = bound(k4)
+    for name, k in out.items():
+        print(f"[timing] {name} at {k['shape']}: kernel {k['ms']:.5f} ms, "
+              f"plain {k['plain_ms']:.5f} ms, bound {k['bound_ms']:.6f} ms "
+              f"({k['bound_by']}: {k['bytes']} bytes, {k['ops']} ops); the "
+              f"narrow instance at F = {WIDTH}: {k['narrow_ms_at_F100']:.5f} "
+              f"ms")
+    return out
+
+
 def warm_detect_ms(calls, rounds=7):
     """{label: [wall ms of each round]} of warm detect calls, each
     ``calls[label]()`` once a round, in turns, after one warm-up each.
@@ -2157,6 +2856,9 @@ def main():
     libs = timed(phase_build)
     k1_err, k1_parent, kde_flips = timed(phase_kernels, device, libs)
     k45_err = timed(phase_critic_kernels, device)
+    # the wide instances, named by the profiler before the long traces of
+    # [fleet]
+    mv_errs = timed(mv_kernel_checks, device)
     launches, X, model = timed(phase_main_path, device)
     eucl_launches, eucl_model = timed(phase_eucl_detect, device)
     train = timed(phase_train, device)
@@ -2164,9 +2866,11 @@ def main():
     cli_paths, cli_info = timed(phase_cli, device, card)
     fleet = timed(phase_fleet, device)
     sweep_launches, sweep_info = timed(phase_sweep, device, card)
+    mv_paths, mv_info = timed(phase_mv, device, card)
     timed(phase_staged, device, X, eucl_model, model)
     wps, k1, k2, k3 = timed(phase_timing, device, X, model, eucl_model, libs)
     epochs, k4, k5 = timed(phase_train_timing, device, train["X"])
+    mv_timing = timed(mv_kernel_timing, device)
     paths = {"detect": launches,
              **{f"detect_euclidean_{r}": eucl_launches[r]
                 for r in REC_ERRORS},
@@ -2177,7 +2881,8 @@ def main():
              **cli_paths,
              "fleet_seed_band_S3_2_epochs": fleet["band_launches"],
              "fleet_detect_S9": fleet["detect"]["launches"],
-             "sweep_nab_9_signals_1_epoch": sweep_launches}
+             "sweep_nab_9_signals_1_epoch": sweep_launches,
+             **mv_paths}
     by_path = {name: {path: counts[name] for path, counts in paths.items()}
                for name in launches}
     tol_text = "loss rtol {0[rtol]} atol {0[atol]}, grads rtol {1[rtol]} " \
@@ -2260,6 +2965,42 @@ def main():
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
          "library_ms": None},
     ]
+    # the wide instances (feature counts of 129 to 256), each with the
+    # launches of the multivariate path that runs it
+    wide_paths = {"mobius_linear": "mv_casas_detect",
+                  "kde_argmax": "mv_casas_detect",
+                  "kde_argmax_v2": "mv_casas_sweep_detect_v2",
+                  "critics_fused_grads": "mv_casas_train_fused_true",
+                  "critic_step_full": "mv_casas_sweep"}
+    wide_err = {"mobius_linear": max(mv_errs["k1_err"],
+                                     mv_timing["mobius_linear_wide"][
+                                         "max_abs_err"]),
+                "kde_argmax": mv_timing["kde_argmax_wide"]["max_abs_err"],
+                "kde_argmax_v2": mv_timing["kde_argmax_v2_wide"][
+                    "max_abs_err"],
+                "critics_fused_grads": mv_errs["k4_err"],
+                "critic_step_full": mv_errs["k5_err"]}
+    for k in list(kernels):
+        name, wide = k["name"], f"{k['name']}_wide"
+        w = mv_timing[wide]
+        path = wide_paths[name]
+        kernels.append({
+            "name": wide, "route": "cuda", "source": k["source"],
+            "replaces": k["replaces"], "instance": "widths 129 to 256",
+            "launches": mv_paths[path][wide], "launches_path": path,
+            "launches_by_path": by_path[wide],
+            "max_abs_err": wide_err[name],
+            "tolerance": (k["tolerance"] if name.startswith("critic") or
+                          name == "mobius_linear" else
+                          "use flags bitwise; fallback rows bitwise "
+                          "masked_median; elsewhere each differing row a "
+                          "sample of its own row at a float64 density tie "
+                          "(gap <= n 2^-22)"),
+            "shape": w["shape"], "ms": w["ms"], "kernel_ms": w["ms"],
+            "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+            "bound_by": w["bound_by"],
+            "narrow_instance_ms_at_F100": w["narrow_ms_at_F100"],
+            "library_ms": None})
     for k in kernels:
         by_s = fleet["kernels"].get(k["name"])
         if by_s:
@@ -2281,6 +3022,8 @@ def main():
                "cli": cli_info,
                "fleet": {k: v for k, v in fleet.items() if k != "kernels"},
                "sweep": sweep_info,
+               "mv": mv_info,
+               "mv_kernel_checks": mv_errs,
                "kernels": kernels,
                "phase_seconds": phase_s,
                "seconds": time.perf_counter() - t_start}

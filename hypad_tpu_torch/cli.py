@@ -1,6 +1,7 @@
 """Command line of the port: ``python -m hypad_tpu_torch.cli``.
 
-Port of ``hypad_tpu.cli``'s ``train`` and ``detect``:
+Port of ``hypad_tpu.cli``'s ``train``, ``detect`` and ``sweep``, univariate
+and multivariate:
 
 * ``train --config cfg.yaml``: load the config's signal, snapshot the
   config into the run directory, train (resuming from the newest
@@ -23,6 +24,12 @@ Port of ``hypad_tpu.cli``'s ``train`` and ``detect``:
   trained family from its checkpoints;
 * no subcommand means ``train``.
 
+A multivariate config (``signal: multivariate`` with SWaT or WADI, or a
+CASAS-family dataset with ``signal`` the resident or point) trains on the
+(N, F) timestep rows with the model built at ``signal_shape`` = F (WADI
+123, SWaT 51, CASAS 150) and detects per timestep; its sweep trains and
+scores a family of such streams as one fleet.
+
 The run directory is the JAX package's
 (``trained_models/models_{hyper|eucl}_{dataset}_{epochs}_{lr}/...``).
 ``--device`` defaults to ``cuda`` and raises without CUDA; ``--device cpu``
@@ -33,9 +40,9 @@ generator seeded with ``seed``, so a port run does not train the JAX
 run's weights; a JAX checkpoint carried over with
 ``train.state_bridge.train_state_from_jax`` and saved with
 ``utils.checkpoint.save_state`` detects as the JAX CLI does. Not ported:
-the fleet grid (``sweep --rec-errors/--combinations``) and ``sweep
---canonical`` (ROADMAP A10), multivariate families (A11), more than one
-device (A13).
+the fleet grid (``sweep --rec-errors/--combinations``, univariate or
+multivariate) and ``sweep --canonical`` (ROADMAP A10), plots (A12), more
+than one device (A13).
 """
 
 from __future__ import annotations
@@ -177,8 +184,9 @@ def cmd_sweep(params, config_path, signals=None, seeds=None,
               detect_only=False, device="cuda"):
     """Train a signal family, a seed band or their cross product as one
     fleet, then detect it in one call (JAX's ``cmd_sweep`` without the
-    grid and ``--canonical``). Returns one ``(signal, seed, f1)`` per run,
-    in run order."""
+    grid and ``--canonical``); a multivariate family (CASAS residents, say)
+    is scored per timestep. Returns one ``(signal, seed, f1)`` per run, in
+    run order."""
     import argparse as ap
     import copy
     import json
@@ -191,9 +199,6 @@ def cmd_sweep(params, config_path, signals=None, seeds=None,
     from hypad_tpu_torch.utils.profiling import stage
 
     device = resolve_device(device)
-    if is_multivariate(params):
-        raise NotImplementedError("multivariate fleets are not ported yet "
-                                  "(ROADMAP A11)")
     pairs = _sweep_pairs(params, signals, seeds)
     band = seeds is not None or getattr(params, "seeds", None) is not None
     if getattr(params, "save_artifacts", True) and not params.load:
@@ -284,7 +289,8 @@ def cmd_sweep(params, config_path, signals=None, seeds=None,
         with stage("sweep_detect"):
             fleet_scores = detect_scores_fleet(
                 stacked, X_test, params.hyperbolic, params.combination,
-                rec_error=params.rec_error, staged=reuse, device=device)
+                rec_error=params.rec_error, staged=reuse, device=device,
+                multivariate=is_multivariate(params))
         dwall = time.time() - t0
         n_win = sum(len(x) for x in X_test)
         print(f"fleet detection wall-clock: {dwall:.2f}s for {len(per)} "
@@ -310,14 +316,16 @@ def cmd_sweep(params, config_path, signals=None, seeds=None,
 
 
 def expand_combinations(params, combos):
-    """``["all"]`` -> every combination valid for the config's geometry
-    (hyperbolic: all 8; Euclidean: mult, sum, rec, critic); any other list
-    passes through for the grid to check."""
+    """``["all"]`` -> every combination valid for the config's path
+    (hyperbolic or multivariate: all 8; Euclidean univariate: mult, sum,
+    rec, critic); any other list passes through for the grid to check."""
     if combos != ["all"]:
         return combos
+    from hypad_tpu_torch.data.registry import is_multivariate
     from hypad_tpu_torch.detect.scorer import COMBINATIONS, EUCL_COMBOS
 
-    return list(COMBINATIONS if params.hyperbolic else EUCL_COMBOS)
+    return list(COMBINATIONS if params.hyperbolic or is_multivariate(params)
+                else EUCL_COMBOS)
 
 
 def cmd_detect(params, config_path, rec_errors=None, combinations=None,

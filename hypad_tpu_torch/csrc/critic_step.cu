@@ -87,6 +87,16 @@
 // decoder's forwards, is 0.057 ms. Not yet done: the weights in shared or
 // distributed shared memory, then wgmma.
 
+// Wide instance: multivariate feature counts above 128 (CASAS's 150, up to
+// 256) make bigx, the encoder's input, the decoder's output and the
+// MobiusLinear head that wide. Every function that stages input rows or
+// holds a head row is a template on the widest input it takes, kIn, and the
+// kernel has two instances, chosen at launch by the launch's widest input:
+// kIn = 128 with 64-row tiles (the code and registers it had before), and
+// kIn = 256 with 32-row tiles, whose 32.9 KB tile stays in static shared
+// memory. Each output is still one thread's ascending-k FMA chain, so the
+// tile height changes no bit.
+
 // Signal axis (the fleet's counterpart of jax.vmap): the grid's y is the
 // signal. Every slot carries a byte stride from one signal's slice to the
 // next (weights, draws, gradients, losses (S, 2) and the workspace alike),
@@ -108,9 +118,20 @@ namespace {
 constexpr int kClusterBlocks = 8;  // blocks a side, the portable maximum
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxHead = 128;  // widest MobiusLinear head: 4 lanes a thread
-constexpr int kMaxIn = 128;    // widest layer input staged in shared memory
+// The narrow instance takes layer inputs and a MobiusLinear head up to
+// kMaxIn wide (4 lanes a thread in the head); the wide one, for multivariate
+// feature counts, up to kWideMaxIn, staging fewer rows at a time so that its
+// tile of 32 x 257 floats (32.9 KB) stays under the 48 KB of static shared
+// memory.
+constexpr int kMaxIn = 128;
 constexpr int kTileRows = 64;  // input rows staged at a time
+constexpr int kWideMaxIn = 256;
+constexpr int kWideTileRows = 32;
+
+template <int kIn>
+__host__ __device__ constexpr int tile_rows() {
+  return kIn > kMaxIn ? kWideTileRows : kTileRows;
+}
 constexpr float kLeaky = 0.2f;
 constexpr float kGpWeight = 10.0f;
 constexpr float kGpEps = 1e-12f;
@@ -245,12 +266,13 @@ __device__ __forceinline__ float sigmoid(float x) {
 // Stage the owned rows of in (., din) into `tile`, up to kTileRows at a
 // time, and run body(t0, n, ld) on each stage: tile row r holds owned row
 // rows.at(t0 + r).
-template <typename Body>
+template <int kIn, typename Body>
 __device__ void for_row_tiles(const float* in, const Rows& rows, int din,
                               float* tile, Body body) {
+  constexpr int kRowsAtATime = tile_rows<kIn>();
   const int ld = din | 1;
-  for (int t0 = 0; t0 < rows.count(); t0 += kTileRows) {
-    const int n = min(rows.count() - t0, kTileRows);
+  for (int t0 = 0; t0 < rows.count(); t0 += kRowsAtATime) {
+    const int n = min(rows.count() - t0, kRowsAtATime);
     __syncthreads();  // the previous stage's readers are done
     for (int idx = threadIdx.x; idx < n * din; idx += blockDim.x) {
       const int r = idx / din, k = idx - r * din;
@@ -262,10 +284,11 @@ __device__ void for_row_tiles(const float* in, const Rows& rows, int din,
 }
 
 // out (rows, dout) = in (rows, din) W^T (+ b), tanh'd when `act_tanh`.
+template <int kIn>
 __device__ void linear(const float* in, const Rows& rows, int din,
                        const float* W, const float* b, float* out, int dout,
                        bool act_tanh, float* tile) {
-  for_row_tiles(in, rows, din, tile, [&](int t0, int n, int ld) {
+  for_row_tiles<kIn>(in, rows, din, tile, [&](int t0, int n, int ld) {
     for (int idx = threadIdx.x; idx < n * dout; idx += blockDim.x) {
       const int j = idx / n, r = idx - j * n;
       const float* x = tile + r * ld;
@@ -280,11 +303,12 @@ __device__ void linear(const float* in, const Rows& rows, int din,
 
 // One bidirectional LSTM layer at T = 1 with zero state: out (rows, 2H),
 // [forward, reverse] on the feature axis; inverted dropout when `keep`.
+template <int kIn>
 __device__ void bilstm_t1(const float* in, const Rows& rows, int din, Lstm fw,
                           Lstm bw, int H, const uint8_t* keep, float kscale,
                           float* out, float* tile) {
   const int width = 2 * H;
-  for_row_tiles(in, rows, din, tile, [&](int t0, int n, int ld) {
+  for_row_tiles<kIn>(in, rows, din, tile, [&](int t0, int n, int ld) {
     for (int idx = threadIdx.x; idx < n * width; idx += blockDim.x) {
       const int c = idx / n, r = idx - c * n;
       const bool rev = c >= H;
@@ -314,9 +338,10 @@ __device__ void bilstm_t1(const float* in, const Rows& rows, int din, Lstm fw,
 
 // MobiusLinear's clamp chain on u = x W^T (rows, W), one warp a row:
 // expmap0, mobius_add(b) at k = -1, project; as K1 (csrc/mobius_linear.cu).
+template <int kIn>
 __device__ void mobius_rows(const float* u, const Rows& rows, int W,
                             const float* mb, float* out) {
-  constexpr int kPer = kMaxHead / 32;
+  constexpr int kPer = kIn / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float bj[kPer];
   float b2 = 0.0f;
@@ -370,6 +395,7 @@ __device__ void mobius_rows(const float* u, const Rows& rows, int W,
 
 // Cluster 0 of K5: the decoder on the block's rows of z_x, then those rows
 // of bigx = [x, x_fake, interp_x].
+template <int kIn>
 __device__ void decoder_side(const Args& a, const Rows& rows, float* ws,
                              float* bigx, float* tile) {
   const int B = a.B, W = a.W, Hd = a.Hd;
@@ -385,21 +411,21 @@ __device__ void decoder_side(const Args& a, const Rows& rows, float* ws,
   const Lstm l1b{in_ptr(a, DEC + 11), in_ptr(a, DEC + 12),
                  in_ptr(a, DEC + 13)};
 
-  linear(in_ptr(a, ZX), rows, a.L, in_ptr(a, DEC), in_ptr(a, DEC + 1), d1,
+  linear<kIn>(in_ptr(a, ZX), rows, a.L, in_ptr(a, DEC), in_ptr(a, DEC + 1), d1,
          a.D1, false, tile);
   __syncthreads();
-  bilstm_t1(d1, rows, a.D1, l0f, l0b, Hd,
+  bilstm_t1<kIn>(d1, rows, a.D1, l0f, l0b, Hd,
             static_cast<const uint8_t*>(slot(a, MDEC)), kDecKeep, h1, tile);
   __syncthreads();
-  bilstm_t1(h1, rows, 2 * Hd, l1f, l1b, Hd, nullptr, 1.0f, h2, tile);
+  bilstm_t1<kIn>(h1, rows, 2 * Hd, l1f, l1b, Hd, nullptr, 1.0f, h2, tile);
   __syncthreads();
-  linear(h2, rows, 2 * Hd, in_ptr(a, DEC + 14), in_ptr(a, DEC + 15),
+  linear<kIn>(h2, rows, 2 * Hd, in_ptr(a, DEC + 14), in_ptr(a, DEC + 15),
          a.hyperbolic ? xdec : xfake, W, true, tile);
   __syncthreads();
   if (a.hyperbolic) {
-    linear(xdec, rows, W, in_ptr(a, DEC + 16), nullptr, u, W, false, tile);
+    linear<kIn>(xdec, rows, W, in_ptr(a, DEC + 16), nullptr, u, W, false, tile);
     __syncthreads();
-    mobius_rows(u, rows, W, in_ptr(a, DEC + 17), xfake);
+    mobius_rows<kIn>(u, rows, W, in_ptr(a, DEC + 17), xfake);
     __syncthreads();
   }
   const float* x = in_ptr(a, X);
@@ -415,14 +441,15 @@ __device__ void decoder_side(const Args& a, const Rows& rows, float* ws,
 
 // Cluster 1 of K5: the encoder on the block's rows of x, then those rows of
 // bigz = [z_enc, z_z, interp_z].
+template <int kIn>
 __device__ void encoder_side(const Args& a, const Rows& rows, float* ws,
                              float* bigz, float* tile) {
   const int B = a.B, L = a.L;
   const Lstm f{in_ptr(a, ENC), in_ptr(a, ENC + 1), in_ptr(a, ENC + 2)};
   const Lstm b{in_ptr(a, ENC + 3), in_ptr(a, ENC + 4), in_ptr(a, ENC + 5)};
-  bilstm_t1(in_ptr(a, X), rows, a.W, f, b, a.He, nullptr, 1.0f, ws, tile);
+  bilstm_t1<kIn>(in_ptr(a, X), rows, a.W, f, b, a.He, nullptr, 1.0f, ws, tile);
   __syncthreads();
-  linear(ws, rows, 2 * a.He, in_ptr(a, ENC + 6), in_ptr(a, ENC + 7), bigz, L,
+  linear<kIn>(ws, rows, 2 * a.He, in_ptr(a, ENC + 6), in_ptr(a, ENC + 7), bigz, L,
          false, tile);
   __syncthreads();
   const float* zz = in_ptr(a, ZZ);
@@ -440,6 +467,7 @@ __device__ void encoder_side(const Args& a, const Rows& rows, float* ws,
 // `nl` hidden layers of width H, then the scalar output layer. Parameters
 // and gradients at slots [first, first + 2 (nl + 1)), (w, b) per layer.
 // Every block of the cluster calls it; `rank` is the block's rank.
+template <int kIn>
 __device__ void critic(const Args& a, int rank, const float* big, int in,
                        int H, int nl, int pslot, int gslot,
                        const uint8_t* masks, float keep, float sign,
@@ -486,7 +514,8 @@ __device__ void critic(const Args& a, int rank, const float* big, int in,
     float* hi = hs + (size_t)i * R * H;
     float* Di = Ds + (size_t)i * R * H;
     const uint8_t* mi = masks + (size_t)i * R * H;
-    for_row_tiles(h_in(i), rows, din, tile, [&](int t0, int n, int ld) {
+    for_row_tiles<kIn>(h_in(i), rows, din, tile,
+                       [&](int t0, int n, int ld) {
       for (int idx = threadIdx.x; idx < n * H; idx += blockDim.x) {
         const int j = idx / n, r = idx - j * n;
         const float* x = tile + r * ld;
@@ -640,7 +669,7 @@ __device__ void critic(const Args& a, int rank, const float* big, int in,
       });
       my_gp[off[i] + idx] = acc;
     }
-    for_row_tiles(u, brows, din, tile, [&](int t0, int n, int ld) {
+    for_row_tiles<kIn>(u, brows, din, tile, [&](int t0, int n, int ld) {
       for (int idx = threadIdx.x; idx < n * H; idx += blockDim.x) {
         const int j = idx / n, r = idx - j * n;
         const float* x = tile + r * ld;
@@ -693,9 +722,11 @@ __device__ void critic(const Args& a, int rank, const float* big, int in,
 
 // Blocks [0, kClusterBlocks) form cluster 0 (the decoder, then critic_x),
 // the rest cluster 1 (the encoder, then critic_z).
+template <int kIn>
 __global__ void __launch_bounds__(kThreads) critic_step_kernel(Args a) {
   __shared__ float red[kWarps + 1];
-  __shared__ float tile[kTileRows * (kMaxIn + 1)];  // 33,024 bytes
+  // 33,024 bytes narrow, 32,896 wide
+  __shared__ float tile[tile_rows<kIn>() * (kIn + 1)];
   const int rank = (int)cg::this_cluster().block_rank();
   const Rows rows = rank_rows(a.B, rank, 1);
   float* ws = out_ptr(a, WS);
@@ -704,21 +735,33 @@ __global__ void __launch_bounds__(kThreads) critic_step_kernel(Args a) {
     float* bigx = out_ptr(a, BIGX);
     float* cws = ws;
     if (a.full)
-      decoder_side(a, rows, cws + critic_ws(3 * a.B, a.B, a.W, a.Hx, 4),
+      decoder_side<kIn>(a, rows, cws + critic_ws(3 * a.B, a.B, a.W, a.Hx, 4),
                    bigx, tile);
-    critic(a, rank, bigx, a.W, a.Hx, 4, CX, GCX,
+    critic<kIn>(a, rank, bigx, a.W, a.Hx, 4, CX, GCX,
            static_cast<const uint8_t*>(slot(a, MCX)), kCxKeep, +1.0f, loss,
            cws, red, tile);
   } else {
     float* bigz = out_ptr(a, BIGZ);
     float* cws = ws + side_x_ws(a);
     if (a.full)
-      encoder_side(a, rows, cws + critic_ws(3 * a.B, a.B, a.L, a.Hz, 2),
+      encoder_side<kIn>(a, rows, cws + critic_ws(3 * a.B, a.B, a.L, a.Hz, 2),
                    bigz, tile);
-    critic(a, rank, bigz, a.L, a.Hz, 2, CZ, GCZ,
+    critic<kIn>(a, rank, bigz, a.L, a.Hz, 2, CZ, GCZ,
            static_cast<const uint8_t*>(slot(a, MCZ)), kCzKeep, -1.0f,
            loss + 1, cws, red, tile);
   }
+}
+
+// The widest layer input (or MobiusLinear head) a launch stages: the
+// critics' inputs and hidden widths, and under K5 the generator's.
+int widest(const Args& a) {
+  int w = 0;
+  const int in[] = {a.W, a.L, a.Hx, a.Hz};
+  const int gen[] = {a.D1, 2 * a.Hd, 2 * a.He};
+  for (int v : in) w = v > w ? v : w;
+  if (a.full)
+    for (int v : gen) w = v > w ? v : w;
+  return w;
 }
 
 bool fill(Args* a, void* const* ptrs, const long long* strides,
@@ -739,10 +782,7 @@ bool fill(Args* a, void* const* ptrs, const long long* strides,
   a->hyperbolic = hyperbolic;
   for (int d = 0; d < kDims; ++d)
     if (dims[d] < 1) return false;
-  if (a->W > kMaxIn || a->L > kMaxIn || a->Hx > kMaxIn || a->Hz > kMaxIn)
-    return false;
-  return !full || (!(hyperbolic && a->W > kMaxHead) && a->D1 <= kMaxIn &&
-                   2 * a->Hd <= kMaxIn && 2 * a->He <= kMaxIn);
+  return widest(*a) <= kWideMaxIn;
 }
 
 // Two clusters of kClusterBlocks blocks for each of `signals` signals
@@ -766,7 +806,10 @@ int launch(void* const* ptrs, const long long* strides, const int* dims,
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, critic_step_kernel, a);
+  // the narrow instance up to kMaxIn, the wide one above
+  void (*kernel)(Args) = widest(a) > kMaxIn ? critic_step_kernel<kWideMaxIn>
+                                            : critic_step_kernel<kMaxIn>;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }

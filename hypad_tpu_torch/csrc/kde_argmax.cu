@@ -88,6 +88,16 @@
 // profile_kernels.py --k3-variant: these 0.1040 ms, 16-row blocks (two an
 // SM) 0.1050-0.1053, 8-row blocks (four an SM) 0.1141.
 
+// Wide instances: multivariate detection skews (N, F) rows with F up to 256
+// (CASAS's 150), so each kernel has a second instance for rows of 129 to
+// 256 entries, which each entry point picks by width: a lane
+// holds 8 entries of a row in the warp phases, phase 4 takes a row's first
+// max over up to 64 blocks, and a block holds 16 rows in both (16 x 64
+// blocks of 4 = 1,024 threads), so in K3 a warp spans two blocks of 4 of 16
+// rows and its branches on I are no longer uniform. The arithmetic per row
+// is the narrow instances'. The narrow instances (rows up to 128) are the
+// code they were before.
+
 #include <float.h>
 #include <math.h>
 
@@ -95,8 +105,8 @@
 
 namespace {
 
-constexpr int kMaxW = 128;
-constexpr int kPerLane = kMaxW / 32;  // a row's entries a lane
+constexpr int kMaxW = 128;      // widest row of the narrow instances
+constexpr int kWideMaxW = 256;  // widest row of the wide instances
 constexpr float kSentinel = 1e18f;
 constexpr int kK2Rows = 16;  // rows per block of K2
 // K3's launch: rows per block, and the blocks an SM its register budget is
@@ -104,6 +114,17 @@ constexpr int kK2Rows = 16;  // rows per block of K2
 // other values beside these.
 constexpr int kK3Rows = 32;
 constexpr int kByOffsetBlocksPerSM = 1;
+// The wide instances (rows of 129 to 256, multivariate feature counts): 16
+// rows a block in both, so that 64 blocks of 4 samples a row make at most
+// 1,024 threads; K2's at two blocks an SM (32 registers, as the narrow
+// K2's), K3's at one (64).
+constexpr int kWideRows = 16;
+
+// Rows a block of the instance for rows up to kW wide.
+template <int kW, bool kByOffset>
+__host__ __device__ constexpr int block_rows() {
+  return kW > kMaxW ? kWideRows : (kByOffset ? kK3Rows : kK2Rows);
+}
 
 struct Smem {
   float4* col;          // K2: (2, R, nb) column partials; K3: (2, R,
@@ -155,10 +176,11 @@ __device__ inline Smem carve(unsigned char* raw, int nb, bool by_offset) {
 }
 
 // A row's statistics as one warp computes them, lane l holding entries
-// l, l+32, l+64, l+96.
+// l, l+32, ..., l + 32 (kPer - 1).
+template <int kPer>
 struct RowStats {
-  float vi[kPerLane];
-  bool mi[kPerLane];
+  float vi[kPer];
+  bool mi[kPer];
   float cnt, var, scale;
 };
 
@@ -166,13 +188,15 @@ struct RowStats {
 // -0.5 / h^2 (h^2 = var * cnt^-0.4, 1 where it is not positive) as warp
 // shuffles; writes the row with masked entries set to the 1e18 sentinel
 // to `vs` (the row's W floats of shared memory).
-__device__ __forceinline__ RowStats load_row(const float* v,
-                                             const unsigned char* m,
-                                             int width, int lane, float* vs) {
-  RowStats s;
+template <int kPer>
+__device__ __forceinline__ RowStats<kPer> load_row(const float* v,
+                                                   const unsigned char* m,
+                                                   int width, int lane,
+                                                   float* vs) {
+  RowStats<kPer> s;
   float cnt = 0.0f, sum = 0.0f;
 #pragma unroll
-  for (int q = 0; q < kPerLane; ++q) {
+  for (int q = 0; q < kPer; ++q) {
     const int i = lane + 32 * q;
     s.vi[q] = i < width ? v[i] : 0.0f;
     s.mi[q] = i < width && m[i] != 0;
@@ -185,7 +209,7 @@ __device__ __forceinline__ RowStats load_row(const float* v,
   const float mean = sum / cnt_f;
   float ss = 0.0f;
 #pragma unroll
-  for (int q = 0; q < kPerLane; ++q) {
+  for (int q = 0; q < kPer; ++q) {
     const float c = s.mi[q] ? s.vi[q] - mean : 0.0f;
     ss += c * c;
   }
@@ -193,7 +217,7 @@ __device__ __forceinline__ RowStats load_row(const float* v,
   const float h2 = s.var * powf(cnt_f, -0.4f);
   s.scale = -0.5f / (h2 > 0.0f ? h2 : 1.0f);
 #pragma unroll
-  for (int q = 0; q < kPerLane; ++q) {
+  for (int q = 0; q < kPer; ++q) {
     const int i = lane + 32 * q;
     if (i < width) vs[i] = s.mi[q] ? s.vi[q] : kSentinel;
   }
@@ -208,15 +232,16 @@ __device__ __forceinline__ RowStats load_row(const float* v,
 // counts are warp ballots. A NaN compares with nothing, so it never
 // matches, and a rank that no entry matches lies among the row's NaNs,
 // which sort last. Called by a whole warp; every lane gets it.
-__device__ float order_stat(const float (&y)[kPerLane],
-                            const unsigned (&cand)[kPerLane], int k) {
+template <int kPer>
+__device__ float order_stat(const float (&y)[kPer],
+                            const unsigned (&cand)[kPer], int k) {
 #pragma unroll
-  for (int q = 0; q < kPerLane; ++q) {
+  for (int q = 0; q < kPer; ++q) {
     for (unsigned bits = cand[q]; bits != 0u; bits &= bits - 1u) {
       const float x = __shfl_sync(hypad::kFullMask, y[q], __ffs(bits) - 1);
       int less = 0, eq = 0;
 #pragma unroll
-      for (int p = 0; p < kPerLane; ++p) {
+      for (int p = 0; p < kPer; ++p) {
         less += __popc(__ballot_sync(hypad::kFullMask, y[p] < x));
         eq += __popc(__ballot_sync(hypad::kFullMask, y[p] == x));
       }
@@ -231,14 +256,15 @@ __device__ float order_stat(const float (&y)[kPerLane],
 // samples and the first masked entry (all of them are FLT_MAX). Called by
 // a whole warp on the few fallback rows; kept out of line so that its
 // registers do not weigh on the density rounds.
+template <int kPer>
 __device__ __noinline__ float row_median(const float* v,
                                          const unsigned char* in, int width,
                                          int cnt, int lane) {
-  float y[kPerLane];
-  unsigned cand[kPerLane];
+  float y[kPer];
+  unsigned cand[kPer];
   bool fill_found = false;
 #pragma unroll
-  for (int q = 0; q < kPerLane; ++q) {
+  for (int q = 0; q < kPer; ++q) {
     const int i = lane + 32 * q;
     const bool inside = i < width, sample = inside && in[i];
     y[q] = !inside ? __int_as_float(0x7fc00000) : sample ? v[i] : FLT_MAX;
@@ -254,6 +280,7 @@ __device__ __noinline__ float row_median(const float* v,
 }
 
 // K2's densities of samples 4I..4I+3 of row r, summed by sample.
+template <int R>
 __device__ __forceinline__ void densities_by_sample(const Smem& m, int r,
                                                     int I, int nb, int wp,
                                                     float (&p)[4]) {
@@ -275,7 +302,7 @@ __device__ __forceinline__ void densities_by_sample(const Smem& m, int r,
   const int half = nb / 2;
   for (int off = 1; off <= half; ++off) {
     const bool last_even = 2 * off == nb;  // the pairs of round nb / 2 once
-    float4* slot = m.col + ((off & 1) * kK2Rows + r) * nb;
+    float4* slot = m.col + ((off & 1) * R + r) * nb;
     if (!(last_even && I >= half)) {
       const int J = I + off < nb ? I + off : I + off - nb;
       const float4 w4 = vrow4[J];
@@ -381,6 +408,7 @@ __device__ __forceinline__ void add_round(float (&p)[4], Carry& c,
 // K3's densities of samples 4I..4I+3 of row r, summed in v2's order: for
 // each offset ascending, the forward term (pair (i, i - r)), then the back
 // term (pair (i + r, i)). Terms of pairs with a sample past the row are 0.
+template <int R>
 __device__ __forceinline__ void densities_by_offset(const Smem& m, int r,
                                                     int I, int nb, int wp,
                                                     int width,
@@ -410,7 +438,7 @@ __device__ __forceinline__ void densities_by_offset(const Smem& m, int r,
   const int last = max(I, nb - 1 - I) + 1;
   const int stride = hand_stride(nb);
   for (int D = 1; D <= nb; ++D) {
-    float4* hand = m.col + ((D & 1) * kK3Rows + r) * stride;
+    float4* hand = m.col + ((D & 1) * R + r) * stride;
     const bool left = D <= I, right = I + D < nb;
     float f[4][4];
     if (left) {
@@ -446,12 +474,13 @@ __device__ __forceinline__ void densities_by_offset(const Smem& m, int r,
   }
 }
 
-template <bool kByOffset>
+template <int kW, bool kByOffset>
 __device__ __forceinline__ void kde_argmax_body(
     const float* __restrict__ vals, const unsigned char* __restrict__ mask,
     float* __restrict__ kde_val, unsigned char* __restrict__ use, int rows,
     int width) {
-  constexpr int kRows = kByOffset ? kK3Rows : kK2Rows;
+  constexpr int kRows = block_rows<kW, kByOffset>();
+  constexpr int kPer = kW / 32;  // a row's entries a lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nb = row_blocks<kRows>(width), wp = 4 * nb;
   const Smem m = carve<kRows>(smem_raw, nb, kByOffset);
@@ -465,11 +494,11 @@ __device__ __forceinline__ void kde_argmax_body(
     float* vrow = m.vs + r * wp;
     unsigned char* irow = m.in + r * wp;
     if (row < rows) {
-      const RowStats s = load_row(vals + (size_t)row * width,
+      const RowStats<kPer> s = load_row<kPer>(vals + (size_t)row * width,
                                   mask + (size_t)row * width, width, lane,
                                   vrow);
 #pragma unroll
-      for (int q = 0; q < kPerLane; ++q)
+      for (int q = 0; q < kPer; ++q)
         if (lane + 32 * q < width) irow[lane + 32 * q] = s.mi[q];
       if (lane == 0) {
         m.scale[r] = s.scale;
@@ -500,11 +529,11 @@ __device__ __forceinline__ void kde_argmax_body(
   if constexpr (kByOffset) {
     I = threadIdx.x / kRows;
     r = threadIdx.x - I * kRows;
-    densities_by_offset(m, r, I, nb, wp, width, p);
+    densities_by_offset<kRows>(m, r, I, nb, wp, width, p);
   } else {
     r = threadIdx.x / nb;
     I = threadIdx.x - r * nb;
-    densities_by_sample(m, r, I, nb, wp, p);
+    densities_by_sample<kRows>(m, r, I, nb, wp, p);
   }
 
   // 3. first max over the block's samples (masked: -inf), ascending
@@ -537,6 +566,14 @@ __device__ __forceinline__ void kde_argmax_body(
         b = m.best[rr * nb + lane];
         bi = m.best_i[rr * nb + lane];
       }
+      for (int q = lane + 32; q < nb; q += 32) {  // wide rows: nb above 32
+        const float ob = m.best[rr * nb + q];
+        const int oi = m.best_i[rr * nb + q];
+        if (ob > b || (ob == b && oi < bi)) {
+          b = ob;
+          bi = oi;
+        }
+      }
 #pragma unroll
       for (int offset = 16; offset > 0; offset >>= 1) {
         const float ob = __shfl_xor_sync(hypad::kFullMask, b, offset);
@@ -548,7 +585,8 @@ __device__ __forceinline__ void kde_argmax_body(
       }
       out = vrow[bi];  // a masked-in sample: the sentinel never wins
     } else {
-      out = row_median(vrow, m.in + rr * wp, width, (int)m.cnt[rr], lane);
+      out = row_median<kPer>(vrow, m.in + rr * wp, width, (int)m.cnt[rr],
+                             lane);
     }
     if (lane == 0) {
       kde_val[row] = out;
@@ -562,7 +600,7 @@ kde_argmax_kernel(const float* __restrict__ vals,
                   const unsigned char* __restrict__ mask,
                   float* __restrict__ kde_val, unsigned char* __restrict__ use,
                   int rows, int width) {
-  kde_argmax_body<false>(vals, mask, kde_val, use, rows, width);
+  kde_argmax_body<kMaxW, false>(vals, mask, kde_val, use, rows, width);
 }
 
 __global__ void __launch_bounds__(kK3Rows * kMaxW / 4, kByOffsetBlocksPerSM)
@@ -570,16 +608,36 @@ kde_argmax_v2_kernel(const float* __restrict__ vals,
                      const unsigned char* __restrict__ mask,
                      float* __restrict__ kde_val,
                      unsigned char* __restrict__ use, int rows, int width) {
-  kde_argmax_body<true>(vals, mask, kde_val, use, rows, width);
+  kde_argmax_body<kMaxW, true>(vals, mask, kde_val, use, rows, width);
 }
 
-template <bool kByOffset>
+__global__ void __launch_bounds__(kWideRows * kWideMaxW / 4, 2)
+kde_argmax_wide_kernel(const float* __restrict__ vals,
+                       const unsigned char* __restrict__ mask,
+                       float* __restrict__ kde_val,
+                       unsigned char* __restrict__ use, int rows, int width) {
+  kde_argmax_body<kWideMaxW, false>(vals, mask, kde_val, use, rows, width);
+}
+
+__global__ void __launch_bounds__(kWideRows * kWideMaxW / 4, 1)
+kde_argmax_v2_wide_kernel(const float* __restrict__ vals,
+                          const unsigned char* __restrict__ mask,
+                          float* __restrict__ kde_val,
+                          unsigned char* __restrict__ use, int rows,
+                          int width) {
+  kde_argmax_body<kWideMaxW, true>(vals, mask, kde_val, use, rows, width);
+}
+
+template <int kW, bool kByOffset>
 int launch(const float* vals, const unsigned char* mask, float* kde_val,
            unsigned char* use, int rows, int width, void* stream) {
-  if (rows < 0 || width < 1 || width > kMaxW) return cudaErrorInvalidValue;
+  if (rows < 0 || width < 1 || width > kW) return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
-  constexpr int kRows = kByOffset ? kK3Rows : kK2Rows;
-  const auto kernel = kByOffset ? kde_argmax_v2_kernel : kde_argmax_kernel;
+  constexpr int kRows = block_rows<kW, kByOffset>();
+  const auto kernel =
+      kW > kMaxW ? (kByOffset ? kde_argmax_v2_wide_kernel
+                              : kde_argmax_wide_kernel)
+                 : (kByOffset ? kde_argmax_v2_kernel : kde_argmax_kernel);
   const int nb = row_blocks<kRows>(width);
   const size_t smem = smem_bytes<kRows>(nb, kByOffset);
   cudaError_t err = cudaFuncSetAttribute(
@@ -595,13 +653,17 @@ int launch(const float* vals, const unsigned char* mask, float* kde_val,
 
 // vals (rows, width) f32, mask (rows, width) bool bytes -> kde_val (rows,)
 // f32 (the density argmax, or the masked median where use is 0), use
-// (rows,) bool bytes; contiguous, on the device. Launches on `stream` and
-// returns cudaGetLastError() (or cudaErrorInvalidValue for shapes it does
-// not take). K2: the densities summed by sample.
+// (rows,) bool bytes; contiguous, on the device. Rows up to kMaxW wide
+// launch the narrow instance, rows up to kWideMaxW the wide one. Launches
+// on `stream` and returns cudaGetLastError() (or cudaErrorInvalidValue for
+// shapes it does not take). K2: the densities summed by sample.
 extern "C" int kde_argmax_forward(const float* vals, const unsigned char* mask,
                                   float* kde_val, unsigned char* use, int rows,
                                   int width, void* stream) {
-  return launch<false>(vals, mask, kde_val, use, rows, width, stream);
+  return width > kMaxW ? launch<kWideMaxW, false>(vals, mask, kde_val, use,
+                                                  rows, width, stream)
+                       : launch<kMaxW, false>(vals, mask, kde_val, use, rows,
+                                              width, stream);
 }
 
 // The same with K3: the densities summed by offset, in v2's order.
@@ -609,5 +671,8 @@ extern "C" int kde_argmax_v2_forward(const float* vals,
                                      const unsigned char* mask,
                                      float* kde_val, unsigned char* use,
                                      int rows, int width, void* stream) {
-  return launch<true>(vals, mask, kde_val, use, rows, width, stream);
+  return width > kMaxW ? launch<kWideMaxW, true>(vals, mask, kde_val, use,
+                                                 rows, width, stream)
+                       : launch<kMaxW, true>(vals, mask, kde_val, use, rows,
+                                             width, stream);
 }

@@ -1,20 +1,21 @@
 """Dataset registry: a config -> (train, test, read path).
 
-Port of the univariate branches of ``hypad_tpu.data.registry``
-``dataset_selection``, over the config's ``data_root``:
+Port of ``hypad_tpu.data.registry`` ``dataset_selection``, over the
+config's ``data_root``:
 
+* a multivariate config (``signal: multivariate``, or a dataset of the
+  SWaT / WADI / CASAS family): ``data/multivariate.py``'s loaders;
 * ``unique_dataset: true``: ``{signal}.csv`` trains and tests (NAB style);
 * dataset A1..A4: ``YAHOO/{dataset}Benchmark/{signal}.csv``, Yahoo
   preprocessing, interval 1;
 * otherwise: ``{signal}-train.csv`` and ``{signal}-test.csv``.
-
-The multivariate datasets are not ported yet (ROADMAP A11).
 """
 
 from __future__ import annotations
 
 import os
 
+from hypad_tpu_torch.data.multivariate import load_multivariate
 from hypad_tpu_torch.data.pipeline import load_signal_dataset
 
 YAHOO_DATASETS = ("A1", "A2", "A3", "A4")
@@ -23,6 +24,8 @@ MULTIVARIATE_DATASETS = ("CASAS_", "new_CASAS", "SWAT", "WADI", "CASAS",
 
 
 def is_multivariate(params):
+    """Whether ``params`` detects per timestep: JAX's detector dispatch
+    (``signal: multivariate``, or a dataset of the multivariate family)."""
     return (params.signal == "multivariate"
             or params.dataset in MULTIVARIATE_DATASETS)
 
@@ -32,11 +35,8 @@ def dataset_selection(params, cache_dir=None):
     test data is the train data's object where one CSV serves both."""
     data_root = getattr(params, "data_root", "./data")
 
-    if is_multivariate(params):
-        raise NotImplementedError(
-            f"multivariate dataset {params.dataset!r} (signal "
-            f"{params.signal!r}): the multivariate loaders are not ported "
-            "yet (ROADMAP A11)")
+    if params.dataset in MULTIVARIATE_DATASETS:
+        return load_multivariate(params, data_root)
 
     if getattr(params, "unique_dataset", False):
         path = os.path.join(data_root, f"{params.signal}.csv")

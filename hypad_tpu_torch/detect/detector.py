@@ -1,22 +1,28 @@
-"""Univariate detection: scores -> intervals -> metrics -> files.
+"""Detection: scores -> intervals -> metrics -> files.
 
-Port of the univariate path of ``hypad_tpu.detect.detector``:
+Port of ``hypad_tpu.detect.detector``:
 
 * :func:`detect`, the CLI's detection: ground truth (a Yahoo signal's own
-  runs, else ``anomalies.csv``), the one-call scorer with the inference
+  runs, a multivariate stream's label runs (``casas_anomalies``), else
+  ``anomalies.csv``), the one-call scorer with the inference
   artifacts saved (or, under ``load: true``, the cached artifacts staged
   on the device once and the scores cached per variant), fixed-threshold
-  intervals over the signal's whole timeline, ``anomalies.csv``, the
-  contextual confusion matrix and F1, and the cumulative results CSV under
+  intervals over the signal's whole timeline (0.33 / 0.1 threshold
+  windows), or for a multivariate config over the N timesteps (0.2 / 0.1
+  windows, anomaly padding 200), ``anomalies.csv``, the contextual
+  confusion matrix and F1, and the cumulative results CSV under
   ``output_root/results/``;
 * :func:`detect_grid`: every (rec_error x combination) cell from one
   forward pass, intervals for all cells at once, ``grid_results.csv``;
 * :func:`detect_univariate`: the same scores -> intervals -> metrics on
   arrays, without files.
 
-The CSV files keep pandas' ``to_csv`` layouts, written with ``csv``.
-Multivariate input (ROADMAP A11), precomputed fleet scores (A10) and plots
-(A12) are not ported and raise ``NotImplementedError``.
+A config is multivariate as JAX's detector decides it (``signal:
+multivariate``, or a dataset of the multivariate family). The CSV files
+keep pandas' ``to_csv`` layouts, written with ``csv``. Plots are not ported
+(ROADMAP A12): ``save_plots: true`` raises ``NotImplementedError``, and a
+multivariate run, which JAX plots by default, prints that it skips the
+plot.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 
 from hypad_tpu_torch._device import resolve_device
+from hypad_tpu_torch.data.multivariate import casas_anomalies
 from hypad_tpu_torch.data.pipeline import load_anomalies, write_intervals_csv
 from hypad_tpu_torch.data.registry import YAHOO_DATASETS, is_multivariate
 from hypad_tpu_torch.detect import intervals as iv
@@ -35,9 +42,14 @@ from hypad_tpu_torch.detect import metrics as mt
 from hypad_tpu_torch.detect import scorer as sc
 from hypad_tpu_torch.utils import artifacts
 
-# univariate interval extraction: 0.33/0.1 threshold windows, fixed threshold
+# interval extraction, fixed threshold: univariate 0.33/0.1 threshold
+# windows; multivariate 0.2/0.1 windows with anomaly padding 200
 _UNIVARIATE_FA_KW = dict(window_size_portion=0.33,
                          window_step_size_portion=0.1, fixed_threshold=True)
+_MV_FA_KW = dict(window_size_portion=0.2, window_step_size_portion=0.1,
+                 fixed_threshold=True, anomaly_padding=200)
+_PLOT_SKIPPED = ("save_plots: the multivariate run's anomaly plot is skipped: "
+                 "plots are not ported (ROADMAP A12)")
 
 
 def _confusion_and_metrics(known_anomalies, pred, verbose=True):
@@ -52,22 +64,31 @@ def _confusion_and_metrics(known_anomalies, pred, verbose=True):
         return (0, 0, 0, 0), None
 
 
-def _univariate_intervals(scores, true_index):
-    return iv.find_anomalies(np.asarray(scores).reshape(-1), true_index,
-                             **_UNIVARIATE_FA_KW)
+def _intervals(scores, true_index, multivariate):
+    """Intervals of one signal's scores: per timestep (positions 0..N-1)
+    multivariate, over ``true_index`` univariate."""
+    scores = np.asarray(scores).reshape(-1)
+    if multivariate:
+        return iv.find_anomalies(scores, np.arange(len(scores)), **_MV_FA_KW)
+    return iv.find_anomalies(scores, true_index, **_UNIVARIATE_FA_KW)
 
 
-def _check_univariate(params, save_plots=None):
-    if is_multivariate(params):
-        raise NotImplementedError("multivariate detection is not ported yet "
-                                  "(ROADMAP A11)")
-    if save_plots:
-        raise NotImplementedError("plots are not ported yet (ROADMAP A12)")
+def _multivariate_ground_truth(test_data):
+    """The label runs of a multivariate test stream (``casas_anomalies``,
+    its off-by-one end and dropped trailing run kept); none for a stream
+    without labels (SWaT, WADI)."""
+    y = getattr(test_data, "y", None)
+    if y is None:
+        return np.zeros((0, 2), np.int64)
+    y = np.asarray(y).reshape(-1)[: len(test_data.X)]
+    return casas_anomalies(y, np.arange(len(y)))
 
 
 def _ground_truth(params, test_data, known_anomalies):
     if known_anomalies is not None:
         return known_anomalies
+    if is_multivariate(params):
+        return _multivariate_ground_truth(test_data)
     if params.dataset in YAHOO_DATASETS:
         return test_data.known_anomalies
     return load_anomalies(params.signal, params.data_root)
@@ -92,7 +113,8 @@ def _windows_on_device(test_data, device):
 def detect(params, model, test_data, run_path, known_anomalies=None,
            save_plots=None, precomputed_scores=None, device="cuda"):
     """Detection of the config ``params`` with ``model`` (on ``device``) on
-    ``test_data`` (a ``SignalData``), writing into ``run_path``. Returns
+    ``test_data`` (a ``SignalData``, or a ``MultivariateData`` for a
+    multivariate config), writing into ``run_path``. Returns
     {"scores", "intervals", "confusion", "metrics"} (metrics None when
     undefined). The KDE kernel follows ``HYPAD_KDE_PALLAS``.
 
@@ -100,7 +122,9 @@ def detect(params, model, test_data, run_path, known_anomalies=None,
     (``detect_scores_fleet`` of a sweep): no device work runs, only the
     epilogue (intervals, anomalies.csv, metrics, the results CSV); no
     inference artifact is written."""
-    _check_univariate(params, save_plots)
+    if save_plots:
+        raise NotImplementedError("plots are not ported yet (ROADMAP A12)")
+    mv = is_multivariate(params)
     device = resolve_device(device)
     kde_version = sc.kde_version_from_env()
     os.makedirs(run_path, exist_ok=True)
@@ -108,9 +132,9 @@ def detect(params, model, test_data, run_path, known_anomalies=None,
     if precomputed_scores is not None:
         final_scores = np.asarray(precomputed_scores)
         return _epilogue(params, final_scores,
-                         _univariate_intervals(final_scores,
-                                               np.asarray(test_data.index)),
-                         known_anomalies, run_path)
+                         _intervals(final_scores,
+                                    np.asarray(test_data.index), mv),
+                         known_anomalies, run_path, mv and save_plots is None)
 
     one_call_scores = None
     save_artifacts = getattr(params, "save_artifacts", True) or params.load
@@ -126,7 +150,8 @@ def detect(params, model, test_data, run_path, known_anomalies=None,
             fetch_inference=save_artifacts, kde_version=kde_version,
             device=device,
             artifact_dtype=getattr(params, "artifact_dtype", "float32"),
-            artifact_set=getattr(params, "artifact_set", "full"))
+            artifact_set=getattr(params, "artifact_set", "full"),
+            multivariate=mv)
         # the whole aggregated timeline (N + W entries) maps the T = N + W
         # - 1 unrolled score positions to timestamps
         true_index = np.asarray(test_data.index)
@@ -137,6 +162,10 @@ def detect(params, model, test_data, run_path, known_anomalies=None,
     def compute():
         if one_call_scores is not None:
             return one_call_scores
+        if mv:
+            return sc.score_anomalies_multivariate(
+                inference, params.combination, params.hyperbolic,
+                kde_version, device)
         if params.hyperbolic:
             return sc.score_anomalies_hyperbolic(
                 inference, params.combination, kde_version, device)
@@ -145,22 +174,28 @@ def detect(params, model, test_data, run_path, known_anomalies=None,
             inference.critic_score, params.rec_error, params.combination,
             kde_version=kde_version, device=device)
 
-    cache_key = (f"scores_hyper_{params.combination}" if params.hyperbolic
+    cache_key = (f"scores_mv_{params.combination}" if mv else
+                 f"scores_hyper_{params.combination}" if params.hyperbolic
                  else f"scores_eucl_{params.rec_error}_{params.combination}")
     final_scores = artifacts.cache_scores(run_path, cache_key, compute,
                                           enabled=params.load)
-    intervals = _univariate_intervals(final_scores, true_index)
+    intervals = _intervals(final_scores, true_index, mv)
     return _epilogue(params, final_scores, intervals, known_anomalies,
-                     run_path)
+                     run_path, mv and save_plots is None)
 
 
-def _epilogue(params, final_scores, intervals, known_anomalies, run_path):
-    """anomalies.csv, the confusion and metrics, the results CSV row."""
+def _epilogue(params, final_scores, intervals, known_anomalies, run_path,
+              plot_skipped=False):
+    """anomalies.csv, the confusion and metrics, the results CSV row; and
+    where JAX would plot by default (a multivariate run), one line saying
+    the plot is skipped."""
     write_intervals_csv(os.path.join(run_path, "anomalies.csv"), intervals,
                         ("start", "end", "score"))
     confusion, metrics = _confusion_and_metrics(known_anomalies, intervals)
     if params.save_result:
         _append_results_csv(params, confusion)
+    if plot_skipped:
+        print(_PLOT_SKIPPED)
     return {"scores": np.asarray(final_scores), "intervals": intervals,
             "confusion": confusion, "metrics": metrics}
 
@@ -184,8 +219,9 @@ def detect_grid(params, model, test_data, run_path, rec_errors=None,
     forward pass (:func:`scorer.detect_scores_grid`), the intervals of all
     cells in one batch, each cell's confusion and metrics, and
     ``grid_results.csv`` in ``run_path``. Returns {(rec_error or None,
-    combination): result dict as :func:`detect` gives}."""
-    _check_univariate(params)
+    combination): result dict as :func:`detect` gives}; a multivariate
+    config's cells are scored and thresholded per timestep."""
+    mv = is_multivariate(params)
     device = resolve_device(device)
     os.makedirs(run_path, exist_ok=True)
     known_anomalies = _ground_truth(params, test_data, known_anomalies)
@@ -196,11 +232,16 @@ def detect_grid(params, model, test_data, run_path, rec_errors=None,
     grid = sc.detect_scores_grid(
         model, test_data.X if X_dev is None else X_dev, params.hyperbolic,
         combinations, rec_errors=rec_errors,
-        kde_version=sc.kde_version_from_env(), device=device)
+        kde_version=sc.kde_version_from_env(), device=device,
+        multivariate=mv)
     cells = list(grid)
     score_matrix = np.stack([grid[c].reshape(-1) for c in cells])
-    all_intervals = iv.find_anomalies_batch(
-        score_matrix, np.asarray(test_data.index), **_UNIVARIATE_FA_KW)
+    if mv:
+        all_intervals = iv.find_anomalies_batch(
+            score_matrix, np.arange(score_matrix.shape[1]), **_MV_FA_KW)
+    else:
+        all_intervals = iv.find_anomalies_batch(
+            score_matrix, np.asarray(test_data.index), **_UNIVARIATE_FA_KW)
 
     rows, results = [], {}
     for (re_, cb), scores, intervals in zip(cells, score_matrix,
@@ -261,7 +302,7 @@ def detect_univariate(model, X, index, known_anomalies, combination="mult",
     scores, _ = sc.detect_scores(model, X, hyperbolic, combination,
                                  rec_error=rec_error, fetch_inference=False,
                                  kde_version=kde_version, device=device)
-    intervals = _univariate_intervals(scores, np.asarray(index))
+    intervals = _intervals(scores, np.asarray(index), False)
     confusion, metrics = _confusion_and_metrics(known_anomalies, intervals,
                                                 verbose=verbose)
     return {"scores": scores, "intervals": intervals, "confusion": confusion,

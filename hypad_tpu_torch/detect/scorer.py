@@ -1,6 +1,7 @@
-"""Univariate detector: forward pass and scoring, hyperbolic and Euclidean.
+"""The detector's forward pass and scoring: univariate (hyperbolic and
+Euclidean) and multivariate.
 
-Port of the univariate subset of ``hypad_tpu.detect.scorer``.
+Port of ``hypad_tpu.detect.scorer``.
 ``detect_scores`` runs the encoder, critic_x and decoder forwards and the
 whole scoring pipeline on one device:
 
@@ -11,13 +12,18 @@ whole scoring pipeline on one device:
   per-window acosh Poincare distance, combined in any of 8 ways;
 * Euclidean (TadGAN): the reconstruction error of the unrolled series,
   ``point``, ``area`` or ``dtw``, smoothed and z-scored, combined by
-  ``mult``, ``sum``, ``rec`` or ``critic``.
+  ``mult``, ``sum``, ``rec`` or ``critic``;
+* multivariate (``multivariate=True``, rows are timesteps' feature vectors
+  (N, F)): each row's acosh distance (hyperbolic) or L2 error (Euclidean),
+  z-scored, clipped at 0, plus 1, then the critic scores truncated to N
+  rows and any of the 8 combinations, in either geometry.
 
 On the card the MobiusLinear applications and the KDE argmax go through the
 hand-written kernels (``manifold/kernels.py``, ``ops/kde_kernel.py``); on
 the CPU through their plain versions. Above ``ONE_CALL_MAX_WINDOWS`` the
 forward runs in chunks (``run_inference``) and the staged
-``score_anomalies_*`` score its host arrays.
+``score_anomalies_*`` (``score_anomalies_multivariate`` for multivariate
+rows) score its host arrays.
 
 ``detect_scores_grid`` scores every (rec_error x combination) cell from one
 forward pass and one critic KDE launch. ``stage_inference`` puts a cached
@@ -27,10 +33,11 @@ artifact set on the device once, for the staged scorers to take as it is.
 counterpart of JAX's vmapped fleet program): one batched forward of the
 padded (S, N, W) stack, each signal's real anti-diagonal rows through ONE
 KDE launch, and the scoring tails with every reduction over each signal's
-real prefix (the ragged ops of ``ops/rolling.py`` and ``ops/unroll.py``).
+real prefix (the ragged ops of ``ops/rolling.py`` and ``ops/unroll.py``);
+with ``multivariate=True`` a family of (N_i, F) streams, each row scored
+per timestep.
 
-Not ported yet: the fleet grid and multivariate detection (ROADMAP A10,
-A11).
+Not ported yet: the fleet grid (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -299,6 +306,8 @@ def _combine_device(combination, critic_scores, rec_scores, recons):
 
 
 def _check_combination(hyperbolic, combination):
+    """``hyperbolic``: the path takes all 8 combinations (a hyperbolic or a
+    multivariate one), else the Euclidean 4."""
     if hyperbolic and combination not in COMBINATIONS:
         raise ValueError(f"unknown combination {combination!r}")
     if not hyperbolic and combination not in EUCL_COMBOS:
@@ -355,6 +364,37 @@ def _hyper_scores_core(recons, true, critic, combination, width,
     return _combine_device(combination, critic_scores, rec_scores, recons)
 
 
+def _mv_rec_scores(recons, true, hyperbolic, n_real=None):
+    """Per-row rec scores of multivariate rows (..., N, F): the acosh
+    Poincare distance (hyperbolic) or the L2 norm of the error
+    (Euclidean), z-scored (over each signal's first ``n_real`` rows when
+    given), clipped at 0, plus 1."""
+    if hyperbolic:
+        raw = st.acosh_poincare_distance(recons, true)
+    else:
+        raw = torch.linalg.norm(true - recons, dim=-1)
+    if n_real is None:
+        z = zscore(raw)
+    else:
+        z = zscore_masked(raw, torch.arange(raw.shape[-1], device=raw.device)
+                          [None, :] < n_real[:, None])
+    return z.clamp_min(0.0) + 1.0
+
+
+def _mv_scores_core(recons, true, critic, combination, hyperbolic, width,
+                    smooth_window, kde_version="v1"):
+    """The multivariate scores (N,) of (N, F) rows: per-row rec scores, the
+    critic scores truncated to N rows (only for a combination that reads
+    them), combined (hypad_tpu/detect/scorer.py:552-579)."""
+    rec_scores = _mv_rec_scores(recons, true, hyperbolic)
+    critic_scores = None
+    if combination in CRITIC_COMBOS:
+        critic_scores = _critic_scores_core(critic, width, smooth_window,
+                                            kde_version)
+        critic_scores = critic_scores[: rec_scores.shape[0]]
+    return _combine_device(combination, critic_scores, rec_scores, recons)
+
+
 def score_anomalies_euclidean(y, y_hat, critic, rec_error_type="point",
                               comb="mult", lambda_rec=0.5, kde_version="v1",
                               device="cuda"):
@@ -390,6 +430,23 @@ def score_anomalies_hyperbolic(inference: InferenceOutput, combination,
     return out.cpu().numpy()
 
 
+def score_anomalies_multivariate(inference: InferenceOutput, combination,
+                                 hyperbolic, kde_version="v1",
+                                 device="cuda"):
+    """The multivariate scores (N,) as numpy, from ``run_inference``'s
+    output of (N, F) rows (host or device arrays)."""
+    _check_combination(True, combination)
+    n, w = np.shape(inference.true_signal)
+    device = resolve_device(device)
+    with torch.inference_mode():
+        out = _mv_scores_core(
+            _as_device(inference.recons_signal, device),
+            _as_device(inference.true_signal, device),
+            _as_device(inference.critic_score, device), combination,
+            hyperbolic, w, max(math.trunc(n * 0.01), 1), kde_version)
+    return out.cpu().numpy()
+
+
 def hyperbolic_window_scores(recons_signal, true_signal, device="cuda"):
     """Per-window acosh Poincare distance. (N, W) arrays -> (N,) numpy."""
     device = resolve_device(device)
@@ -404,17 +461,27 @@ def hyperbolic_window_scores(recons_signal, true_signal, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def _detect_core(model, X, hyperbolic, combination, rec_error, width,
-                 smooth_window, kde_version="v1"):
-    """Forward pass and scoring of the (N, W) windows X."""
+                 smooth_window, kde_version="v1", multivariate=False):
+    """Forward pass and scoring of the (N, W) windows, or (N, F) rows
+    under ``multivariate``, X."""
     outs = _forward_chunk(model, X, hyperbolic)
     if hyperbolic:
         hyper, _, hyper_x, critic = outs
-        scores = _hyper_scores_core(hyper, hyper_x, critic, combination,
-                                    width, smooth_window, kde_version)
+        if multivariate:
+            scores = _mv_scores_core(hyper, hyper_x, critic, combination,
+                                     True, width, smooth_window, kde_version)
+        else:
+            scores = _hyper_scores_core(hyper, hyper_x, critic, combination,
+                                        width, smooth_window, kde_version)
         return scores, outs
     recon, critic = outs
-    scores = _eucl_scores_core(X, recon, critic, rec_error, combination,
-                               width, smooth_window, kde_version=kde_version)
+    if multivariate:
+        scores = _mv_scores_core(recon, X, critic, combination, False, width,
+                                 smooth_window, kde_version)
+    else:
+        scores = _eucl_scores_core(X, recon, critic, rec_error, combination,
+                                   width, smooth_window,
+                                   kde_version=kde_version)
     return scores, outs
 
 
@@ -440,7 +507,8 @@ def _apply_artifact_opts(inference, artifact_dtype, artifact_set,
 
 def detect_scores(params, X, hyperbolic, combination, rec_error="point",
                   fetch_inference=True, kde_version="v1", device="cuda",
-                  artifact_dtype="float32", artifact_set="full"):
+                  artifact_dtype="float32", artifact_set="full",
+                  multivariate=False):
     """The whole detection compute on ``device``: returns (final scores as
     numpy, InferenceOutput of numpy arrays or None). The scores are (N,)
     hyperbolic and (N + W - 1,) Euclidean.
@@ -458,15 +526,25 @@ def detect_scores(params, X, hyperbolic, combination, rec_error="point",
 
     Above ``ONE_CALL_MAX_WINDOWS`` windows the forward runs in chunks
     (:func:`run_inference`) and :func:`score_anomalies_hyperbolic` or
-    :func:`score_anomalies_euclidean` scores its output."""
-    _check_combination(hyperbolic, combination)
-    if not hyperbolic and rec_error not in REC_ERRORS:
+    :func:`score_anomalies_euclidean` scores its output.
+
+    ``multivariate=True``: X holds (N, F) timestep rows and the scores are
+    the per-row multivariate scores (N,) (:func:`_mv_scores_core`), in
+    either geometry and for any of the 8 combinations; ``rec_error`` is
+    not read. Above the one-call limit :func:`score_anomalies_multivariate`
+    scores the chunked forward."""
+    _check_combination(hyperbolic or multivariate, combination)
+    if not (hyperbolic or multivariate) and rec_error not in REC_ERRORS:
         raise ValueError(f"unknown rec_error_type {rec_error!r}")
     device = resolve_device(device)
     _check_params_device(params, device)
     if len(X) > ONE_CALL_MAX_WINDOWS:
         inference = run_inference(params, X, hyperbolic, device=device)
-        if hyperbolic:
+        if multivariate:
+            scores = score_anomalies_multivariate(inference, combination,
+                                                  hyperbolic, kde_version,
+                                                  device)
+        elif hyperbolic:
             scores = score_anomalies_hyperbolic(inference, combination,
                                                 kde_version, device)
         else:
@@ -484,7 +562,8 @@ def detect_scores(params, X, hyperbolic, combination, rec_error="point",
     with torch.inference_mode():
         scores, outs = _detect_core(params, Xt, hyperbolic, combination,
                                     rec_error, w, max(math.trunc(n * 0.01),
-                                                      1), kde_version)
+                                                      1), kde_version,
+                                    multivariate)
         scores = scores.cpu().numpy()
         if not fetch_inference:
             return scores, None
@@ -508,11 +587,11 @@ def detect_scores(params, X, hyperbolic, combination, rec_error="point",
 # grid detection: every (rec_error x combination) cell from one forward pass
 # ---------------------------------------------------------------------------
 
-def _validate_grid(hyperbolic, combinations, rec_errors):
+def _validate_grid(hyperbolic, combinations, rec_errors, multivariate=False):
     """The cells deduplicated in order; an unknown combination for the
     path or an unknown rec_error raises."""
     combinations = tuple(dict.fromkeys(combinations))
-    valid = COMBINATIONS if hyperbolic else EUCL_COMBOS
+    valid = COMBINATIONS if (hyperbolic or multivariate) else EUCL_COMBOS
     bad = [cb for cb in combinations if cb not in valid]
     if bad:
         raise ValueError(f"unknown combination(s) {bad} for this path; "
@@ -525,7 +604,8 @@ def _validate_grid(hyperbolic, combinations, rec_errors):
 
 
 def _grid_core(model, X, hyperbolic, combinations, rec_errors, width,
-               smooth_window, kde_version="v1", lambda_rec=0.5):
+               smooth_window, kde_version="v1", lambda_rec=0.5,
+               multivariate=False):
     """One forward pass, one critic pipeline (one KDE launch, only if a
     combination reads it), one reconstruction error per rec_error, then
     every combination's tail, each the same operations as the single-cell
@@ -535,9 +615,11 @@ def _grid_core(model, X, hyperbolic, combinations, rec_errors, width,
     if any(cb in CRITIC_COMBOS for cb in combinations):
         critic_scores = _critic_scores_core(outs[-1], width, smooth_window,
                                             kde_version)
-    if hyperbolic:
-        recons, _, hyper_x, _ = outs
-        rec_scores = st.acosh_poincare_distance(recons, hyper_x)
+    if hyperbolic or multivariate:
+        recons, other = (outs[0], outs[2]) if hyperbolic else (outs[0], X)
+        rec_scores = (_mv_rec_scores(recons, other, hyperbolic)
+                      if multivariate else
+                      st.acosh_poincare_distance(recons, other))
         if critic_scores is not None:
             critic_scores = critic_scores[: rec_scores.shape[0]]
         return {(None, cb): _combine_device(cb, critic_scores, rec_scores,
@@ -554,7 +636,7 @@ def _grid_core(model, X, hyperbolic, combinations, rec_errors, width,
 
 def detect_scores_grid(params, X, hyperbolic, combinations,
                        rec_errors=("point",), kde_version="v1",
-                       device="cuda"):
+                       device="cuda", multivariate=False):
     """Every (rec_error x combination) detection cell of the (N, W) windows
     ``X`` (numpy or a tensor on ``device``) from one forward pass and one
     critic KDE launch: each rec_error's unroll and error are computed once,
@@ -562,21 +644,27 @@ def detect_scores_grid(params, X, hyperbolic, combinations,
     :func:`detect_scores` for that cell.
 
     Returns ``{(rec_error or None, combination): numpy scores}``: the
-    rec_error slot is None for hyperbolic cells, whose rec scores take no
-    rec_error. Above ``ONE_CALL_MAX_WINDOWS`` the forward runs in chunks
-    (:func:`run_inference`) and each cell is scored from its output."""
+    rec_error slot is None for hyperbolic and multivariate cells, whose rec
+    scores take no rec_error. ``multivariate=True`` scores (N, F) timestep
+    rows as :func:`detect_scores` does. Above ``ONE_CALL_MAX_WINDOWS`` the
+    forward runs in chunks (:func:`run_inference`) and each cell is scored
+    from its output."""
     combinations, rec_errors = _validate_grid(hyperbolic, combinations,
-                                              rec_errors)
-    if hyperbolic and len(rec_errors) > 1:
+                                              rec_errors, multivariate)
+    if (hyperbolic or multivariate) and len(rec_errors) > 1:
         warnings.warn(
             "rec_errors apply only to the euclidean univariate path; the "
-            "hyperbolic grid keys cells by combination alone and the "
-            "requested rec_error sweep collapses to one row per combination",
-            stacklevel=2)
+            f"{'hyperbolic' if hyperbolic else 'multivariate'} grid keys "
+            "cells by combination alone and the requested rec_error sweep "
+            "collapses to one row per combination", stacklevel=2)
     device = resolve_device(device)
     _check_params_device(params, device)
     if len(X) > ONE_CALL_MAX_WINDOWS:
         inference = run_inference(params, X, hyperbolic, device=device)
+        if multivariate:
+            return {(None, cb): score_anomalies_multivariate(
+                        inference, cb, hyperbolic, kde_version, device)
+                    for cb in combinations}
         if hyperbolic:
             return {(None, cb): score_anomalies_hyperbolic(
                         inference, cb, kde_version, device)
@@ -590,7 +678,8 @@ def detect_scores_grid(params, X, hyperbolic, combinations,
     n, w = Xt.shape
     with torch.inference_mode():
         out = _grid_core(params, Xt, hyperbolic, combinations, rec_errors, w,
-                         max(math.trunc(n * 0.01), 1), kde_version)
+                         max(math.trunc(n * 0.01), 1), kde_version,
+                         multivariate=multivariate)
         # JAX's cell order: its one-call grid comes back as a dict keyed
         # "comb" or "rec_error/comb", which the device fetch sorts
         order = sorted(out, key=lambda c: c[1] if c[0] is None
@@ -713,9 +802,10 @@ def _rec_errors_fleet(y, y_hat, n_real, rec_error_type, smooth,
 
 
 def _detect_core_fleet(P, Xs, n_real, n_host, hyperbolic, combination,
-                       rec_error, width, smooth, kde_version):
-    """The fleet's forward and scoring: (S, N) hyperbolic or (S, T)
-    Euclidean scores, pad positions unspecified. The outputs of pad
+                       rec_error, width, smooth, kde_version,
+                       multivariate=False):
+    """The fleet's forward and scoring: (S, N) hyperbolic or multivariate,
+    (S, T) Euclidean scores, pad positions unspecified. The outputs of pad
     windows are zeroed first, so no pad value (a NaN of a poisoned pad
     row, say) reaches a masked reduction."""
     S, N, _ = Xs.shape
@@ -724,14 +814,18 @@ def _detect_core_fleet(P, Xs, n_real, n_host, hyperbolic, combination,
     outs = [torch.where(live if t.dim() == 3 else live[..., 0], t, 0.0)
             for t in mf.forward_eval(P, Xs, hyperbolic)]
     critic = outs[-1]
-    if hyperbolic:
-        hyper, _, hyper_x, _ = outs
-        rec_scores = st.acosh_poincare_distance(hyper, hyper_x)
+    if hyperbolic or multivariate:
+        recons, other = ((outs[0], outs[2]) if hyperbolic
+                         else (outs[0], torch.where(live, Xs, 0.0)))
+        rec_scores = (_mv_rec_scores(recons, other, hyperbolic, n_real)
+                      if multivariate else
+                      st.acosh_poincare_distance(recons, other))
         critic_scores = None
         if combination in CRITIC_COMBOS:
             critic_scores = _critic_scores_fleet(
                 critic, n_real, n_host, width, smooth, kde_version)[:, :N]
-        return _combine_device(combination, critic_scores, rec_scores, hyper)
+        return _combine_device(combination, critic_scores, rec_scores,
+                               recons)
     recon = outs[0]
     errors = _rec_errors_fleet(torch.where(live, Xs, 0.0), recon, n_real,
                                rec_error, smooth)
@@ -776,10 +870,11 @@ def _fleet_stage(X_list, staged, device):
 
 def detect_scores_fleet(stacked, X_list, hyperbolic, combination,
                         rec_error="point", staged=None, canonical=True,
-                        kde_version=None, device="cuda"):
+                        kde_version=None, device="cuda", multivariate=False):
     """The scores of a whole signal family, each signal's as
     :func:`detect_scores` computes them alone: a list of S numpy vectors
-    sliced to their true lengths (N_i hyperbolic, N_i + W - 1 Euclidean).
+    sliced to their true lengths (N_i hyperbolic or multivariate,
+    N_i + W - 1 Euclidean).
 
     ``stacked``: the fleet's stacked parameters (``train.fleet``
     ``stack_models`` or a ``FleetState``'s ``params``) on ``device``.
@@ -797,9 +892,14 @@ def detect_scores_fleet(stacked, X_list, hyperbolic, combination,
 
     A family whose peak buffer passes ``FLEET_MAX_BYTES`` is scored in
     chunks of one fixed signal count (``fleet_chunk_plan``), each one KDE
-    launch; the signals are independent, so chunks change no value."""
-    _check_combination(hyperbolic, combination)
-    if not hyperbolic and rec_error not in REC_ERRORS:
+    launch; the signals are independent, so chunks change no value.
+
+    ``multivariate=True``: X_list holds S (N_i, F) timestep streams of one
+    feature count F (a CASAS family, say), each scored per row with its
+    rec scores z-scored over its own N_i rows; ``rec_error`` is not
+    read."""
+    _check_combination(hyperbolic or multivariate, combination)
+    if not (hyperbolic or multivariate) and rec_error not in REC_ERRORS:
         raise ValueError(f"unknown rec_error_type {rec_error!r}")
     device = resolve_device(device)
     P = getattr(stacked, "params", stacked)
@@ -812,7 +912,7 @@ def detect_scores_fleet(stacked, X_list, hyperbolic, combination,
     if ref.shape[0] < S:
         raise ValueError(f"{ref.shape[0]} stacked models for {S} signals")
     smooth_host = np.maximum(np.trunc(n_host * 0.01).astype(np.int64), 1)
-    lens = n_host if hyperbolic else n_host + width - 1
+    lens = n_host if (hyperbolic or multivariate) else n_host + width - 1
 
     def run(lo, size):
         sl = slice(lo, lo + size)
@@ -821,7 +921,8 @@ def detect_scores_fleet(stacked, X_list, hyperbolic, combination,
             out = _detect_core_fleet(
                 {k: v[sl] for k, v in P.items()}, Xs[sl], n_real,
                 n_host[sl], hyperbolic, combination, rec_error, width,
-                torch.as_tensor(smooth_host[sl], device=device), kde_version)
+                torch.as_tensor(smooth_host[sl], device=device), kde_version,
+                multivariate)
             if canonical:
                 out = _snap_scores(out, torch.as_tensor(lens[sl],
                                                         device=device))

@@ -10,6 +10,10 @@ launches the kernel (or raises), on a CPU tensor it runs the plain version.
 whose backward is autograd of the plain composition, as the JAX
 ``custom_vjp`` does (there is no backward kernel).
 
+Widths up to 128 run the narrow kernel, 129 to 256 (multivariate feature
+counts) the wide one of the same source; above 256 the wrapper raises a
+ValueError on every device, so no width silently takes the plain path.
+
 All three take a leading signal axis too (the fleet's counterpart of
 ``jax.vmap``): x (S, N, in), w (S, out, in), b (S, out) is one launch, in
 which each signal gets the bits of its own single-signal launch.
@@ -24,7 +28,17 @@ import torch
 
 from hypad_tpu_torch.manifold import stereographic as st
 
-MAX_DIM = 128  # largest Din and Dout the kernel takes (csrc/mobius_linear.cu)
+# largest Din and Dout the kernels take (csrc/mobius_linear.cu): widths up to
+# NARROW_DIM run the narrow kernel, wider ones (multivariate feature counts)
+# the wide kernel, which stages W in chunks
+NARROW_DIM = 128
+MAX_DIM = 256
+
+
+def is_wide(din, dout):
+    """Whether a (din -> dout) launch takes the wide kernel, as
+    csrc/mobius_linear.cu's dispatch decides."""
+    return max(din, dout) > NARROW_DIM
 
 
 def mobius_linear(x, w, b, k=-1.0):
@@ -63,7 +77,8 @@ def _check(x, w, b):
                          f"{tuple(b.shape)}")
     if not (1 <= x.shape[-1] <= MAX_DIM and 1 <= w.shape[-2] <= MAX_DIM):
         raise ValueError(f"mobius_linear_kernel: in/out widths must be in "
-                         f"[1, {MAX_DIM}], got {x.shape[-1]}, {w.shape[-2]}")
+                         f"[1, {MAX_DIM}] (the kernels' limit), got "
+                         f"{x.shape[-1]}, {w.shape[-2]}")
 
 
 def bind(lib):
@@ -132,10 +147,13 @@ def mobius_linear_kernel(x, w, b):
                          f"{x.device}")
     out = launch_with(_lib() if x.dim() == 2 else _lib_signals(), x, w, b)
     mobius_linear_kernel.launches += 1
+    mobius_linear_kernel.wide_launches += is_wide(x.shape[-1], w.shape[-2])
     return out
 
 
+# every launch, and those of the wide kernel among them
 mobius_linear_kernel.launches = 0
+mobius_linear_kernel.wide_launches = 0
 
 
 class _MobiusLinearFn(torch.autograd.Function):

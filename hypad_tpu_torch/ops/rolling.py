@@ -27,9 +27,22 @@ def _window_bounds(n, window, device):
     return start, end
 
 
+def _cumsum_rows(x):
+    """``torch.cumsum(x, 1)`` of an (S, T) ``x``, the same bits on every
+    call. On the card torch scans a tensor that is one row with CUB, whose
+    decoupled look-back adds a tile's predecessors in the order they
+    finish, so two calls may differ in the last bits (and a detection's
+    scores and intervals with them); two or more rows it scans each in a
+    fixed order. So a single row on the card is scanned beside a row of
+    zeros."""
+    if x.shape[0] == 1 and x.is_cuda:
+        return torch.cumsum(torch.cat([x, torch.zeros_like(x)]), 1)[:1]
+    return torch.cumsum(x, 1)
+
+
 def _cumsum0(x):
     """Cumulative sum with a leading 0: window sums are differences."""
-    return torch.cat([x.new_zeros(1), torch.cumsum(x, 0)])
+    return torch.cat([x.new_zeros(1), _cumsum_rows(x[None])[0]])
 
 
 def rolling_mean_centered(x, window, min_periods=None):
@@ -93,7 +106,7 @@ def _window_bounds_ragged(size, window, n, device):
 
 
 def _cumsum0_rows(x):
-    return torch.cat([x.new_zeros((x.shape[0], 1)), torch.cumsum(x, 1)], 1)
+    return torch.cat([x.new_zeros((x.shape[0], 1)), _cumsum_rows(x)], 1)
 
 
 def rolling_mean_centered_ragged(x, window, n, min_periods):

@@ -35,7 +35,7 @@ from hypad_tpu_torch.train import critic_kernel as ck
 OUT = _build.BUILD_DIR / "variants"
 SHIPPED = "constexpr int kClusterBlocks = 8;"
 LAUNCH = "  const cudaError_t err = cudaLaunchKernelEx("
-NON_PORTABLE = ("  cudaFuncSetAttribute(critic_step_kernel, "
+NON_PORTABLE = ("  cudaFuncSetAttribute(kernel, "
                 "cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n")
 CASES = ((True, 64), (False, 64), (True, 13), (True, 3), (True, 100))
 WIDTH, LATENT, HIDDEN = 100, 20, 20
@@ -100,21 +100,22 @@ def launcher(lib, fn, ptrs, dims, extra):
     return go
 
 
-def critic_case(device, hyperbolic, B):
+def critic_case(device, hyperbolic, B, width=WIDTH, seed=0):
     """A full-width model and one critic step's inputs (x, draws) on
-    ``device``, from a seed."""
+    ``device``, from ``seed``; ``width`` is the signal's (a multivariate
+    run's feature count)."""
     from hypad_tpu_torch.models.tadgan import init_tadgan
 
-    g = torch.Generator().manual_seed(100 + B + hyperbolic)
-    model = init_tadgan(g, WIDTH, hyperbolic=hyperbolic, device=device)
+    g = torch.Generator().manual_seed(100 + B + hyperbolic + 1000 * seed)
+    model = init_tadgan(g, width, hyperbolic=hyperbolic, device=device)
     draws = {"z_x": torch.randn(B, LATENT, generator=g),
-             "a_x": torch.rand(B, WIDTH, generator=g),
+             "a_x": torch.rand(B, width, generator=g),
              "z_z": torch.randn(B, LATENT, generator=g),
              "a_z": torch.rand(B, LATENT, generator=g),
              "m_cx": torch.rand(4, 3 * B, HIDDEN, generator=g) < 0.75,
              "m_cz": torch.rand(2, 3 * B, HIDDEN, generator=g) < 0.8,
              "m_dec": torch.rand(B, 128, generator=g) < 0.8}
-    x = torch.rand(B, WIDTH, generator=g) * 2 - 1
+    x = torch.rand(B, width, generator=g) * 2 - 1
     return model, x.to(device), {k: v.to(device) for k, v in draws.items()}
 
 

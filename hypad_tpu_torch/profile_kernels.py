@@ -205,6 +205,35 @@ def tie_flips(got, want, vals, mask):
     return len(rows)
 
 
+def near_tie_flips(got, want, vals, mask):
+    """Rows where the KDE argmax picked another value; fails unless every
+    such value is a sample of its own row whose float64 density is within
+    n 2^-22 (relative) of the other's, n the row's samples: a bound on
+    the rounding of two f32 sums of n terms of at most 1, each term's
+    ``expf`` and the f32 bandwidth. The wide rows' check (129 to 256
+    samples): there a tie within 1e-6 of two samples on either side of a
+    row's mode is common enough that the 1% row cap of ``tie_flips``
+    does not describe ties."""
+    import numpy as np
+
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    v, m = vals.cpu().numpy(), mask.cpu().numpy()
+    rows = np.nonzero(got != want)[0]
+    for i in rows:
+        s = v[i][m[i]].astype(np.float64)
+        if got[i] not in s:
+            fail(f"KDE argmax row {i} holds no sample of its row")
+        # the row's Gaussian KDE in float64: mean, unbiased variance,
+        # Scott bandwidth h^2 = var n^-0.4
+        scale = -0.5 / (s.var(ddof=1) * len(s) ** -0.4)
+        d_got, d_want = (np.exp(scale * (float(x) - s) ** 2).sum()
+                         for x in (got[i], want[i]))
+        if abs(d_got - d_want) > len(s) * 2.0 ** -22 * d_want:
+            fail(f"KDE argmax row {i} differs by more than a tie: density "
+                 f"{d_got} against {d_want}")
+    return len(rows)
+
+
 def same_values(a, b):
     """Equal bit for bit, NaN where the other is NaN."""
     nan = torch.isnan(a)

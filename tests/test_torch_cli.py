@@ -453,13 +453,14 @@ def test_detect_univariate_is_the_cli_detection_on_arrays(tmp_path):
     (["sweep", "--canonical"], {}, "A10"),
     (["sweep", "--rec-errors", "point,dtw"], {}, "A10"),
     (["sweep", "--combinations", "all"], {}, "A10"),
-    (["sweep"], {"dataset": "SWAT", "signal": "multivariate"}, "A11"),
+    (["sweep", "--combinations", "all"],
+     {"dataset": "SWAT", "signal": "multivariate"}, "A10"),
     (["sweep"], {"devices": 2}, "A13"),
 ])
 def test_unported_cli_options_raise_naming_their_roadmap_item(
         tmp_path, argv, override, item):
     """What of ``sweep`` stays unported: ``--canonical`` and the fleet
-    grid (A10), a multivariate family (A11), several cards (A13)."""
+    grid, univariate or multivariate (A10), several cards (A13)."""
     cfg = _config(tmp_path, "port", signals=["sig"], **override)
     with pytest.raises(NotImplementedError, match=item):
         tcli.main([*argv, "--config", cfg, "--device", "cpu"])
@@ -467,7 +468,6 @@ def test_unported_cli_options_raise_naming_their_roadmap_item(
 
 @pytest.mark.parametrize("override,item", [
     ({"devices": 2}, "A13"), ({"save_plots": True}, "A12"),
-    ({"dataset": "SWAT", "signal": "multivariate"}, "A11"),
 ])
 def test_unported_config_keys_raise_naming_their_roadmap_item(
         tmp_path, override, item):

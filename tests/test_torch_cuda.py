@@ -283,3 +283,167 @@ def test_fleet_epoch_on_the_card_tracks_the_cpu(cuda):
         torch.testing.assert_close(out["cuda"].params[k].cpu(), v,
                                    rtol=5e-3, atol=2e-4, msg=k)
     assert list(out["cuda"].opt_gen.step) == [10, 7, 0]
+
+
+# ---------------------------------------------------------------------------
+# the wide instances: multivariate feature counts of 129 to 256
+# ---------------------------------------------------------------------------
+
+def _traced(fn, kernel, tries=3):
+    """(fn()'s result, the names of the device kernels it launched, and the
+    launches ``kernel`` counted in that call). A trace with no device event
+    at all (the profiler missed the launch) is taken again, up to
+    ``tries`` times, as chip_smoke.py's ``kernels_launched`` does."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # the profiler can miss a first launch
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        before = kernel.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return out, names, kernel.launches - before
+
+
+@pytest.mark.parametrize("B,D", [(64, 150), (128, 150), (50000, 150),
+                                 (64, 256), (128, 256), (50000, 256),
+                                 (300, 129), (5000, 200)])
+def test_mobius_linear_wide_kernel_matches_plain(cuda, B, D):
+    """K1's wide kernel (W staged whole at 150, in k-chunks at 256) against
+    the plain version within 1e-6, one launch each, and by the profiler
+    the wide kernel alone."""
+    g = torch.Generator().manual_seed(B + D)
+    head = init_tadgan(g, D, hyperbolic=True,
+                       device=cuda)["decoder"].hyperbolic_linear
+    w, b = head.w.detach(), head.b.detach()
+    x = (torch.rand(B, D, generator=g) * 2 - 1).to(cuda)
+    got, names, launched = _traced(lambda: mobius_linear_kernel(x, w, b),
+                                   mobius_linear_kernel)
+    assert launched == 1
+    assert len(names) == 1 and "mobius_linear_wide_kernel" in names[0]
+    assert (got - mobius_linear(x, w, b)).abs().max().item() <= 1e-6
+
+
+def test_mobius_linear_wide_kernel_signal_axis_is_each_signals_launch(cuda):
+    g = torch.Generator().manual_seed(7)
+    heads = [init_tadgan(g, 150, hyperbolic=True, device=cuda)["decoder"]
+             .hyperbolic_linear for _ in range(3)]
+    w = torch.stack([h.w.detach() for h in heads])
+    b = torch.stack([h.b.detach() for h in heads])
+    x = (torch.rand(3, 2000, 150, generator=g) * 2 - 1).to(cuda)
+    got = mobius_linear_kernel(x, w, b)
+    for i in range(3):
+        assert torch.equal(got[i], mobius_linear_kernel(x[i].contiguous(),
+                                                        w[i], b[i]))
+    assert (got - mobius_linear(x, w, b)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("N,W,const,nans", [
+    (50000, 150, False, False), (300, 150, True, False),
+    (300, 150, False, True), (50000, 256, False, False),
+    (300, 256, True, False), (300, 129, False, False)])
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_kde_argmax_wide_kernels_match_plain_at_tie_level(cuda, N, W, const,
+                                                          nans, version):
+    """K2's and K3's wide instances on rows of 129 to 256: use flags
+    bitwise, fallback rows bitwise masked_median, the other rows at tie
+    level against the plain version (``near_tie_flips``: each differing row
+    a sample of its own row whose float64 density is within n 2^-22 of the
+    plain pick's); one launch, of the wide kernel."""
+    from hypad_tpu_torch.profile_kernels import near_tie_flips
+
+    critic = torch.randn(N, generator=torch.Generator().manual_seed(N + W))
+    if const:
+        critic[10:400] = 0.5
+    if nans:
+        critic[:2] = critic[100:200] = float("nan")
+    vals, mask = antidiagonal_gather(critic.to(cuda)[:, None].expand(N, W))
+    kernel, plain = ((kde_argmax_kernel, kde_argmax_rows_and_use)
+                     if version == "v1" else
+                     (kde_argmax_v2_kernel, kde_argmax_rows_v2_and_use))
+    (got, use), names, launched = _traced(lambda: kernel(vals, mask), kernel)
+    assert launched == 1
+    assert len(names) == 1 and "_wide_kernel" in names[0]
+    want, want_use = plain(vals, mask)
+    assert torch.equal(use, want_use)
+    torch.testing.assert_close(got[~use], masked_median(vals, mask)[~use],
+                               rtol=0, atol=0, equal_nan=True)
+    # every differing row a sample of its own row at a float64 density tie
+    near_tie_flips(got[use], want[use], vals[use], mask[use])
+
+
+@pytest.mark.parametrize("hyperbolic,B,width", [(True, 64, 150),
+                                                (False, 64, 150),
+                                                (True, 64, 256),
+                                                (True, 13, 200)])
+def test_critic_step_wide_kernels_match_autograd(cuda, hyperbolic, B, width):
+    """K5 and K4 at multivariate widths (the wide instance) against their
+    plain autograd versions, within the narrow checks' tolerances, two
+    launches bitwise equal."""
+    from hypad_tpu_torch.profile_critic_step import critic_case
+    from hypad_tpu_torch.train import critic_kernel as ck
+
+    model, x, d = critic_case(cuda, hyperbolic, B, width)
+    want = ck.critic_step_plain(model, x, d, hyperbolic)
+    got = ck.critic_step_fused_full(model, x, d, hyperbolic)
+    again = ck.critic_step_fused_full(model, x, d, hyperbolic)
+    torch.cuda.synchronize()
+    _assert_critic_close(got, want, dict(rtol=5e-5, atol=2e-6),
+                         dict(rtol=1e-4, atol=1e-6))
+    _assert_bitwise(got, again)
+    bigx, bigz = ck.critic_step_inputs(model, x, d, hyperbolic)
+    args = (model["critic_x"], model["critic_z"], bigx, bigz, d["m_cx"],
+            d["m_cz"])
+    got = ck.critics_fused_grads(*args)
+    _assert_critic_close(got, ck.critics_fused_grads_plain(*args),
+                         dict(rtol=2e-5, atol=1e-6),
+                         dict(rtol=5e-5, atol=5e-7))
+    _assert_bitwise(got, ck.critics_fused_grads(*args))
+
+
+def test_critic_step_wide_signal_axis_is_each_signals_launch(cuda):
+    """K5 and K4's wide instance with a signal axis (S = 3, width 150):
+    each signal bitwise its single-signal launch."""
+    from hypad_tpu_torch.profile_critic_step import critic_case
+    from hypad_tpu_torch.train import critic_kernel as ck
+    from hypad_tpu_torch.train import fleet as fl
+
+    cases = [critic_case(cuda, True, 64, 150, seed=i) for i in range(3)]
+    models = [c[0] for c in cases]
+    P = fl.stack_models(models)
+    x = torch.stack([c[1] for c in cases])
+    d = {k: torch.stack([c[2][k] for c in cases]) for k in cases[0][2]}
+    got = ck.critic_step_fused_full_fleet(P, x, d, True)
+    for i, m in enumerate(models):
+        one = ck.critic_step_fused_full(m, x[i], {k: v[i] for k, v in
+                                                   d.items()}, True)
+        assert torch.equal(got[0][i], one[0])
+        for j in (2, 3):
+            for k in one[j]:
+                assert torch.equal(got[j][k][i], one[j][k]), k
+
+
+@pytest.mark.parametrize("n", [50_000, 262_144])
+def test_rolling_sums_are_the_same_bits_on_every_call(cuda, n):
+    """The detectors' rolling mean and trapezoid over one long row give the
+    same bits call after call (a one-row CUDA cumsum through CUB's scan
+    does not), and agree with the CPU's."""
+    from hypad_tpu_torch.ops import rolling
+
+    x = torch.randn(n, generator=torch.Generator().manual_seed(n))
+    xd = x.to(cuda)
+    for fn in (rolling.rolling_mean_centered, rolling.rolling_trapz_centered):
+        first = fn(xd, 500)
+        for _ in range(30):
+            # exactly, the edges' NaNs where they were
+            torch.testing.assert_close(fn(xd, 500), first, rtol=0, atol=0,
+                                       equal_nan=True)
+        # window sums are differences of running sums of up to n entries
+        torch.testing.assert_close(first.cpu(), fn(x, 500), rtol=1e-4,
+                                   atol=1e-3, equal_nan=True)

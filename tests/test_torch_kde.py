@@ -122,7 +122,7 @@ def test_kde_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "mask":
         mask = mask.float()
     elif bad == "width":
-        vals, mask = torch.zeros(4, 200), torch.ones(4, 200, dtype=torch.bool)
+        vals, mask = torch.zeros(4, 257), torch.ones(4, 257, dtype=torch.bool)
     else:
         vals, mask = vals.T, mask.T
     with pytest.raises((TypeError, ValueError)):
@@ -212,7 +212,7 @@ def test_kde_v2_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "mask":
         mask = mask.float()
     elif bad == "width":
-        vals, mask = torch.zeros(4, 200), torch.ones(4, 200, dtype=torch.bool)
+        vals, mask = torch.zeros(4, 257), torch.ones(4, 257, dtype=torch.bool)
     else:
         vals, mask = vals.T, mask.T
     with pytest.raises((TypeError, ValueError)):

@@ -217,12 +217,6 @@ def test_yahoo_without_anomalies_writes_an_empty_table(tmp_path):
                     .columns))
 
 
-def test_multivariate_dataset_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A11"):
-        treg.dataset_selection(_params(dataset="SWAT",
-                                       signal="multivariate"))
-
-
 # ---------------------------------------------------------------------------
 # checkpoints
 # ---------------------------------------------------------------------------

@@ -149,7 +149,7 @@ def test_mobius_linear_kernel_rejects_what_it_does_not_take(bad):
     elif bad == "shape":
         b = b[:10]
     elif bad == "width":
-        x, w = torch.zeros(4, 200), torch.zeros(64, 200)
+        x, w = torch.zeros(4, 257), torch.zeros(64, 257)
     else:
         x = torch.zeros(64, 4).T
     with pytest.raises((TypeError, ValueError)):
