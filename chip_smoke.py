@@ -103,7 +103,14 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    scores within the limit the measured score difference allows; then on
    the card ``sweep --detect-only`` (the same detections), ``detect``
    re-entering a sweep run directory, and ``--signals`` x ``--seeds 0,1``
-   (runs under seed_0/ and seed_1/), each one K2 launch;
+   (runs under seed_0/ and seed_1/), each one K2 launch; the fleet grid,
+   ``sweep --detect-only --rec-errors all --combinations all`` (12 cells
+   of each of the 9 signals in one call, K2 1) on the card and then with
+   ``--device cpu``: every cell's intervals, confusion and F1 equal, every
+   run's grid_results.csv and the family's sweep_grid.csv line for line,
+   and each signal's cells those of its own card ``detect_grid``; then the
+   warm fleet grid against the 9 ``detect_scores_grid`` calls it replaces
+   (medians of 5, windows/s);
 10. multivariate ([mv]; its kernel checks run right after phase 2, before
    the long profiler traces of [fleet]): the wide instances of K1 (at (64,
    F), (128, F) and (50,000, F)), K2 and K3 (T = 50,000 + F - 1 rows of width F) and
@@ -124,9 +131,24 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    residents (.pt tensors, 2,000 rows of 150, 1 epoch, "full": the wide
    K5 once a fleet critic step) and its ``--detect-only --device cpu``:
    each resident's intervals, confusion and F1 equal; the same under
-   HYPAD_KDE_PALLAS=1 (the wide K3), and one resident's ``train`` under
-   fused_critics true (the wide K4); warm detect rows/s at 50,000 rows of
-   51, 123 and 150;
+   HYPAD_KDE_PALLAS=1 (the wide K3), the family's fleet grid
+   (``sweep --detect-only --combinations all``, K1 2 and K2 1 wide, then
+   K3 1 under HYPAD_KDE_PALLAS=1) card against CPU as in [sweep], and one
+   resident's ``train`` under fused_critics true (the wide K4); warm
+   detect rows/s at 50,000 rows of 51, 123 and 150;
+10b. widths above 256 ([xwide]; its kernel checks run after [mv]'s): the
+   any-width instances of K1 (at (64, W), (128, W) and (4,096, W)), K2
+   and K3 (T = 4,096 rows at W = 300 and 512, 2,048 at 1,024, the plain
+   K2 128 rows at a time; a constant run and NaNs at 300) for W = 300,
+   512 and 1,024, and K5 and K4 (B = 64, one signal and three in one
+   launch) at 300 and 512 against their plain versions, each named by
+   the profiler; the main path at width 300 through the CLI, on a
+   WADI-format stream of 300 features (2,000 training and 2,000 test
+   rows): ``train`` (1 epoch, fused_critics "full": the any-width K5 and
+   K1), ``detect`` (K1 2, K2 1) against train's own detection and
+   against ``detect --device cpu`` from the card's checkpoint (intervals,
+   confusion, zeros and NaNs equal), the same under HYPAD_KDE_PALLAS=1
+   (K3), and ``train`` under fused_critics true (K4);
 11. staged path: at 20,000 windows, ``run_inference`` (chunks of 1,024)
    must give the one call's forward outputs within 1e-5 relative / 1e-6
    absolute; ``score_anomalies_euclidean`` (Euclidean model) and
@@ -141,9 +163,13 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    at the path's shapes (K1 at the detect shape and at the generator
    step's two, beside an empty kernel; cuBLAS's f32 x @ w.T as an
    informative line, not K1's function); each wide instance beside its
-   plain version, its bound and the narrow instance at F = 100;
+   plain version, its bound and the narrow instance at F = 100; each
+   any-width instance beside its plain version and its bound at the
+   width-300 path's shapes, and K1 at (50,000, 256) and at the WADI
+   training shapes (64 and 128 rows of 123);
 13. report: one JSON line of the kernels (the wide instances as
-   ``{name}_wide`` entries) (with each signal-axis kernel's
+   ``{name}_wide`` entries, the any-width ones as ``{name}_xwide``) (with
+   each signal-axis kernel's
    times at S = 1, 3 and 9), the card's name and power limit,
    and last the JSON line the GPU check reads.
 
@@ -233,11 +259,12 @@ def kde_case(device, n, width, runs, nans=False):
     return vals, mask, label
 
 
-def kernels_launched(fn, tries=3):
+def kernels_launched(fn, tries=8):
     """Names of the device kernels that ``fn()`` launches, from a second
     call: the profiler can miss a kernel's first launch (its module is
-    loaded lazily then). A trace with no device event is taken again, up
-    to ``tries`` times."""
+    loaded lazily then). A trace with no device event (it happens now and
+    then, after many traces) is taken again after a short pause, up to
+    ``tries`` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -254,6 +281,7 @@ def kernels_launched(fn, tries=3):
             return names
         print("[kernels] the profiler recorded no device event; tracing "
               "again")
+        time.sleep(0.5)
     return names
 
 
@@ -400,6 +428,21 @@ def interval_score_atol(scores, rel, multivariate=False):
     prunes a run."""
     import numpy as np
 
+    worst = 0.0
+    for w in threshold_windows(scores, multivariate):
+        mean_abs, rms, max_abs = (np.abs(w).mean(), np.sqrt(np.mean(w * w)),
+                                  np.abs(w).max())
+        den = abs(w.mean() + w.std())
+        num = max_abs + mean_abs + 4 * rms   # also bounds |max - threshold|
+        worst = max(worst, rel * (num + num / den * (mean_abs + rms)) / den)
+    return float(worst)
+
+
+def threshold_windows(scores, multivariate=False):
+    """The detector's threshold windows of ``scores`` (univariate, or per
+    timestep for a multivariate run), as float64 slices."""
+    import numpy as np
+
     from hypad_tpu_torch.detect import detector
     from hypad_tpu_torch.detect import intervals as iv
 
@@ -407,27 +450,27 @@ def interval_score_atol(scores, rel, multivariate=False):
     s = np.asarray(scores, np.float64).reshape(-1)
     size, step = iv._window_geometry(len(s), None, kw["window_size_portion"],
                                      None, kw["window_step_size_portion"])
-    worst, start, end = 0.0, 0, 0
+    start, end = 0, 0
     while end < len(s):
         end = start + size
-        w = s[start:end]
-        mean_abs, rms, max_abs = (np.abs(w).mean(), np.sqrt(np.mean(w * w)),
-                                  np.abs(w).max())
-        den = abs(w.mean() + w.std())
-        num = max_abs + mean_abs + 4 * rms   # also bounds |max - threshold|
-        worst = max(worst, rel * (num + num / den * (mean_abs + rms)) / den)
+        yield s[start:end]
         start += step
-    return float(worst)
 
 
 def check_same_detection(got, want, known, tag="detect",
-                         atol_from_scores=False, multivariate=False):
+                         atol_from_scores=False, multivariate=False,
+                         verbose=True):
     """Fail unless two detect_univariate results give the same intervals,
     confusion and F1, and interval scores within 1e-3 relative. Under
     ``atol_from_scores`` they may also differ by what the measured relative
-    score difference can make of them (:func:`interval_score_atol`)."""
+    score difference can make of them (:func:`interval_score_atol`).
+    ``verbose=False`` prints nothing unless a check fails (a grid's many
+    cells)."""
+    import builtins
+
     import numpy as np
 
+    print = builtins.print if verbose else (lambda *a, **k: None)
     scores = got["scores"]
     score_diff = float(np.max(np.abs(scores - want["scores"])
                               / np.maximum(np.abs(want["scores"]), 1e-6)))
@@ -449,17 +492,20 @@ def check_same_detection(got, want, known, tag="detect",
           f"metrics {got['metrics']}")
     if iv.shape != want_iv.shape or not np.array_equal(iv[:, :2],
                                                        want_iv[:, :2]):
-        fail(f"intervals differ from the CPU's: {want_iv.tolist()}")
+        fail(f"[{tag}] intervals {iv.tolist()} differ from the CPU's: "
+             f"{want_iv.tolist()}")
     print(f"[{tag}] interval scores: max abs diff to the CPU "
           f"{float(np.max(np.abs(iv[:, 2] - want_iv[:, 2]), initial=0)):.3e}")
     if not np.allclose(iv[:, 2], want_iv[:, 2], rtol=1e-3, atol=score_atol):
-        fail(f"interval scores differ from the CPU's: {want_iv.tolist()}")
+        fail(f"[{tag}] interval scores {iv.tolist()} differ from the CPU's:"
+             f" {want_iv.tolist()}")
     if tuple(got["confusion"]) != tuple(want["confusion"]):
-        fail(f"confusion differs from the CPU's {want['confusion']}")
+        fail(f"[{tag}] confusion {got['confusion']} differs from the CPU's "
+             f"{want['confusion']}")
     f1, want_f1 = ((m or {}).get("f1") for m in (got["metrics"],
                                                   want["metrics"]))
     if f1 != want_f1:
-        fail(f"F1 {f1} differs from the CPU's {want_f1}")
+        fail(f"[{tag}] F1 {f1} differs from the CPU's {want_f1}")
     return f1
 
 
@@ -549,11 +595,14 @@ def zero_counters():
                 "critics_fused_grads": ck.critics_fused_grads,
                 "critic_step_full": ck.critic_step_fused_full}
     for fn in counters.values():
-        fn.launches = fn.wide_launches = 0
+        fn.launches = fn.wide_launches = fn.xwide_launches = 0
     # each kernel's launches, then those of its wide instance (widths of
-    # 129 to 256) among them as "{name}_wide"
+    # 129 to 256) among them as "{name}_wide" and of its any-width instance
+    # (above 256) as "{name}_xwide"
     return lambda: {**{name: fn.launches for name, fn in counters.items()},
                     **{f"{name}_wide": fn.wide_launches
+                       for name, fn in counters.items()},
+                    **{f"{name}_xwide": fn.xwide_launches
                        for name, fn in counters.items()}}
 
 
@@ -563,9 +612,9 @@ KERNEL_NAMES = ("mobius_linear", "kde_argmax", "kde_argmax_v2",
 
 def launches_of(**nonzero):
     """The full launch dict that ``zero_counters``' reader gives: the named
-    counts, every other kernel (and wide instance) 0."""
-    want = dict.fromkeys(KERNEL_NAMES + tuple(f"{k}_wide"
-                                              for k in KERNEL_NAMES), 0)
+    counts, every other kernel (and wide or any-width instance) 0."""
+    want = dict.fromkeys(KERNEL_NAMES + tuple(
+        f"{k}_{kind}" for kind in ("wide", "xwide") for k in KERNEL_NAMES), 0)
     want.update(nonzero)
     return want
 
@@ -1420,6 +1469,130 @@ def sweep_inputs(root, signals):
     return known
 
 
+def largest_window_scale(scores, multivariate=False):
+    """The largest (mean + std) over the detector's threshold windows of
+    ``scores``: the denominator of an interval score."""
+    return max(abs(w.mean() + w.std())
+               for w in threshold_windows(scores, multivariate))
+
+
+def check_same_cell(got, want, known, tag, multivariate=False):
+    """One grid cell of two detections: ``check_same_detection`` where the
+    intervals' bounds agree. Where they do not, every interval found on
+    one side only must be a threshold tie, which a last-bit change of the
+    scores can add or drop: its margin over the threshold (its score times
+    the largest mean + std of the threshold windows) at most 6 times the
+    largest absolute score difference d (the max moves by at most d, the
+    threshold mean + 4 std by at most 5 d); then the cell's confusion and
+    F1 may differ, and are printed. Returns (f1, tied)."""
+    import numpy as np
+
+    iv, want_iv = (np.asarray(r["intervals"]).reshape(-1, 3)
+                   for r in (got, want))
+    if iv.shape == want_iv.shape and np.array_equal(iv[:, :2],
+                                                    want_iv[:, :2]):
+        return check_same_detection(got, want, known, tag=tag,
+                                    atol_from_scores=True,
+                                    multivariate=multivariate,
+                                    verbose=False), False
+    d = float(np.max(np.abs(got["scores"] - want["scores"])))
+    scale = largest_window_scale(want["scores"], multivariate)
+    a = {tuple(float(x) for x in r[:2]): float(r[2]) for r in iv}
+    b = {tuple(float(x) for x in r[:2]): float(r[2]) for r in want_iv}
+    only = ([(k, v, "card") for k, v in a.items() if k not in b]
+            + [(k, v, "CPU") for k, v in b.items() if k not in a])
+    for bounds, score, side in only:
+        if not abs(score) * scale <= 6 * d:
+            fail(f"[{tag}] interval {list(bounds)} (score {score}) found on "
+                 f"the {side} only is no threshold tie: margin "
+                 f"{abs(score) * scale:.3e} > 6 x the score difference "
+                 f"{d:.3e}; card {iv.tolist()}, CPU {want_iv.tolist()}")
+    print(f"[{tag}] threshold tie: {[(list(k), v, side) for k, v, side in only]}"
+          f" on one side only, each margin <= 6 x the largest score "
+          f"difference {d:.3e} (window scale {scale:.3e}); confusion "
+          f"{got['confusion']} against {want['confusion']}, F1 "
+          f"{(got['metrics'] or {}).get('f1')} against "
+          f"{(want['metrics'] or {}).get('f1')}")
+    return (got["metrics"] or {}).get("f1"), True
+
+
+def check_same_grid(got, want, known, tag, multivariate=False):
+    """Fail unless two grids of detection results ({cell: result}) hold the
+    same cells in the same order, each with the same intervals, confusion
+    and F1 up to threshold ties (``check_same_cell``). Returns ({cell:
+    f1}, [tied cells])."""
+    if list(got) != list(want):
+        fail(f"{tag}: cells {list(got)} differ from {list(want)}")
+    f1s, tied = {}, []
+    for cell in want:
+        f1s[cell], tie = check_same_cell(got[cell], want[cell], known,
+                                         f"{tag} {cell}", multivariate)
+        if tie:
+            tied.append(cell)
+    return f1s, tied
+
+
+def grid_files(cfg_path, signals):
+    """The lines of each run's grid_results.csv ({signal: lines}) and of
+    the family's sweep_grid.csv (key None) that a sweep of the config at
+    ``cfg_path`` wrote."""
+    from hypad_tpu_torch.utils.config import load_config, run_dir
+
+    out = {}
+    for sig in signals:
+        p = load_config(str(cfg_path))
+        p.signal = sig
+        path = Path(run_dir(p))
+        out[sig] = (path / "grid_results.csv").read_text().splitlines()
+        if sig == signals[0]:
+            out[None] = (path / "sweep_grid.csv").read_text().splitlines()
+    return out
+
+
+def check_sweep_grid(card_runs, cpu_runs, card_files, cpu_files, known,
+                     tag, multivariate=False):
+    """A fleet-grid sweep on the card against its ``--device cpu`` run:
+    every run's cells (``check_same_grid``), every grid_results.csv and the
+    sweep_grid.csv line for line but for the rows of cells that hold a
+    threshold tie, which are printed. Returns ({signal: {cell: f1}},
+    [(signal, cell) tied])."""
+    if [r[:2] for r in card_runs] != [r[:2] for r in cpu_runs]:
+        fail(f"{tag}: runs {[r[:2] for r in card_runs]} differ from the "
+             f"CPU's {[r[:2] for r in cpu_runs]}")
+    f1s, tied = {}, []
+    for (sig, _, got), (_, _, want) in zip(card_runs, cpu_runs):
+        f1s[sig], t = check_same_grid(got, want, known[sig], f"{tag} {sig}",
+                                      multivariate)
+        tied += [(sig, cell) for cell in t]
+
+    def tie_row(key, line):
+        fields = line.split(",")
+        if key is None:   # sweep_grid.csv: signal, seed, rec_error, comb, f1
+            return (fields[0], ((fields[2] or None), fields[3])) in tied
+        return (key, ((fields[0] or None), fields[1])) in tied
+
+    for key, lines in card_files.items():
+        other = cpu_files[key]
+        what = "sweep_grid.csv" if key is None else \
+            f"{key}'s grid_results.csv"
+        if len(lines) != len(other) or lines[0] != other[0]:
+            fail(f"{tag}: the card's {what} differs from the CPU's in its "
+                 f"rows or columns")
+        for a, b in zip(lines[1:], other[1:]):
+            if a != b and not tie_row(key, b):
+                fail(f"{tag}: the card's {what} row {a!r} differs from the "
+                     f"CPU's {b!r}")
+            if a != b:
+                print(f"[{tag}] {what}: {a!r} (card) against {b!r} (CPU), "
+                      f"a threshold tie")
+    print(f"[{tag}] {len(card_runs)} runs x {len(card_runs[0][2])} cells: "
+          f"intervals, confusion and F1 equal to the CPU's in every cell but "
+          f"{len(tied)} threshold tie(s) {tied}; every grid_results.csv and "
+          f"sweep_grid.csv ({len(card_files[None])} lines) equal but the "
+          f"tied cells' rows")
+    return f1s, tied
+
+
 def phase_sweep(device, card):
     """[sweep]: ``sweep`` of configs/nab_sweep.yaml (9 signals, cut to 1
     epoch) on the card through the CLI, then ``sweep --detect-only
@@ -1482,6 +1655,19 @@ def phase_sweep(device, card):
             ["detect", "--config", str(Path(run_dir(first)) / "config.yaml")],
             "sweep_detect_reentry", card)
         reentry = dict(seen)
+        # the fleet grid: every (rec_error x combination) cell of the 9
+        # signals in one call, on the card, then on the CPU
+        grid_flags = ["--rec-errors", "all", "--combinations", "all"]
+        grid_card, grid_launches = run_cli(
+            ["sweep", "--detect-only", "--config", str(card_cfg),
+             *grid_flags], "sweep_grid", card)
+        card_files = grid_files(card_cfg, signals)
+        grid_cpu, _ = run_cli(
+            ["sweep", "--detect-only", "--config", str(cpu_cfg), "--device",
+             "cpu", *grid_flags], "sweep_grid_cpu", card)
+        cpu_files = grid_files(cpu_cfg, signals)
+        grid_own, grid_timing = sweep_grid_own_and_timing(
+            device, card_cfg, signals, root / "own")
         band, band_launches = run_cli(
             ["sweep", "--config", str(card_cfg), "--signals",
              ",".join(signals[:2]), "--seeds", "0,1"], "sweep_band", card)
@@ -1513,6 +1699,19 @@ def phase_sweep(device, card):
                              tag=f"sweep --detect-only {sig}")
     if [r[2] for r in results] != [r[2] for r in cpu_results]:
         fail("the CPU's detect-only F1s differ from the card's sweep's")
+    if grid_launches != launches_of(kde_argmax=1):
+        fail(f"sweep --rec-errors all --combinations all launched "
+             f"{grid_launches}; expected one K2 launch, no K1")
+    grid_f1, grid_ties = check_sweep_grid(grid_card, grid_cpu, card_files,
+                                          cpu_files, known, "sweep grid")
+    own_ties = []
+    for sig, _, cells in grid_card:
+        own_ties += [(sig, c) for c in check_same_grid(
+            cells, grid_own[sig], known[sig],
+            f"sweep grid {sig} against its own detect_grid")[1]]
+    print(f"[sweep grid] each signal's cells equal its own card "
+          f"detect_grid's but {len(own_ties)} threshold tie(s) {own_ties} "
+          f"(the ranking is in cli_sweep_grid.log)")
     check_same_detection(reentry[signals[0]], card_runs[signals[0]],
                          known[signals[0]], tag="detect re-entry",
                          atol_from_scores=True)
@@ -1526,7 +1725,64 @@ def phase_sweep(device, card):
           f"--detect-only; detect re-entering {signals[0]}'s run directory "
           f"agrees; --signals x --seeds ran {want} under seed_0/ and "
           f"seed_1/; F1 {f1s}")
-    return launches, {"f1": f1s, "band": [list(r) for r in band]}
+    return launches, grid_launches, {
+        "f1": f1s, "band": [list(r) for r in band],
+        "grid_f1": {sig: {"/".join(filter(None, c)): f for c, f in
+                          cells.items()} for sig, cells in grid_f1.items()},
+        "grid_threshold_ties_card_vs_cpu": [[s_, "/".join(filter(None, c))]
+                                            for s_, c in grid_ties],
+        "grid_threshold_ties_vs_own_detect_grid": [
+            [s_, "/".join(filter(None, c))] for s_, c in own_ties],
+        "grid_timing": grid_timing}
+
+
+def sweep_grid_own_and_timing(device, cfg_path, signals, own_dir):
+    """Each signal's own card ``detect_grid`` of every cell from its
+    checkpoint ({signal: cells}), then the warm fleet grid
+    (``detect_scores_fleet_grid``, one call) against the S
+    ``detect_scores_grid`` calls it replaces, in turns: medians of 5
+    rounds and windows/s."""
+    import statistics as stats
+
+    from hypad_tpu_torch.data.registry import dataset_selection
+    from hypad_tpu_torch.detect import detector
+    from hypad_tpu_torch.detect import scorer as sc
+    from hypad_tpu_torch.train import fleet as fl
+    from hypad_tpu_torch.utils import checkpoint as ck
+    from hypad_tpu_torch.utils.config import load_config, run_dir
+
+    own, models, X_list = {}, [], []
+    for sig in signals:
+        p = load_config(str(cfg_path))
+        p.signal = sig
+        model = ck.restore_state(run_dir(p), "final", device).model
+        _, test_data, _ = dataset_selection(p)
+        own[sig] = detector.detect_grid(
+            p, model, test_data, str(own_dir / sig),
+            rec_errors=list(sc.REC_ERRORS),
+            combinations=list(sc.EUCL_COMBOS), device=device)
+        models.append(model)
+        X_list.append(test_data.X)
+    stacked = fl.stack_models(models)
+    recs, combos = list(sc.REC_ERRORS), list(sc.EUCL_COMBOS)
+    calls = {
+        "fleet grid": lambda: sc.detect_scores_fleet_grid(
+            stacked, X_list, False, combos, recs, device=device),
+        f"{len(signals)} detect_scores_grid": lambda: [
+            sc.detect_scores_grid(m, X, False, combos, recs, device=device)
+            for m, X in zip(models, X_list)]}
+    n_win = sum(len(X) for X in X_list)
+    timing = {}
+    for label, walls in warm_detect_ms(calls, rounds=5).items():
+        median = stats.median(walls)
+        timing[label] = {"median_ms": median,
+                         "windows_per_s": n_win / median * 1e3,
+                         "runs_ms": walls}
+        print(f"[sweep grid] warm {label}, {len(signals)} signals / {n_win} "
+              f"windows x {len(recs) * len(combos)} cells: median "
+              f"{median:.3f} ms, {n_win / median * 1e3:.0f} windows/s (runs "
+              f"in ms: {[round(w, 3) for w in walls]})")
+    return own, timing
 
 
 def init_model(device, hyperbolic):
@@ -2110,15 +2366,21 @@ def short_name(name):
     return m.group(1) if m else name
 
 
-def kernel_named(names, wide):
-    """Whether ``names`` (``kernels_launched``) is one launch, of the wide
-    instance (a ``_wide_kernel`` or ``critic_step_kernel<256>``) or of the
-    narrow one."""
-    if len(names) != 1:
-        return False
-    is_wide = "_wide_kernel" in names[0] or "critic_step_kernel<256>" in \
-        names[0]
-    return is_wide == wide
+def instance_named(name):
+    """The instance a profiler kernel name is: "xwide" (an
+    ``_xwide_kernel``, ``critic_step_kernel<0>``), "wide" (a
+    ``_wide_kernel``, ``critic_step_kernel<256>``) or "narrow"."""
+    if "_xwide_kernel" in name or "critic_step_kernel<0>" in name:
+        return "xwide"
+    if "_wide_kernel" in name or "critic_step_kernel<256>" in name:
+        return "wide"
+    return "narrow"
+
+
+def kernel_named(names, kind):
+    """Whether ``names`` (``kernels_launched``) is one launch, of the
+    instance ``kind`` ("narrow", "wide" or "xwide")."""
+    return len(names) == 1 and instance_named(names[0]) == kind
 
 
 def mv_kernel_checks(device):
@@ -2130,25 +2392,22 @@ def mv_kernel_checks(device):
 
     from hypad_tpu_torch.manifold import kernels as mk
     from hypad_tpu_torch.models.tadgan import init_tadgan
+    from hypad_tpu_torch._build import instance
     from hypad_tpu_torch.ops.kde import (
         kde_argmax_rows_and_use,
         kde_argmax_rows_v2_and_use,
     )
     from hypad_tpu_torch.ops.kde_kernel import (
-        is_wide,
         kde_argmax_kernel,
         kde_argmax_v2_kernel,
     )
     from hypad_tpu_torch.ops.unroll import masked_median
-    from hypad_tpu_torch.profile_critic_step import critic_case
     from hypad_tpu_torch.profile_kernels import (
         check_k1,
         k2_case,
         near_tie_flips,
         same_values,
     )
-    from hypad_tpu_torch.train import critic_kernel as ck
-    from hypad_tpu_torch.train import fleet as fl
 
     out = {"k1_err": 0.0, "flips": {"kde_argmax": 0, "kde_argmax_v2": 0},
            "k5_err": 0.0, "k4_err": 0.0}
@@ -2162,7 +2421,7 @@ def mv_kernel_checks(device):
         w, b = head.w.detach(), head.b.detach()
         x = (torch.rand(rows, F, generator=gen) * 2 - 1).to(device)
         names = kernels_launched(lambda: mk.mobius_linear_kernel(x, w, b))
-        if not kernel_named(names, mk.is_wide(F, F)):
+        if not kernel_named(names, mk.instance(F, F)):
             fail(f"K1 at ({rows}, {F}) launched {names}")
         err, _ = check_k1(mk.mobius_linear_kernel(x, w, b), x, w, b,
                           case=f"({rows}, {F})")
@@ -2179,7 +2438,7 @@ def mv_kernel_checks(device):
                 ("kde_argmax_v2", kde_argmax_v2_kernel,
                  kde_argmax_rows_v2_and_use)):
             names = kernels_launched(lambda: kernel(vals, mask))
-            if not kernel_named(names, is_wide(F)):
+            if not kernel_named(names, instance(F)):
                 fail(f"{name} at {case} launched {names}")
             value, use = kernel(vals, mask)
             want, want_use = plain(vals, mask)
@@ -2203,49 +2462,179 @@ def mv_kernel_checks(device):
                                mask[use])
         print(f"[mv] K3 against K2 {case}: {cross} flips, each a tie")
     # K5 and K4 at B = 64: one signal, then three in one launch
-    tols = (K5_TOL, K4_TOL)
     for F in MV_WIDE + (WADI_F,):
-        model, x, d = critic_case(device, True, MV_BATCH, F)
-        names = kernels_launched(
-            lambda: ck.critic_step_fused_full(model, x, d, True))
-        if not kernel_named(names, F > ck.NARROW_WIDTH):
-            fail(f"K5 at F={F} launched {names}")
-        got = ck.critic_step_fused_full(model, x, d, True)
-        e5 = critic_err(got, ck.critic_step_plain(model, x, d, True),
-                        tols[0], f"K5 (F={F})")
-        if not bitwise_equal(got, ck.critic_step_fused_full(model, x, d,
-                                                            True)):
-            fail(f"two K5 launches differ at F={F}")
-        bigx, bigz = ck.critic_step_inputs(model, x, d, True)
-        args = (model["critic_x"], model["critic_z"], bigx, bigz, d["m_cx"],
-                d["m_cz"])
-        e4 = critic_err(ck.critics_fused_grads(*args),
-                        ck.critics_fused_grads_plain(*args), tols[1],
-                        f"K4 (F={F})")
+        e5, e4, names, k4_names = critic_instance_check(device, F, "mv")
+        for label, n in (("K5", names), ("K4", k4_names)):
+            if not kernel_named(n, instance(F)):
+                fail(f"{label} at F={F} launched {n}")
         out["k5_err"], out["k4_err"] = (max(out["k5_err"], e5),
                                         max(out["k4_err"], e4))
-        cases = [critic_case(device, True, MV_BATCH, F, seed=i)
-                 for i in range(3)]
-        P = fl.stack_models([c[0] for c in cases])
-        xs = torch.stack([c[1] for c in cases])
-        ds = {k: torch.stack([c[2][k] for c in cases]) for k in cases[0][2]}
-        got3 = ck.critic_step_fused_full_fleet(P, xs, ds, True)
-        critic_err(got3, ck.critic_step_fleet_plain(P, xs, ds, True),
-                   tols[0], f"K5 S=3 (F={F})")
-        for i, c in enumerate(cases):
-            one = ck.critic_step_fused_full(c[0], c[1], c[2], True)
-            if not (torch.equal(got3[0][i], one[0]) and all(
-                    torch.equal(got3[j][k][i], one[j][k])
-                    for j in (2, 3) for k in one[j])):
-                fail(f"K5 S=3 signal {i} differs from its own launch (F={F})")
-        bx3, bz3 = ck.critic_step_inputs_fleet(P, xs, ds, True)
-        critic_err(ck.critics_fused_grads_fleet(P, bx3, bz3, ds["m_cx"],
-                                                ds["m_cz"]),
-                   ck.critics_fused_grads_fleet_plain(P, bx3, bz3,
-                                                      ds["m_cx"],
-                                                      ds["m_cz"]),
-                   tols[1], f"K4 S=3 (F={F})")
         print(f"[mv] K5 critic_step_full F={F} B={MV_BATCH}: max abs diff "
+              f"{e5:.3e}; K4 {e4:.3e}; S=3 in one launch within the same "
+              f"tolerances, each signal bitwise its own launch; launches "
+              f"{short_name(names[0])}")
+    return out
+
+
+XWIDE = (300, 512, 1024)    # the any-width instances' checks
+XWIDE_KDE_ROWS = {300: 4096, 512: 4096, 1024: 2048}   # T of K2 / K3
+XWIDE_PLAIN_BLOCK = 128     # the plain K2's rows a block: (128, W, W) f32
+
+
+def critic_instance_check(device, F, tag):
+    """K5 and K4 at B = 64 and width F, one signal and three in one launch,
+    against their plain versions (two launches bitwise equal, each signal
+    of the three bitwise its own launch); returns (K5 err, K4 err, the
+    profiler's names of K5's and of K4's launch)."""
+    tols = (K5_TOL, K4_TOL)
+    import torch
+
+    from hypad_tpu_torch.profile_critic_step import critic_case
+    from hypad_tpu_torch.train import critic_kernel as ck
+    from hypad_tpu_torch.train import fleet as fl
+
+    model, x, d = critic_case(device, True, MV_BATCH, F)
+    names = kernels_launched(
+        lambda: ck.critic_step_fused_full(model, x, d, True))
+    got = ck.critic_step_fused_full(model, x, d, True)
+    e5 = critic_err(got, ck.critic_step_plain(model, x, d, True), tols[0],
+                    f"{tag} K5 (F={F})")
+    if not bitwise_equal(got, ck.critic_step_fused_full(model, x, d, True)):
+        fail(f"{tag}: two K5 launches differ at F={F}")
+    bigx, bigz = ck.critic_step_inputs(model, x, d, True)
+    args = (model["critic_x"], model["critic_z"], bigx, bigz, d["m_cx"],
+            d["m_cz"])
+    k4_names = kernels_launched(lambda: ck.critics_fused_grads(*args))
+    e4 = critic_err(ck.critics_fused_grads(*args),
+                    ck.critics_fused_grads_plain(*args), tols[1],
+                    f"{tag} K4 (F={F})")
+    cases = [critic_case(device, True, MV_BATCH, F, seed=i)
+             for i in range(3)]
+    P = fl.stack_models([c[0] for c in cases])
+    xs = torch.stack([c[1] for c in cases])
+    ds = {k: torch.stack([c[2][k] for c in cases]) for k in cases[0][2]}
+    got3 = ck.critic_step_fused_full_fleet(P, xs, ds, True)
+    critic_err(got3, ck.critic_step_fleet_plain(P, xs, ds, True), tols[0],
+               f"{tag} K5 S=3 (F={F})")
+    for i, c in enumerate(cases):
+        one = ck.critic_step_fused_full(c[0], c[1], c[2], True)
+        if not (torch.equal(got3[0][i], one[0]) and all(
+                torch.equal(got3[j][k][i], one[j][k])
+                for j in (2, 3) for k in one[j])):
+            fail(f"{tag}: K5 S=3 signal {i} differs from its own launch "
+                 f"(F={F})")
+    bx3, bz3 = ck.critic_step_inputs_fleet(P, xs, ds, True)
+    critic_err(ck.critics_fused_grads_fleet(P, bx3, bz3, ds["m_cx"],
+                                            ds["m_cz"]),
+               ck.critics_fused_grads_fleet_plain(P, bx3, bz3, ds["m_cx"],
+                                                  ds["m_cz"]),
+               tols[1], f"{tag} K4 S=3 (F={F})")
+    return e5, e4, names, k4_names
+
+
+def xwide_kernel_checks(device):
+    """The any-width instances (widths above 256) against their plain
+    versions, each named by the profiler: K1 at (64, W), (128, W) and
+    (4,096, W) and K2 and K3 on T rows (XWIDE_KDE_ROWS: 4,096 at 300 and
+    512, 2,048 at 1,024, the plain K2 taking XWIDE_PLAIN_BLOCK rows at a
+    time so that its (rows, W, W) intermediate stays at 0.5 GB) for W =
+    300, 512 and 1,024, with a constant run and NaNs at 300; K5 and K4 at
+    B = 64, W = 300 and 512, one signal and three in one launch. Returns
+    the largest errors and the tie flips."""
+    import functools
+
+    import torch
+
+    from hypad_tpu_torch.manifold import kernels as mk
+    from hypad_tpu_torch.models.tadgan import init_tadgan
+    from hypad_tpu_torch.ops.kde import (
+        kde_argmax_rows_and_use,
+        kde_argmax_rows_v2_and_use,
+    )
+    from hypad_tpu_torch.ops.kde_kernel import (
+        kde_argmax_kernel,
+        kde_argmax_v2_kernel,
+    )
+    from hypad_tpu_torch.ops.unroll import masked_median
+    from hypad_tpu_torch.profile_kernels import (
+        check_k1,
+        k2_case,
+        near_tie_flips,
+        same_values,
+    )
+
+    out = {"k1_err": 0.0, "flips": {"kde_argmax": 0, "kde_argmax_v2": 0},
+           "k5_err": 0.0, "k4_err": 0.0, "names": {}}
+    for F in XWIDE:
+        for rows in (MV_BATCH, 2 * MV_BATCH, 4096):
+            gen = torch.Generator().manual_seed(rows + F)
+            head = init_tadgan(gen, F, hyperbolic=True,
+                               device=device)["decoder"].hyperbolic_linear
+            w, b = head.w.detach(), head.b.detach()
+            x = (torch.rand(rows, F, generator=gen) * 2 - 1).to(device)
+            launched = ""
+            if rows == MV_BATCH:   # one trace a width
+                names = kernels_launched(
+                    lambda: mk.mobius_linear_kernel(x, w, b))
+                if not kernel_named(names, "xwide"):
+                    fail(f"K1 at ({rows}, {F}) launched {names}")
+                out["names"]["mobius_linear"] = short_name(names[0])
+                launched = f"; launches {short_name(names[0])}"
+            err, _ = check_k1(mk.mobius_linear_kernel(x, w, b), x, w, b,
+                              case=f"({rows}, {F})")
+            out["k1_err"] = max(out["k1_err"], err)
+            print(f"[xwide] K1 mobius_linear ({rows}, {F}) x ({F}, {F}): "
+                  f"max abs diff {err:.3e}{launched}")
+    cases = [(F, 0, False) for F in XWIDE] + [(300, 10 + 300 + 400, False),
+                                              (300, 0, True)]
+    for F, runs, nans in cases:
+        T = XWIDE_KDE_ROWS[F]
+        vals, mask = k2_case(T - F + 1, F, runs, device, nans)
+        case = (f"T={vals.shape[0]} W={F}"
+                f"{' constant run' if runs else ''}{' NaNs' if nans else ''}")
+        values = {}
+        for name, kernel, plain in (
+                ("kde_argmax", kde_argmax_kernel, functools.partial(
+                    kde_argmax_rows_and_use, block=XWIDE_PLAIN_BLOCK)),
+                ("kde_argmax_v2", kde_argmax_v2_kernel,
+                 kde_argmax_rows_v2_and_use)):
+            launched = ""
+            if not (runs or nans):   # one trace a width
+                names = kernels_launched(lambda: kernel(vals, mask))
+                if not kernel_named(names, "xwide"):
+                    fail(f"{name} at {case} launched {names}")
+                out["names"][name] = short_name(names[0])
+                launched = f"; launches {short_name(names[0])}"
+            value, use = kernel(vals, mask)
+            want, want_use = plain(vals, mask)
+            if not torch.equal(use, want_use):
+                fail(f"{name} use flags differ from the plain version's at "
+                     f"{case}")
+            if not same_values(value[~use], masked_median(vals, mask)[~use]):
+                fail(f"{name} fallback rows differ from masked_median at "
+                     f"{case}")
+            flips = near_tie_flips(value[use], want[use], vals[use],
+                                   mask[use])
+            out["flips"][name] += flips
+            values[name] = value
+            print(f"[xwide] {name} {case}: use flags bitwise; "
+                  f"{int((~use).sum())} fallback rows bitwise masked_median;"
+                  f" {flips} flips against the plain version, each a float64"
+                  f" density tie{launched}")
+        cross = near_tie_flips(values["kde_argmax_v2"][use],
+                               values["kde_argmax"][use], vals[use],
+                               mask[use])
+        print(f"[xwide] K3 against K2 {case}: {cross} flips, each a tie")
+    for F in XWIDE[:2]:
+        e5, e4, names, k4_names = critic_instance_check(device, F, "xwide")
+        for label, n in (("K5", names), ("K4", k4_names)):
+            if not kernel_named(n, "xwide"):
+                fail(f"{label} at F={F} launched {n}")
+        out["names"]["critic_step_full"] = short_name(names[0])
+        out["names"]["critics_fused_grads"] = short_name(k4_names[0])
+        out["k5_err"], out["k4_err"] = (max(out["k5_err"], e5),
+                                        max(out["k4_err"], e4))
+        print(f"[xwide] K5 critic_step_full F={F} B={MV_BATCH}: max abs diff "
               f"{e5:.3e}; K4 {e4:.3e}; S=3 in one launch within the same "
               f"tolerances, each signal bitwise its own launch; launches "
               f"{short_name(names[0])}")
@@ -2528,6 +2917,34 @@ def phase_mv(device, card):
             check_same_detection(card_v2[r], cpu_v2[r], np.zeros((0, 2)),
                                  tag=f"mv sweep v2 {r}",
                                  atol_from_scores=True, multivariate=True)
+        # the fleet grid of the family: every combination of every
+        # resident in one call, card against CPU, under K2 then K3
+        known_res = {r: detector._multivariate_ground_truth(MultivariateData(
+            np.zeros((CASAS_ROWS, 1)), y=labels[r])) for r in CASAS_RESIDENTS}
+        info["casas_sweep_grid_f1"] = {}
+        for tag, env, kde in (("mv_casas_sweep_grid", None, "kde_argmax"),
+                              ("mv_casas_sweep_grid_v2", k3_env,
+                               "kde_argmax_v2")):
+            flags = ["--detect-only", "--combinations", "all"]
+            grid_card, paths[tag] = run_cli(
+                ["sweep", *flags, "--config", str(card_cfg)], tag, card,
+                env=env)
+            card_files = grid_files(card_cfg, list(CASAS_RESIDENTS))
+            grid_cpu, _ = run_cli(
+                ["sweep", *flags, "--config", str(cpu_cfg), "--device",
+                 "cpu"], f"{tag}_cpu", card, env=env)
+            cpu_files = grid_files(cpu_cfg, list(CASAS_RESIDENTS))
+            if paths[tag] != launches_of(
+                    mobius_linear=2, mobius_linear_wide=2,
+                    **{kde: 1, f"{kde}_wide": 1}):
+                fail(f"CASAS sweep grid ({tag}) launched {paths[tag]}")
+            f1s, ties = check_sweep_grid(grid_card, grid_cpu, card_files,
+                                         cpu_files, known_res, tag,
+                                         multivariate=True)
+            info[f"{tag}_threshold_ties"] = [[r, c[1]] for r, c in ties]
+            info["casas_sweep_grid_f1"][tag] = {
+                r: {c[1]: f for c, f in cells.items()}
+                for r, cells in f1s.items()}
         # K4's wide instance: one resident's train under fused_critics true
         k4_cfg = root / "casas_k4.yaml"
         k4_cfg.write_text(dump_flat_yaml(dict(
@@ -2573,6 +2990,114 @@ def phase_mv(device, card):
           f"K4, K5 wide instances against their plain versions; WADI train "
           f"-> detect equal to the CPU's; CASAS width card = CPU; the CASAS "
           f"sweep's residents card = CPU ({card})")
+    return paths, info
+
+
+XW_F = 300             # the width-300 path's feature count
+XW_TEST_ROWS = 2_000   # its training rows, and its test rows
+
+
+def phase_xwide(device, card):
+    """[xwide]: the main path at a width above 256 through the CLI: a
+    WADI-format stream of XW_F features (2,000 training and 2,000 test
+    rows, three level-shift runs; the CASAS loader's width is fixed at
+    150), configs/multivariate.yaml's settings but ``train`` (1 epoch,
+    hyperbolic,
+    fused_critics "full": the any-width K5 and K1), ``detect`` on the
+    card (the any-width K1 2, K2 1) and ``detect --device cpu`` from the
+    card's checkpoint: the same intervals, confusion, F1, zeros and NaNs,
+    interval scores within what the score difference allows; the same
+    under HYPAD_KDE_PALLAS=1 (the any-width K3), and ``train`` under
+    fused_critics true (the any-width K4). Returns ({path: launches},
+    info)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from hypad_tpu_torch.train import trainer as tr
+    from hypad_tpu_torch.utils.config import dump_flat_yaml, parse_flat_yaml
+
+    t_phase = time.perf_counter()
+    paths, info = {}, {}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_xwide_"))
+    try:
+        write_wadi(root / "data", XW_TEST_ROWS, XW_TEST_ROWS, XW_F)
+        known = np.zeros((0, 2))   # a WADI stream carries no ground truth
+        cfg = parse_flat_yaml(Path("configs/multivariate.yaml").read_text())
+        cfg.update(signal_shape=XW_F, epochs=1, fused_critics="full",
+                   data_root=str(root / "data"),
+                   output_root=str(root / "out"), devices=1,
+                   save_plots=False)
+        cfg_path = root / "xwide.yaml"
+        cfg_path.write_text(dump_flat_yaml(cfg))
+        nb = XW_TEST_ROWS // MV_BATCH
+        (_, _, trained), paths["xwide_train"] = run_cli(
+            ["train", "--config", str(cfg_path)], "xwide_train", card)
+        want = launches_of(critic_step_full=tr.N_CRITICS * nb,
+                           critic_step_full_xwide=tr.N_CRITICS * nb,
+                           mobius_linear=2 * nb + 2,
+                           mobius_linear_xwide=2 * nb + 2,
+                           kde_argmax=1, kde_argmax_xwide=1)
+        if paths["xwide_train"] != want:
+            fail(f"width-{XW_F} train (fused_critics full) launched "
+                 f"{paths['xwide_train']}, expected {want}")
+        card_det, paths["xwide_detect"] = run_cli(
+            ["detect", "--config", str(cfg_path)], "xwide_detect", card)
+        if paths["xwide_detect"] != launches_of(
+                mobius_linear=2, mobius_linear_xwide=2, kde_argmax=1,
+                kde_argmax_xwide=1):
+            fail(f"width-{XW_F} detect launched {paths['xwide_detect']}")
+        s = card_det["scores"]
+        if s.shape != (XW_TEST_ROWS,) or not np.isfinite(s).all():
+            fail(f"width-{XW_F} scores of shape {s.shape}, finite "
+                 f"{np.isfinite(s).all()}")
+        check_same_detection(card_det, trained, known,
+                             tag="xwide re-entry", multivariate=True)
+        cpu_det, _ = run_cli(["detect", "--config", str(cfg_path),
+                              "--device", "cpu"], "xwide_detect_cpu", card)
+        info["f1"] = check_same_detection(card_det, cpu_det, known,
+                                          tag="xwide", atol_from_scores=True,
+                                          multivariate=True)
+        same_zeros_and_nans(card_det["scores"], cpu_det["scores"],
+                            f"width-{XW_F} detect")
+        k3_env = {"HYPAD_KDE_PALLAS": "1"}
+        card_v2, paths["xwide_detect_v2"] = run_cli(
+            ["detect", "--config", str(cfg_path)], "xwide_detect_v2", card,
+            env=k3_env)
+        if paths["xwide_detect_v2"] != launches_of(
+                mobius_linear=2, mobius_linear_xwide=2, kde_argmax_v2=1,
+                kde_argmax_v2_xwide=1):
+            fail(f"width-{XW_F} detect under HYPAD_KDE_PALLAS=1 launched "
+                 f"{paths['xwide_detect_v2']}")
+        cpu_v2, _ = run_cli(["detect", "--config", str(cfg_path), "--device",
+                             "cpu"], "xwide_detect_v2_cpu", card, env=k3_env)
+        info["f1_v2"] = check_same_detection(
+            card_v2, cpu_v2, known, tag="xwide v2", atol_from_scores=True,
+            multivariate=True)
+        same_zeros_and_nans(card_v2["scores"], cpu_v2["scores"],
+                            f"width-{XW_F} detect, K3")
+        k4_cfg = root / "xwide_k4.yaml"
+        k4_cfg.write_text(dump_flat_yaml(dict(
+            cfg, fused_critics=True, output_root=str(root / "out_k4"))))
+        _, paths["xwide_train_fused_true"] = run_cli(
+            ["train", "--config", str(k4_cfg)], "xwide_train_fused_true",
+            card)
+        want = launches_of(critics_fused_grads=tr.N_CRITICS * nb,
+                           critics_fused_grads_xwide=tr.N_CRITICS * nb,
+                           mobius_linear=(tr.N_CRITICS + 2) * nb + 2,
+                           mobius_linear_xwide=(tr.N_CRITICS + 2) * nb + 2,
+                           kde_argmax=1, kde_argmax_xwide=1)
+        if paths["xwide_train_fused_true"] != want:
+            fail(f"width-{XW_F} train (fused_critics true) launched "
+                 f"{paths['xwide_train_fused_true']}, expected {want}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    info["seconds"] = time.perf_counter() - t_phase
+    print(f"[xwide] all checks passed in {info['seconds']:.1f} s: the "
+          f"width-{XW_F} train -> detect on the card equals the CPU's "
+          f"detect from its checkpoint (K2 and K3), every launch of the "
+          f"any-width instances ({card})")
     return paths, info
 
 
@@ -2672,6 +3197,106 @@ def mv_kernel_timing(device):
               f"({k['bound_by']}: {k['bytes']} bytes, {k['ops']} ops); the "
               f"narrow instance at F = {WIDTH}: {k['narrow_ms_at_F100']:.5f} "
               f"ms")
+    return out
+
+
+def xwide_kernel_timing(device):
+    """Each any-width instance's time beside its plain version and its
+    bound at the width-300 path's shapes (``phase_xwide``): K1 at
+    (XW_TEST_ROWS, 300), K2 and K3 on that detect call's anti-diagonal
+    rows, K5 and K4 at B = 64; and K1 at shapes not timed before, the wide
+    instance at (50,000, 256) and the narrow one at the WADI training
+    shapes (64 and 128 rows of 123). Returns {name: timing dict}."""
+    import functools
+
+    import torch
+
+    from hypad_tpu_torch.manifold.kernels import (
+        mobius_linear,
+        mobius_linear_kernel,
+    )
+    from hypad_tpu_torch.models.tadgan import init_tadgan
+    from hypad_tpu_torch.ops.kde import (
+        kde_argmax_rows_and_use,
+        kde_argmax_rows_v2_and_use,
+    )
+    from hypad_tpu_torch.ops.kde_kernel import (
+        kde_argmax_kernel,
+        kde_argmax_v2_kernel,
+    )
+    from hypad_tpu_torch.profile_critic_step import critic_case
+    from hypad_tpu_torch.profile_detect import cuda_ms
+    from hypad_tpu_torch.profile_kernels import k2_case
+    from hypad_tpu_torch.train import critic_kernel as ck
+
+    def k1_case(rows, F):
+        gen = torch.Generator().manual_seed(rows + F)
+        head = init_tadgan(gen, F, hyperbolic=True,
+                           device=device)["decoder"].hyperbolic_linear
+        x = (torch.rand(rows, F, generator=gen) * 2 - 1).to(device)
+        return x, head.w.detach(), head.b.detach()
+
+    def k1_timing(rows, F):
+        x, w, b = k1_case(rows, F)
+        k = {"ms": cuda_ms(lambda: mobius_linear_kernel(x, w, b), 100),
+             "plain_ms": cuda_ms(lambda: mobius_linear(x, w, b), 20),
+             "max_abs_err": (mobius_linear_kernel(x, w, b)
+                             - mobius_linear(x, w, b)).abs().max().item(),
+             "shape": f"({rows}, {F})"}
+        k["bytes"], k["ops"] = k1_cost(rows, F, F)
+        return bound(k)
+
+    out = {"mobius_linear_xwide": k1_timing(XW_TEST_ROWS, XW_F)}
+    for name, kernel, plain in (
+            ("kde_argmax_xwide", kde_argmax_kernel, functools.partial(
+                kde_argmax_rows_and_use, block=XWIDE_PLAIN_BLOCK)),
+            ("kde_argmax_v2_xwide", kde_argmax_v2_kernel,
+             kde_argmax_rows_v2_and_use)):
+        vals, mask = k2_case(XW_TEST_ROWS, XW_F, 0, device)
+        got, use = kernel(vals, mask)
+        want, _ = plain(vals, mask)
+        k = {"ms": cuda_ms(lambda: kernel(vals, mask), 20),
+             "plain_ms": cuda_ms(lambda: plain(vals, mask), 3),
+             "max_abs_err": (got[use] - want[use]).abs().max().item(),
+             "shape": f"({vals.shape[0]}, {XW_F})"}
+        cnt = mask.sum(dim=1).double()
+        pairs = (cnt * (cnt - 1) / 2).sum().item()
+        k["bytes"] = 5 * vals.numel() + 5 * vals.shape[0]
+        k["exps"] = int(pairs)
+        k["ops"] = int(6 * pairs + 8 * cnt.sum().item())
+        out[name] = bound(k)
+    model, xc, d = critic_case(device, True, MV_BATCH, XW_F)
+    bigx, bigz = ck.critic_step_inputs(model, xc, d, True)
+    args = (model["critic_x"], model["critic_z"], bigx, bigz, d["m_cx"],
+            d["m_cz"])
+    bx, ox = critic_cost(MV_BATCH, model["critic_x"], XW_F)
+    bz, oz = critic_cost(MV_BATCH, model["critic_z"], 20)
+    bg, og = generator_cost(model, MV_BATCH)
+    k5 = {"ms": cuda_ms(lambda: ck.critic_step_fused_full(model, xc, d,
+                                                          True), 50),
+          "plain_ms": cuda_ms(lambda: ck.critic_step_plain(model, xc, d,
+                                                           True), 20),
+          "bytes": bx + bz + bg - 4 * 3 * MV_BATCH * (XW_F + 20),
+          "ops": ox + oz + og, "shape": f"B={MV_BATCH}, F={XW_F}"}
+    k4 = {"ms": cuda_ms(lambda: ck.critics_fused_grads(*args), 50),
+          "plain_ms": cuda_ms(lambda: ck.critics_fused_grads_plain(*args),
+                              20),
+          "bytes": bx + bz, "ops": ox + oz,
+          "shape": f"B={MV_BATCH}, F={XW_F}"}
+    out["critic_step_full_xwide"] = bound(k5)
+    out["critics_fused_grads_xwide"] = bound(k4)
+    for name, k in out.items():
+        print(f"[timing] {name} at {k['shape']}: kernel {k['ms']:.5f} ms, "
+              f"plain {k['plain_ms']:.5f} ms, bound {k['bound_ms']:.6f} ms "
+              f"({k['bound_by']}: {k['bytes']} bytes, {k['ops']} ops)")
+    out["k1_untimed_shapes"] = {}
+    for rows, F in ((MV_ROWS, 256), (MV_BATCH, WADI_F),
+                    (2 * MV_BATCH, WADI_F)):
+        k = k1_timing(rows, F)
+        out["k1_untimed_shapes"][k["shape"]] = k
+        print(f"[timing] K1 mobius_linear at {k['shape']}: kernel "
+              f"{k['ms']:.5f} ms, plain {k['plain_ms']:.5f} ms, bound "
+              f"{k['bound_ms']:.6f} ms ({k['bound_by']})")
     return out
 
 
@@ -2859,18 +3484,22 @@ def main():
     # the wide instances, named by the profiler before the long traces of
     # [fleet]
     mv_errs = timed(mv_kernel_checks, device)
+    xw_errs = timed(xwide_kernel_checks, device)
     launches, X, model = timed(phase_main_path, device)
     eucl_launches, eucl_model = timed(phase_eucl_detect, device)
     train = timed(phase_train, device)
     eucl_train = timed(phase_eucl_train, device)
     cli_paths, cli_info = timed(phase_cli, device, card)
     fleet = timed(phase_fleet, device)
-    sweep_launches, sweep_info = timed(phase_sweep, device, card)
+    sweep_launches, sweep_grid_launches, sweep_info = timed(
+        phase_sweep, device, card)
     mv_paths, mv_info = timed(phase_mv, device, card)
+    xw_paths, xw_info = timed(phase_xwide, device, card)
     timed(phase_staged, device, X, eucl_model, model)
     wps, k1, k2, k3 = timed(phase_timing, device, X, model, eucl_model, libs)
     epochs, k4, k5 = timed(phase_train_timing, device, train["X"])
     mv_timing = timed(mv_kernel_timing, device)
+    xw_timing = timed(xwide_kernel_timing, device)
     paths = {"detect": launches,
              **{f"detect_euclidean_{r}": eucl_launches[r]
                 for r in REC_ERRORS},
@@ -2882,7 +3511,8 @@ def main():
              "fleet_seed_band_S3_2_epochs": fleet["band_launches"],
              "fleet_detect_S9": fleet["detect"]["launches"],
              "sweep_nab_9_signals_1_epoch": sweep_launches,
-             **mv_paths}
+             "sweep_nab_9_signals_grid_detect_only": sweep_grid_launches,
+             **mv_paths, **xw_paths}
     by_path = {name: {path: counts[name] for path, counts in paths.items()}
                for name in launches}
     tol_text = "loss rtol {0[rtol]} atol {0[atol]}, grads rtol {1[rtol]} " \
@@ -3001,6 +3631,41 @@ def main():
             "bound_by": w["bound_by"],
             "narrow_instance_ms_at_F100": w["narrow_ms_at_F100"],
             "library_ms": None})
+    # the any-width instances (widths above 256), each with the launches
+    # of the width-300 path that runs it
+    xwide_paths = {"mobius_linear": "xwide_detect",
+                   "kde_argmax": "xwide_detect",
+                   "kde_argmax_v2": "xwide_detect_v2",
+                   "critics_fused_grads": "xwide_train_fused_true",
+                   "critic_step_full": "xwide_train"}
+    xwide_err = {"mobius_linear": max(xw_errs["k1_err"],
+                                      xw_timing["mobius_linear_xwide"][
+                                          "max_abs_err"]),
+                 "kde_argmax": xw_timing["kde_argmax_xwide"]["max_abs_err"],
+                 "kde_argmax_v2": xw_timing["kde_argmax_v2_xwide"][
+                     "max_abs_err"],
+                 "critics_fused_grads": xw_errs["k4_err"],
+                 "critic_step_full": xw_errs["k5_err"]}
+    for k in kernels[:len(KERNEL_NAMES)]:
+        name, xwide = k["name"], f"{k['name']}_xwide"
+        w = xw_timing[xwide]
+        path = xwide_paths[name]
+        kernels.append({
+            "name": xwide, "route": "cuda", "source": k["source"],
+            "replaces": k["replaces"], "instance": "widths above 256",
+            "profiler_name": xw_errs["names"][name],
+            "launches": xw_paths[path][xwide], "launches_path": path,
+            "launches_by_path": by_path[xwide],
+            "max_abs_err": xwide_err[name],
+            "tolerance": (k["tolerance"] if name.startswith("critic") or
+                          name == "mobius_linear" else
+                          "use flags bitwise; fallback rows bitwise "
+                          "masked_median; elsewhere each differing row a "
+                          "sample of its own row at a float64 density tie "
+                          "(gap <= n 2^-22)"),
+            "shape": w["shape"], "ms": w["ms"], "kernel_ms": w["ms"],
+            "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+            "bound_by": w["bound_by"], "library_ms": None})
     for k in kernels:
         by_s = fleet["kernels"].get(k["name"])
         if by_s:
@@ -3024,6 +3689,9 @@ def main():
                "sweep": sweep_info,
                "mv": mv_info,
                "mv_kernel_checks": mv_errs,
+               "xwide": xw_info,
+               "xwide_kernel_checks": xw_errs,
+               "k1_untimed_shapes": xw_timing["k1_untimed_shapes"],
                "kernels": kernels,
                "phase_seconds": phase_s,
                "seconds": time.perf_counter() - t_start}

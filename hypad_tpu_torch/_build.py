@@ -90,3 +90,19 @@ def load(name) -> ctypes.CDLL:
     if not path.exists():
         build((name,))
     return ctypes.CDLL(str(path))
+
+
+def instance(width):
+    """The kernel instance a launch whose widest width is ``width`` takes,
+    as every source in ``csrc/`` decides: "narrow" up to 128, "wide" up to
+    256, else "xwide" (the any-width instance)."""
+    return "narrow" if width <= 128 else "wide" if width <= 256 else "xwide"
+
+
+def count_launch(fn, kind):
+    """One launch of the kernel wrapper ``fn``, of instance ``kind``:
+    ``fn.launches`` counts every launch, ``fn.wide_launches`` and
+    ``fn.xwide_launches`` those of the wide and the any-width instance."""
+    fn.launches += 1
+    fn.wide_launches += kind == "wide"
+    fn.xwide_launches += kind == "xwide"

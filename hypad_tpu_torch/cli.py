@@ -21,7 +21,12 @@ and multivariate:
   ``config.yaml``, anomalies and results CSV row land in its own run
   directory (under ``seed_{k}/`` for a band), where ``detect`` re-enters
   it; ``sweep_log.jsonl`` in the first. ``--detect-only`` re-scores a
-  trained family from its checkpoints;
+  trained family from its checkpoints. With ``--rec-errors``/
+  ``--combinations`` (the fleet grid) every (rec_error x combination) cell
+  of every run is scored in one call (``detect_scores_fleet_grid``), each
+  run's ``grid_results.csv`` written from its slice, the family table
+  ``sweep_grid.csv`` beside ``sweep_log.jsonl``, and the cells ranked by
+  their mean F1;
 * no subcommand means ``train``.
 
 A multivariate config (``signal: multivariate`` with SWaT or WADI, or a
@@ -39,15 +44,16 @@ KDE kernel K3, else K2. The weights come from ``init_tadgan`` on a torch
 generator seeded with ``seed``, so a port run does not train the JAX
 run's weights; a JAX checkpoint carried over with
 ``train.state_bridge.train_state_from_jax`` and saved with
-``utils.checkpoint.save_state`` detects as the JAX CLI does. Not ported:
-the fleet grid (``sweep --rec-errors/--combinations``, univariate or
-multivariate) and ``sweep --canonical`` (ROADMAP A10), plots (A12), more
-than one device (A13).
+``utils.checkpoint.save_state`` detects as the JAX CLI does. ``all``
+stands for every valid cell in ``--combinations`` and, unlike JAX's CLI,
+in ``--rec-errors`` too. Not ported: ``sweep --canonical`` (ROADMAP A10),
+plots (A12), more than one device (A13).
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import sys
 import time
@@ -57,8 +63,6 @@ import torch
 
 from hypad_tpu_torch._device import resolve_device
 
-_FLEET_GRID = ("the fleet grid (`sweep --rec-errors/--combinations`) is not "
-               "ported yet (ROADMAP A10)")
 _CANONICAL = ("`sweep --canonical` (the JAX compile cache's padded shapes) "
               "is not ported (ROADMAP A10)")
 
@@ -181,24 +185,43 @@ def _sweep_pairs(params, signals, seeds):
 
 
 def cmd_sweep(params, config_path, signals=None, seeds=None,
-              detect_only=False, device="cuda"):
+              detect_only=False, rec_errors=None, combinations=None,
+              canonical=False, device="cuda"):
     """Train a signal family, a seed band or their cross product as one
-    fleet, then detect it in one call (JAX's ``cmd_sweep`` without the
-    grid and ``--canonical``); a multivariate family (CASAS residents, say)
-    is scored per timestep. Returns one ``(signal, seed, f1)`` per run, in
-    run order."""
+    fleet, then detect it in one call (JAX's ``cmd_sweep`` without
+    ``canonical``, which raises naming ROADMAP A10); a multivariate family
+    (CASAS residents, say) is scored per timestep. Returns one ``(signal,
+    seed, f1)`` per run, in run order.
+
+    ``rec_errors`` / ``combinations`` (JAX's keywords) make it the fleet
+    grid: every cell of every run from one ``detect_scores_fleet_grid``
+    call, each run's ``grid_results.csv`` through ``detect_grid`` on its
+    slice, ``sweep_grid.csv`` (columns signal, seed, rec_error,
+    combination, f1; runs in order, then cells in grid order) beside
+    ``sweep_log.jsonl``, and the cells ranked by mean F1
+    (:func:`grid_ranking`). It then returns one ``(signal, seed,
+    {cell: result})`` per run."""
     import argparse as ap
     import copy
     import json
 
     from hypad_tpu_torch.data.registry import is_multivariate
-    from hypad_tpu_torch.detect.scorer import detect_scores_fleet
+    from hypad_tpu_torch.detect.detector import detect_grid
+    from hypad_tpu_torch.detect.scorer import (
+        detect_scores_fleet,
+        detect_scores_fleet_grid,
+    )
     from hypad_tpu_torch.train import fleet as fl
     from hypad_tpu_torch.utils import checkpoint as ck
     from hypad_tpu_torch.utils.config import run_dir
     from hypad_tpu_torch.utils.profiling import stage
 
+    if canonical:
+        raise NotImplementedError(_CANONICAL)
     device = resolve_device(device)
+    grid_mode = bool(rec_errors or combinations)
+    grid_combos = combinations or [params.combination]
+    grid_recs = rec_errors or [params.rec_error]
     pairs = _sweep_pairs(params, signals, seeds)
     band = seeds is not None or getattr(params, "seeds", None) is not None
     if getattr(params, "save_artifacts", True) and not params.load:
@@ -226,7 +249,9 @@ def cmd_sweep(params, config_path, signals=None, seeds=None,
     tag = params.resume_epoch if params.resume else "final"
     staged = fstate = stacked = None
     if detect_only:
-        if not params.load:
+        # the grid always scores from the checkpoints; a single cell under
+        # `load: true` takes each run's cached artifacts instead
+        if grid_mode or not params.load:
             missing = [path for (*_, path) in per if not os.path.exists(
                 ck.checkpoint_path(path, tag))]
             if missing:
@@ -280,39 +305,108 @@ def cmd_sweep(params, config_path, signals=None, seeds=None,
         stacked = fstate.params
 
     fleet_scores = [None] * len(per)
-    if not params.load:
-        # a family that tests on its training windows reuses the stack
-        # already on the card
-        reuse = staged if all(td is trd for (_, trd, td, _) in per) else None
-        X_test = [td.X for (_, _, td, _) in per]
+    # a family that tests on its training windows reuses the stack already
+    # on the card
+    reuse = staged if all(td is trd for (_, trd, td, _) in per) else None
+    X_test = [td.X for (_, _, td, _) in per]
+    mv = is_multivariate(params)
+    if grid_mode:
+        t0 = time.time()
+        with stage("sweep_detect_grid"):
+            fleet_grid = detect_scores_fleet_grid(
+                stacked, X_test, params.hyperbolic, grid_combos,
+                rec_errors=grid_recs, staged=reuse, device=device,
+                multivariate=mv)
+        dwall = time.time() - t0
+        print(f"fleet grid detection wall-clock: {dwall:.2f}s for "
+              f"{len(per)} signals x {len(fleet_grid[0])} cells in one "
+              "program")
+    elif not params.load:
         t0 = time.time()
         with stage("sweep_detect"):
             fleet_scores = detect_scores_fleet(
                 stacked, X_test, params.hyperbolic, params.combination,
                 rec_error=params.rec_error, staged=reuse, device=device,
-                multivariate=is_multivariate(params))
+                multivariate=mv)
         dwall = time.time() - t0
         n_win = sum(len(x) for x in X_test)
         print(f"fleet detection wall-clock: {dwall:.2f}s for {len(per)} "
               f"signals / {n_win} windows in one program "
               f"({n_win / dwall:.1f} windows/sec)")
 
-    results = []
+    results, grid_rows = [], []
     for i, (p, _, test_data, path) in enumerate(per):
         if fstate is not None:
             ck.save_state(path, fl.unstack_state(fstate, i), "final")
+        print(f"--- {p.signal}{f' (seed {p.seed})' if band else ''} ---")
+        if grid_mode:
+            res = detect_grid(p, None, test_data, path, rec_errors=grid_recs,
+                              combinations=grid_combos, device=device,
+                              precomputed_grid=fleet_grid[i])
+            for (re_, cb), r in res.items():
+                m = r["metrics"] or {}
+                grid_rows.append({"signal": p.signal, "seed": p.seed,
+                                  "rec_error": re_ or "", "combination": cb,
+                                  "f1": float(m.get("f1", np.nan))})
+            results.append((p.signal, p.seed, res))
+            continue
         model = (fl.unstack_model(stacked, i) if stacked is not None
                  else ck.restore_state(path, tag, device).model)
-        print(f"--- {p.signal}{f' (seed {p.seed})' if band else ''} ---")
         res = _run_detection(p, model, test_data, path, device,
                              precomputed_scores=fleet_scores[i])
         m = res["metrics"]
         results.append((p.signal, p.seed, m["f1"] if m else None))
+    if grid_mode:
+        write_sweep_grid(os.path.join(per[0][3], "sweep_grid.csv"),
+                         grid_rows)
+        print(f"sweep grid mean f1 over {len(per)} runs, best cell first:")
+        for re_, cb, mean, n in grid_ranking(grid_rows):
+            print(f"  {cb if not re_ else f'{re_}/{cb}'}: {mean:.4f} "
+                  f"(n={n})")
+        return results
     scored = [f for _, _, f in results if f is not None]
     if scored:
         print(f"sweep mean f1 over {len(scored)}/{len(results)} signals: "
               f"{float(np.mean(scored)):.4f}")
     return results
+
+
+def write_sweep_grid(path, rows):
+    """The family table ``sweep_grid.csv`` as JAX writes it with pandas'
+    ``to_csv(index=False)``: columns signal, seed, rec_error, combination,
+    f1, the rows as given, a NaN f1 as an empty field."""
+    from hypad_tpu_torch.detect.detector import _write_rows
+
+    _write_rows(path, [{**r, "f1": None if math.isnan(r["f1"]) else r["f1"]}
+                       for r in rows])
+
+
+def grid_ranking(rows):
+    """[(rec_error, combination, mean f1, n)] of the sweep grid's rows,
+    best cell first: the mean over each cell's non-NaN f1 and ``n`` their
+    count, as pandas' ``mean`` / ``count`` take them (a cell with none has
+    NaN and n = 0, and goes last). Equal means keep the cells' first-seen
+    order, a stable sort; JAX's ``sort_values`` (quicksort, after a
+    ``groupby`` that sorts the cells by name) may order such ties
+    differently."""
+    f1s = {}
+    for r in rows:
+        f1s.setdefault((r["rec_error"], r["combination"]), []).extend(
+            [] if math.isnan(r["f1"]) else [r["f1"]])
+    table = [(re_, cb, float(np.mean(v)) if v else math.nan, len(v))
+             for (re_, cb), v in f1s.items()]
+    return sorted(table, key=lambda t: (math.isnan(t[2]),
+                                        0.0 if math.isnan(t[2]) else -t[2]))
+
+
+def expand_rec_errors(recs):
+    """``["all"]`` -> every rec_error (point, area, dtw); any other list
+    passes through for the grid to check."""
+    if recs != ["all"]:
+        return recs
+    from hypad_tpu_torch.detect.scorer import REC_ERRORS
+
+    return list(REC_ERRORS)
 
 
 def expand_combinations(params, combos):
@@ -369,13 +463,15 @@ def main(argv=None):
     parser.add_argument("--profile", action="store_true",
                         help="print per-stage wall-clock report at exit")
     parser.add_argument("--rec-errors", type=str, default=None,
-                        help="comma-separated rec_error list for `detect`: "
-                             "score every (rec_error x combination) cell "
-                             "from one forward pass")
+                        help="comma-separated rec_error list for `detect` / "
+                             "`sweep` ('all' = point,area,dtw): score every "
+                             "(rec_error x combination) cell from one "
+                             "forward pass (on `sweep`, every run's cells in "
+                             "one call)")
     parser.add_argument("--combinations", type=str, default=None,
                         help="comma-separated combination list for `detect` "
-                             "grid detection ('all' = every mode valid for "
-                             "the config's geometry)")
+                             "/ `sweep` grid detection ('all' = every mode "
+                             "valid for the config's geometry)")
     parser.add_argument("--signals", type=str, default=None,
                         help="comma-separated signal list for `sweep` "
                              "(overrides the config's `signals:`)")
@@ -389,8 +485,6 @@ def main(argv=None):
     parser.add_argument("--canonical", action="store_true",
                         help=_CANONICAL)
     args = parser.parse_args(argv)
-    if command == "sweep" and (args.rec_errors or args.combinations):
-        raise NotImplementedError(_FLEET_GRID)
     if command == "sweep" and args.canonical:
         raise NotImplementedError(_CANONICAL)
     device = resolve_device(args.device)
@@ -404,7 +498,8 @@ def main(argv=None):
 
     combos = expand_combinations(
         params, args.combinations.split(",") if args.combinations else None)
-    recs = args.rec_errors.split(",") if args.rec_errors else None
+    recs = expand_rec_errors(args.rec_errors.split(",")
+                             if args.rec_errors else None)
     if command == "train":
         out = cmd_train(params, args.config, device)
     elif command == "sweep":
@@ -413,7 +508,8 @@ def main(argv=None):
                                  else None),
                         seeds=(args.seeds.split(",") if args.seeds
                                else None),
-                        detect_only=args.detect_only, device=device)
+                        detect_only=args.detect_only, rec_errors=recs,
+                        combinations=combos, device=device)
     else:
         out = cmd_detect(params, args.config, rec_errors=recs,
                          combinations=combos, device=device)

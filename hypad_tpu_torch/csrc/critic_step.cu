@@ -96,6 +96,16 @@
 // kIn = 256 with 32-row tiles, whose 32.9 KB tile stays in static shared
 // memory. Each output is still one thread's ascending-k FMA chain, so the
 // tile height changes no bit.
+//
+// Any-width instance (kIn = kAnyIn): above 256 (a window of 300, or a
+// stream of more features) the tile grows with the width, so this instance
+// stages its rows in dynamic shared memory, as many rows at a time as the
+// launch gave it room for (up to 32, at least one: 32 x 301 floats, 38.5
+// KB, at 300; one row of up to 58,000 floats), and the Mobius head's clamp
+// chain reads its row again for each pass instead of holding it in
+// registers. The launch shape (two clusters of 8 blocks of 512 threads) and
+// every sum's order are the other instances', so it computes the same bits
+// they would.
 
 // Signal axis (the fleet's counterpart of jax.vmap): the grid's y is the
 // signal. Every slot carries a byte stride from one signal's slice to the
@@ -127,6 +137,8 @@ constexpr int kMaxIn = 128;
 constexpr int kTileRows = 64;  // input rows staged at a time
 constexpr int kWideMaxIn = 256;
 constexpr int kWideTileRows = 32;
+constexpr int kAnyIn = 0;  // the any-width instance: a dynamic tile
+constexpr int kSmemLimit = 227 * 1024;  // shared memory a block may have
 
 template <int kIn>
 __host__ __device__ constexpr int tile_rows() {
@@ -263,23 +275,33 @@ __device__ __forceinline__ float sigmoid(float x) {
 // sectors each: K5 took 2.61 ms a launch at B = 64 on an H100 80GB HBM3 at
 // 700 W; a warp per output with a shuffle sum, 1.62 ms.)
 
+// Bytes of dynamic shared memory this launch has (the any-width tile).
+__device__ __forceinline__ unsigned dynamic_smem_bytes() {
+  unsigned bytes;
+  asm volatile("mov.u32 %0, %%dynamic_smem_size;" : "=r"(bytes));
+  return bytes;
+}
+
 // Stage the owned rows of in (., din) into `tile`, up to kTileRows at a
-// time, and run body(t0, n, ld) on each stage: tile row r holds owned row
-// rows.at(t0 + r).
+// time (the any-width instance: as many as its dynamic tile holds, at most
+// kWideTileRows), and run body(t0, n, ld, src) on each stage: row r of src
+// (= tile, stride ld) holds owned row rows.at(t0 + r).
 template <int kIn, typename Body>
 __device__ void for_row_tiles(const float* in, const Rows& rows, int din,
                               float* tile, Body body) {
-  constexpr int kRowsAtATime = tile_rows<kIn>();
   const int ld = din | 1;
-  for (int t0 = 0; t0 < rows.count(); t0 += kRowsAtATime) {
-    const int n = min(rows.count() - t0, kRowsAtATime);
+  int at_a_time = tile_rows<kIn>();
+  if constexpr (kIn == kAnyIn)
+    at_a_time = min(kWideTileRows, (int)(dynamic_smem_bytes() / (4u * ld)));
+  for (int t0 = 0; t0 < rows.count(); t0 += at_a_time) {
+    const int n = min(rows.count() - t0, at_a_time);
     __syncthreads();  // the previous stage's readers are done
     for (int idx = threadIdx.x; idx < n * din; idx += blockDim.x) {
       const int r = idx / din, k = idx - r * din;
       tile[r * ld + k] = in[(size_t)rows.at(t0 + r) * din + k];
     }
     __syncthreads();
-    body(t0, n, ld);
+    body(t0, n, ld, static_cast<const float*>(tile));
   }
 }
 
@@ -288,10 +310,11 @@ template <int kIn>
 __device__ void linear(const float* in, const Rows& rows, int din,
                        const float* W, const float* b, float* out, int dout,
                        bool act_tanh, float* tile) {
-  for_row_tiles<kIn>(in, rows, din, tile, [&](int t0, int n, int ld) {
+  for_row_tiles<kIn>(in, rows, din, tile,
+                     [&](int t0, int n, int ld, const float* src) {
     for (int idx = threadIdx.x; idx < n * dout; idx += blockDim.x) {
       const int j = idx / n, r = idx - j * n;
-      const float* x = tile + r * ld;
+      const float* x = src + r * ld;
       const float* w = W + (size_t)j * din;
       float acc = 0.0f;
       for (int k = 0; k < din; ++k) acc = fmaf(x[k], w[k], acc);
@@ -308,13 +331,14 @@ __device__ void bilstm_t1(const float* in, const Rows& rows, int din, Lstm fw,
                           Lstm bw, int H, const uint8_t* keep, float kscale,
                           float* out, float* tile) {
   const int width = 2 * H;
-  for_row_tiles<kIn>(in, rows, din, tile, [&](int t0, int n, int ld) {
+  for_row_tiles<kIn>(in, rows, din, tile,
+                     [&](int t0, int n, int ld, const float* src) {
     for (int idx = threadIdx.x; idx < n * width; idx += blockDim.x) {
       const int c = idx / n, r = idx - c * n;
       const bool rev = c >= H;
       const int j = rev ? c - H : c;
       const Lstm d = rev ? bw : fw;
-      const float* x = tile + r * ld;
+      const float* x = src + r * ld;
       const float* wi = d.w + (size_t)j * din;
       const float* wg = d.w + (size_t)(2 * H + j) * din;
       const float* wo = d.w + (size_t)(3 * H + j) * din;
@@ -336,12 +360,57 @@ __device__ void bilstm_t1(const float* in, const Rows& rows, int din, Lstm fw,
   });
 }
 
+// mobius_rows for any W: lane l takes entries l, l + 32, ... of a row, in
+// the order the register form holds them, and reads the row from `u` again
+// for each pass instead of keeping it in registers.
+__device__ void mobius_rows_any(const float* u, const Rows& rows, int W,
+                                const float* mb, float* out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float b2 = 0.0f;
+  for (int j = lane; j < W; j += 32) b2 += mb[j] * mb[j];
+  b2 = hypad::warp_sum(b2);
+  for (int i = warp; i < rows.count(); i += kWarps) {
+    const int r = rows.at(i);
+    const float* ur = u + (size_t)r * W;
+    float sq = 0.0f;
+    for (int j = lane; j < W; j += 32) sq += ur[j] * ur[j];
+    const float un = fmaxf(sqrtf(hypad::warp_sum(sq)), kNormFloor);
+    const float t = tanhf(fminf(fmaxf(un, -kTanhClamp), kTanhClamp));
+    float x2 = 0.0f, xy = 0.0f;
+    for (int j = lane; j < W; j += 32) {
+      const float e = t * (ur[j] / un);
+      x2 += e * e;
+      xy += e * mb[j];
+    }
+    x2 = hypad::warp_sum(x2);
+    xy = hypad::warp_sum(xy);
+    const float ce = 1.0f + 2.0f * xy + b2;
+    const float cb = 1.0f - x2;
+    const float den = fmaxf(1.0f + 2.0f * xy + x2 * b2, kNormFloor);
+    float s2 = 0.0f;
+    for (int j = lane; j < W; j += 32) {
+      const float e = (ce * (t * (ur[j] / un)) + cb * mb[j]) / den;
+      s2 += e * e;
+    }
+    const float sn = fmaxf(sqrtf(hypad::warp_sum(s2)), kNormFloor);
+    float* orow = out + (size_t)r * W;
+    for (int j = lane; j < W; j += 32) {
+      const float e = (ce * (t * (ur[j] / un)) + cb * mb[j]) / den;
+      orow[j] = sn > kMaxNorm ? e / sn * kMaxNorm : e;
+    }
+  }
+}
+
 // MobiusLinear's clamp chain on u = x W^T (rows, W), one warp a row:
 // expmap0, mobius_add(b) at k = -1, project; as K1 (csrc/mobius_linear.cu).
 template <int kIn>
 __device__ void mobius_rows(const float* u, const Rows& rows, int W,
                             const float* mb, float* out) {
-  constexpr int kPer = kIn / 32;
+  if constexpr (kIn == kAnyIn) {
+    mobius_rows_any(u, rows, W, mb, out);
+    return;
+  }
+  constexpr int kPer = kIn == kAnyIn ? 1 : kIn / 32;  // never 0
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float bj[kPer];
   float b2 = 0.0f;
@@ -515,10 +584,10 @@ __device__ void critic(const Args& a, int rank, const float* big, int in,
     float* Di = Ds + (size_t)i * R * H;
     const uint8_t* mi = masks + (size_t)i * R * H;
     for_row_tiles<kIn>(h_in(i), rows, din, tile,
-                       [&](int t0, int n, int ld) {
+                       [&](int t0, int n, int ld, const float* src) {
       for (int idx = threadIdx.x; idx < n * H; idx += blockDim.x) {
         const int j = idx / n, r = idx - j * n;
-        const float* x = tile + r * ld;
+        const float* x = src + r * ld;
         const float* w = Wl[i] + (size_t)j * din;
         float acc = 0.0f;
         for (int k = 0; k < din; ++k) acc = fmaf(x[k], w[k], acc);
@@ -669,10 +738,11 @@ __device__ void critic(const Args& a, int rank, const float* big, int in,
       });
       my_gp[off[i] + idx] = acc;
     }
-    for_row_tiles<kIn>(u, brows, din, tile, [&](int t0, int n, int ld) {
+    for_row_tiles<kIn>(u, brows, din, tile,
+                       [&](int t0, int n, int ld, const float* src) {
       for (int idx = threadIdx.x; idx < n * H; idx += blockDim.x) {
         const int j = idx / n, r = idx - j * n;
-        const float* x = tile + r * ld;
+        const float* x = src + r * ld;
         const float* w = Wl[i] + (size_t)j * din;
         float acc = 0.0f;
         for (int k = 0; k < din; ++k) acc = fmaf(x[k], w[k], acc);
@@ -725,8 +795,12 @@ __device__ void critic(const Args& a, int rank, const float* big, int in,
 template <int kIn>
 __global__ void __launch_bounds__(kThreads) critic_step_kernel(Args a) {
   __shared__ float red[kWarps + 1];
-  // 33,024 bytes narrow, 32,896 wide
-  __shared__ float tile[tile_rows<kIn>() * (kIn + 1)];
+  // 33,024 bytes narrow, 32,896 wide; the any-width instance's tile is
+  // dynamic shared memory
+  __shared__ float static_tile[kIn == kAnyIn ? 1
+                                             : tile_rows<kIn>() * (kIn + 1)];
+  extern __shared__ float dynamic_tile[];
+  float* tile = kIn == kAnyIn ? dynamic_tile : static_tile;
   const int rank = (int)cg::this_cluster().block_rank();
   const Rows rows = rank_rows(a.B, rank, 1);
   float* ws = out_ptr(a, WS);
@@ -782,7 +856,7 @@ bool fill(Args* a, void* const* ptrs, const long long* strides,
   a->hyperbolic = hyperbolic;
   for (int d = 0; d < kDims; ++d)
     if (dims[d] < 1) return false;
-  return widest(*a) <= kWideMaxIn;
+  return true;
 }
 
 // Two clusters of kClusterBlocks blocks for each of `signals` signals
@@ -806,9 +880,25 @@ int launch(void* const* ptrs, const long long* strides, const int* dims,
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  // the narrow instance up to kMaxIn, the wide one above
-  void (*kernel)(Args) = widest(a) > kMaxIn ? critic_step_kernel<kWideMaxIn>
-                                            : critic_step_kernel<kMaxIn>;
+  // the narrow instance up to kMaxIn, the wide one up to kWideMaxIn, the
+  // any-width one above, with a dynamic tile of up to kWideTileRows rows of
+  // the widest input (stride | 1), at least one
+  const int w = widest(a);
+  void (*kernel)(Args) = w > kWideMaxIn ? critic_step_kernel<kAnyIn>
+                         : w > kMaxIn   ? critic_step_kernel<kWideMaxIn>
+                                        : critic_step_kernel<kMaxIn>;
+  if (w > kWideMaxIn) {
+    const size_t row = sizeof(float) * (size_t)(w | 1);
+    const size_t room = kSmemLimit - sizeof(float) * (kWarps + 2);
+    if (row > room) return cudaErrorInvalidValue;
+    const size_t rows = room / row < kWideTileRows ? room / row
+                                                   : kWideTileRows;
+    cfg.dynamicSmemBytes = rows * row;
+    const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)cfg.dynamicSmemBytes);
+    if (attr != cudaSuccess) return attr;
+  }
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;

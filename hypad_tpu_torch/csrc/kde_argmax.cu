@@ -98,6 +98,20 @@
 // is the narrow instances'. The narrow instances (rows up to 128) are the
 // code they were before.
 
+// Any-width instances: rows wider than 256 (a univariate window of 300, a
+// stream of more features) go to kde_argmax_xwide_kernel (K2) and
+// kde_argmax_v2_xwide_kernel (K3), one block a row of up to 16 warps, each
+// thread owning samples tid, tid + blockDim, ... and reading the row from
+// global memory (L1-resident), so no width is too wide. A sample's density
+// is its own sum: K2 over j ascending, K3 in v2's order (1, then for each
+// offset r the forward term of pair (i, i - r) and the back term of pair
+// (i + r, i)); each pair's exp is computed by both of its samples' threads.
+// The row statistics and the first max are block sums and a block argmax in
+// a fixed order; the median fallback ranks each candidate (the samples and
+// the first masked entry, which sort as the plain version's fill f32 max,
+// NaNs last) against the whole row, one candidate a thread, and takes the
+// first in index order that holds the rank.
+
 #include <float.h>
 #include <math.h>
 
@@ -119,6 +133,8 @@ constexpr int kByOffsetBlocksPerSM = 1;
 // 1,024 threads; K2's at two blocks an SM (32 registers, as the narrow
 // K2's), K3's at one (64).
 constexpr int kWideRows = 16;
+// The any-width instances: warps a block (one block a row).
+constexpr int kXwMaxWarps = 16;
 
 // Rows a block of the instance for rows up to kW wide.
 template <int kW, bool kByOffset>
@@ -649,17 +665,230 @@ int launch(const float* vals, const unsigned char* mask, float* kde_val,
   return cudaGetLastError();
 }
 
+// Sum of v over the block (blockDim.x a multiple of 32, at most
+// kXwMaxWarps warps), in a fixed order; every thread gets it.
+__device__ float xw_block_sum(float v, float* red) {
+  v = hypad::warp_sum(v);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();  // red's previous readers are done
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.0f;
+  return hypad::warp_sum(t);
+}
+
+// The first max (the smallest index among equal maxima) over the block.
+__device__ int xw_block_argmax(float b, int bi, float* redf, int* redi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    const float ob = __shfl_xor_sync(hypad::kFullMask, b, offset);
+    const int oi = __shfl_xor_sync(hypad::kFullMask, bi, offset);
+    if (ob > b || (ob == b && oi < bi)) {
+      b = ob;
+      bi = oi;
+    }
+  }
+  __syncthreads();
+  if (lane == 0) {
+    redf[warp] = b;
+    redi[warp] = bi;
+  }
+  __syncthreads();
+  b = -INFINITY;
+  bi = 0x7fffffff;
+  if (lane < (int)(blockDim.x >> 5)) {
+    b = redf[lane];
+    bi = redi[lane];
+  }
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    const float ob = __shfl_xor_sync(hypad::kFullMask, b, offset);
+    const int oi = __shfl_xor_sync(hypad::kFullMask, bi, offset);
+    if (ob > b || (ob == b && oi < bi)) {
+      b = ob;
+      bi = oi;
+    }
+  }
+  return bi;
+}
+
+// Entry j of the row as the densities see it: the sample, or the sentinel
+// where it is masked out.
+__device__ __forceinline__ float xw_sample(const float* v,
+                                           const unsigned char* m, int j) {
+  return m[j] ? v[j] : kSentinel;
+}
+
+// The k-th order statistic of a row ranked as masked_median sorts it
+// (masked entries f32 max, NaNs last): the first candidate in index order
+// with fewer than k + 1 smaller and at least k + 1 smaller-or-equal
+// entries; NaN when no candidate holds the rank. Candidates: the samples
+// and the masked entry `fill` (-1 for none).
+__device__ float xw_order_stat(const float* v, const unsigned char* m,
+                               int width, int fill, int k, int* first) {
+  __syncthreads();
+  if (threadIdx.x == 0) *first = 0x7fffffff;
+  __syncthreads();
+  for (int c = threadIdx.x; c < width; c += blockDim.x) {
+    if (!m[c] && c != fill) continue;
+    const float x = m[c] ? v[c] : FLT_MAX;
+    int less = 0, eq = 0;
+    for (int j = 0; j < width; ++j) {
+      const float y = m[j] ? v[j] : FLT_MAX;
+      less += y < x;
+      eq += y == x;
+    }
+    if (less <= k && k < less + eq) atomicMin(first, c);
+  }
+  __syncthreads();
+  const int c = *first;
+  if (c == 0x7fffffff) return __int_as_float(0x7fc00000);
+  return m[c] ? v[c] : FLT_MAX;
+}
+
+template <bool kByOffset>
+__device__ __forceinline__ void kde_argmax_xwide_body(
+    const float* __restrict__ vals, const unsigned char* __restrict__ mask,
+    float* __restrict__ kde_val, unsigned char* __restrict__ use, int width) {
+  __shared__ float redf[kXwMaxWarps];
+  __shared__ int redi[kXwMaxWarps];
+  __shared__ int first;
+  const size_t row = blockIdx.x;
+  const float* v = vals + row * width;
+  const unsigned char* m = mask + row * width;
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  // 1. mean, unbiased variance, Scott scale, use flag
+  float cnt = 0.0f, sum = 0.0f;
+  for (int i = tid; i < width; i += nt)
+    if (m[i]) {
+      cnt += 1.0f;
+      sum += v[i];
+    }
+  cnt = xw_block_sum(cnt, redf);
+  sum = xw_block_sum(sum, redf);
+  const float cnt_f = fmaxf(cnt, 1.0f);
+  const float mean = sum / cnt_f;
+  float ss = 0.0f;
+  for (int i = tid; i < width; i += nt)
+    if (m[i]) {
+      const float c = v[i] - mean;
+      ss += c * c;
+    }
+  const float var = xw_block_sum(ss, redf) / fmaxf(cnt_f - 1.0f, 1.0f);
+  const float h2 = var * powf(cnt_f, -0.4f);
+  const float sc = -0.5f / (h2 > 0.0f ? h2 : 1.0f);
+  const bool use_kde = cnt > 1.0f && var > 0.0f;
+
+  float out;
+  if (use_kde) {
+    // 2. each owned sample's density; 3. the first max over the row
+    float best = -INFINITY;
+    int best_i = 0x7fffffff;
+    for (int i = tid; i < width; i += nt) {
+      float dens = -INFINITY;
+      if (m[i]) {
+        const float vi = v[i];
+        if (kByOffset) {
+          dens = 1.0f;  // the self pair
+          for (int r = 1; r < width; ++r) {
+            if (i - r >= 0) {
+              const float d = vi - xw_sample(v, m, i - r);
+              dens = dens + expf(sc * (d * d));
+            }
+            if (i + r < width) {
+              const float d = xw_sample(v, m, i + r) - vi;
+              dens = dens + expf(sc * (d * d));
+            }
+          }
+        } else {
+          dens = 0.0f;
+          for (int j = 0; j < width; ++j) {
+            const float d = vi - xw_sample(v, m, j);
+            dens += expf(sc * (d * d));
+          }
+        }
+      }
+      if (dens > best || best_i == 0x7fffffff) {
+        best = dens;
+        best_i = i;
+      }
+    }
+    out = v[xw_block_argmax(best, best_i, redf, redi)];
+  } else {
+    // the masked median: ranks (cnt - 1) // 2 and cnt // 2 (width - 1 and
+    // 0 for a row of no sample), averaged in f32
+    int fill = 0x7fffffff;
+    for (int i = tid; i < width; i += nt)
+      if (!m[i]) {
+        fill = i;
+        break;
+      }
+    __syncthreads();
+    if (tid == 0) first = 0x7fffffff;
+    __syncthreads();
+    if (fill != 0x7fffffff) atomicMin(&first, fill);
+    __syncthreads();
+    fill = first == 0x7fffffff ? -1 : first;
+    const int n = (int)cnt;
+    const int k_lo = n > 0 ? (n - 1) / 2 : width - 1;
+    const float lo = xw_order_stat(v, m, width, fill, k_lo, &first);
+    const float hi = xw_order_stat(v, m, width, fill, n / 2, &first);
+    out = 0.5f * (lo + hi);
+  }
+  if (tid == 0) {
+    kde_val[row] = out;
+    use[row] = use_kde ? 1 : 0;
+  }
+}
+
+__global__ void __launch_bounds__(32 * kXwMaxWarps)
+kde_argmax_xwide_kernel(const float* __restrict__ vals,
+                        const unsigned char* __restrict__ mask,
+                        float* __restrict__ kde_val,
+                        unsigned char* __restrict__ use, int width) {
+  kde_argmax_xwide_body<false>(vals, mask, kde_val, use, width);
+}
+
+__global__ void __launch_bounds__(32 * kXwMaxWarps)
+kde_argmax_v2_xwide_kernel(const float* __restrict__ vals,
+                           const unsigned char* __restrict__ mask,
+                           float* __restrict__ kde_val,
+                           unsigned char* __restrict__ use, int width) {
+  kde_argmax_xwide_body<true>(vals, mask, kde_val, use, width);
+}
+
+// One block a row, of as many warps as the row has 32 entries, up to
+// kXwMaxWarps.
+template <bool kByOffset>
+int launch_xwide(const float* vals, const unsigned char* mask, float* kde_val,
+                 unsigned char* use, int rows, int width, void* stream) {
+  if (rows < 0 || width < 1) return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  const int need = (width + 31) / 32;
+  const int warps = need < kXwMaxWarps ? need : kXwMaxWarps;
+  const auto kernel =
+      kByOffset ? kde_argmax_v2_xwide_kernel : kde_argmax_xwide_kernel;
+  kernel<<<rows, 32 * warps, 0, (cudaStream_t)stream>>>(vals, mask, kde_val,
+                                                        use, width);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // vals (rows, width) f32, mask (rows, width) bool bytes -> kde_val (rows,)
 // f32 (the density argmax, or the masked median where use is 0), use
 // (rows,) bool bytes; contiguous, on the device. Rows up to kMaxW wide
-// launch the narrow instance, rows up to kWideMaxW the wide one. Launches
+// launch the narrow instance, rows up to kWideMaxW the wide one, wider rows
+// the any-width one. Launches
 // on `stream` and returns cudaGetLastError() (or cudaErrorInvalidValue for
 // shapes it does not take). K2: the densities summed by sample.
 extern "C" int kde_argmax_forward(const float* vals, const unsigned char* mask,
                                   float* kde_val, unsigned char* use, int rows,
                                   int width, void* stream) {
+  if (width > kWideMaxW)
+    return launch_xwide<false>(vals, mask, kde_val, use, rows, width, stream);
   return width > kMaxW ? launch<kWideMaxW, false>(vals, mask, kde_val, use,
                                                   rows, width, stream)
                        : launch<kMaxW, false>(vals, mask, kde_val, use, rows,
@@ -671,6 +900,8 @@ extern "C" int kde_argmax_v2_forward(const float* vals,
                                      const unsigned char* mask,
                                      float* kde_val, unsigned char* use,
                                      int rows, int width, void* stream) {
+  if (width > kWideMaxW)
+    return launch_xwide<true>(vals, mask, kde_val, use, rows, width, stream);
   return width > kMaxW ? launch<kWideMaxW, true>(vals, mask, kde_val, use,
                                                  rows, width, stream)
                        : launch<kMaxW, true>(vals, mask, kde_val, use, rows,

@@ -214,13 +214,19 @@ def _write_rows(path, rows):
 
 
 def detect_grid(params, model, test_data, run_path, rec_errors=None,
-                combinations=None, known_anomalies=None, device="cuda"):
+                combinations=None, known_anomalies=None, device="cuda",
+                precomputed_grid=None):
     """Every (rec_error x combination) cell of the config's signal from one
     forward pass (:func:`scorer.detect_scores_grid`), the intervals of all
     cells in one batch, each cell's confusion and metrics, and
     ``grid_results.csv`` in ``run_path``. Returns {(rec_error or None,
     combination): result dict as :func:`detect` gives}; a multivariate
-    config's cells are scored and thresholded per timestep."""
+    config's cells are scored and thresholded per timestep.
+
+    ``precomputed_grid``: the signal's ``{(rec_error or None, combination):
+    scores}`` computed elsewhere (its slice of
+    ``scorer.detect_scores_fleet_grid``, as ``sweep`` with the grid flags
+    passes it): no device work runs, only the rest."""
     mv = is_multivariate(params)
     device = resolve_device(device)
     os.makedirs(run_path, exist_ok=True)
@@ -228,14 +234,18 @@ def detect_grid(params, model, test_data, run_path, rec_errors=None,
     combinations = combinations or [params.combination]
     rec_errors = rec_errors or [params.rec_error]
 
-    X_dev = _windows_on_device(test_data, device)
-    grid = sc.detect_scores_grid(
-        model, test_data.X if X_dev is None else X_dev, params.hyperbolic,
-        combinations, rec_errors=rec_errors,
-        kde_version=sc.kde_version_from_env(), device=device,
-        multivariate=mv)
+    if precomputed_grid is not None:
+        grid = precomputed_grid
+    else:
+        X_dev = _windows_on_device(test_data, device)
+        grid = sc.detect_scores_grid(
+            model, test_data.X if X_dev is None else X_dev,
+            params.hyperbolic, combinations, rec_errors=rec_errors,
+            kde_version=sc.kde_version_from_env(), device=device,
+            multivariate=mv)
     cells = list(grid)
-    score_matrix = np.stack([grid[c].reshape(-1) for c in cells])
+    score_matrix = np.stack([np.asarray(grid[c]).reshape(-1)
+                             for c in cells])
     if mv:
         all_intervals = iv.find_anomalies_batch(
             score_matrix, np.arange(score_matrix.shape[1]), **_MV_FA_KW)

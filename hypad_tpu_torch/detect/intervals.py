@@ -8,8 +8,10 @@ padding; max-error ranking; percent-separation pruning; scoring
 (max - thr) / (mean + std); weighted merging; finally positions are mapped
 to timestamps through the index. numpy only. ``find_anomalies_batch`` runs
 the same chain for the cells of a detection grid at once, bitwise equal per
-cell. The dynamic (Nelder-Mead) threshold and the lower threshold are not
-ported yet (ROADMAP A12).
+cell, with one shared timestamp index or one index per cell. Both take
+JAX's parameters in JAX's order, ``lower_threshold`` included (each window
+also scans its mirror about its mean). The dynamic (Nelder-Mead) threshold
+is not ported yet (ROADMAP A12): a falsy ``fixed_threshold`` raises.
 """
 
 from __future__ import annotations
@@ -168,16 +170,23 @@ def _window_geometry(n, window_size, window_size_portion, window_step_size,
     return window_size, window_step_size
 
 
-def find_anomalies(errors, index, window_size=None, window_size_portion=None,
-                   window_step_size=None, window_step_size_portion=None,
-                   min_percent=0.1, anomaly_padding=50, fixed_threshold=None):
+_DYNAMIC = ("only the fixed threshold is ported; the dynamic threshold is "
+            "ROADMAP A12")
+
+
+def find_anomalies(errors, index, z_range=(0, 10), window_size=None,
+                   window_size_portion=None, window_step_size=None,
+                   window_step_size_portion=None, min_percent=0.1,
+                   anomaly_padding=50, lower_threshold=False,
+                   fixed_threshold=None):
     """Reference find_anomalies (:1363-1472) with ``fixed_threshold=True``:
     sliding threshold windows, sequence merge, position -> timestamp
-    mapping."""
+    mapping. The parameters are ``hypad_tpu.detect.intervals``'s, in its
+    order; ``z_range`` bounds the dynamic threshold's search, so it is not
+    read here. ``lower_threshold``: each window also scans its mirror
+    ``mean - (window - mean)`` under the same fixed threshold."""
     if not fixed_threshold:
-        raise NotImplementedError(
-            "only the fixed threshold is ported; the dynamic threshold is "
-            "ROADMAP A12")
+        raise NotImplementedError(_DYNAMIC)
     errors = np.asarray(errors, dtype=np.float64)
     window_size, window_step_size = _window_geometry(
         len(errors), window_size, window_size_portion, window_step_size,
@@ -191,6 +200,11 @@ def find_anomalies(errors, index, window_size=None, window_size_portion=None,
         window = errors[window_start:window_end]
         sequences.extend(_find_window_sequences(
             window, anomaly_padding, min_percent, window_start))
+        if lower_threshold:
+            mean = window.mean()
+            sequences.extend(_find_window_sequences(
+                mean - (window - mean), anomaly_padding, min_percent,
+                window_start))
         window_start += window_step_size
 
     merged = merge_sequences(sequences)
@@ -199,13 +213,31 @@ def find_anomalies(errors, index, window_size=None, window_size_portion=None,
     return np.asarray(anomalies)
 
 
-def find_anomalies_batch(errors, index, fixed_threshold=None, **kw):
+def find_anomalies_batch(errors, index_list, window_size=None,
+                         window_size_portion=None, window_step_size=None,
+                         window_step_size_portion=None, min_percent=0.1,
+                         anomaly_padding=50, lower_threshold=False,
+                         fixed_threshold=None):
     """:func:`find_anomalies` over each row of ``errors`` (C, T), the cells
-    of one grid sharing the score length and the timestamp ``index``.
-    Returns a list of C interval arrays."""
+    of one grid sharing the score length; JAX's signature. ``index_list``
+    is one timestamp index shared by every cell, or a length-C list or
+    tuple of per-cell indexes (array-likes); a plain list of scalar
+    timestamps is one shared index, as JAX tells them apart. Returns a
+    list of C interval arrays."""
     if not fixed_threshold:
-        raise NotImplementedError(
-            "only the fixed threshold is ported; the dynamic threshold is "
-            "ROADMAP A12")
-    return [find_anomalies(row, index, fixed_threshold=True, **kw)
-            for row in np.asarray(errors)]
+        raise NotImplementedError(_DYNAMIC)
+    E = np.asarray(errors, dtype=np.float64)
+    if E.ndim != 2:
+        raise ValueError(f"errors must be (C, T), got shape {E.shape}")
+    shared = not (isinstance(index_list, (list, tuple))
+                  and len(index_list) == len(E)
+                  and all(np.ndim(e) >= 1 for e in index_list))
+    return [find_anomalies(
+                row, index_list if shared else index_list[c],
+                window_size=window_size,
+                window_size_portion=window_size_portion,
+                window_step_size=window_step_size,
+                window_step_size_portion=window_step_size_portion,
+                min_percent=min_percent, anomaly_padding=anomaly_padding,
+                lower_threshold=lower_threshold, fixed_threshold=True)
+            for c, row in enumerate(E)]

@@ -35,9 +35,9 @@ padded (S, N, W) stack, each signal's real anti-diagonal rows through ONE
 KDE launch, and the scoring tails with every reduction over each signal's
 real prefix (the ragged ops of ``ops/rolling.py`` and ``ops/unroll.py``);
 with ``multivariate=True`` a family of (N_i, F) streams, each row scored
-per timestep.
-
-Not ported yet: the fleet grid (ROADMAP A10).
+per timestep. ``detect_scores_fleet_grid`` is the two at once: every
+(rec_error x combination) cell of every signal from that one forward and
+one KDE launch.
 """
 
 from __future__ import annotations
@@ -680,11 +680,14 @@ def detect_scores_grid(params, X, hyperbolic, combinations,
         out = _grid_core(params, Xt, hyperbolic, combinations, rec_errors, w,
                          max(math.trunc(n * 0.01), 1), kde_version,
                          multivariate=multivariate)
-        # JAX's cell order: its one-call grid comes back as a dict keyed
-        # "comb" or "rec_error/comb", which the device fetch sorts
-        order = sorted(out, key=lambda c: c[1] if c[0] is None
-                       else f"{c[0]}/{c[1]}")
-        return {cell: out[cell].cpu().numpy() for cell in order}
+        return {cell: out[cell].cpu().numpy() for cell in _cell_order(out)}
+
+
+def _cell_order(cells):
+    """The cells in JAX's order: its grid programs return a dict keyed
+    "comb" or "rec_error/comb", which the device fetch sorts."""
+    return sorted(cells, key=lambda c: c[1] if c[0] is None
+                  else f"{c[0]}/{c[1]}")
 
 
 # ---------------------------------------------------------------------------
@@ -801,43 +804,49 @@ def _rec_errors_fleet(y, y_hat, n_real, rec_error_type, smooth,
                                         (smooth // 2).clamp_min(1))
 
 
-def _detect_core_fleet(P, Xs, n_real, n_host, hyperbolic, combination,
-                       rec_error, width, smooth, kde_version,
-                       multivariate=False):
-    """The fleet's forward and scoring: (S, N) hyperbolic or multivariate,
-    (S, T) Euclidean scores, pad positions unspecified. The outputs of pad
-    windows are zeroed first, so no pad value (a NaN of a poisoned pad
-    row, say) reaches a masked reduction."""
+def _grid_core_fleet(P, Xs, n_real, n_host, hyperbolic, combinations,
+                     rec_errors, width, smooth, kde_version,
+                     multivariate=False):
+    """The fleet's forward and every cell's scoring, as :func:`_grid_core`
+    for one signal: one batched forward, one critic pipeline (one KDE
+    launch over every signal's real rows, only if a combination reads it),
+    one reconstruction error per rec_error, then the combination tails.
+    Returns {(rec_error or None, combination): (S, N) hyperbolic or
+    multivariate, (S, T) Euclidean scores}, pad positions unspecified. The
+    outputs of pad windows are zeroed first, so no pad value (a NaN of a
+    poisoned pad row, say) reaches a masked reduction."""
     S, N, _ = Xs.shape
     live = (torch.arange(N, device=Xs.device)[None, :]
             < n_real[:, None])[..., None]
     outs = [torch.where(live if t.dim() == 3 else live[..., 0], t, 0.0)
             for t in mf.forward_eval(P, Xs, hyperbolic)]
-    critic = outs[-1]
+    critic_scores = None
+    if any(cb in CRITIC_COMBOS for cb in combinations):
+        critic_scores = _critic_scores_fleet(outs[-1], n_real, n_host, width,
+                                             smooth, kde_version)
     if hyperbolic or multivariate:
         recons, other = ((outs[0], outs[2]) if hyperbolic
                          else (outs[0], torch.where(live, Xs, 0.0)))
         rec_scores = (_mv_rec_scores(recons, other, hyperbolic, n_real)
                       if multivariate else
                       st.acosh_poincare_distance(recons, other))
-        critic_scores = None
-        if combination in CRITIC_COMBOS:
-            critic_scores = _critic_scores_fleet(
-                critic, n_real, n_host, width, smooth, kde_version)[:, :N]
-        return _combine_device(combination, critic_scores, rec_scores,
-                               recons)
-    recon = outs[0]
-    errors = _rec_errors_fleet(torch.where(live, Xs, 0.0), recon, n_real,
-                               rec_error, smooth)
-    T = errors.shape[1]
+        if critic_scores is not None:
+            critic_scores = critic_scores[:, :N]
+        return {(None, cb): _combine_device(cb, critic_scores, rec_scores,
+                                            recons)
+                for cb in combinations}
+    X = torch.where(live, Xs, 0.0)
+    T = N + width - 1
     rv = torch.arange(T, device=Xs.device)[None, :] < (n_real + width - 1)[
         :, None]
-    rec_scores = zscore_masked(errors, rv).clamp_min(0.0) + 1.0
-    critic_scores = None
-    if combination != "rec":
-        critic_scores = _critic_scores_fleet(critic, n_real, n_host, width,
-                                             smooth, kde_version)
-    return _eucl_combine(combination, critic_scores, rec_scores)
+    out = {}
+    for rec_error in rec_errors:
+        errors = _rec_errors_fleet(X, outs[0], n_real, rec_error, smooth)
+        rec_scores = zscore_masked(errors, rv).clamp_min(0.0) + 1.0
+        for cb in combinations:
+            out[(rec_error, cb)] = _eucl_combine(cb, critic_scores,
+                                                 rec_scores)
+    return out
 
 
 def _fleet_stage(X_list, staged, device):
@@ -897,10 +906,52 @@ def detect_scores_fleet(stacked, X_list, hyperbolic, combination,
     ``multivariate=True``: X_list holds S (N_i, F) timestep streams of one
     feature count F (a CASAS family, say), each scored per row with its
     rec scores z-scored over its own N_i rows; ``rec_error`` is not
-    read."""
+    read.
+
+    It is the one-cell case of :func:`detect_scores_fleet_grid`."""
     _check_combination(hyperbolic or multivariate, combination)
-    if not (hyperbolic or multivariate) and rec_error not in REC_ERRORS:
+    eucl = not (hyperbolic or multivariate)
+    if eucl and rec_error not in REC_ERRORS:
         raise ValueError(f"unknown rec_error_type {rec_error!r}")
+    cells = _fleet_cells(stacked, X_list, hyperbolic, (combination,),
+                         (rec_error,) if eucl else REC_ERRORS[:1], staged,
+                         canonical, kde_version, device, multivariate)
+    return [next(iter(c.values())) for c in cells]
+
+
+def detect_scores_fleet_grid(stacked, X_list, hyperbolic, combinations,
+                             rec_errors=("point",), staged=None,
+                             canonical=True, multivariate=False, mesh=None,
+                             kde_version=None, device="cuda"):
+    """A whole signal family times the whole (rec_error x combination)
+    grid at once: the composition of :func:`detect_scores_fleet` (the
+    padded stack, one batched forward, the ragged reductions) and
+    :func:`detect_scores_grid` (the shared stages computed once, only the
+    combination tails fanning out). The critic pipeline does not depend on
+    the cell, so every signal's real rows go to ONE KDE launch for every
+    cell; each rec_error's unroll and error are computed once.
+
+    Returns a list of S dicts ``{(rec_error or None, combination):
+    scores}``, each signal's sliced to its true length (N_i hyperbolic or
+    multivariate, N_i + W - 1 Euclidean), the cells in JAX's order;
+    hyperbolic and multivariate cells are keyed by combination alone.
+    ``staged``, ``canonical`` (the 256-ulp snap of each signal's scores),
+    the ``FLEET_MAX_BYTES`` chunks, ``multivariate`` and ``kde_version``
+    as :func:`detect_scores_fleet` takes them. ``mesh`` (a family over
+    several cards) is not ported (ROADMAP A13)."""
+    if mesh is not None:
+        raise NotImplementedError("fleet detection over several cards (mesh)"
+                                  " is not ported yet (ROADMAP A13)")
+    combinations, rec_errors = _validate_grid(hyperbolic, combinations,
+                                              rec_errors, multivariate)
+    return _fleet_cells(stacked, X_list, hyperbolic, combinations,
+                        rec_errors, staged, canonical, kde_version, device,
+                        multivariate)
+
+
+def _fleet_cells(stacked, X_list, hyperbolic, combinations, rec_errors,
+                 staged, canonical, kde_version, device, multivariate):
+    """The body of :func:`detect_scores_fleet_grid` on checked cells."""
     device = resolve_device(device)
     P = getattr(stacked, "params", stacked)
     ref = next(iter(P.values()))
@@ -918,25 +969,27 @@ def detect_scores_fleet(stacked, X_list, hyperbolic, combination,
         sl = slice(lo, lo + size)
         n_real = torch.as_tensor(n_host[sl], device=device)
         with torch.inference_mode():
-            out = _detect_core_fleet(
+            out = _grid_core_fleet(
                 {k: v[sl] for k, v in P.items()}, Xs[sl], n_real,
-                n_host[sl], hyperbolic, combination, rec_error, width,
+                n_host[sl], hyperbolic, combinations, rec_errors, width,
                 torch.as_tensor(smooth_host[sl], device=device), kde_version,
                 multivariate)
             if canonical:
-                out = _snap_scores(out, torch.as_tensor(lens[sl],
-                                                        device=device))
-            return out.cpu().numpy()
+                n_valid = torch.as_tensor(lens[sl], device=device)
+                out = {c: _snap_scores(v, n_valid) for c, v in out.items()}
+            return {c: v.cpu().numpy() for c, v in out.items()}
 
     chunks, _ = fleet_chunk_plan(S, Xs.shape[1])
     if chunks is None:
         out = run(0, S)
     else:
-        out = None
+        out = {}
         for start, size in chunks:
             start_c = min(start, S - size)
-            sub = run(start_c, size)
-            if out is None:
-                out = np.zeros((S,) + sub.shape[1:], sub.dtype)
-            out[start:start_c + size] = sub[start - start_c:]
-    return [out[i, :int(L)] for i, L in enumerate(lens)]
+            for c, sub in run(start_c, size).items():
+                if c not in out:
+                    out[c] = np.zeros((S,) + sub.shape[1:], sub.dtype)
+                out[c][start:start_c + size] = sub[start - start_c:]
+    order = _cell_order(out)
+    return [{c: out[c][i, :int(L)] for c in order}
+            for i, L in enumerate(lens)]

@@ -11,8 +11,9 @@ whose backward is autograd of the plain composition, as the JAX
 ``custom_vjp`` does (there is no backward kernel).
 
 Widths up to 128 run the narrow kernel, 129 to 256 (multivariate feature
-counts) the wide one of the same source; above 256 the wrapper raises a
-ValueError on every device, so no width silently takes the plain path.
+counts) the wide one of the same source, and any wider width the any-width
+kernel there (``mobius_linear_xwide_kernel``); no width takes the plain
+path on the card.
 
 All three take a leading signal axis too (the fleet's counterpart of
 ``jax.vmap``): x (S, N, in), w (S, out, in), b (S, out) is one launch, in
@@ -26,19 +27,14 @@ import functools
 
 import torch
 
+from hypad_tpu_torch import _build
 from hypad_tpu_torch.manifold import stereographic as st
 
-# largest Din and Dout the kernels take (csrc/mobius_linear.cu): widths up to
-# NARROW_DIM run the narrow kernel, wider ones (multivariate feature counts)
-# the wide kernel, which stages W in chunks
-NARROW_DIM = 128
-MAX_DIM = 256
-
-
-def is_wide(din, dout):
-    """Whether a (din -> dout) launch takes the wide kernel, as
-    csrc/mobius_linear.cu's dispatch decides."""
-    return max(din, dout) > NARROW_DIM
+def instance(din, dout):
+    """The kernel a (din -> dout) launch takes, as csrc/mobius_linear.cu's
+    dispatch decides: "narrow" up to 128, "wide" up to 256, else "xwide"
+    (the any-width kernel)."""
+    return _build.instance(max(din, dout))
 
 
 def mobius_linear(x, w, b, k=-1.0):
@@ -75,10 +71,9 @@ def _check(x, w, b):
         raise ValueError("mobius_linear_kernel: shape mismatch "
                          f"{tuple(x.shape)}, {tuple(w.shape)}, "
                          f"{tuple(b.shape)}")
-    if not (1 <= x.shape[-1] <= MAX_DIM and 1 <= w.shape[-2] <= MAX_DIM):
-        raise ValueError(f"mobius_linear_kernel: in/out widths must be in "
-                         f"[1, {MAX_DIM}] (the kernels' limit), got "
-                         f"{x.shape[-1]}, {w.shape[-2]}")
+    if x.shape[-1] < 1 or w.shape[-2] < 1:
+        raise ValueError(f"mobius_linear_kernel: in/out widths must be at "
+                         f"least 1, got {x.shape[-1]}, {w.shape[-2]}")
 
 
 def bind(lib):
@@ -104,15 +99,11 @@ def bind_signals(lib):
 
 @functools.cache
 def _lib():
-    from hypad_tpu_torch import _build
-
     return bind(_build.load("mobius_linear"))
 
 
 @functools.cache
 def _lib_signals():
-    from hypad_tpu_torch import _build
-
     return bind_signals(_build.load("mobius_linear"))
 
 
@@ -146,14 +137,15 @@ def mobius_linear_kernel(x, w, b):
         raise ValueError(f"mobius_linear_kernel: unsupported device "
                          f"{x.device}")
     out = launch_with(_lib() if x.dim() == 2 else _lib_signals(), x, w, b)
-    mobius_linear_kernel.launches += 1
-    mobius_linear_kernel.wide_launches += is_wide(x.shape[-1], w.shape[-2])
+    _build.count_launch(mobius_linear_kernel,
+                        instance(x.shape[-1], w.shape[-2]))
     return out
 
 
-# every launch, and those of the wide kernel among them
+# every launch, and those of the wide and the any-width kernel among them
 mobius_linear_kernel.launches = 0
 mobius_linear_kernel.wide_launches = 0
+mobius_linear_kernel.xwide_launches = 0
 
 
 class _MobiusLinearFn(torch.autograd.Function):

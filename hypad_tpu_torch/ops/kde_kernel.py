@@ -13,8 +13,8 @@ version, ``hypad_tpu_torch.ops.kde.kde_argmax_rows_and_use`` or
 ``kde_argmax_rows_v2_and_use``.
 
 Rows up to 128 wide go to each kernel's narrow instance, rows of 129 to 256
-(multivariate feature counts) to its wide instance; wider rows raise a
-ValueError on every device.
+(multivariate feature counts) to its wide instance, wider rows to its
+any-width instance; no width takes the plain version on the card.
 
 A kernel's densities agree with its plain version's to within ulps, so
 where densities tie to the last bits the argmax may pick another sample of
@@ -28,16 +28,12 @@ import functools
 
 import torch
 
+from hypad_tpu_torch import _build
 from hypad_tpu_torch.ops.kde import (
     kde_argmax_rows_and_use,
     kde_argmax_rows_v2_and_use,
 )
 
-# widest rows of the narrow instances and of the wide ones
-# (csrc/kde_argmax.cu's kMaxW and kWideMaxW); each entry point picks its
-# instance by row width
-NARROW_WIDTH = 128
-MAX_WIDTH = 256
 KDE_VERSIONS = ("v1", "v2")
 
 
@@ -54,9 +50,9 @@ def _check(vals, mask, name):
                          f"{vals.device}")
     if not (vals.is_contiguous() and mask.is_contiguous()):
         raise ValueError(f"{name}: vals and mask must be contiguous")
-    if not 1 <= vals.shape[1] <= MAX_WIDTH:
-        raise ValueError(f"{name}: row width must be in [1, {MAX_WIDTH}] "
-                         f"(the kernels' limit), got {vals.shape[1]}")
+    if vals.shape[1] < 1:
+        raise ValueError(f"{name}: row width must be at least 1, got "
+                         f"{vals.shape[1]}")
 
 
 def bind(lib, symbol):
@@ -71,15 +67,7 @@ def bind(lib, symbol):
 
 @functools.cache
 def _lib(source, symbol):
-    from hypad_tpu_torch import _build
-
     return bind(_build.load(source), symbol)
-
-
-def is_wide(width):
-    """Whether rows ``width`` wide launch a kernel's wide instance, as the
-    entry points of csrc/kde_argmax.cu decide."""
-    return width > NARROW_WIDTH
 
 
 def launch_with(fn, vals, mask):
@@ -108,14 +96,14 @@ def kde_argmax_kernel(vals, mask):
     if vals.device.type == "cpu":
         return kde_argmax_rows_and_use(vals, mask)
     out = launch_with(_lib("kde_argmax", "kde_argmax_forward"), vals, mask)
-    kde_argmax_kernel.launches += 1
-    kde_argmax_kernel.wide_launches += is_wide(vals.shape[1])
+    _build.count_launch(kde_argmax_kernel, _build.instance(vals.shape[1]))
     return out
 
 
-# every launch, and those of the wide instance among them
+# every launch, and those of the wide and the any-width instance among them
 kde_argmax_kernel.launches = 0
 kde_argmax_kernel.wide_launches = 0
+kde_argmax_kernel.xwide_launches = 0
 
 
 def kde_argmax_v2_kernel(vals, mask):
@@ -128,13 +116,14 @@ def kde_argmax_v2_kernel(vals, mask):
     if vals.device.type == "cpu":
         return kde_argmax_rows_v2_and_use(vals, mask)
     out = launch_with(_lib("kde_argmax", "kde_argmax_v2_forward"), vals, mask)
-    kde_argmax_v2_kernel.launches += 1
-    kde_argmax_v2_kernel.wide_launches += is_wide(vals.shape[1])
+    _build.count_launch(kde_argmax_v2_kernel,
+                        _build.instance(vals.shape[1]))
     return out
 
 
 kde_argmax_v2_kernel.launches = 0
 kde_argmax_v2_kernel.wide_launches = 0
+kde_argmax_v2_kernel.xwide_launches = 0
 
 
 def kde_argmax_rows_fused(vals, mask, version="v1"):

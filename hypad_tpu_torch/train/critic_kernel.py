@@ -10,8 +10,13 @@ wrapper launches its kernel (or raises); on a CPU tensor it runs the plain
 version beside it, which is the autograd composition of the training losses
 (``train/losses.py``), not the kernel's hand-derived closed form, so on the
 card the kernel is held against autodiff. Each wrapper counts its kernel
-launches in ``.launches``, and those of the wide instance (multivariate
-widths above 128) in ``.wide_launches`` too.
+launches in ``.launches``, those of the wide instance (widths of 129 to
+256, multivariate feature counts) in ``.wide_launches`` too, and those of
+the any-width instance (above 256) in ``.xwide_launches``. The any-width
+instance stages its input rows in dynamic shared memory, at least one row
+of the widest input at a time, so a launch takes widths up to about 58,000
+floats (227 KB); a wider launch is refused by the card and the wrapper
+raises its CUDA error.
 
 Both return ``(lx, lz, grads_cx, grads_cz)``: 0-d loss tensors and dicts of
 gradients keyed like the port's ``state_dict`` (``"critic_x.dense1.w"``).
@@ -33,6 +38,7 @@ import functools
 
 import torch
 
+from hypad_tpu_torch import _build
 from hypad_tpu_torch.models import fleet as mf
 from hypad_tpu_torch.train.losses import (
     critic_loss_stacked,
@@ -49,11 +55,6 @@ SLOT_X, SLOT_ZX, SLOT_AX, SLOT_ZZ, SLOT_AZ = 0, 1, 2, 3, 4
 SLOT_MDEC, SLOT_MCX, SLOT_MCZ, SLOT_BIGX, SLOT_BIGZ = 5, 6, 7, 8, 9
 SLOT_ENC, SLOT_DEC, SLOT_CX, SLOT_CZ = 10, 18, 36, 46
 SLOT_LOSS, SLOT_GCX, SLOT_GCZ, SLOT_WS = 52, 53, 63, 69
-# widest layer input and MobiusLinear head of the kernels' narrow instance
-# and of their wide one (csrc/critic_step.cu); a launch takes the wide one
-# where any width passes NARROW_WIDTH
-NARROW_WIDTH = 128
-MAX_WIDTH = 256
 
 
 def critic_params(critic, prefix):
@@ -89,8 +90,6 @@ def critic_step_plain(model, x, draws, hyperbolic):
 
 @functools.cache
 def _lib():
-    from hypad_tpu_torch import _build
-
     return bind(_build.load("critic_step"))
 
 
@@ -143,19 +142,11 @@ def _shape(name, key, t, shape):
                          f"expected {tuple(shape)}")
 
 
-def _is_wide(widths):
-    """Whether a launch on these widths takes the wide instance: any of
-    them above NARROW_WIDTH, as csrc/critic_step.cu's launch decides."""
-    return max(widths) > NARROW_WIDTH
-
-
-def _widths(name, widths):
-    """Raise above MAX_WIDTH; return :func:`_is_wide` of the widths."""
-    for what, width in widths.items():
-        if width > MAX_WIDTH:
-            raise ValueError(f"{name}: {what} width {width} exceeds "
-                             f"{MAX_WIDTH}, the kernels' limit")
-    return _is_wide(widths.values())
+def _instance(widths):
+    """The instance a launch on these widths takes, as
+    csrc/critic_step.cu's launch decides by the widest: "narrow", "wide"
+    or "xwide"."""
+    return _build.instance(max(widths))
 
 
 def _dims(B, W, L, Hx, Hz, He=1, D1=1, Hd=1):
@@ -206,14 +197,7 @@ def _critic_dims(critic_x, critic_z, bigx, bigz, mx, mz, name):
     _shape(name, "bigz", bigz, (R, L))
     _shape(name, "mx", mx, (4, R, Hx))
     _shape(name, "mz", mz, (2, R, Hz))
-    _widths(name, {"bigx": W, "bigz": L, "critic_x hidden": Hx,
-                   "critic_z hidden": Hz})
     return R // 3, W, L, Hx, Hz
-
-
-def _count(fn, wide):
-    fn.launches += 1
-    fn.wide_launches += wide
 
 
 def k4_launch_args(critic_x, critic_z, bigx, bigz, mx, mz):
@@ -273,8 +257,8 @@ def critics_fused_grads(critic_x, critic_z, bigx, bigz, mx, mz):
     [z_enc, z, interp_z], ``mx`` (4, 3B, Hx) and ``mz`` (2, 3B, Hz) bool
     keep-masks."""
     name = "critics_fused_grads"
-    wide = _is_wide(_critic_dims(critic_x, critic_z, bigx, bigz, mx, mz,
-                                 name)[1:])
+    kind = _instance(_critic_dims(critic_x, critic_z, bigx, bigz, mx, mz,
+                                  name)[1:])
     device = bigx.device
     _check(name, device, bigx=bigx, bigz=bigz, mx=mx, mz=mz)
     if device.type == "cpu":
@@ -284,13 +268,14 @@ def critics_fused_grads(critic_x, critic_z, bigx, bigz, mx, mz):
         raise ValueError(f"{name}: unsupported device {device}")
     ptrs, dims, out = k4_launch_args(critic_x, critic_z, bigx, bigz, mx, mz)
     _run("critics_fused_grads_forward", ptrs, dims, device)
-    _count(critics_fused_grads, wide)
+    _build.count_launch(critics_fused_grads, kind)
     return out
 
 
-# every launch, and those of the wide instance among them
+# every launch, and those of the wide and the any-width instance among them
 critics_fused_grads.launches = 0
 critics_fused_grads.wide_launches = 0
+critics_fused_grads.xwide_launches = 0
 
 
 def critic_step_fused_full(model, x, draws, hyperbolic):
@@ -319,12 +304,8 @@ def critic_step_fused_full(model, x, draws, hyperbolic):
     if len(dec.lstm) != 2 or len(enc.lstm) != 1:
         raise ValueError(f"{name}: expected a 1-layer encoder and a 2-layer "
                          "decoder LSTM")
-    wide = _widths(name, {"signal": W, "latent": L, "critic_x hidden": Hx,
-                          "critic_z hidden": Hz,
-                          "decoder dense1": dec.dense1.w.shape[0],
-                          "decoder LSTM output": 2 * Hd,
-                          "encoder LSTM output":
-                              2 * enc.lstm[0]["w_hh"].shape[1]})
+    kind = _instance((W, L, Hx, Hz, dec.dense1.w.shape[0], 2 * Hd,
+                      2 * enc.lstm[0]["w_hh"].shape[1]))
     if device.type == "cpu":
         return critic_step_plain(model, x, d, hyperbolic)
     if device.type != "cuda":
@@ -333,12 +314,13 @@ def critic_step_fused_full(model, x, draws, hyperbolic):
     ptrs, dims, out, _rows = k5_launch_args(model, x, d, hyperbolic)
     _run("critic_step_full_forward", ptrs, dims, device,
          int(bool(hyperbolic)))
-    _count(critic_step_fused_full, wide)
+    _build.count_launch(critic_step_fused_full, kind)
     return out
 
 
 critic_step_fused_full.launches = 0
 critic_step_fused_full.wide_launches = 0
+critic_step_fused_full.xwide_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -502,8 +484,7 @@ def critics_fused_grads_fleet(P, bigx, bigz, mx, mz):
     if R % 3 or R == 0:
         raise ValueError(f"{name}: bigx must be (S, 3B, W), got "
                          f"{tuple(bigx.shape)}")
-    wide = _widths(name, {"bigx": W, "bigz": L, "critic_x hidden": Hx,
-                          "critic_z hidden": Hz})
+    kind = _instance((W, L, Hx, Hz))
     _check_fleet_leaves(name, P, S, CX_KEYS + CZ_KEYS,
                         _fleet_leaf_shapes(W, L, Hx, Hz))
     device = bigx.device
@@ -519,7 +500,7 @@ def critics_fused_grads_fleet(P, bigx, bigz, mx, mz):
     gx, gz, loss = _fleet_critic_slots(slots, P, S, name)
     _run_fleet("critics_fused_grads_signals_forward", slots,
                _dims(R // 3, W, L, Hx, Hz), S)
-    _count(critics_fused_grads, wide)
+    _build.count_launch(critics_fused_grads, kind)
     return loss[:, 0], loss[:, 1], gx, gz
 
 
@@ -552,10 +533,7 @@ def critic_step_fused_full_fleet(P, x, draws, hyperbolic):
             P, "encoder.lstm") != 1:
         raise ValueError(f"{name}: expected a 1-layer encoder and a 2-layer "
                          "decoder LSTM")
-    wide = _widths(name, {"signal": W, "latent": L, "critic_x hidden": Hx,
-                          "critic_z hidden": Hz, "decoder dense1": D1,
-                          "decoder LSTM output": 2 * Hd,
-                          "encoder LSTM output": 2 * He})
+    kind = _instance((W, L, Hx, Hz, D1, 2 * Hd, 2 * He))
     gen = ENC_KEYS + DEC_KEYS + (HEAD_KEYS if hyperbolic else ())
     _check_fleet_leaves(name, P, S, gen + CX_KEYS + CZ_KEYS,
                         _fleet_leaf_shapes(W, L, Hx, Hz, He, D1, Hd))
@@ -578,5 +556,5 @@ def critic_step_fused_full_fleet(P, x, draws, hyperbolic):
     gx, gz, loss = _fleet_critic_slots(slots, P, S, name)
     _run_fleet("critic_step_full_signals_forward", slots,
                _dims(B, W, L, Hx, Hz, He, D1, Hd), S, int(bool(hyperbolic)))
-    _count(critic_step_fused_full, wide)
+    _build.count_launch(critic_step_fused_full, kind)
     return loss[:, 0], loss[:, 1], gx, gz

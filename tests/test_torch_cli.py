@@ -451,16 +451,18 @@ def test_detect_univariate_is_the_cli_detection_on_arrays(tmp_path):
 
 @pytest.mark.parametrize("argv,override,item", [
     (["sweep", "--canonical"], {}, "A10"),
-    (["sweep", "--rec-errors", "point,dtw"], {}, "A10"),
-    (["sweep", "--combinations", "all"], {}, "A10"),
-    (["sweep", "--combinations", "all"],
+    (["sweep", "--canonical", "--rec-errors", "point,dtw"], {}, "A10"),
+    (["sweep", "--canonical", "--combinations", "all"], {}, "A10"),
+    (["sweep", "--canonical", "--combinations", "all"],
      {"dataset": "SWAT", "signal": "multivariate"}, "A10"),
     (["sweep"], {"devices": 2}, "A13"),
 ])
 def test_unported_cli_options_raise_naming_their_roadmap_item(
         tmp_path, argv, override, item):
-    """What of ``sweep`` stays unported: ``--canonical`` and the fleet
-    grid, univariate or multivariate (A10), several cards (A13)."""
+    """What of ``sweep`` stays unported: ``--canonical`` (A10), alone and
+    with the fleet grid's flags, univariate or multivariate; several
+    cards (A13). The fleet grid itself runs
+    (tests/test_torch_fleet_grid.py)."""
     cfg = _config(tmp_path, "port", signals=["sig"], **override)
     with pytest.raises(NotImplementedError, match=item):
         tcli.main([*argv, "--config", cfg, "--device", "cpu"])

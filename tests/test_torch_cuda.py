@@ -447,3 +447,129 @@ def test_rolling_sums_are_the_same_bits_on_every_call(cuda, n):
         # window sums are differences of running sums of up to n entries
         torch.testing.assert_close(first.cpu(), fn(x, 500), rtol=1e-4,
                                    atol=1e-3, equal_nan=True)
+
+
+# ---------------------------------------------------------------------------
+# the any-width instances: widths above 256
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,din,dout", [(64, 300, 300), (128, 512, 512),
+                                        (4096, 1024, 1024), (50000, 300, 300),
+                                        (300, 257, 100), (100, 64, 700)])
+def test_mobius_linear_xwide_kernel_matches_plain(cuda, B, din, dout):
+    """K1's any-width kernel (columns in chunks of 256, k in chunks of 64,
+    the row's products held in the output until the epilogue) against the
+    plain version within 1e-6, one launch each, and by the profiler the
+    any-width kernel alone."""
+    g = torch.Generator().manual_seed(B + din + dout)
+    w = (torch.randn(dout, din, generator=g) / (din * dout) ** 0.5).to(cuda)
+    b = (torch.randn(dout, generator=g) / 400).to(cuda)
+    b = b / (1 + b.norm())
+    x = (torch.rand(B, din, generator=g) * 2 - 1).to(cuda)
+    before = mobius_linear_kernel.xwide_launches
+    got, names, launched = _traced(lambda: mobius_linear_kernel(x, w, b),
+                                   mobius_linear_kernel)
+    assert launched == 1 and mobius_linear_kernel.xwide_launches > before
+    assert len(names) == 1 and "mobius_linear_xwide_kernel" in names[0]
+    assert (got - mobius_linear(x, w, b)).abs().max().item() <= 1e-6
+
+
+def test_mobius_linear_xwide_kernel_signal_axis_is_each_signals_launch(cuda):
+    g = torch.Generator().manual_seed(8)
+    heads = [init_tadgan(g, 300, hyperbolic=True, device=cuda)["decoder"]
+             .hyperbolic_linear for _ in range(3)]
+    w = torch.stack([h.w.detach() for h in heads])
+    b = torch.stack([h.b.detach() for h in heads])
+    x = (torch.rand(3, 2000, 300, generator=g) * 2 - 1).to(cuda)
+    got = mobius_linear_kernel(x, w, b)
+    for i in range(3):
+        assert torch.equal(got[i], mobius_linear_kernel(x[i].contiguous(),
+                                                        w[i], b[i]))
+    assert (got - mobius_linear(x, w, b)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("N,W,const,nans", [
+    (2000, 300, False, False), (1000, 300, True, False),
+    (1000, 300, False, True), (1000, 512, False, False),
+    (500, 1024, False, False), (700, 257, False, False)])
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_kde_argmax_xwide_kernels_match_plain_at_tie_level(cuda, N, W, const,
+                                                           nans, version):
+    """K2's and K3's any-width instances on rows wider than 256: use flags
+    bitwise, fallback rows bitwise masked_median, the other rows at a
+    float64 density tie (``near_tie_flips``); one launch, of the any-width
+    kernel."""
+    from hypad_tpu_torch.profile_kernels import near_tie_flips
+
+    critic = torch.randn(N, generator=torch.Generator().manual_seed(N + W))
+    if const:
+        critic[10:700] = 0.5
+    if nans:
+        critic[:2] = critic[100:200] = float("nan")
+    vals, mask = antidiagonal_gather(critic.to(cuda)[:, None].expand(N, W))
+    kernel, plain = ((kde_argmax_kernel, kde_argmax_rows_and_use)
+                     if version == "v1" else
+                     (kde_argmax_v2_kernel, kde_argmax_rows_v2_and_use))
+    (got, use), names, launched = _traced(lambda: kernel(vals, mask), kernel)
+    assert launched == 1
+    assert len(names) == 1 and "_xwide_kernel" in names[0]
+    want, want_use = (plain(vals, mask, block=128) if version == "v1"
+                      else plain(vals, mask))
+    assert torch.equal(use, want_use)
+    torch.testing.assert_close(got[~use], masked_median(vals, mask)[~use],
+                               rtol=0, atol=0, equal_nan=True)
+    near_tie_flips(got[use], want[use], vals[use], mask[use])
+
+
+@pytest.mark.parametrize("hyperbolic,B,width", [(True, 64, 300),
+                                                (False, 64, 300),
+                                                (True, 64, 512),
+                                                (True, 13, 400)])
+def test_critic_step_xwide_kernels_match_autograd(cuda, hyperbolic, B,
+                                                  width):
+    """K5 and K4 above 256 (the any-width instance, whose row tile is
+    dynamic shared memory) against their plain autograd versions, within
+    the narrow checks' tolerances, two launches bitwise equal."""
+    from hypad_tpu_torch.profile_critic_step import critic_case
+    from hypad_tpu_torch.train import critic_kernel as ck
+
+    model, x, d = critic_case(cuda, hyperbolic, B, width)
+    before = ck.critic_step_fused_full.xwide_launches
+    want = ck.critic_step_plain(model, x, d, hyperbolic)
+    got = ck.critic_step_fused_full(model, x, d, hyperbolic)
+    again = ck.critic_step_fused_full(model, x, d, hyperbolic)
+    torch.cuda.synchronize()
+    assert ck.critic_step_fused_full.xwide_launches == before + 2
+    _assert_critic_close(got, want, dict(rtol=5e-5, atol=2e-6),
+                         dict(rtol=1e-4, atol=1e-6))
+    _assert_bitwise(got, again)
+    bigx, bigz = ck.critic_step_inputs(model, x, d, hyperbolic)
+    args = (model["critic_x"], model["critic_z"], bigx, bigz, d["m_cx"],
+            d["m_cz"])
+    got = ck.critics_fused_grads(*args)
+    _assert_critic_close(got, ck.critics_fused_grads_plain(*args),
+                         dict(rtol=2e-5, atol=1e-6),
+                         dict(rtol=5e-5, atol=5e-7))
+    _assert_bitwise(got, ck.critics_fused_grads(*args))
+
+
+def test_critic_step_xwide_signal_axis_is_each_signals_launch(cuda):
+    """K5's any-width instance with a signal axis (S = 3, width 300): each
+    signal bitwise its single-signal launch."""
+    from hypad_tpu_torch.profile_critic_step import critic_case
+    from hypad_tpu_torch.train import critic_kernel as ck
+    from hypad_tpu_torch.train import fleet as fl
+
+    cases = [critic_case(cuda, True, 64, 300, seed=i) for i in range(3)]
+    models = [c[0] for c in cases]
+    P = fl.stack_models(models)
+    x = torch.stack([c[1] for c in cases])
+    d = {k: torch.stack([c[2][k] for c in cases]) for k in cases[0][2]}
+    got = ck.critic_step_fused_full_fleet(P, x, d, True)
+    for i, m in enumerate(models):
+        one = ck.critic_step_fused_full(m, x[i], {k: v[i] for k, v in
+                                                   d.items()}, True)
+        assert torch.equal(got[0][i], one[0])
+        for j in (2, 3):
+            for k in one[j]:
+                assert torch.equal(got[j][k][i], one[j][k]), k

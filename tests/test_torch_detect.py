@@ -231,6 +231,104 @@ def test_find_anomalies_matches_jax(seed):
         tiv.find_anomalies(errors, index, window_size_portion=0.33)
 
 
+def _interval_series(seed, n=3000, dips=False):
+    """Scores with injected bumps (and, with ``dips``, injected dips, which
+    only the lower threshold's mirrored windows see) and an exact-zero
+    run."""
+    rng = np.random.default_rng(seed)
+    errors = np.abs(rng.standard_normal(n)) + 10.0
+    for start in rng.choice(n - 200, 3, replace=False):
+        errors[start:start + 30] += 6.0
+    if dips:
+        for start in rng.choice(n - 200, 3, replace=False):
+            errors[start:start + 20] -= 9.0
+    errors[100:160] = 0.0
+    return errors
+
+
+def _same_intervals(got, want):
+    """Equal start, stop and score, as float64 arrays of one shape."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    if want.size:
+        assert got.dtype == want.dtype == np.float64
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("lower", [False, True])
+def test_find_anomalies_takes_jax_positional_call(lower):
+    """JAX's parameter order: ``find_anomalies(e, idx, (0, 10), None, 0.33,
+    None, 0.1, fixed_threshold=True)`` puts (0, 10) in z_range and 0.33 in
+    window_size_portion, in the port as in JAX; the same with
+    ``lower_threshold`` as the tenth positional argument."""
+    from hypad_tpu_torch.detect import intervals as tiv
+
+    errors = _interval_series(4, dips=True)
+    index = 1000.0 + 60.0 * np.arange(len(errors))
+    args = (errors, index, (0, 10), None, 0.33, None, 0.1, 0.1, 50, lower)
+    want = jiv.find_anomalies(*args, fixed_threshold=True)
+    got = tiv.find_anomalies(*args, fixed_threshold=True)
+    assert len(want) > 0
+    _same_intervals(got, want)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_find_anomalies_lower_threshold_matches_jax(seed):
+    """``lower_threshold=True`` scans each window's mirror about its mean as
+    well: the dips become intervals, equal to JAX's, serial and batch."""
+    from hypad_tpu_torch.detect import intervals as tiv
+
+    errors = _interval_series(seed, dips=True)
+    index = 1000.0 + 60.0 * np.arange(len(errors))
+    kw = dict(_UNIVARIATE_FA_KW, lower_threshold=True)
+    want = jiv.find_anomalies(errors, index, **kw)
+    got = tiv.find_anomalies(errors, index, **kw)
+    assert len(want) > len(jiv.find_anomalies(errors, index,
+                                              **_UNIVARIATE_FA_KW))
+    _same_intervals(got, want)
+    E = np.stack([errors, _interval_series(seed + 10, dips=True)])
+    for g, w in zip(tiv.find_anomalies_batch(E, index, **kw),
+                    jiv.find_anomalies_batch(E, index, **kw)):
+        _same_intervals(g, w)
+
+
+def test_find_anomalies_batch_takes_per_cell_indexes():
+    """A (2, 600) error matrix with one index per cell (a length-C list of
+    arrays): each cell's intervals on its own timestamps, equal to JAX's
+    and to the serial call with that cell's index."""
+    from hypad_tpu_torch.detect import intervals as tiv
+
+    E = np.stack([_interval_series(5, 600), _interval_series(6, 600)])
+    indexes = [1e9 + 60.0 * np.arange(699), 5e8 + 300.0 * np.arange(699)]
+    got = tiv.find_anomalies_batch(E, indexes, **_UNIVARIATE_FA_KW)
+    want = jiv.find_anomalies_batch(E, indexes, **_UNIVARIATE_FA_KW)
+    assert len(got) == 2 and all(len(w) for w in want)
+    for c in range(2):
+        _same_intervals(got[c], want[c])
+        _same_intervals(got[c], tiv.find_anomalies(E[c], indexes[c],
+                                                   **_UNIVARIATE_FA_KW))
+    assert got[0][0, 0] != got[1][0, 0] or got[0][0, 0] >= 1e9
+
+
+def test_find_anomalies_batch_scalar_list_is_one_shared_index():
+    """A plain list of scalar timestamps is one index shared by every cell,
+    as JAX reads it; a falsy ``fixed_threshold`` raises naming ROADMAP
+    A12, serial and batch."""
+    from hypad_tpu_torch.detect import intervals as tiv
+
+    E = np.stack([_interval_series(7, 600), _interval_series(8, 600)])
+    index = [float(t) for t in 100.0 + 7.0 * np.arange(699)]
+    got = tiv.find_anomalies_batch(E, index, **_UNIVARIATE_FA_KW)
+    want = jiv.find_anomalies_batch(E, index, **_UNIVARIATE_FA_KW)
+    assert any(len(w) for w in want)
+    for g, w in zip(got, want):
+        _same_intervals(g, w)
+    with pytest.raises(NotImplementedError, match="A12"):
+        tiv.find_anomalies_batch(E, index, fixed_threshold=None)
+    with pytest.raises(NotImplementedError, match="A12"):
+        tiv.find_anomalies(E[0], index, (0, 10), fixed_threshold=False)
+
+
 @pytest.mark.parametrize("observed", [
     [(5, 20), (40, 41), (90, 120)],
     [(0, 3)],

@@ -141,15 +141,37 @@ def test_mobius_linear_fused_gradient_matches_jax():
                                    rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "width", "contiguous"])
+@pytest.mark.parametrize("B,din,dout", [(8, 257, 257), (6, 300, 300),
+                                         (5, 384, 100), (4, 100, 384)])
+def test_mobius_linear_kernel_matches_jax_above_256(B, din, dout):
+    """Widths above 256, which the card runs in the any-width kernel: on
+    the CPU the wrapper runs the plain version, which must match JAX's
+    Pallas kernel in interpret mode and its plain composition (the former
+    refusal above 256 is gone)."""
+    p = init_mobius_linear(jax.random.PRNGKey(din + dout), dout, din)
+    w, b = np.array(p["w"]), np.array(p["b"])
+    x = np.random.default_rng(B + din).uniform(
+        -1.0, 1.0, (B, din)).astype(np.float32)
+    jp = {"w": jnp.asarray(w), "b": jnp.asarray(b)}
+    want = np.asarray(jax_mobius_linear(jp, jnp.asarray(x)))
+    want_fused = np.asarray(jax_fused(jp, jnp.asarray(x), interpret=True))
+    before = (mobius_linear_kernel.launches,
+              mobius_linear_kernel.xwide_launches)
+    got = mobius_linear_kernel(*map(torch.from_numpy, (x, w, b))).numpy()
+    assert got.shape == (B, dout)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(got, want_fused, rtol=1e-6, atol=1e-7)
+    assert (mobius_linear_kernel.launches,
+            mobius_linear_kernel.xwide_launches) == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous"])
 def test_mobius_linear_kernel_rejects_what_it_does_not_take(bad):
     w, b, x = map(torch.from_numpy, _mobius_case(4, 64)[:3])
     if bad == "dtype":
         x = x.double()
     elif bad == "shape":
         b = b[:10]
-    elif bad == "width":
-        x, w = torch.zeros(4, 257), torch.zeros(64, 257)
     else:
         x = torch.zeros(64, 4).T
     with pytest.raises((TypeError, ValueError)):

@@ -574,17 +574,17 @@ def test_wide_kde_plain_matches_pallas_interpret(version):
                                       got[use])
 
 
-def _critic_case(hyperbolic, B, seed):
-    params = _jax_params(WIDE, hyperbolic, seed)
+def _critic_case(hyperbolic, B, seed, width=WIDE):
+    params = _jax_params(width, hyperbolic, seed)
     rng = np.random.default_rng(seed)
     d = {"z_x": rng.standard_normal((B, 20)).astype(np.float32),
-         "a_x": rng.uniform(0, 1, (B, WIDE)).astype(np.float32),
+         "a_x": rng.uniform(0, 1, (B, width)).astype(np.float32),
          "z_z": rng.standard_normal((B, 20)).astype(np.float32),
          "a_z": rng.uniform(0, 1, (B, 20)).astype(np.float32),
          "m_cx": rng.uniform(size=(4, 3 * B, 20)) < 0.75,
          "m_cz": rng.uniform(size=(2, 3 * B, 20)) < 0.8,
          "m_dec": rng.uniform(size=(B, 128)) < 0.8}
-    x = rng.uniform(-1, 1, (B, WIDE)).astype(np.float32)
+    x = rng.uniform(-1, 1, (B, width)).astype(np.float32)
     return params, x, d
 
 
@@ -635,28 +635,40 @@ def test_wide_critic_step_plain_matches_pallas_interpret(kernel):
                       dict(rtol=1e-4, atol=1e-6))
 
 
-@pytest.mark.parametrize("which", ["k1", "k2", "k3", "k4"])
-def test_wrappers_refuse_widths_above_256_naming_the_limit(which):
-    """Above 256 every wrapper raises a ValueError naming the limit, on the
-    CPU too: no width silently takes a plain path the card would not."""
-    from hypad_tpu_torch.manifold.kernels import mobius_linear_kernel
-    from hypad_tpu_torch.ops.kde_kernel import kde_argmax_rows_fused
+@pytest.mark.parametrize("kernel,width", [("k4", 257), ("k4", 300),
+                                          ("k5", 257), ("k5", 300)])
+def test_critic_step_plain_matches_pallas_interpret_above_256(kernel, width):
+    """K4's and K5's wrappers at signal widths above 256, which the card
+    runs in the any-width instance (the former refusal above 256 is gone):
+    on the CPU the plain versions at B = 4 against JAX's Pallas kernels in
+    interpret mode, within the tolerances of the 150-wide case above, and
+    no launch counted."""
+    from hypad_tpu.train import critic_kernel as jck
     from hypad_tpu_torch.train import critic_kernel as tck
 
-    with pytest.raises(ValueError, match="256"):
-        if which == "k1":
-            mobius_linear_kernel(torch.zeros(4, 257), torch.zeros(257, 257),
-                                 torch.zeros(257))
-        elif which in ("k2", "k3"):
-            kde_argmax_rows_fused(torch.zeros(4, 257),
-                                  torch.ones(4, 257, dtype=torch.bool),
-                                  "v1" if which == "k2" else "v2")
-        else:
-            from hypad_tpu_torch.models.tadgan import init_tadgan as tinit
-
-            model = tinit(torch.Generator().manual_seed(0), 257,
-                          hyperbolic=False, device="cpu")
-            tck.critics_fused_grads(
-                model["critic_x"], model["critic_z"], torch.zeros(6, 257),
-                torch.zeros(6, 20), torch.ones(4, 6, 20, dtype=torch.bool),
-                torch.ones(2, 6, 20, dtype=torch.bool))
+    B = 4
+    params, x, d = _critic_case(True, B, width, width)
+    model = bridge.from_jax_params(params, device="cpu")
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    counters = (tck.critics_fused_grads, tck.critic_step_fused_full)
+    before = [(f.launches, f.xwide_launches) for f in counters]
+    if kernel == "k4":
+        rng = np.random.default_rng(width)
+        bigx = rng.uniform(-1, 1, (3 * B, width)).astype(np.float32)
+        bigz = rng.standard_normal((3 * B, 20)).astype(np.float32)
+        want = jck.critics_fused_grads(params["critic_x"], params["critic_z"],
+                                       bigx, bigz, d["m_cx"], d["m_cz"],
+                                       interpret=True)
+        got = tck.critics_fused_grads(
+            model["critic_x"], model["critic_z"], torch.from_numpy(bigx),
+            torch.from_numpy(bigz), t["m_cx"], t["m_cz"])
+        _check_critic(got, want, dict(rtol=2e-5, atol=1e-6),
+                      dict(rtol=5e-5, atol=5e-7))
+    else:
+        want = jck.critic_step_fused_full(
+            params, x, dict(d, m_dec=d["m_dec"][None, None]), True,
+            interpret=True)
+        got = tck.critic_step_fused_full(model, torch.from_numpy(x), t, True)
+        _check_critic(got, want, dict(rtol=5e-5, atol=2e-6),
+                      dict(rtol=1e-4, atol=1e-6))
+    assert [(f.launches, f.xwide_launches) for f in counters] == before
