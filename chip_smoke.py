@@ -149,6 +149,24 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    against ``detect --device cpu`` from the card's checkpoint (intervals,
    confusion, zeros and NaNs equal), the same under HYPAD_KDE_PALLAS=1
    (K3), and ``train`` under fused_critics true (K4);
+10c. the side modules ([a12], after [xwide]): the dynamic thresholds
+   (``fixed_threshold=None``) on the main path's card and CPU scores (the
+   same intervals and F1) and on the NAB fleet grid's 9 x 12 cells of
+   [sweep] (``find_anomalies_batch`` per signal, each cell bitwise its
+   serial ``find_anomalies``, the serial cells in a spawned process pool),
+   the host times printed; scipy must be present; a CASAS-width (20,000
+   rows of 150) multivariate ``detect`` with ``save_plots`` unset, card
+   (the wide K1 2, K2 1) against CPU, ``anomalies.png`` a PNG where
+   matplotlib imports, else JAX's skip line and no file; the Mobius GRU
+   (batch 64, 100 steps, input 1, hidden 100, weights through
+   ``bridge.mobius_gru_from_jax``) dense and packed with ragged lengths,
+   card against CPU within 1e-4 / 1e-5, inside the ball, finite
+   gradients of the dense loop, and ``dist2hyperplane_apply`` and
+   ``pairwise_poincare_distance`` at (2,000, 100), the card's f32 error
+   against float64 at most twice the CPU's f32 error plus 1e-6; one
+   warm 20,000-window detect inside ``trace`` with ``annotate("detect")``
+   (K1 2, K2 1), whose Chrome trace must name the annotation,
+   ``mobius_linear_kernel`` and ``kde_argmax_kernel``;
 11. staged path: at 20,000 windows, ``run_inference`` (chunks of 1,024)
    must give the one call's forward outputs within 1e-5 relative / 1e-6
    absolute; ``score_anomalies_euclidean`` (Euclidean model) and
@@ -839,7 +857,9 @@ def phase_train_timing(device, X):
 
 def phase_main_path(device):
     """The detector on the card once with zeroed launch counters, then the
-    same call on the CPU; returns (launches, windows, model)."""
+    same call on the CPU; returns (launches, windows, model, {"X",
+    "index", "known", "model", "card", "cpu"}: the inputs and both
+    detections, which [a12] thresholds again)."""
     import numpy as np
     import torch
 
@@ -879,7 +899,9 @@ def phase_main_path(device):
     print(f"[main] the same call on the CPU: "
           f"{time.perf_counter() - t0:.3f} s")
     check_same_detection(got, want, known)
-    return launches, X, model
+    return launches, X, model, {"X": X, "index": np.asarray(index),
+                                "known": known, "model": model, "card": got,
+                                "cpu": want}
 
 
 FLEET_SIZES = (1, 3, 9)
@@ -1666,7 +1688,7 @@ def phase_sweep(device, card):
             ["sweep", "--detect-only", "--config", str(cpu_cfg), "--device",
              "cpu", *grid_flags], "sweep_grid_cpu", card)
         cpu_files = grid_files(cpu_cfg, signals)
-        grid_own, grid_timing = sweep_grid_own_and_timing(
+        grid_own, grid_timing, indexes = sweep_grid_own_and_timing(
             device, card_cfg, signals, root / "own")
         band, band_launches = run_cli(
             ["sweep", "--config", str(card_cfg), "--signals",
@@ -1720,6 +1742,10 @@ def phase_sweep(device, card):
         fail(f"sweep --signals --seeds ran {[(r[0], r[1]) for r in band]} "
              f"with run directories {band_dirs}; expected {want}, each with "
              "config.yaml, state_final.pt and anomalies.csv under seed_k/")
+    # each signal's timeline and its 12 cells' card scores, for [a12]
+    grid_scores = {sig: (indexes[sig], {c: r["scores"] for c, r in
+                                        cells.items()})
+                   for sig, _, cells in grid_card}
     print(f"[sweep] 9 signals: the card's intervals, confusion and F1 equal "
           f"the CPU's --detect-only on every one, and the card's "
           f"--detect-only; detect re-entering {signals[0]}'s run directory "
@@ -1733,7 +1759,7 @@ def phase_sweep(device, card):
                                             for s_, c in grid_ties],
         "grid_threshold_ties_vs_own_detect_grid": [
             [s_, "/".join(filter(None, c))] for s_, c in own_ties],
-        "grid_timing": grid_timing}
+        "grid_timing": grid_timing}, grid_scores
 
 
 def sweep_grid_own_and_timing(device, cfg_path, signals, own_dir):
@@ -1741,8 +1767,11 @@ def sweep_grid_own_and_timing(device, cfg_path, signals, own_dir):
     checkpoint ({signal: cells}), then the warm fleet grid
     (``detect_scores_fleet_grid``, one call) against the S
     ``detect_scores_grid`` calls it replaces, in turns: medians of 5
-    rounds and windows/s."""
+    rounds and windows/s. Returns ({signal: cells}, the timing, {signal:
+    its timeline})."""
     import statistics as stats
+
+    import numpy as np
 
     from hypad_tpu_torch.data.registry import dataset_selection
     from hypad_tpu_torch.detect import detector
@@ -1751,7 +1780,7 @@ def sweep_grid_own_and_timing(device, cfg_path, signals, own_dir):
     from hypad_tpu_torch.utils import checkpoint as ck
     from hypad_tpu_torch.utils.config import load_config, run_dir
 
-    own, models, X_list = {}, [], []
+    own, models, X_list, indexes = {}, [], [], {}
     for sig in signals:
         p = load_config(str(cfg_path))
         p.signal = sig
@@ -1763,6 +1792,7 @@ def sweep_grid_own_and_timing(device, cfg_path, signals, own_dir):
             combinations=list(sc.EUCL_COMBOS), device=device)
         models.append(model)
         X_list.append(test_data.X)
+        indexes[sig] = np.asarray(test_data.index)
     stacked = fl.stack_models(models)
     recs, combos = list(sc.REC_ERRORS), list(sc.EUCL_COMBOS)
     calls = {
@@ -1782,7 +1812,7 @@ def sweep_grid_own_and_timing(device, cfg_path, signals, own_dir):
               f"windows x {len(recs) * len(combos)} cells: median "
               f"{median:.3f} ms, {n_win / median * 1e3:.0f} windows/s (runs "
               f"in ms: {[round(w, 3) for w in walls]})")
-    return own, timing
+    return own, timing, indexes
 
 
 def init_model(device, hyperbolic):
@@ -3101,6 +3131,357 @@ def phase_xwide(device, card):
     return paths, info
 
 
+# ---------------------------------------------------------------------------
+# [a12]: the side modules on the card
+# ---------------------------------------------------------------------------
+
+# the detector's univariate threshold windows under JAX's default dynamic
+# threshold (fixed_threshold None)
+A12_DYNAMIC_KW = dict(window_size_portion=0.33, window_step_size_portion=0.1,
+                      fixed_threshold=None)
+A12_CASAS_ROWS = 20_000   # the CASAS-width plot run's rows (F = 150)
+GRU_B, GRU_T, GRU_IN, GRU_H = 64, 100, 1, 100   # the univariate window's
+# card against CPU: the GRU's 100 steps of f32 matvecs and Mobius sums
+GRU_TOL = dict(rtol=1e-4, atol=1e-5)
+# dist2hyperplane_apply and pairwise_poincare_distance at (2,000, 100)
+# on ball points near the edge (norms to 0.995; the hyperplanes' points
+# from the reference init, 0.987 at width 100), where 1 - |(-p) (+) x|^2
+# cancels in f32: each is held against float64 on the CPU, the card's
+# largest error at most twice the CPU's f32 one plus 1e-6
+F64_ERR_RATIO, F64_ERR_SLACK = 2.0, 1e-6
+
+
+def serial_dynamic_intervals(job):
+    """One cell's serial dynamic ``find_anomalies`` (scipy's fmin) and its
+    host seconds; a worker of [a12]'s process pool."""
+    from hypad_tpu_torch.detect import intervals as iv
+
+    scores, index = job
+    t0 = time.perf_counter()
+    out = iv.find_anomalies(scores, index, **A12_DYNAMIC_KW)
+    return out, time.perf_counter() - t0
+
+
+def a12_thresholds(main, grid_scores, card):
+    """The dynamic thresholds: the main path's card and CPU scores give the
+    same intervals and F1; every cell of the NAB fleet grid, batched per
+    signal, equals its serial ``find_anomalies`` bitwise (the serial cells
+    in a pool of spawned processes, one a core)."""
+    import multiprocessing
+    import os
+
+    import numpy as np
+
+    from hypad_tpu_torch.detect import detector
+    from hypad_tpu_torch.detect import intervals as iv
+
+    try:
+        import scipy
+    except ImportError:
+        fail("scipy is not installed: the serial dynamic threshold runs "
+             "scipy.optimize.fmin, as JAX's does")
+    info = {"scipy": scipy.__version__}
+    dets, serial_s = {}, {}
+    for where in ("card", "cpu"):
+        scores = main[where]["scores"]
+        t0 = time.perf_counter()
+        intervals = iv.find_anomalies(scores, main["index"], **A12_DYNAMIC_KW)
+        serial_s[where] = time.perf_counter() - t0
+        confusion, metrics = detector._confusion_and_metrics(
+            main["known"], intervals, verbose=False)
+        dets[where] = {"scores": scores, "intervals": intervals,
+                       "confusion": confusion, "metrics": metrics}
+    info["main_f1"] = check_same_detection(
+        dets["card"], dets["cpu"], main["known"], tag="a12 dynamic")
+    info["main_serial_host_s"] = serial_s
+    print(f"[a12] dynamic thresholds on the {len(main['index'])}-entry "
+          f"timeline of the {N_WINDOWS}-window main path: card and CPU "
+          f"scores give the same intervals and F1 {info['main_f1']}; serial "
+          f"epilogue host time {serial_s['card']:.3f} s (card's scores), "
+          f"{serial_s['cpu']:.3f} s (CPU's) (host times, beside {card})")
+
+    jobs, batched, t_batch = [], {}, 0.0
+    for sig, (index, cells) in grid_scores.items():
+        E = np.stack([np.asarray(s, np.float64).reshape(-1)
+                      for s in cells.values()])
+        t0 = time.perf_counter()
+        batched[sig] = iv.find_anomalies_batch(E, index, **A12_DYNAMIC_KW)
+        t_batch += time.perf_counter() - t0
+        jobs += [(row, index) for row in E]
+    workers = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        serial = pool.map(serial_dynamic_intervals, jobs, chunksize=1)
+    t_pool = time.perf_counter() - t0
+    flat = [(sig, c, out) for sig, outs in batched.items()
+            for c, out in zip(grid_scores[sig][1], outs)]
+    differ = [(sig, "/".join(filter(None, c))) for (sig, c, got), (want, _)
+              in zip(flat, serial) if not np.array_equal(got, want)]
+    n_iv = sum(len(out) for _, _, out in flat)
+    cell_s = [s for _, s in serial]
+    info.update(grid_cells=len(flat), grid_intervals=n_iv,
+                grid_batched_host_s=t_batch,
+                grid_serial_host_s_sum=float(sum(cell_s)),
+                grid_serial_pool_wall_s=t_pool, grid_pool_workers=workers)
+    print(f"[a12] NAB fleet grid, {len(grid_scores)} signals x "
+          f"{len(flat) // max(len(grid_scores), 1)} cells: "
+          f"find_anomalies_batch(fixed_threshold=None) {t_batch:.3f} s host "
+          f"for all {len(flat)} cells ({n_iv} intervals); the serial "
+          f"find_anomalies of each cell {sum(cell_s):.3f} s host summed "
+          f"({t_pool:.1f} s wall in {workers} processes); "
+          f"{len(flat) - len(differ)} of {len(flat)} cells bitwise equal "
+          f"(host times, beside {card})")
+    if differ or n_iv == 0:
+        fail(f"batched dynamic intervals differ from the serial ones in "
+             f"{differ} ({n_iv} intervals in all)")
+    return info
+
+
+def a12_plot(device, card, root):
+    """A CASAS-width (F = 150) multivariate ``detect`` with ``save_plots``
+    unset, on the card with zeroed counters and on the CPU: the same
+    scores, intervals and F1; ``anomalies.png`` written where matplotlib
+    imports, else JAX's skip line and no file."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from hypad_tpu_torch.data.multivariate import MultivariateData
+    from hypad_tpu_torch.detect import detector
+    from hypad_tpu_torch.models.tadgan import init_tadgan
+    from hypad_tpu_torch.utils.config import load_config, parse_flat_yaml
+
+    try:
+        import matplotlib  # noqa: F401
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    cfg = parse_flat_yaml(Path("configs/multivariate.yaml").read_text())
+    params = load_config(dict(cfg, dataset="CASAS", signal="kitchen",
+                              signal_shape=CASAS_F, save_plots=None,
+                              output_root=str(root / "out")))
+    X, y = mv_rows(A12_CASAS_ROWS, CASAS_F, SEED + 12)
+    data = MultivariateData(X, y=y)
+    runs, outs, launches = {}, {}, None
+    for where in (device, "cpu"):
+        model = init_tadgan(torch.Generator().manual_seed(SEED), CASAS_F,
+                            hyperbolic=True, device=where)
+        run_path = root / ("casas_card" if where is device else "casas_cpu")
+        buf = io.StringIO()
+        read = zero_counters()
+        with contextlib.redirect_stdout(buf):
+            runs[where] = detector.detect(params, model, data, str(run_path),
+                                          device=where)
+        if where is device:
+            launches = read()
+        outs[where] = (buf.getvalue(), run_path / "anomalies.png")
+    want = launches_of(mobius_linear=2, mobius_linear_wide=2, kde_argmax=1,
+                       kde_argmax_wide=1)
+    if launches != want:
+        fail(f"[a12] CASAS-width detect launched {launches}, expected {want}")
+    known = detector._multivariate_ground_truth(data)
+    f1 = check_same_detection(runs[device], runs["cpu"], known,
+                              tag="a12 casas plot", atol_from_scores=True,
+                              multivariate=True)
+    for where, (out, png) in outs.items():
+        if has_mpl:
+            if not png.is_file() or png.read_bytes()[:8] != b"\x89PNG\r\n\x1a\n":
+                fail(f"[a12] matplotlib imports but {png} is not a PNG")
+        elif detector._PLOT_SKIPPED not in out or png.exists():
+            fail(f"[a12] without matplotlib the {where} run printed "
+                 f"{out!r} and wrote {png}: expected JAX's skip line, no "
+                 "file")
+    if has_mpl:
+        size = outs[device][1].stat().st_size
+        print(f"[a12] CASAS-width detect ({A12_CASAS_ROWS} rows of "
+              f"{CASAS_F}, save_plots unset): anomalies.png written "
+              f"({size} bytes) on the card's run and the CPU's")
+    else:
+        print("[a12] matplotlib absent: plot skipped as JAX's detect skips "
+              "it")
+    return launches, {"casas_f1": f1, "matplotlib": has_mpl,
+                      "rows": A12_CASAS_ROWS}
+
+
+def a12_gru(device, card):
+    """``mobius_gru_loop`` dense and packed (ragged lengths) at batch 64,
+    100 steps, input 1, hidden 100 on the card with weights carried by the
+    bridge, against the CPU; outputs in the ball, finite gradients of one
+    backward pass through the dense loop (the packed loop's masked rows
+    give weight_ih a NaN gradient, as JAX's do); ``dist2hyperplane_apply``
+    and ``pairwise_poincare_distance`` at (2,000, 100) against float64,
+    the card as close as the CPU."""
+    import numpy as np
+    import torch
+
+    from hypad_tpu_torch import bridge
+    from hypad_tpu_torch.manifold import stereographic as st
+    from hypad_tpu_torch.models import hyrnn
+
+    rng = np.random.default_rng(SEED + 4)
+    p = {k: v.numpy() for k, v in hyrnn.init_mobius_gru(
+        torch.Generator().manual_seed(SEED), GRU_IN, GRU_H,
+        device="cpu").items()}
+    x = (rng.standard_normal((GRU_T, GRU_B, GRU_IN)) * 0.5).astype(np.float32)
+    h0 = (rng.standard_normal((GRU_B, GRU_H)) * 0.05).astype(np.float32)
+    lengths = np.sort(rng.integers(1, GRU_T + 1, GRU_B))[::-1].copy()
+    lengths[:2] = GRU_T
+    lengths[-3:] = (5, 5, 1)
+    batch_sizes = (lengths[None, :] > np.arange(GRU_T)[:, None]).sum(1)
+    packed = np.concatenate([x[t, :n] for t, n in enumerate(batch_sizes)])
+    info, res = {}, {}
+    for where in (device, "cpu"):
+        gru = bridge.mobius_gru_from_jax(p, device=where)
+        xs, hs = (torch.as_tensor(a, device=where) for a in (x, h0))
+        if where is device:
+            gru(xs, hs)   # warm-up
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense = gru(xs, hs)
+        if where is device:
+            torch.cuda.synchronize()
+        info["dense_card_s" if where is device else "dense_cpu_s"] = (
+            time.perf_counter() - t0)
+        packed_out = gru(torch.as_tensor(packed, device=where), hs,
+                         batch_sizes=batch_sizes)
+        torch.sum(st.dist0(dense[1])).backward()
+        grads = {n: q.grad for n, q in gru.named_parameters()}
+        res[where] = [t.detach().cpu().numpy() for t in (*dense, *packed_out)]
+        if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+            fail(f"[a12] GRU gradients on {where} are not finite")
+    worst = 0.0
+    for what, got, want in zip(("dense outs", "dense h_last", "packed outs",
+                                "packed h_last"), res[device], res["cpu"]):
+        diff = float(np.max(np.abs(got - want)))
+        worst = max(worst, diff)
+        if not np.allclose(got, want, **GRU_TOL):
+            fail(f"[a12] GRU {what}: card against CPU max abs diff "
+                 f"{diff:.3e} (tolerance {GRU_TOL})")
+        if not np.linalg.norm(got, axis=-1).max() < 1.0:
+            fail(f"[a12] GRU {what} leave the ball")
+    info["gru_max_abs_diff"] = worst
+    print(f"[a12] mobius_gru_loop (batch {GRU_B}, {GRU_T} steps, input "
+          f"{GRU_IN}, hidden {GRU_H}; dense, and packed with lengths "
+          f"{int(lengths.min())}-{int(lengths.max())}): card against CPU max "
+          f"abs diff {worst:.3e} (tolerance {GRU_TOL}), inside the ball, "
+          f"finite gradients; warm dense loop {info['dense_card_s']:.4f} s "
+          f"on the card, {info['dense_cpu_s']:.4f} s on the CPU (host "
+          f"clock, {card})")
+
+    n, d = 2_000, WIDTH
+    pts = (rng.standard_normal((n, d)) * 0.3).astype(np.float32)
+    other = (rng.standard_normal((n, d)) * 0.3).astype(np.float32)
+    hp = {k: v.numpy() for k, v in hyrnn.init_dist2hyperplane(
+        torch.Generator().manual_seed(SEED + 1), d, d, device="cpu").items()}
+    out = {}
+    for where, dtype in ((device, torch.float32), ("cpu", torch.float32),
+                         ("cpu", torch.float64)):
+        a, b = (st.expmap0(torch.as_tensor(v, device=where)).to(dtype)
+                for v in (pts, other))
+        layer = bridge.dist2hyperplane_from_jax(
+            {k: v.astype(np.float64) if dtype == torch.float64 else v
+             for k, v in hp.items()}, device=where)
+        with torch.no_grad():
+            out[where, dtype] = (
+                layer(a).cpu().numpy(),
+                hyrnn.pairwise_poincare_distance(a, b).cpu().numpy())
+    for what, i in (("dist2hyperplane_apply", 0),
+                    ("pairwise_poincare_distance", 1)):
+        got = out[device, torch.float32][i]
+        cpu = out["cpu", torch.float32][i]
+        exact = out["cpu", torch.float64][i]
+        card_err = float(np.max(np.abs(got - exact)))
+        cpu_err = float(np.max(np.abs(cpu - exact)))
+        info[what] = {"card_f32_vs_f64": card_err, "cpu_f32_vs_f64": cpu_err,
+                      "card_vs_cpu": float(np.max(np.abs(got - cpu)))}
+        print(f"[a12] {what} at ({n}, {d}) -> {got.shape}: max abs error "
+              f"against float64 on the card {card_err:.3e}, on the CPU "
+              f"{cpu_err:.3e}; card against CPU "
+              f"{info[what]['card_vs_cpu']:.3e}")
+        if not (np.all(np.isfinite(got)) and card_err
+                <= F64_ERR_RATIO * cpu_err + F64_ERR_SLACK):
+            fail(f"[a12] {what}: the card's error {card_err:.3e} exceeds "
+                 f"{F64_ERR_RATIO} x the CPU's {cpu_err:.3e} + "
+                 f"{F64_ERR_SLACK}")
+    return info
+
+
+def a12_trace(device, main, root):
+    """One warm 20,000-window detect inside ``trace`` with
+    ``annotate("detect")`` and zeroed counters: the written trace names the
+    annotation and K1's and K2's kernels. Returns (launches, the kernel
+    names)."""
+    import json
+    import re
+
+    import torch
+
+    from hypad_tpu_torch.detect.detector import detect_univariate
+    from hypad_tpu_torch.utils.profiling import annotate, trace
+
+    for attempt in range(3):
+        logdir = root / f"trace_{attempt}"
+        read = zero_counters()
+        with trace(str(logdir)):
+            with annotate("detect"):
+                detect_univariate(main["model"], main["X"], main["index"],
+                                  main["known"], combination="mult",
+                                  device=device)
+                torch.cuda.synchronize()
+        launches = read()
+        (path,) = logdir.glob("*.json")
+        events = json.loads(path.read_text())["traceEvents"]
+        kernels = sorted({e["name"] for e in events
+                          if e.get("cat") == "kernel"})
+        if kernels:
+            break
+        print("[a12] the trace holds no kernel event; tracing again")
+    names = {e.get("name") for e in events}
+    found = {k: [short_name(n) for n in kernels
+                 if re.search(rf"\b{k}\b", n)]
+             for k in ("mobius_linear_kernel", "kde_argmax_kernel")}
+    print(f"[a12] trace of a warm detect: {path.stat().st_size} bytes, "
+          f"{len(kernels)} distinct kernels, the annotation 'detect' "
+          f"{'present' if 'detect' in names else 'missing'}; K1 "
+          f"{found['mobius_linear_kernel']}, K2 {found['kde_argmax_kernel']}"
+          f"; launches {launches}")
+    if launches != launches_of(mobius_linear=2, kde_argmax=1):
+        fail(f"[a12] the traced detect launched {launches}")
+    if "detect" not in names or not all(found.values()):
+        fail(f"[a12] the trace misses the annotation or K1 / K2: kernels "
+             f"{kernels}")
+    return launches, found
+
+
+def phase_a12(device, card, main, grid_scores):
+    """[a12]: the side modules on the card. Dynamic thresholds on the main
+    path's scores (card against CPU) and on the NAB fleet grid's cells
+    (batched against serial, bitwise); the CASAS-width multivariate detect
+    that plots by default; the Mobius GRU, ``dist2hyperplane_apply`` and
+    ``pairwise_poincare_distance`` card against CPU; a warm detect inside
+    ``trace``. Returns ({path: launches}, info)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_a12_"))
+    paths = {}
+    try:
+        info = {"thresholds": a12_thresholds(main, grid_scores, card)}
+        paths["a12_casas_plot_detect"], info["plot"] = a12_plot(device, card,
+                                                                root)
+        info["gru"] = a12_gru(device, card)
+        paths["a12_trace_detect"], info["trace_kernels"] = a12_trace(
+            device, main, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    info["seconds"] = time.perf_counter() - t_phase
+    print(f"[a12] all checks passed in {info['seconds']:.1f} s ({card})")
+    return paths, info
+
+
 def mv_kernel_timing(device):
     """Each wide instance's time beside its plain version, its bound and
     the narrow instance at F = 100, in one call: K1 at (50,000, 150), K2
@@ -3485,16 +3866,18 @@ def main():
     # [fleet]
     mv_errs = timed(mv_kernel_checks, device)
     xw_errs = timed(xwide_kernel_checks, device)
-    launches, X, model = timed(phase_main_path, device)
+    launches, X, model, main_det = timed(phase_main_path, device)
     eucl_launches, eucl_model = timed(phase_eucl_detect, device)
     train = timed(phase_train, device)
     eucl_train = timed(phase_eucl_train, device)
     cli_paths, cli_info = timed(phase_cli, device, card)
     fleet = timed(phase_fleet, device)
-    sweep_launches, sweep_grid_launches, sweep_info = timed(
+    sweep_launches, sweep_grid_launches, sweep_info, grid_scores = timed(
         phase_sweep, device, card)
     mv_paths, mv_info = timed(phase_mv, device, card)
     xw_paths, xw_info = timed(phase_xwide, device, card)
+    a12_paths, a12_info = timed(phase_a12, device, card, main_det,
+                                grid_scores)
     timed(phase_staged, device, X, eucl_model, model)
     wps, k1, k2, k3 = timed(phase_timing, device, X, model, eucl_model, libs)
     epochs, k4, k5 = timed(phase_train_timing, device, train["X"])
@@ -3512,7 +3895,7 @@ def main():
              "fleet_detect_S9": fleet["detect"]["launches"],
              "sweep_nab_9_signals_1_epoch": sweep_launches,
              "sweep_nab_9_signals_grid_detect_only": sweep_grid_launches,
-             **mv_paths, **xw_paths}
+             **mv_paths, **xw_paths, **a12_paths}
     by_path = {name: {path: counts[name] for path, counts in paths.items()}
                for name in launches}
     tol_text = "loss rtol {0[rtol]} atol {0[atol]}, grads rtol {1[rtol]} " \
@@ -3691,6 +4074,7 @@ def main():
                "mv_kernel_checks": mv_errs,
                "xwide": xw_info,
                "xwide_kernel_checks": xw_errs,
+               "a12": a12_info,
                "k1_untimed_shapes": xw_timing["k1_untimed_shapes"],
                "kernels": kernels,
                "phase_seconds": phase_s,

@@ -14,6 +14,11 @@ with a leading signal axis S) carry across the same way, to and from the
 port's stacked dict ``{state_dict name: (S, ...) tensor}``
 (``train/fleet.py``): :func:`from_jax_stacked_params` and
 :func:`to_jax_stacked_params`.
+
+The hyperbolic GRU's and hyperplane layer's parameter dicts (JAX's
+``init_mobius_gru`` and ``init_dist2hyperplane``) become the modules of
+``models/hyrnn.py``: :func:`mobius_gru_from_jax` and
+:func:`dist2hyperplane_from_jax`.
 """
 
 from __future__ import annotations
@@ -115,3 +120,40 @@ def to_jax_stacked_params(params):
     the port's stacked parameters."""
     return unflatten_tree({key.replace(".", "/"): v.detach().cpu().numpy()
                            for key, v in params.items()})
+
+
+def mobius_gru_from_jax(params, device="cuda", **kw):
+    """A :class:`~hypad_tpu_torch.models.hyrnn.MobiusGRU` carrying the
+    weights of a JAX ``init_mobius_gru`` dict (``weight_ih``,
+    ``weight_hh``, ``bias``; arrays as numpy, or anything ``np.asarray``
+    takes, their dtype kept); ``kw`` are the module's loop options (``k``,
+    ``nonlin``, ``hyperbolic_input``, ...)."""
+    from hypad_tpu_torch.models.hyrnn import MobiusGRU
+
+    state = _numpy_state(params)
+    in_size = state["weight_ih"].shape[1]
+    hidden = state["weight_hh"].shape[1]
+    module = MobiusGRU(in_size, hidden, dtype=state["weight_ih"].dtype,
+                       device=device, **kw)
+    module.load_state_dict(state, strict=True)
+    return module
+
+
+def dist2hyperplane_from_jax(params, k=-1.0, device="cuda"):
+    """A :class:`~hypad_tpu_torch.models.hyrnn.MobiusDist2Hyperplane`
+    carrying the weights of a JAX ``init_dist2hyperplane`` dict
+    (``point``, ``tangent``, ``scale``)."""
+    from hypad_tpu_torch.models.hyrnn import MobiusDist2Hyperplane
+
+    state = _numpy_state(params)
+    out_f, in_f = state["point"].shape
+    module = MobiusDist2Hyperplane(in_f, out_f, k=k,
+                                   dtype=state["point"].dtype, device=device)
+    module.load_state_dict(state, strict=True)
+    return module
+
+
+def _numpy_state(params):
+    """{name: CPU tensor} of a flat dict of arrays, dtypes kept."""
+    return {name: torch.from_numpy(np.array(leaf))
+            for name, leaf in params.items()}

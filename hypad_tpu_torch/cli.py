@@ -46,8 +46,9 @@ run's weights; a JAX checkpoint carried over with
 ``train.state_bridge.train_state_from_jax`` and saved with
 ``utils.checkpoint.save_state`` detects as the JAX CLI does. ``all``
 stands for every valid cell in ``--combinations`` and, unlike JAX's CLI,
-in ``--rec-errors`` too. Not ported: ``sweep --canonical`` (ROADMAP A10),
-plots (A12), more than one device (A13).
+in ``--rec-errors`` too. ``save_plots`` draws ``anomalies.png`` as JAX's
+detector does (by default for a multivariate run). Not ported: ``sweep
+--canonical`` (ROADMAP A10), more than one device (A13).
 """
 
 from __future__ import annotations
@@ -85,9 +86,9 @@ def _init_models(params, device):
 
 
 def _check_supported(params, device):
-    """Raise on the config keys whose JAX meaning is not ported: more than
+    """Raise on the config key whose JAX meaning is not ported: more than
     one device (``devices`` above 1, or "all" on a host with more than one
-    visible card) and ``save_plots: true``."""
+    visible card)."""
     n = params.devices
     if n == "all":
         n = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -96,9 +97,6 @@ def _check_supported(params, device):
             f"devices: {params.devices!r} asks for {n} devices; data "
             "parallelism over several cards is not ported yet (ROADMAP A13)"
             "; set devices: 1")
-    if getattr(params, "save_plots", None):
-        raise NotImplementedError("save_plots: plots are not ported yet "
-                                  "(ROADMAP A12)")
 
 
 def cmd_train(params, config_path, device="cuda"):

@@ -10,7 +10,7 @@ mean aggregation, mean imputation, (-1, 1) min-max scaling and rolling
 windows. Known anomalies are ``(k, 2)`` start/end arrays; the
 ``*_known_anomalies.csv`` file is written in pandas' ``to_csv`` layout (an
 index column, then ``start,end``). The JAX package's native C++ engine
-(numerically identical) is not ported (ROADMAP A12).
+(numerically identical) is not ported (ROADMAP A12.7).
 """
 
 from __future__ import annotations

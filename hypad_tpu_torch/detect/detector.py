@@ -19,10 +19,12 @@ Port of ``hypad_tpu.detect.detector``:
 
 A config is multivariate as JAX's detector decides it (``signal:
 multivariate``, or a dataset of the multivariate family). The CSV files
-keep pandas' ``to_csv`` layouts, written with ``csv``. Plots are not ported
-(ROADMAP A12): ``save_plots: true`` raises ``NotImplementedError``, and a
-multivariate run, which JAX plots by default, prints that it skips the
-plot.
+keep pandas' ``to_csv`` layouts, written with ``csv``. ``save_plots`` is
+JAX's: None plots a multivariate run and not a univariate one, True and
+False override that; the plot is ``anomalies.png`` in the run directory
+(``utils.plotting.plot_anomaly_intervals``: the scores over the timeline,
+the predicted intervals red, the ground truth green), and where matplotlib
+cannot be imported JAX's skip line is printed instead.
 """
 
 from __future__ import annotations
@@ -48,8 +50,8 @@ _UNIVARIATE_FA_KW = dict(window_size_portion=0.33,
                          window_step_size_portion=0.1, fixed_threshold=True)
 _MV_FA_KW = dict(window_size_portion=0.2, window_step_size_portion=0.1,
                  fixed_threshold=True, anomaly_padding=200)
-_PLOT_SKIPPED = ("save_plots: the multivariate run's anomaly plot is skipped: "
-                 "plots are not ported (ROADMAP A12)")
+_PLOT_SKIPPED = ("save_plots requested but matplotlib is not installed "
+                 "(pip install 'hypad-tpu[plots]'); skipping plot")
 
 
 def _confusion_and_metrics(known_anomalies, pred, verbose=True):
@@ -116,14 +118,13 @@ def detect(params, model, test_data, run_path, known_anomalies=None,
     ``test_data`` (a ``SignalData``, or a ``MultivariateData`` for a
     multivariate config), writing into ``run_path``. Returns
     {"scores", "intervals", "confusion", "metrics"} (metrics None when
-    undefined). The KDE kernel follows ``HYPAD_KDE_PALLAS``.
+    undefined). The KDE kernel follows ``HYPAD_KDE_PALLAS``. ``save_plots``:
+    None plots a multivariate run only, True or False decide.
 
     ``precomputed_scores``: the signal's final scores computed elsewhere
     (``detect_scores_fleet`` of a sweep): no device work runs, only the
     epilogue (intervals, anomalies.csv, metrics, the results CSV); no
     inference artifact is written."""
-    if save_plots:
-        raise NotImplementedError("plots are not ported yet (ROADMAP A12)")
     mv = is_multivariate(params)
     device = resolve_device(device)
     kde_version = sc.kde_version_from_env()
@@ -131,10 +132,11 @@ def detect(params, model, test_data, run_path, known_anomalies=None,
     known_anomalies = _ground_truth(params, test_data, known_anomalies)
     if precomputed_scores is not None:
         final_scores = np.asarray(precomputed_scores)
+        true_index = np.asarray(test_data.index)
         return _epilogue(params, final_scores,
-                         _intervals(final_scores,
-                                    np.asarray(test_data.index), mv),
-                         known_anomalies, run_path, mv and save_plots is None)
+                         _intervals(final_scores, true_index, mv),
+                         known_anomalies, run_path, save_plots, mv,
+                         true_index)
 
     one_call_scores = None
     save_artifacts = getattr(params, "save_artifacts", True) or params.load
@@ -181,23 +183,37 @@ def detect(params, model, test_data, run_path, known_anomalies=None,
                                           enabled=params.load)
     intervals = _intervals(final_scores, true_index, mv)
     return _epilogue(params, final_scores, intervals, known_anomalies,
-                     run_path, mv and save_plots is None)
+                     run_path, save_plots, mv, true_index)
 
 
 def _epilogue(params, final_scores, intervals, known_anomalies, run_path,
-              plot_skipped=False):
-    """anomalies.csv, the confusion and metrics, the results CSV row; and
-    where JAX would plot by default (a multivariate run), one line saying
-    the plot is skipped."""
+              save_plots, mv, true_index):
+    """anomalies.csv, the confusion and metrics, the results CSV row and,
+    where ``save_plots`` asks (None: a multivariate run), the plot."""
     write_intervals_csv(os.path.join(run_path, "anomalies.csv"), intervals,
                         ("start", "end", "score"))
     confusion, metrics = _confusion_and_metrics(known_anomalies, intervals)
     if params.save_result:
         _append_results_csv(params, confusion)
-    if plot_skipped:
-        print(_PLOT_SKIPPED)
+    if mv if save_plots is None else save_plots:
+        _plot(final_scores, intervals, known_anomalies, run_path,
+              np.arange(len(final_scores)) if mv else true_index)
     return {"scores": np.asarray(final_scores), "intervals": intervals,
             "confusion": confusion, "metrics": metrics}
+
+
+def _plot(final_scores, intervals, known_anomalies, run_path, x_index):
+    """``anomalies.png`` in ``run_path``, as JAX's detector draws it; JAX's
+    skip line where matplotlib cannot be imported."""
+    from hypad_tpu_torch.utils.plotting import plot_anomaly_intervals
+
+    known = ([known_anomalies] if known_anomalies is not None
+             and len(known_anomalies) else [])
+    try:
+        plot_anomaly_intervals([intervals] + known, x_index,
+                               np.asarray(final_scores), run_path)
+    except ImportError:  # matplotlib is the optional 'plots' extra
+        print(_PLOT_SKIPPED)
 
 
 def _write_rows(path, rows):

@@ -54,7 +54,7 @@ DEFAULTS = {
     # "minimal" drops eucl_recons and gt_signal from a hyperbolic run's
     # artifacts (no hyperbolic scoring reads them)
     "artifact_set": "full",
-    # None: no plot for a univariate run; True is not ported (ROADMAP A12)
+    # None: plot a multivariate run only (JAX's default); True / False decide
     "save_plots": None,
 }
 

@@ -1,12 +1,13 @@
-"""Wall-clock stages and the per-epoch metric log.
+"""Wall-clock stages, device traces and the per-epoch metric log.
 
 Port of ``hypad_tpu.utils.profiling`` ``stage``, ``stage_stats``,
-``reset_stages``, ``report`` and ``MetricsLogger``, with the same stdout
-lines and JSONL rows. ``stage`` reads the host clock: a stage around
-device work is only as long as that work when the code inside it waits
-for the device (the CLI's train and detect stages do, by reading their
-results). The device-trace helpers ``trace`` and ``annotate`` are not
-ported yet (ROADMAP A12).
+``reset_stages``, ``report``, ``trace``, ``annotate`` and
+``MetricsLogger``, with the same stdout lines and JSONL rows. ``stage``
+reads the host clock: a stage around device work is only as long as that
+work when the code inside it waits for the device (the CLI's train and
+detect stages do, by reading their results). ``trace`` records the block
+with ``torch.profiler`` (host and, where a card is present, its kernels)
+and writes a Chrome trace JSON; ``annotate`` labels a region on it.
 """
 
 from __future__ import annotations
@@ -49,6 +50,37 @@ def report():
         lines.append(f"{name:<30} {s['count']:>5} {s['total']:>11.3f} "
                      f"{s['mean']:>10.4f}")
     return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def trace(logdir):
+    """Record the block with ``torch.profiler``: CPU activity, and CUDA
+    activity (every kernel on the card) when a card is present. On exit
+    the Chrome trace JSON (``chrome://tracing``, Perfetto) is written into
+    ``logdir`` as ``trace_{pid}_{ns}.json``; yields ``logdir``, as JAX's
+    ``trace`` does."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield logdir
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def annotate(name):
+    """Label a region on the trace's timeline (a context manager)."""
+    import torch
+
+    return torch.profiler.record_function(name)
 
 
 class MetricsLogger:

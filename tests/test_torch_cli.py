@@ -345,8 +345,10 @@ def test_find_anomalies_batch_is_bitwise_jax_and_the_serial_chain(seed):
         np.testing.assert_array_equal(got[c], want[c])
         np.testing.assert_array_equal(got[c],
                                       tiv.find_anomalies(E[c], index, **kw))
-    with pytest.raises(NotImplementedError, match="A12"):
-        tiv.find_anomalies_batch(E, index)
+    # JAX's default, fixed_threshold None: the dynamic thresholds
+    for g, w in zip(tiv.find_anomalies_batch(E, index),
+                    jiv.find_anomalies_batch(E, index)):
+        np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("rel", [1e-6, 1e-4, 1e-3])
@@ -369,9 +371,11 @@ def test_chip_smoke_interval_score_limit_bounds_the_gap(rel):
     size, step = tiv._window_geometry(1320, None, 0.33, None, 0.1)
 
     def window_runs(x):
-        return [tuple(r[:2]) for start in range(0, 1320 - size + step, step)
-                for r in tiv._find_window_sequences(
-                    x[start:start + size], 50, 0.1, start)]
+        windows = [(start, x[start:start + size])
+                   for start in range(0, 1320 - size + step, step)]
+        return [tuple(r[:2]) for start, w in windows
+                for r in tiv._window_sequences(
+                    w, tiv.fixed_threshold(w), 50, 0.1, start)]
 
     compared = 0
     for _ in range(60):
@@ -469,12 +473,21 @@ def test_unported_cli_options_raise_naming_their_roadmap_item(
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"devices": 2}, "A13"), ({"save_plots": True}, "A12"),
+    ({"devices": 2}, "A13"), ({"save_plots": True}, None),
 ])
 def test_unported_config_keys_raise_naming_their_roadmap_item(
         tmp_path, override, item):
+    """``devices`` above 1 raises naming A13; ``save_plots: true``, ported,
+    makes a univariate ``train`` draw ``anomalies.png`` into its run
+    directory, as JAX's does."""
     _write_signal(tmp_path / "data")
     cfg = _config(tmp_path, "port", **override)
+    if item is None:
+        _, path, result = tcli.main(["train", "--config", cfg, "--device",
+                                     "cpu"])
+        assert os.path.getsize(os.path.join(path, "anomalies.png")) > 0
+        assert result["scores"].ndim == 1
+        return
     with pytest.raises(NotImplementedError, match=item):
         tcli.main(["train", "--config", cfg, "--device", "cpu"])
 

@@ -573,3 +573,77 @@ def test_critic_step_xwide_signal_axis_is_each_signals_launch(cuda):
         for j in (2, 3):
             for k in one[j]:
                 assert torch.equal(got[j][k][i], one[j][k]), k
+
+
+# ---------------------------------------------------------------------------
+# the side modules on the card: the Mobius GRU and the device trace
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_mobius_gru_loop_on_the_card_matches_the_cpu(cuda, packed):
+    """The GRU loop (batch 64, 40 steps, input 1, hidden 100), dense or
+    packed with ragged lengths, on the card against the CPU from the same
+    weights, within chip_smoke.py's GRU_TOL; inside the ball; the dense
+    loop's gradients finite (a packed loop's masked rows give weight_ih a
+    NaN gradient, as JAX's do: tests/test_torch_hyrnn.py)."""
+    import numpy as np
+
+    from hypad_tpu_torch.manifold import stereographic as st
+    from hypad_tpu_torch.models import hyrnn
+
+    rng = np.random.default_rng(0)
+    T, B = 40, 64
+    x = torch.as_tensor(rng.standard_normal((T, B, 1)) * 0.5,
+                        dtype=torch.float32)
+    h0 = torch.as_tensor(rng.standard_normal((B, 100)) * 0.05,
+                         dtype=torch.float32)
+    lengths = np.sort(rng.integers(1, T + 1, B))[::-1].copy()
+    lengths[0] = T
+    batch_sizes = (lengths[None, :] > np.arange(T)[:, None]).sum(1)
+    data = torch.cat([x[t, :n] for t, n in enumerate(batch_sizes)])
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        gru = hyrnn.MobiusGRU(1, 100, generator=torch.Generator().manual_seed(
+            1), device=dev)
+        if packed:
+            out, h = gru(data.to(dev), h0.to(dev), batch_sizes=batch_sizes)
+        else:
+            out, h = gru(x.to(dev), h0.to(dev))
+            torch.sum(st.dist0(h)).backward()
+            assert all(bool(torch.isfinite(p.grad).all())
+                       for p in gru.parameters())
+        outs[dev.type] = (out.detach().cpu(), h.detach().cpu())
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+        assert float(torch.linalg.norm(got, dim=-1).max()) < 1.0
+
+
+def test_trace_names_k1_and_k2_on_the_card(cuda, tmp_path):
+    """A hyperbolic detect inside ``trace`` with ``annotate``: the Chrome
+    trace holds the annotation and kernel events of K1
+    (``mobius_linear_kernel``) and K2 (``kde_argmax_kernel``)."""
+    import json
+    import re
+
+    from hypad_tpu_torch.data.pipeline import synthetic_detect_input
+    from hypad_tpu_torch.detect.detector import detect_univariate
+    from hypad_tpu_torch.utils.profiling import annotate, trace
+
+    X, index, known = synthetic_detect_input(2000, 100, seed=0)
+    model = init_tadgan(torch.Generator().manual_seed(0), 100,
+                        hyperbolic=True, device=cuda)
+    detect_univariate(model, X, index, known, device=cuda)   # warm
+    for attempt in range(3):
+        logdir = tmp_path / str(attempt)
+        with trace(str(logdir)):
+            with annotate("detect"):
+                detect_univariate(model, X, index, known, device=cuda)
+                torch.cuda.synchronize()
+        (path,) = logdir.glob("*.json")
+        events = json.loads(path.read_text())["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        if kernels:   # the profiler now and then records no device event
+            break
+    assert "detect" in {e.get("name") for e in events}
+    for name in ("mobius_linear_kernel", "kde_argmax_kernel"):
+        assert any(re.search(rf"\b{name}\b", k) for k in kernels), kernels

@@ -227,8 +227,10 @@ def test_find_anomalies_matches_jax(seed):
     got = tiv.find_anomalies(errors, index, **_UNIVARIATE_FA_KW)
     assert len(want) > 0
     np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError):
-        tiv.find_anomalies(errors, index, window_size_portion=0.33)
+    # fixed_threshold left at None: the dynamic threshold, bitwise JAX's
+    np.testing.assert_array_equal(
+        tiv.find_anomalies(errors, index, window_size_portion=0.33),
+        jiv.find_anomalies(errors, index, window_size_portion=0.33))
 
 
 def _interval_series(seed, n=3000, dips=False):
@@ -312,8 +314,8 @@ def test_find_anomalies_batch_takes_per_cell_indexes():
 
 def test_find_anomalies_batch_scalar_list_is_one_shared_index():
     """A plain list of scalar timestamps is one index shared by every cell,
-    as JAX reads it; a falsy ``fixed_threshold`` raises naming ROADMAP
-    A12, serial and batch."""
+    as JAX reads it; a falsy ``fixed_threshold`` takes the dynamic
+    threshold, serial and batch, bitwise JAX's."""
     from hypad_tpu_torch.detect import intervals as tiv
 
     E = np.stack([_interval_series(7, 600), _interval_series(8, 600)])
@@ -323,10 +325,13 @@ def test_find_anomalies_batch_scalar_list_is_one_shared_index():
     assert any(len(w) for w in want)
     for g, w in zip(got, want):
         _same_intervals(g, w)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tiv.find_anomalies_batch(E, index, fixed_threshold=None)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tiv.find_anomalies(E[0], index, (0, 10), fixed_threshold=False)
+    got = tiv.find_anomalies_batch(E, index, fixed_threshold=None)
+    want = jiv.find_anomalies_batch(E, index, fixed_threshold=None)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(
+        tiv.find_anomalies(E[0], index, (0, 10), fixed_threshold=False),
+        jiv.find_anomalies(E[0], index, (0, 10), fixed_threshold=False))
 
 
 @pytest.mark.parametrize("observed", [

@@ -20,6 +20,7 @@ positions and the intervals are equal everywhere."""
 
 import functools
 import os
+import sys
 from types import SimpleNamespace
 
 import jax
@@ -442,7 +443,8 @@ def test_mv_fleet_matches_jax(jax_kde, F, hyperbolic, comb):
 def test_mv_detect_writes_intervals_and_metrics(jax_kde, tmp_path, capsys):
     """``detect`` on a labelled multivariate stream: intervals from JAX's
     multivariate threshold windows on JAX's scores, the ground truth from
-    ``casas_anomalies``, the plot skipped with one line naming A12, and
+    ``casas_anomalies``, the plot that JAX draws by default for a
+    multivariate run (``anomalies.png``, matplotlib imports here), and
     under ``load: true`` the cached ``scores_mv_{comb}``."""
     from hypad_tpu.detect import detector as jdet
 
@@ -457,7 +459,9 @@ def test_mv_detect_writes_intervals_and_metrics(jax_kde, tmp_path, capsys):
                              save_artifacts=True, output_root=str(tmp_path))
     res = tdet.detect(params, _model(12, True), test_data, str(tmp_path),
                       device="cpu")
-    assert "plots are not ported (ROADMAP A12)" in capsys.readouterr().out
+    assert tdet._PLOT_SKIPPED not in capsys.readouterr().out
+    with open(tmp_path / "anomalies.png", "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"
     want_scores = _jax_grid(12, True)[(None, "mult")]
     _assert_scores(res["scores"], want_scores, "mult")
     want_iv = jdet.iv.find_anomalies(want_scores, np.arange(N_ROWS),
@@ -477,14 +481,28 @@ def test_mv_detect_writes_intervals_and_metrics(jax_kde, tmp_path, capsys):
                                   res["scores"])
 
 
-def test_mv_save_plots_true_raises_naming_a12(tmp_path):
+@pytest.mark.parametrize("matplotlib_imports", [True, False])
+def test_mv_save_plots_true_plots_or_prints_jax_skip_line(
+        tmp_path, capsys, monkeypatch, matplotlib_imports):
+    """``save_plots=True`` on an unlabelled stream draws ``anomalies.png``
+    (the predicted intervals only); with matplotlib's import blocked, JAX's
+    skip line is printed, no file is written and detection completes."""
+    if not matplotlib_imports:
+        monkeypatch.setitem(sys.modules, "matplotlib", None)
     params = SimpleNamespace(dataset="SWAT", signal="multivariate",
                              hyperbolic=True, combination="mult",
                              rec_error="dtw", load=False, save_result=False)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tdet.detect(params, _model(12, True),
-                    tmv.MultivariateData(_rows(50, 12, 0)), str(tmp_path),
-                    save_plots=True, device="cpu")
+    res = tdet.detect(params, _model(12, True),
+                      tmv.MultivariateData(_rows(50, 12, 0)), str(tmp_path),
+                      save_plots=True, device="cpu")
+    out = capsys.readouterr().out
+    assert res["scores"].shape == (50,)
+    assert os.path.exists(tmp_path / "anomalies.csv")
+    assert os.path.exists(tmp_path / "anomalies.png") == matplotlib_imports
+    assert (tdet._PLOT_SKIPPED in out) != matplotlib_imports
+    assert tdet._PLOT_SKIPPED == (
+        "save_plots requested but matplotlib is not installed "
+        "(pip install 'hypad-tpu[plots]'); skipping plot")
 
 
 def test_mv_detect_grid_cells_match_single_detection(tmp_path):

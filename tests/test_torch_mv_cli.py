@@ -191,7 +191,8 @@ def test_port_mv_train_writes_the_run_directory_and_detect_reenters(
     """The port's own ``train`` (its weights, 1 epoch) on the SWaT-format
     corpus: the run directory, a multivariate model at signal_shape 12,
     detection per timestep; ``detect`` re-enters it and gives the same
-    scores; the default plot setting prints that the plot is skipped."""
+    scores; under the default plot setting both draw ``anomalies.png``, as
+    JAX's detector does for a multivariate run."""
     _write_swat(tmp_path / "data")
     cfg = _config(tmp_path, "port", hyperbolic=True, save_plots=None,
                   **SWAT)
@@ -203,11 +204,15 @@ def test_port_mv_train_writes_the_run_directory_and_detect_reenters(
         assert os.path.exists(os.path.join(path, name)), name
     assert path.endswith(os.path.join("models_hyper_SWAT_1_0.0005",
                                       "SWAT"))
+    png = os.path.join(path, "anomalies.png")
+    assert os.path.getsize(png) > 0
+    os.remove(png)
     again = tcli.main(["detect", "--config", cfg, "--device", "cpu"])
     np.testing.assert_array_equal(again["scores"], result["scores"])
+    assert os.path.getsize(png) > 0
     out = capsys.readouterr().out
     assert "training wall-clock" in out and "detection wall-clock" in out
-    assert out.count("plots are not ported (ROADMAP A12)") == 2
+    assert "skipping plot" not in out
 
 
 def test_mv_sweep_detect_only_on_carried_jax_checkpoints_matches_jax(

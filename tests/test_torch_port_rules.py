@@ -1,6 +1,7 @@
 """The port's package rules: hypad_tpu_torch imports no JAX and nothing of
-hypad_tpu, keeps pandas, yaml and triton off module tops, and defaults every
-entry point to CUDA without falling back to the CPU."""
+hypad_tpu, keeps pandas, yaml, triton, scipy and matplotlib off module
+tops, and defaults every entry point to CUDA without falling back to the
+CPU."""
 
 import ast
 import os
@@ -42,20 +43,21 @@ def test_no_jax_or_reference_package_anywhere(path):
 def test_no_optional_imports_at_module_top(path):
     tree = ast.parse(path.read_text())
     bad = [m for m in _imports(tree, top_only=True)
-           if _root(m) in ("pandas", "yaml", "triton", "scipy")]
+           if _root(m) in ("pandas", "yaml", "triton", "scipy",
+                           "matplotlib")]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad} at module top"
 
 
 def test_package_imports_with_jax_blocked():
     """Every port module imports in a fresh interpreter in which importing
-    jax, hypad_tpu, pandas or yaml fails."""
+    jax, hypad_tpu, pandas, yaml, triton, scipy or matplotlib fails."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
             ".__init__") for p in PORT.rglob("*.py"))
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'hypad_tpu', 'pandas', 'yaml', "
-        "'triton'):\n"
+        "'triton', 'scipy', 'matplotlib'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {modules!r}:\n"
