@@ -167,6 +167,24 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    warm 20,000-window detect inside ``trace`` with ``annotate("detect")``
    (K1 2, K2 1), whose Chrome trace must name the annotation,
    ``mobius_linear_kernel`` and ``kde_argmax_kernel``;
+10d. several devices, canonical fleets, the native engine ([a13], after
+   [a12]): ``torch.cuda.device_count()`` printed and a 2-shard mesh on
+   cuda:0 and cuda:1 where there are two cards, else cuda:0 twice (every
+   sharded line runs; the times are one card's); the sharded hyperbolic
+   detect (K1 4, K2 2) and Euclidean ``dtw`` one (K3 2) at 20,000 windows
+   against the unsharded calls (K1 2, K2 1; K3 1): scores within 3e-4 /
+   3e-5, the same intervals, confusion and F1; one sharded A1 epoch
+   (1,320 windows, batch 64, fused_critics False: K1 280 against 140)
+   against the unsharded one, losses within 1e-4 / 1e-5 and parameters
+   within 5e-3 / 5e-4, and ``"full"`` on the mesh raising; an S = 3 seed
+   band on the mesh (padded to 4 by a replica) against the band off it
+   (``state_diff``'s bounds); a 1-epoch ``sweep --canonical`` of 3
+   signals whose staged stack has ``canonical_fleet_shape``'s shape; the
+   native host engine (built in [build] beside the nvcc processes) run
+   (its counters), ``load_signal_dataset(engine="native")`` bitwise
+   "numpy" on a written CSV, and the NAB grid's 108 cells of dynamic
+   intervals batched through it bitwise the numpy batch, host seconds of
+   each;
 11. staged path: at 20,000 windows, ``run_inference`` (chunks of 1,024)
    must give the one call's forward outputs within 1e-5 relative / 1e-6
    absolute; ``score_anomalies_euclidean`` (Euclidean model) and
@@ -247,8 +265,19 @@ def phase_build():
     extra_jobs = {**variant_jobs({"empty": EMPTY_SOURCE}),
                   **(baseline_jobs(PARENT_CSRC, "parent") if parent else {})}
     t0 = time.perf_counter()
-    report = _build.build(extra_jobs=extra_jobs)
+    # the host engine (g++) builds while the nvcc processes run
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(_build.build_host)
+        report = _build.build(extra_jobs=extra_jobs)
+        try:
+            host_lib = host.result()
+        except RuntimeError as exc:
+            fail(f"the native host engine did not build: {exc}")
     seconds = time.perf_counter() - t0
+    print(f"[build] native host engine {host_lib.name} (g++, "
+          f"csrc/host/*.cpp)")
     for name in _build.KERNEL_SOURCES:
         _build.load(name)
     for name, (_, log) in report.items():
@@ -669,6 +698,7 @@ def phase_train(device):
     read = zero_counters()
     t0 = time.perf_counter()
     state = tr.train_tadgan(model, X, n_epochs=2, device=device,
+                            fused_critics="full",
                             log_cb=lambda e, m: logs.append(m), **kwargs)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -695,6 +725,7 @@ def phase_train(device):
         st_ = tr.init_train_state(m, TRAIN_LR, True)
         t0 = time.perf_counter()
         _, metrics = tr.run_epoch(st_, torch.as_tensor(X, device=dev), draws,
+                                  fused_critics="full",
                                   **{k: v for k, v in kwargs.items()
                                      if k != "batch_size"})
         results[label] = (
@@ -1138,7 +1169,7 @@ def ragged_epoch_card_vs_cpu(device, X):
         one, _ = tr.run_epoch(
             one, torch.as_tensor(Xs[i, :n], device=device),
             tr.epoch_draws(tr.epoch_generator(i, 0), n, TRAIN_BATCH, model),
-            lr=TRAIN_LR, hyperbolic=True)
+            lr=TRAIN_LR, hyperbolic=True, fused_critics="full")
         for key, want in one.model.state_dict().items():
             diff = (card.params[key][i] - want).abs()
             if not bool((diff <= EPOCH_TOL["atol"]
@@ -1231,7 +1262,7 @@ def fleet_epoch_timing(device, X):
         draws = tr.epoch_draws(tr.epoch_generator(SEED, e), X.shape[0],
                                TRAIN_BATCH, model)
         state, _ = tr.run_epoch(state, Xt, draws, lr=TRAIN_LR,
-                                hyperbolic=True)
+                                hyperbolic=True, fused_critics="full")
         walls.append(time.perf_counter() - t0)
     single = stats.median(walls[1:])
     print(f"[fleet] warm single-model epoch: median {single:.4f} s (runs "
@@ -1250,7 +1281,7 @@ def fleet_epoch_timing(device, X):
                                          TRAIN_BATCH, state.params)
             draw_s.append(time.perf_counter() - t0)
             tr.run_fleet_epoch(state, Xs, n_real, draws, lr=TRAIN_LR,
-                               hyperbolic=True)
+                               hyperbolic=True, fused_critics="full")
         walls = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -1408,7 +1439,7 @@ def phase_fleet(device):
                                      seed=SEED)
     S, n_batches = 3, A1_WINDOWS // TRAIN_BATCH
     kwargs = dict(lr=TRAIN_LR, hyperbolic=True, batch_size=TRAIN_BATCH,
-                  n_epochs=2, device=device)
+                  n_epochs=2, device=device, fused_critics="full")
     logs = []
     state = fl.init_fleet_state(fleet_models(device, S), TRAIN_LR, True)
     read = zero_counters()
@@ -1890,7 +1921,7 @@ def phase_eucl_train(device):
     t0 = time.perf_counter()
     state = tr.train_tadgan(init_model(device, False), X, lr=TRAIN_LR,
                             hyperbolic=False, batch_size=TRAIN_BATCH,
-                            n_epochs=2, device=device,
+                            n_epochs=2, device=device, fused_critics="full",
                             log_cb=lambda e, m: logs.append(m))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -2258,8 +2289,8 @@ def phase_staged(device, X, eucl_model, hyper_model):
 
         def staged_scores(inf):
             if hyperbolic:
-                return sc.score_anomalies_hyperbolic(inf, "mult", kde_version,
-                                                     device=device)
+                return sc.score_anomalies_hyperbolic(
+                    inf, "mult", kde_version=kde_version, device=device)
             return sc.score_anomalies_euclidean(
                 inf.true_signal, inf.recons_signal, inf.critic_score, "point",
                 "mult", kde_version=kde_version, device=device)
@@ -3482,6 +3513,378 @@ def phase_a12(device, card, main, grid_scores):
     return paths, info
 
 
+# ---------------------------------------------------------------------------
+# [a13]: several devices (a mesh), canonical fleets, the native engine
+# ---------------------------------------------------------------------------
+
+SHARD_TOL = dict(rtol=3e-4, atol=3e-5)   # tests/test_sharded_scoring.py
+DP_LOSS_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_trainer.py:92-103
+DP_PARAM_TOL = dict(rtol=5e-3, atol=5e-4)
+
+
+def a13_mesh(cards=None):
+    """A 2-shard mesh: cuda:0 and cuda:1 where there are two cards, else
+    cuda:0 twice (the port's counterpart of JAX's virtual devices: it runs
+    every sharded line, but times one card doing both shards' work); with
+    ``cards``, one shard on each of the first ``cards`` cards."""
+    import torch
+
+    from hypad_tpu_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    if cards is not None:
+        if n < cards:
+            fail(f"--mesh-cards {cards} on a machine of {n} cards")
+        mesh = make_mesh(cards)
+        print(f"[a13] torch.cuda.device_count() = {n}: mesh {mesh}, "
+              f"{cards} cards")
+        return mesh, n
+    two = n >= 2
+    mesh = make_mesh([torch.device("cuda", 0),
+                      torch.device("cuda", 1 if two else 0)])
+    print(f"[a13] torch.cuda.device_count() = {n}: mesh {mesh}, "
+          + ("two cards" if two else "two shards on one card (its times "
+             "are not two cards')"))
+    return mesh, n
+
+
+def a13_detect(mesh, main, eucl_model, card):
+    """The sharded hyperbolic detect (K2) and Euclidean dtw one (K3) at
+    20,000 windows against the unsharded call: scores within JAX's sharded
+    tolerance, the same intervals, confusion and F1, and each kernel
+    launched once per shard where the unsharded call launches it once.
+    Returns ({path: launches}, info)."""
+    import numpy as np
+    import torch
+
+    from hypad_tpu_torch.detect import detector
+    from hypad_tpu_torch.detect.scorer import detect_scores
+
+    X, index, known = main["X"], main["index"], main["known"]
+    shards = mesh.size
+    paths, info = {}, {}
+    for label, model, hyperbolic, kw, want_one in (
+            ("hyperbolic", main["model"], True, {},
+             dict(mobius_linear=2, kde_argmax=1)),
+            ("euclidean_dtw_v2", eucl_model, False,
+             dict(rec_error="dtw", kde_version="v2"),
+             dict(kde_argmax_v2=1))):
+        out = {}
+        for where, m in (("single", None), ("mesh", mesh)):
+            read = zero_counters()
+            scores, _ = detect_scores(model, X, hyperbolic, "mult", mesh=m,
+                                      fetch_inference=False, device="cuda:0",
+                                      **kw)
+            torch.cuda.synchronize()
+            launches = read()
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                detect_scores(model, X, hyperbolic, "mult", mesh=m,
+                              fetch_inference=False, device="cuda:0", **kw)
+                walls.append(time.perf_counter() - t0)
+            intervals = detector._intervals(scores, index, False)
+            confusion, metrics = detector._confusion_and_metrics(
+                known, intervals, verbose=False)
+            out[where] = ({"scores": scores, "intervals": intervals,
+                           "confusion": confusion, "metrics": metrics},
+                          launches, float(np.median(walls)))
+        (got, l_mesh, t_mesh), (want, l_one, t_one) = out["mesh"], \
+            out["single"]
+        if l_one != launches_of(**want_one):
+            fail(f"[a13] unsharded {label} detect launched {l_one}")
+        if l_mesh != launches_of(**{k: v * shards
+                                    for k, v in want_one.items()}):
+            fail(f"[a13] sharded {label} detect launched {l_mesh}; "
+                 f"expected {want_one} on each of {shards} shards")
+        diff = np.abs(got["scores"] - want["scores"])
+        if not np.allclose(got["scores"], want["scores"], **SHARD_TOL):
+            fail(f"[a13] sharded {label} scores differ by {diff.max():.3e}"
+                 f" (tolerance {SHARD_TOL})")
+        f1 = check_same_detection(got, want, known, tag=f"a13 {label}")
+        paths[f"a13_sharded_detect_{label}"] = l_mesh
+        info[label] = {"max_abs_diff": float(diff.max()), "f1": f1,
+                       "warm_single_s": t_one, "warm_mesh_s": t_mesh}
+        print(f"[a13] sharded {label} detect, {len(X)} windows: launches "
+              f"{ {k: v for k, v in l_mesh.items() if v} } "
+              f"({ {k: v // shards for k, v in l_mesh.items() if v} } a "
+              f"shard); scores within {diff.max():.3e} of the unsharded "
+              f"call, same intervals and F1 {f1}; warm {t_mesh:.4f} s "
+              f"against {t_one:.4f} s unsharded (median of 5, {card})")
+    return paths, info
+
+
+def a13_epoch(mesh, card):
+    """One A1 epoch (1,320 windows, batch 64, fused_critics False) sharded
+    against the unsharded one from the same weights and draws; under
+    "full" the mesh raises. Returns ({path: launches}, info)."""
+    import numpy as np
+    import torch
+
+    from hypad_tpu_torch.data.pipeline import (
+        A1_BATCH_SIZE as TRAIN_BATCH,
+        A1_WINDOWS,
+        synthetic_detect_input,
+    )
+    from hypad_tpu_torch.models.tadgan import init_tadgan
+    from hypad_tpu_torch.train import trainer as tr
+
+    X, _, _ = synthetic_detect_input(A1_WINDOWS, WIDTH, anomaly_len=50,
+                                     seed=SEED)
+    Xt = torch.as_tensor(X, device="cuda:0")
+    draws = None
+    out = {}
+    for where, m in (("single", None), ("mesh", mesh)):
+        model = init_tadgan(torch.Generator().manual_seed(SEED), WIDTH,
+                            hyperbolic=True, device="cuda:0")
+        if draws is None:
+            draws = tr.epoch_draws(tr.epoch_generator(SEED, 0), len(X),
+                                   TRAIN_BATCH, model)
+        state = tr.init_train_state(model, TRAIN_LR, True)
+        read = zero_counters()
+        t0 = time.perf_counter()
+        state, metrics = tr.run_epoch(state, Xt, draws, lr=TRAIN_LR,
+                                      hyperbolic=True, fused_critics=False,
+                                      mesh=m)
+        out[where] = ({k: v.detach().cpu() for k, v in
+                       model.state_dict().items()}, metrics, read(),
+                      time.perf_counter() - t0)
+    (p1, m1, l1, s1), (p2, m2, l2, s2) = out["single"], out["mesh"]
+    nb = len(X) // TRAIN_BATCH
+    k1 = (tr.N_CRITICS + 2) * nb
+    if l1 != launches_of(mobius_linear=k1) or \
+            l2 != launches_of(mobius_linear=k1 * mesh.size):
+        fail(f"[a13] epoch launches {l1} unsharded, {l2} on the mesh; "
+             f"expected K1 {k1} and {k1 * mesh.size}")
+    for name in m1:
+        if not np.isclose(m2[name], m1[name], **DP_LOSS_TOL):
+            fail(f"[a13] sharded epoch {name} {m2[name]} against "
+                 f"{m1[name]} (tolerance {DP_LOSS_TOL})")
+    worst = 0.0
+    for k in p1:
+        d = (p2[k] - p1[k]).abs()
+        if not bool((d <= DP_PARAM_TOL["atol"]
+                     + DP_PARAM_TOL["rtol"] * p1[k].abs()).all()):
+            fail(f"[a13] sharded epoch parameter {k} differs by "
+                 f"{d.max().item():.3e} (tolerance {DP_PARAM_TOL})")
+        worst = max(worst, d.max().item())
+    try:
+        tr.train_tadgan(init_tadgan(torch.Generator().manual_seed(SEED),
+                                    WIDTH, hyperbolic=True,
+                                    device="cuda:0"),
+                        Xt, lr=TRAIN_LR, hyperbolic=True,
+                        batch_size=TRAIN_BATCH, n_epochs=1, mesh=mesh,
+                        fused_critics="full", device="cuda:0")
+        fail("[a13] fused_critics='full' on a 2-shard mesh did not raise")
+    except ValueError as exc:
+        refused = str(exc)
+    print(f"[a13] one epoch ({len(X)} windows, batch {TRAIN_BATCH}, "
+          f"fused_critics False) on the mesh: K1 {l2['mobius_linear']} "
+          f"({l2['mobius_linear'] // mesh.size} a shard), losses within "
+          f"{DP_LOSS_TOL} and parameters within {worst:.3e} of the "
+          f"unsharded epoch; {s2:.3f} s against {s1:.3f} s ({card}); "
+          f"'full' on the mesh raises: {refused}")
+    return {"a13_dp_epoch": l2}, {"param_max_abs_diff": worst,
+                                  "mesh_s": s2, "single_s": s1,
+                                  "losses_mesh": m2, "losses_single": m1}
+
+
+def a13_fleet(mesh, card):
+    """An S = 3 seed band on the mesh (padded by a replica to 4) against
+    the band off it, and a 1-epoch ``sweep --canonical`` of 3 synthetic
+    signals whose staged stack must have ``canonical_fleet_shape``'s
+    shape. Returns ({path: launches}, info)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hypad_tpu_torch.data.pipeline import (
+        A1_BATCH_SIZE as TRAIN_BATCH,
+        A1_WINDOWS,
+        synthetic_detect_input,
+    )
+    from hypad_tpu_torch.detect.scorer import canonical_fleet_shape
+    from hypad_tpu_torch.train import fleet as fl
+    from hypad_tpu_torch.utils.config import dump_flat_yaml
+
+    X, _, _ = synthetic_detect_input(A1_WINDOWS, WIDTH, anomaly_len=50,
+                                     seed=SEED)
+    kw = dict(lr=TRAIN_LR, hyperbolic=True, batch_size=TRAIN_BATCH,
+              n_epochs=1, seeds=[0, 1, 2], device="cuda:0")
+    off = fl.train_fleet(fl.init_fleet_state(fleet_models("cuda:0", 3),
+                                             TRAIN_LR, True), [X] * 3, **kw)
+    read = zero_counters()
+    band = fl.train_fleet(fl.init_fleet_state(fleet_models("cuda:0", 3),
+                                              TRAIN_LR, True), [X] * 3,
+                          mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    launches = read()
+    if band.n_signals != 4:
+        fail(f"[a13] the S = 3 band on a 2-shard mesh has "
+             f"{band.n_signals} signals, not 4 (one replica)")
+    worst = 0.0
+    for i in range(3):
+        a, b = fl.unstack_state(band, i), fl.unstack_state(off, i)
+        diff, within = state_diff(a, b)
+        worst = max(worst, diff)
+        if not within:
+            fail(f"[a13] band signal {i} on the mesh differs from the band "
+                 f"off it by {diff:.3e}")
+    rep, last = fl.unstack_state(band, 3), fl.unstack_state(band, 2)
+    rep_diff, _ = state_diff(rep, last)
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_a13_"))
+    staged_shapes = []
+    real_train_fleet = fl.train_fleet
+
+    def recording(*args, **kwargs):
+        out = real_train_fleet(*args, **kwargs)
+        staged_shapes.append(tuple(out[1][0].shape))
+        return out
+
+    try:
+        signals = ["a13_s0", "a13_s1", "a13_s2"]
+        sweep_inputs(root, signals)
+        cfg = dict(dataset="NAB", signal=signals[0], signals=signals,
+                   epochs=1, hyperbolic=True, signal_shape=WIDTH,
+                   lr=TRAIN_LR, batch_size=TRAIN_BATCH, rec_error="point",
+                   combination="mult", interval=21600, unique_dataset=True,
+                   data_root=str(root / "data"), devices=1,
+                   output_root=str(root / "out"), save_result=False)
+        path = root / "a13_canonical.yaml"
+        path.write_text(dump_flat_yaml(cfg))
+        path = str(path)
+        fl.train_fleet = recording
+        results, sweep_launches = run_cli(
+            ["sweep", "--canonical", "--config", path], "a13_sweep_canonical",
+            card)
+    finally:
+        fl.train_fleet = real_train_fleet
+        shutil.rmtree(root, ignore_errors=True)
+    n_max = 1320 + 120 * 2
+    want_shape = canonical_fleet_shape(3, n_max, WIDTH, 1)
+    if staged_shapes != [(want_shape[0], want_shape[1], WIDTH)]:
+        fail(f"[a13] sweep --canonical staged {staged_shapes}; "
+             f"canonical_fleet_shape(3, {n_max}, {WIDTH}) = {want_shape}")
+    if len(results) != 3:
+        fail(f"[a13] sweep --canonical gave {results}")
+    print(f"[a13] S = 3 seed band on the mesh: {band.n_signals} signals "
+          f"(a replica of the last, {rep_diff:.3e} from it), each real "
+          f"signal within {worst:.3e} of the band off the mesh; kernel "
+          f"launches {launches}")
+    print(f"[a13] sweep --canonical of 3 signals ({', '.join(str(n) for n in (1320, 1440, 1560))} "
+          f"windows): staged {staged_shapes[0]} = canonical_fleet_shape"
+          f"(3, {n_max}, {WIDTH}) {want_shape}; F1 {[r[2] for r in results]}")
+    return ({"a13_fleet_band_mesh": launches,
+             "a13_sweep_canonical": sweep_launches},
+            {"band_max_diff": worst, "replica_diff": rep_diff,
+             "canonical_shape": list(staged_shapes[0]),
+             "canonical_f1": [r[2] for r in results]})
+
+
+def a13_native(grid_scores, card):
+    """The native host engine: built, run (its counters), the loader's
+    "native" bitwise "numpy" on a written CSV, and the NAB grid's 108
+    cells of dynamic intervals batched through it bitwise the numpy batch,
+    host seconds of each. Returns info."""
+    import functools
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from hypad_tpu_torch.data import native
+    from hypad_tpu_torch.data import pipeline as dp
+    from hypad_tpu_torch.data.pipeline import synthetic_signal
+    from hypad_tpu_torch.detect import intervals as iv
+
+    if not native.available():
+        fail(f"[a13] the native engine is not available: "
+             f"{native.build_error}")
+    runs0 = dict(native.runs)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_native_"))
+    try:
+        n = 20_000
+        _, values, _ = synthetic_signal(n, seed=SEED + 3)
+        values[::97] = np.nan
+        csv = root / "sig.csv"
+        csv.write_text("timestamp,value\n" + "".join(
+            f"{1_400_000_000 + 300 * i},{'' if np.isnan(v) else repr(float(v))}\n"
+            for i, v in enumerate(values)))
+        loads, walls = {}, {"numpy": [], "native": []}
+        for _ in range(3):   # in turns; the medians are reported
+            for engine in ("numpy", "native"):
+                t0 = time.perf_counter()
+                loads[engine] = dp.load_signal_dataset(
+                    str(csv), interval=300, engine=engine)
+                walls[engine].append(time.perf_counter() - t0)
+        for engine, w in walls.items():
+            loads[engine + "_s"] = float(np.median(w))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for f in ("X", "y", "X_index", "y_index", "index"):
+        if not np.array_equal(getattr(loads["native"], f),
+                              getattr(loads["numpy"], f)):
+            fail(f"[a13] load_signal_dataset native {f} differs from numpy")
+    real = iv._find_thresholds_batch
+    batched, host_s = {}, {}
+    try:
+        for engine in ("numpy", "native"):
+            iv._find_thresholds_batch = functools.partial(real, engine=engine)
+            t0 = time.perf_counter()
+            batched[engine] = [
+                iv.find_anomalies_batch(
+                    np.stack([np.asarray(c, np.float64).reshape(-1)
+                              for c in cells.values()]), index,
+                    **A12_DYNAMIC_KW)
+                for index, cells in grid_scores.values()]
+            host_s[engine] = time.perf_counter() - t0
+    finally:
+        iv._find_thresholds_batch = real
+    cells = [c for sig in batched["numpy"] for c in sig]
+    native_cells = [c for sig in batched["native"] for c in sig]
+    same = sum(np.array_equal(a, b) for a, b in zip(cells, native_cells))
+    if same != len(cells):
+        fail(f"[a13] native thresholds: {len(cells) - same} of {len(cells)}"
+             " cells differ from the numpy batch")
+    ran = {k: native.runs[k] - runs0.get(k, 0) for k in native.runs}
+    if ran["find_thresholds"] == 0 or ran["prepare_univariate"] == 0:
+        fail(f"[a13] the native engine did not run: {native.runs}")
+    print(f"[a13] native engine: load_signal_dataset of {n} samples native "
+          f"{loads['native_s']:.4f} s against numpy {loads['numpy_s']:.4f} "
+          f"s (medians of 3 in turns), bitwise; the NAB grid's {len(cells)} cells of dynamic "
+          f"intervals batched native {host_s['native']:.3f} s against numpy "
+          f"{host_s['numpy']:.3f} s ({host_s['numpy'] / host_s['native']:.1f}"
+          f"x), every cell bitwise; native calls {ran} (host times, {card})")
+    return {"load_native_s": loads["native_s"],
+            "load_numpy_s": loads["numpy_s"],
+            "grid_cells": len(cells), "grid_native_s": host_s["native"],
+            "grid_numpy_s": host_s["numpy"], "native_calls": ran}
+
+
+def phase_a13(device, card, main, eucl_model, grid_scores, cards=None):
+    """[a13]: the mesh (two cards, or two shards of one; ``cards`` cards
+    under ``--mesh-cards``), sharded detection and a data-parallel epoch
+    against the unsharded ones, a seed band on the mesh, ``sweep
+    --canonical`` and the native host engine (not under ``--mesh-cards``,
+    which passes no grid). Returns ({path: launches}, info)."""
+    t_phase = time.perf_counter()
+    mesh, count = a13_mesh(cards)
+    paths, info = a13_detect(mesh, main, eucl_model, card)
+    info = {"device_count": count, "mesh": str(mesh), "detect": info}
+    p, info["epoch"] = a13_epoch(mesh, card)
+    paths.update(p)
+    p, info["fleet"] = a13_fleet(mesh, card)
+    paths.update(p)
+    if grid_scores is not None:
+        info["native"] = a13_native(grid_scores, card)
+    info["seconds"] = time.perf_counter() - t_phase
+    print(f"[a13] all checks passed in {info['seconds']:.1f} s ({card})")
+    return paths, info
+
+
 def mv_kernel_timing(device):
     """Each wide instance's time beside its plain version, its bound and
     the narrow instance at F = 100, in one call: K1 at (50,000, 150), K2
@@ -3833,9 +4236,39 @@ def gpu_name_and_power_limit():
     return out.stdout.strip().splitlines()[0]
 
 
-def main():
+def mesh_cards_only(cards, device, card):
+    """``--mesh-cards N``: the build, the main path's and the Euclidean
+    detector's inputs, then [a13] on a mesh of the first N cards (one
+    shard a card) against the unsharded calls on cuda:0."""
     import torch
 
+    t0 = time.perf_counter()
+    phase_build()
+    _, _, _, main_det = phase_main_path(device)
+    _, eucl_model = phase_eucl_detect(device)
+    paths, info = phase_a13(device, card, main_det, eucl_model, None, cards)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / f"chip_smoke_mesh_{cards}.json").write_text(json.dumps(
+        {"card": card, "a13": info, "launches": paths,
+         "seconds": time.perf_counter() - t0}, indent=1, default=str))
+    print(f"[done] --mesh-cards {cards} passed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def main():
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--mesh-cards", type=int, default=None,
+                        help="run only [a13], on a mesh of this many cards "
+                             "(a machine with that many)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("CUDA is not available: this script runs on a GPU")
     if not (Path(__file__).resolve().parent / "hypad_tpu_torch").is_dir():
@@ -3849,6 +4282,8 @@ def main():
     print(f"card: {torch.cuda.get_device_name(0)} ({card}), "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_start = time.perf_counter()
+    if args.mesh_cards is not None:
+        return mesh_cards_only(args.mesh_cards, device, card)
 
     phase_s = {}
 
@@ -3878,6 +4313,8 @@ def main():
     xw_paths, xw_info = timed(phase_xwide, device, card)
     a12_paths, a12_info = timed(phase_a12, device, card, main_det,
                                 grid_scores)
+    a13_paths, a13_info = timed(phase_a13, device, card, main_det,
+                                eucl_model, grid_scores)
     timed(phase_staged, device, X, eucl_model, model)
     wps, k1, k2, k3 = timed(phase_timing, device, X, model, eucl_model, libs)
     epochs, k4, k5 = timed(phase_train_timing, device, train["X"])
@@ -3895,7 +4332,7 @@ def main():
              "fleet_detect_S9": fleet["detect"]["launches"],
              "sweep_nab_9_signals_1_epoch": sweep_launches,
              "sweep_nab_9_signals_grid_detect_only": sweep_grid_launches,
-             **mv_paths, **xw_paths, **a12_paths}
+             **mv_paths, **xw_paths, **a12_paths, **a13_paths}
     by_path = {name: {path: counts[name] for path, counts in paths.items()}
                for name in launches}
     tol_text = "loss rtol {0[rtol]} atol {0[atol]}, grads rtol {1[rtol]} " \
@@ -4075,6 +4512,7 @@ def main():
                "xwide": xw_info,
                "xwide_kernel_checks": xw_errs,
                "a12": a12_info,
+               "a13": a13_info,
                "k1_untimed_shapes": xw_timing["k1_untimed_shapes"],
                "kernels": kernels,
                "phase_seconds": phase_s,

@@ -5,14 +5,26 @@ digest covers the source, the shared header and the flags, so a changed
 source is rebuilt and an unchanged one is reused. Every source has a plain C
 interface (no PyTorch headers), so a build takes seconds. Several sources
 build in parallel: one ``nvcc`` process each, all started together.
+
+The host job: ``csrc/host/*.cpp`` (the native preprocessing and threshold
+engine, ``data/native.py``) becomes ``_build/libhypad_host-<digest>.so``
+through ``g++`` with the flags of the JAX package's native Makefile
+(``-ffp-contract=off`` keeps a + b * c two roundings, as numpy's, or the
+thresholds drift by an ulp). Its digest also covers the host CPU's flags,
+since ``-march=native`` code runs only where it was built. Several
+processes (test workers) may ask for it at once: each builds under an
+exclusive file lock into a temporary name that ``os.replace`` moves into
+place, so none loads a half-written library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import time
@@ -23,6 +35,9 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_SOURCES = ("mobius_linear", "kde_argmax", "critic_step")
+HOST_SOURCES = ("pipeline.cpp", "thresholds.cpp")
+HOST_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-fPIC",
+              "-std=c++17", "-Wall", "-shared")
 
 
 def _nvcc():
@@ -106,3 +121,52 @@ def count_launch(fn, kind):
     fn.launches += 1
     fn.wide_launches += kind == "wide"
     fn.xwide_launches += kind == "xwide"
+
+
+def _cpu_flags():
+    """The host CPU's feature line (what ``-march=native`` compiles for)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            return next((line for line in f if line.startswith("flags")), "")
+    except OSError:
+        return platform.processor()
+
+
+def host_library_path() -> Path:
+    """Where the host engine built from ``csrc/host/`` lives."""
+    h = hashlib.sha1()
+    for name in HOST_SOURCES:
+        h.update((CSRC / "host" / name).read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    h.update((platform.machine() + _cpu_flags()).encode())
+    return BUILD_DIR / f"libhypad_host-{h.hexdigest()[:12]}.so"
+
+
+def build_host():
+    """The host engine's library path, compiled with ``g++`` first if it
+    is not there (under an exclusive lock; a temporary name, then
+    ``os.replace``). Raises with the compiler's output if the build
+    fails, or if ``g++`` is missing."""
+    out = host_library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "host.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():   # another process built it while we waited
+            return out
+        cxx = os.environ.get("CXX") or shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError("g++ not found: the host engine cannot build")
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [cxx, *HOST_FLAGS, "-o", str(tmp),
+             *(str(CSRC / "host" / name) for name in HOST_SOURCES)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"host engine build failed (g++ exit "
+                               f"{proc.returncode}):\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    return out

@@ -47,8 +47,18 @@ run's weights; a JAX checkpoint carried over with
 ``utils.checkpoint.save_state`` detects as the JAX CLI does. ``all``
 stands for every valid cell in ``--combinations`` and, unlike JAX's CLI,
 in ``--rec-errors`` too. ``save_plots`` draws ``anomalies.png`` as JAX's
-detector does (by default for a multivariate run). Not ported: ``sweep
---canonical`` (ROADMAP A10), more than one device (A13).
+detector does (by default for a multivariate run). ``sweep --canonical``
+trains the family at JAX's canonical shapes (``train_fleet(canonical=
+True)``).
+
+``devices`` is JAX's: every command builds ``make_mesh(devices)`` over
+the cards of ``--device``'s platform ("all" by default; an int takes the
+first that many). With two or more, one process drives them all: the
+state lies on the first card, ``train`` rounds the batch down to a
+multiple of the card count (``batch_multiple``) and shards each step's
+rows, detection shards its windows, and ``sweep`` shards the fleet's
+signals (``parallel/mesh.py``). ``fused_critics`` true or "full" raises
+on such a mesh, as in JAX.
 """
 
 from __future__ import annotations
@@ -63,9 +73,7 @@ import numpy as np
 import torch
 
 from hypad_tpu_torch._device import resolve_device
-
-_CANONICAL = ("`sweep --canonical` (the JAX compile cache's padded shapes) "
-              "is not ported (ROADMAP A10)")
+from hypad_tpu_torch.parallel.mesh import batch_multiple, make_mesh
 
 
 def _build(params):
@@ -85,18 +93,15 @@ def _init_models(params, device):
                        hyperbolic=params.hyperbolic, device=device)
 
 
-def _check_supported(params, device):
-    """Raise on the config key whose JAX meaning is not ported: more than
-    one device (``devices`` above 1, or "all" on a host with more than one
-    visible card)."""
-    n = params.devices
-    if n == "all":
-        n = torch.cuda.device_count() if device.type == "cuda" else 1
-    if not isinstance(n, int) or n > 1:
-        raise NotImplementedError(
-            f"devices: {params.devices!r} asks for {n} devices; data "
-            "parallelism over several cards is not ported yet (ROADMAP A13)"
-            "; set devices: 1")
+def _mesh(params, device):
+    """(mesh, device): JAX's ``make_mesh(params.devices)`` over the devices
+    of ``device``'s platform (None for one), and the device the state lies
+    on, the mesh's lead device when there is one."""
+    device = resolve_device(device)
+    mesh = make_mesh(params.devices, platform=device.type)
+    if mesh is not None:
+        print(f"mesh: {mesh}")
+    return mesh, resolve_device(device, mesh)
 
 
 def cmd_train(params, config_path, device="cuda"):
@@ -104,9 +109,13 @@ def cmd_train(params, config_path, device="cuda"):
     from hypad_tpu_torch.utils import checkpoint as ck
     from hypad_tpu_torch.utils.profiling import MetricsLogger, stage
 
-    device = resolve_device(device)
+    mesh, device = _mesh(params, device)
+    # the fused critic steps refuse a mesh before any file is written
+    tr.check_mesh_fused(params.fused_critics, mesh)
     train_data, test_data, path = _build(params)
     ck.snapshot_config(path, config_path)
+    # rounded down to a multiple of the mesh's devices, as JAX's cmd_train
+    batch_size = batch_multiple(params.batch_size, mesh)
 
     state = tr.init_train_state(_init_models(params, device), lr=params.lr,
                                 hyperbolic=params.hyperbolic)
@@ -132,8 +141,8 @@ def cmd_train(params, config_path, device="cuda"):
     with stage("train"):
         state = tr.train_tadgan(
             state, X_dev, lr=params.lr, hyperbolic=params.hyperbolic,
-            batch_size=params.batch_size, n_epochs=params.epochs,
-            seed=params.seed, device=device,
+            batch_size=batch_size, n_epochs=params.epochs,
+            seed=params.seed, device=device, mesh=mesh,
             fused_critics=params.fused_critics, log_cb=log_cb,
             checkpoint_cb=lambda e, s: ck.save_state(path, s, e))
         if device.type == "cuda":
@@ -144,12 +153,13 @@ def cmd_train(params, config_path, device="cuda"):
           f"({wall / trained:.3f}s/epoch)")
     ck.save_state(path, state, "final")
 
-    result = _run_detection(params, state.model, test_data, path, device)
+    result = _run_detection(params, state.model, test_data, path, device,
+                            mesh=mesh)
     return state, path, result
 
 
 def _run_detection(params, model, test_data, path, device,
-                   precomputed_scores=None):
+                   precomputed_scores=None, mesh=None):
     from hypad_tpu_torch.detect.detector import detect
     from hypad_tpu_torch.utils.profiling import stage
 
@@ -157,7 +167,8 @@ def _run_detection(params, model, test_data, path, device,
     with stage("detect"):
         result = detect(params, model, test_data, path,
                         save_plots=getattr(params, "save_plots", None),
-                        precomputed_scores=precomputed_scores, device=device)
+                        mesh=mesh, precomputed_scores=precomputed_scores,
+                        device=device)
     wall = time.time() - t0
     print(f"detection wall-clock: {wall:.2f}s "
           f"({len(test_data.X) / wall:.1f} windows/sec)")
@@ -186,10 +197,11 @@ def cmd_sweep(params, config_path, signals=None, seeds=None,
               detect_only=False, rec_errors=None, combinations=None,
               canonical=False, device="cuda"):
     """Train a signal family, a seed band or their cross product as one
-    fleet, then detect it in one call (JAX's ``cmd_sweep`` without
-    ``canonical``, which raises naming ROADMAP A10); a multivariate family
-    (CASAS residents, say) is scored per timestep. Returns one ``(signal,
-    seed, f1)`` per run, in run order.
+    fleet, then detect it in one call (JAX's ``cmd_sweep``; ``canonical``
+    trains at JAX's canonical shapes); a multivariate family (CASAS
+    residents, say) is scored per timestep. Returns one ``(signal, seed,
+    f1)`` per run, in run order. With a mesh the fleet's signals shard
+    over its cards.
 
     ``rec_errors`` / ``combinations`` (JAX's keywords) make it the fleet
     grid: every cell of every run from one ``detect_scores_fleet_grid``
@@ -214,9 +226,11 @@ def cmd_sweep(params, config_path, signals=None, seeds=None,
     from hypad_tpu_torch.utils.config import run_dir
     from hypad_tpu_torch.utils.profiling import stage
 
-    if canonical:
-        raise NotImplementedError(_CANONICAL)
-    device = resolve_device(device)
+    from hypad_tpu_torch.train.trainer import check_mesh_fused
+
+    mesh, device = _mesh(params, device)
+    if not detect_only:
+        check_mesh_fused(params.fused_critics, mesh)
     grid_mode = bool(rec_errors or combinations)
     grid_combos = combinations or [params.combination]
     grid_recs = rec_errors or [params.rec_error]
@@ -291,7 +305,8 @@ def cmd_sweep(params, config_path, signals=None, seeds=None,
                 n_epochs=params.epochs, seed=params.seed,
                 seeds=[sd for (_, sd) in pairs] if band else None,
                 log_cb=log_cb, checkpoint_cb=ckpt_cb, return_staged=True,
-                fused_critics=params.fused_critics, device=device)
+                fused_critics=params.fused_critics, mesh=mesh,
+                canonical=canonical, device=device)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
         wall = time.time() - t0
@@ -313,7 +328,7 @@ def cmd_sweep(params, config_path, signals=None, seeds=None,
         with stage("sweep_detect_grid"):
             fleet_grid = detect_scores_fleet_grid(
                 stacked, X_test, params.hyperbolic, grid_combos,
-                rec_errors=grid_recs, staged=reuse, device=device,
+                rec_errors=grid_recs, mesh=mesh, staged=reuse, device=device,
                 multivariate=mv)
         dwall = time.time() - t0
         print(f"fleet grid detection wall-clock: {dwall:.2f}s for "
@@ -324,8 +339,8 @@ def cmd_sweep(params, config_path, signals=None, seeds=None,
         with stage("sweep_detect"):
             fleet_scores = detect_scores_fleet(
                 stacked, X_test, params.hyperbolic, params.combination,
-                rec_error=params.rec_error, staged=reuse, device=device,
-                multivariate=mv)
+                rec_error=params.rec_error, mesh=mesh, staged=reuse,
+                device=device, multivariate=mv)
         dwall = time.time() - t0
         n_win = sum(len(x) for x in X_test)
         print(f"fleet detection wall-clock: {dwall:.2f}s for {len(per)} "
@@ -351,7 +366,7 @@ def cmd_sweep(params, config_path, signals=None, seeds=None,
         model = (fl.unstack_model(stacked, i) if stacked is not None
                  else ck.restore_state(path, tag, device).model)
         res = _run_detection(p, model, test_data, path, device,
-                             precomputed_scores=fleet_scores[i])
+                             precomputed_scores=fleet_scores[i], mesh=mesh)
         m = res["metrics"]
         results.append((p.signal, p.seed, m["f1"] if m else None))
     if grid_mode:
@@ -425,7 +440,7 @@ def cmd_detect(params, config_path, rec_errors=None, combinations=None,
     from hypad_tpu_torch.utils import checkpoint as ck
     from hypad_tpu_torch.utils.profiling import stage
 
-    device = resolve_device(device)
+    mesh, device = _mesh(params, device)
     train_data, test_data, path = _build(params)
     tag = params.resume_epoch if params.resume else "final"
     if params.resume:
@@ -438,13 +453,14 @@ def cmd_detect(params, config_path, rec_errors=None, combinations=None,
         with stage("detect_grid"):
             results = detect_grid(params, model, test_data, path,
                                   rec_errors=rec_errors,
-                                  combinations=combinations, device=device)
+                                  combinations=combinations, mesh=mesh,
+                                  device=device)
         wall = time.time() - t0
         print(f"grid detection wall-clock: {wall:.2f}s for "
               f"{len(results)} cells in one program "
               f"(results -> {os.path.join(path, 'grid_results.csv')})")
         return results
-    return _run_detection(params, model, test_data, path, device)
+    return _run_detection(params, model, test_data, path, device, mesh=mesh)
 
 
 def main(argv=None):
@@ -481,16 +497,15 @@ def main(argv=None):
                         help="`sweep`: skip training; restore each run's "
                              "checkpoint and detect the family in one call")
     parser.add_argument("--canonical", action="store_true",
-                        help=_CANONICAL)
+                        help="`sweep`: train at JAX's canonical bucket shapes "
+                             "(window and signal rungs); its draws differ "
+                             "from an unpadded run's")
     args = parser.parse_args(argv)
-    if command == "sweep" and args.canonical:
-        raise NotImplementedError(_CANONICAL)
     device = resolve_device(args.device)
 
     from hypad_tpu_torch.utils.config import load_config
 
     params = load_config(args.config)
-    _check_supported(params, device)
     print(f"dataset: {params.dataset}, signal: {params.signal}")
     print(params)
 
@@ -507,7 +522,8 @@ def main(argv=None):
                         seeds=(args.seeds.split(",") if args.seeds
                                else None),
                         detect_only=args.detect_only, rec_errors=recs,
-                        combinations=combos, device=device)
+                        combinations=combos, canonical=args.canonical,
+                        device=device)
     else:
         out = cmd_detect(params, args.config, rec_errors=recs,
                          combinations=combos, device=device)

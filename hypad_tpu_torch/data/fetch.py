@@ -1,5 +1,5 @@
-"""Signal acquisition from the local cache: a port of
-``hypad_tpu.data.fetch``'s local surface.
+"""Signal acquisition: the local cache and the remote fetch, a port of
+``hypad_tpu.data.fetch``.
 
 Behaviour spec: reference ``utils/data.py``, as the JAX package carries
 it: ``download`` (:114-163) resolves a signal name (or an s3:// URL) to a
@@ -9,9 +9,11 @@ NASA demo signals, ``load_csv`` (:179-205) maps positional columns to
 float casts and an optional tail split, and ``NASA_SIGNALS`` (:30-111) is
 the SMAP / MSL registry.
 
-The port fetches nothing: on a cache miss, where JAX's ``download`` tries
-the d3-ai-orion bucket, it raises ``FileNotFoundError`` naming the cache
-path. The card's machine has no pandas, so a table is the port's own: a
+On a cache miss ``download`` reads the CSV from ``S3_URL`` (the
+d3-ai-orion bucket by default) with ``urllib.request``, writes it into the
+cache in pandas' ``to_csv(index=False)`` layout, as JAX's does, and raises
+JAX's ``FileNotFoundError`` text only if that fails. The card's machine
+has no pandas, so a table is the port's own: a
 ``{column name: numpy array}`` dict, each column numeric as
 ``pandas.read_csv`` reads it (int64, else float64 with NaN for the NA
 strings), a column that is not numeric kept as strings. A tail split
@@ -78,11 +80,50 @@ def _split(table, test_size):
             {k: v[-test_length:] for k, v in table.items()})
 
 
+def _cell(v):
+    """One field as pandas' ``to_csv`` writes it: NaN empty, a float by
+    its shortest round-trip repr, anything else by ``str``."""
+    if isinstance(v, (float, np.floating)):
+        return "" if np.isnan(v) else repr(float(v))
+    return str(v)
+
+
+def _write_table(path, table):
+    """``table`` as ``DataFrame(table).to_csv(path, index=False)`` writes
+    it."""
+    cols = list(table)
+    n = len(next(iter(table.values()), ()))
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(cols)
+        for i in range(n):
+            w.writerow([_cell(table[c][i]) for c in cols])
+
+
+def _fetch(url, data_path, filename):
+    """The table of the CSV at ``url``, cached at ``filename``."""
+    import urllib.request
+
+    with urllib.request.urlopen(url) as response:
+        raw = response.read()
+    os.makedirs(data_path, exist_ok=True)
+    part = f"{filename}.{os.getpid()}.part"
+    try:
+        with open(part, "wb") as f:
+            f.write(raw)
+        data = _read_table(part)
+    finally:
+        if os.path.exists(part):
+            os.unlink(part)
+    _write_table(filename, data)
+    return data
+
+
 def download(name, data_path, test_size=None):
     """The table of ``name`` (a signal name or s3://bucket/path.csv) from
-    the cache ``data_path``; with ``test_size`` its (head, tail) split.
-    A signal that is not cached raises ``FileNotFoundError`` naming the
-    path: the port downloads nothing."""
+    the cache ``data_path``, fetched from ``S3_URL`` and cached there on a
+    miss; with ``test_size`` its (head, tail) split. A miss whose fetch
+    fails raises ``FileNotFoundError``."""
     url = None
     if name.startswith("s3://"):
         bucket, _, path = name[5:].partition("/")
@@ -90,22 +131,25 @@ def download(name, data_path, test_size=None):
         filename = os.path.join(data_path, path.split("/")[-1])
     else:
         filename = os.path.join(data_path, name + ".csv")
-    if not os.path.exists(filename):
+    if os.path.exists(filename):
+        data = _read_table(filename)
+    else:
         url = url or S3_URL.format(BUCKET, f"{name}.csv")
-        raise FileNotFoundError(
-            f"signal {name!r} not cached at {filename}; this package "
-            f"downloads nothing (the JAX package's download fetches {url})"
-            "; place the CSV in the data root")
-    data = _read_table(filename)
+        try:
+            data = _fetch(url, data_path, filename)
+        except Exception as exc:
+            raise FileNotFoundError(
+                f"signal {name!r} not cached at {filename} and remote fetch "
+                f"from {url} failed ({exc}); place the CSV in the data root"
+            ) from exc
     if test_size:
         return _split(data, test_size)
     return data
 
 
 def download_demo(data_path, split=False, n=3):
-    """Check that the first ``n`` NASA demo signals are cached (their
-    ``-train`` / ``-test`` halves with ``split``); raises on the first
-    that is not."""
+    """Cache the first ``n`` NASA demo signals (their ``-train`` /
+    ``-test`` halves with ``split``)."""
     for signal in NASA_SIGNALS[:n]:
         if split:
             download(signal + "-train", data_path)

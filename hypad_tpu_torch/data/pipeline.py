@@ -9,8 +9,9 @@ linear detrend, synthetic timestamps and known-anomaly runs, per-interval
 mean aggregation, mean imputation, (-1, 1) min-max scaling and rolling
 windows. Known anomalies are ``(k, 2)`` start/end arrays; the
 ``*_known_anomalies.csv`` file is written in pandas' ``to_csv`` layout (an
-index column, then ``start,end``). The JAX package's native C++ engine
-(numerically identical) is not ported (ROADMAP A12.7).
+index column, then ``start,end``). ``load_signal_dataset`` runs the
+aggregation-to-windows pass on the native C++ engine (``data/native.py``)
+where it builds, with the numpy stages' bits.
 """
 
 from __future__ import annotations
@@ -248,7 +249,7 @@ def _save_known_anomalies(path, known, cache_dir):
 
 
 def load_signal_dataset(path, interval=21600, window_size=100, yahoo=False,
-                        cache_dir=None) -> SignalData:
+                        cache_dir=None, engine="auto") -> SignalData:
     """A signal CSV (``timestamp,value``) -> :class:`SignalData`.
 
     ``yahoo``: the Yahoo layout (``value`` and ``is_anomaly``, or A3/A4's
@@ -256,7 +257,15 @@ def load_signal_dataset(path, interval=21600, window_size=100, yahoo=False,
     synthetic per-second timestamps (in place of any timestamp column), and
     the runs of the anomaly flag become the known anomalies, which are also
     written to ``*_known_anomalies.csv`` (see ``_save_known_anomalies``).
-    The caller passes ``interval=1`` for Yahoo."""
+    The caller passes ``interval=1`` for Yahoo.
+
+    ``engine`` (JAX's): "auto" runs the native C++ pass
+    (``data/native.py``) and falls back to numpy, with the same bits,
+    where the engine is not built or the signal is too short; "native"
+    raises there; "numpy" runs numpy. ``load_signal_dataset.engines``
+    counts which one ran."""
+    if engine not in ("auto", "native", "numpy"):
+        raise ValueError(f"unknown engine {engine!r}")
     cols = read_csv_columns(path)
     known = None
     if yahoo:
@@ -270,10 +279,26 @@ def load_signal_dataset(path, interval=21600, window_size=100, yahoo=False,
     else:
         timestamps = numeric_column(cols["timestamp"])
         values = numeric_column(cols["value"])
-    X, y, X_index, y_index, index = _windows(values, timestamps, interval,
-                                             window_size)
+    res = None
+    if engine != "numpy":
+        from hypad_tpu_torch.data import native
+
+        res = native.prepare_univariate(timestamps, values, interval,
+                                        window_size=window_size)
+        if res is None and engine == "native":
+            raise RuntimeError("native pipeline unavailable or signal too "
+                               "short; use engine='numpy'"
+                               + (f" ({native.build_error})"
+                                  if native.build_error else ""))
+    load_signal_dataset.engines["numpy" if res is None else "native"] += 1
+    if res is None:
+        res = _windows(values, timestamps, interval, window_size)
+    X, y, X_index, y_index, index = res
     return SignalData(X=X, y=y, X_index=X_index, y_index=y_index,
                       index=index, known_anomalies=known)
+
+
+load_signal_dataset.engines = {"native": 0, "numpy": 0}
 
 
 def load_anomalies(signal, data_root):

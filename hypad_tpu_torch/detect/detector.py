@@ -17,6 +17,10 @@ Port of ``hypad_tpu.detect.detector``:
 * :func:`detect_univariate`: the same scores -> intervals -> metrics on
   arrays, without files.
 
+Both take JAX's ``mesh`` (``parallel/mesh.py``): the forward and the
+scoring stages run sharded over its ``dp`` devices (``detect/scorer.py``),
+and ``model`` lies on its lead device.
+
 A config is multivariate as JAX's detector decides it (``signal:
 multivariate``, or a dataset of the multivariate family). The CSV files
 keep pandas' ``to_csv`` layouts, written with ``csv``. ``save_plots`` is
@@ -113,7 +117,8 @@ def _windows_on_device(test_data, device):
 
 
 def detect(params, model, test_data, run_path, known_anomalies=None,
-           save_plots=None, precomputed_scores=None, device="cuda"):
+           save_plots=None, mesh=None, precomputed_scores=None,
+           device="cuda"):
     """Detection of the config ``params`` with ``model`` (on ``device``) on
     ``test_data`` (a ``SignalData``, or a ``MultivariateData`` for a
     multivariate config), writing into ``run_path``. Returns
@@ -126,7 +131,7 @@ def detect(params, model, test_data, run_path, known_anomalies=None,
     epilogue (intervals, anomalies.csv, metrics, the results CSV); no
     inference artifact is written."""
     mv = is_multivariate(params)
-    device = resolve_device(device)
+    device = resolve_device(device, mesh)
     kde_version = sc.kde_version_from_env()
     os.makedirs(run_path, exist_ok=True)
     known_anomalies = _ground_truth(params, test_data, known_anomalies)
@@ -143,13 +148,13 @@ def detect(params, model, test_data, run_path, known_anomalies=None,
     cached = artifacts.load_inference(run_path) if params.load else None
     if cached is not None:
         inference, true_index = cached
-        inference = sc.stage_inference(inference, device)
+        inference = sc.stage_inference(inference, device, mesh=mesh)
     else:
         X_dev = _windows_on_device(test_data, device)
         one_call_scores, inference = sc.detect_scores(
             model, test_data.X if X_dev is None else X_dev,
             params.hyperbolic, params.combination, rec_error=params.rec_error,
-            fetch_inference=save_artifacts, kde_version=kde_version,
+            mesh=mesh, fetch_inference=save_artifacts, kde_version=kde_version,
             device=device,
             artifact_dtype=getattr(params, "artifact_dtype", "float32"),
             artifact_set=getattr(params, "artifact_set", "full"),
@@ -166,15 +171,15 @@ def detect(params, model, test_data, run_path, known_anomalies=None,
             return one_call_scores
         if mv:
             return sc.score_anomalies_multivariate(
-                inference, params.combination, params.hyperbolic,
+                inference, params.combination, params.hyperbolic, mesh,
                 kde_version, device)
         if params.hyperbolic:
             return sc.score_anomalies_hyperbolic(
-                inference, params.combination, kde_version, device)
+                inference, params.combination, mesh, kde_version, device)
         return sc.score_anomalies_euclidean(
             inference.true_signal, inference.recons_signal,
             inference.critic_score, params.rec_error, params.combination,
-            kde_version=kde_version, device=device)
+            mesh=mesh, kde_version=kde_version, device=device)
 
     cache_key = (f"scores_mv_{params.combination}" if mv else
                  f"scores_hyper_{params.combination}" if params.hyperbolic
@@ -230,8 +235,8 @@ def _write_rows(path, rows):
 
 
 def detect_grid(params, model, test_data, run_path, rec_errors=None,
-                combinations=None, known_anomalies=None, device="cuda",
-                precomputed_grid=None):
+                combinations=None, known_anomalies=None, mesh=None,
+                precomputed_grid=None, device="cuda"):
     """Every (rec_error x combination) cell of the config's signal from one
     forward pass (:func:`scorer.detect_scores_grid`), the intervals of all
     cells in one batch, each cell's confusion and metrics, and
@@ -244,7 +249,7 @@ def detect_grid(params, model, test_data, run_path, rec_errors=None,
     ``scorer.detect_scores_fleet_grid``, as ``sweep`` with the grid flags
     passes it): no device work runs, only the rest."""
     mv = is_multivariate(params)
-    device = resolve_device(device)
+    device = resolve_device(device, mesh)
     os.makedirs(run_path, exist_ok=True)
     known_anomalies = _ground_truth(params, test_data, known_anomalies)
     combinations = combinations or [params.combination]
@@ -257,7 +262,7 @@ def detect_grid(params, model, test_data, run_path, rec_errors=None,
         grid = sc.detect_scores_grid(
             model, test_data.X if X_dev is None else X_dev,
             params.hyperbolic, combinations, rec_errors=rec_errors,
-            kde_version=sc.kde_version_from_env(), device=device,
+            mesh=mesh, kde_version=sc.kde_version_from_env(), device=device,
             multivariate=mv)
     cells = list(grid)
     score_matrix = np.stack([np.asarray(grid[c]).reshape(-1)

@@ -13,8 +13,9 @@ where it is called), so it is bitwise JAX's. ``find_anomalies_batch`` runs
 the chain for the cells of a detection grid at once, bitwise equal per cell
 to JAX's batch, with one shared timestamp index or one index per cell; its
 dynamic thresholds come from one batched numpy replica of that Nelder-Mead
-per window length (JAX's ``_find_thresholds_batch`` without its native
-engine, which JAX holds bitwise to the replica). Both take JAX's
+per window length (JAX's ``_find_thresholds_batch``), answered first by
+the native C++ engine (``data/native.py``), bitwise the replica, as JAX's
+is. Both take JAX's
 parameters in JAX's order, ``lower_threshold`` included (each window also
 scans its mirror about its mean).
 """
@@ -485,14 +486,34 @@ def _fmin_z_batch(x0, tab, rows):
     return sim0, fval
 
 
-def _find_thresholds_batch(windows, z_range=(0, 10)):
+def _find_thresholds_batch(windows, z_range=(0, 10), engine="auto"):
     """Dynamic thresholds for a stack of equal-length windows (Wn, L):
     the reference ``find_threshold`` semantics — fmin from every integer
     z start, keeping the LAST start whose minimized cost is finite (the
     preserved best_cost bug, see find_threshold above; falls back to
     ``mean + min_z * std`` when no start is finite) — for all windows and
-    starts in one batched Nelder-Mead. JAX's function tries its native
-    engine first, which it holds bitwise to this numpy path."""
+    starts in one batched Nelder-Mead.
+
+    ``engine``: "auto" (JAX's behaviour) asks the native engine first
+    (``data/native.py``, given numpy's window means and stds) and runs the
+    numpy replica where it is not built; "native" raises where it is not;
+    "numpy" runs the replica. Both give the same bits.
+    ``_find_thresholds_batch.engines`` counts which one answered."""
+    if engine not in ("auto", "native", "numpy"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine != "numpy":
+        from hypad_tpu_torch.data import native
+
+        W = np.ascontiguousarray(windows, np.float64)
+        out = native.find_thresholds(W, W.mean(axis=1), W.std(axis=1),
+                                     z_range[0], z_range[1])
+        if out is not None:
+            _THRESHOLD_ENGINES["native"] += 1
+            return out
+        if engine == "native":
+            raise RuntimeError("native threshold engine unavailable: "
+                               f"{native.build_error}")
+    _THRESHOLD_ENGINES["numpy"] += 1
     tab = _WindowTables(windows)
     Wn = windows.shape[0]
     min_z, max_z = z_range
@@ -507,6 +528,10 @@ def _find_thresholds_batch(windows, z_range=(0, 10)):
     last = S - 1 - np.argmax(finite[:, ::-1], axis=1)
     best_z = np.where(any_f, xs[np.arange(Wn), last], float(min_z))
     return tab.mean + best_z * tab.std
+
+
+_THRESHOLD_ENGINES = {"native": 0, "numpy": 0}
+_find_thresholds_batch.engines = _THRESHOLD_ENGINES
 
 
 def _batch_thresholds(E, starts, window_size, lower_threshold):

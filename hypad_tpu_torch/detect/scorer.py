@@ -29,6 +29,14 @@ rows) score its host arrays.
 forward pass and one critic KDE launch. ``stage_inference`` puts a cached
 artifact set on the device once, for the staged scorers to take as it is.
 
+Every public function takes JAX's ``mesh`` (``parallel/mesh.py``): the
+row-independent stages run on each ``dp`` slab's device (the forward with
+K1, the KDE argmax with one K2 or K3 launch a slab, the acosh rows, the
+DTW windows) and are gathered to the mesh's lead device, where the global
+reductions run (IQR quartiles, mean and std, the rolling sums across slab
+borders). With a mesh, its lead device is the ``device``; the parameters
+lie there. The fleet functions shard the signal axis instead.
+
 ``detect_scores_fleet`` detects a whole signal family at once (the
 counterpart of JAX's vmapped fleet program): one batched forward of the
 padded (S, N, W) stack, each signal's real anti-diagonal rows through ONE
@@ -53,7 +61,10 @@ import torch
 from hypad_tpu_torch._device import resolve_device
 from hypad_tpu_torch.manifold import stereographic as st
 from hypad_tpu_torch.ops.dtw import dtw_errors
-from hypad_tpu_torch.ops.kde_kernel import kde_argmax_rows_fused
+from hypad_tpu_torch.ops.kde_kernel import (
+    kde_argmax_rows_fused,
+    kde_argmax_rows_sharded,
+)
 from hypad_tpu_torch.models import fleet as mf
 from hypad_tpu_torch.ops.rolling import (
     masked_quantile,
@@ -63,6 +74,12 @@ from hypad_tpu_torch.ops.rolling import (
     rolling_trapz_centered_ragged,
     zscore,
     zscore_masked,
+)
+from hypad_tpu_torch.parallel.mesh import (
+    dp_devices,
+    map_rows,
+    on_device,
+    row_slices,
 )
 from hypad_tpu_torch.ops.unroll import (
     antidiagonal_gather,
@@ -106,11 +123,20 @@ def kde_version_from_env():
     return "v2" if os.environ.get("HYPAD_KDE_PALLAS") == "1" else "v1"
 
 
-def stage_inference(inference: "InferenceOutput", device="cuda"):
+def _rows(mesh, fn, *args):
+    """``fn(*args)``, or on a mesh ``fn`` on each ``dp`` slab of the
+    arguments' rows (axis 0), gathered on the lead device."""
+    if mesh is None:
+        return fn(*args)
+    return map_rows(mesh, lambda _, *a: fn(*a), *args)
+
+
+def stage_inference(inference: "InferenceOutput", device="cuda", mesh=None):
     """``inference`` (a cached artifact set) with every field as a float32
-    tensor on ``device``, copied there once: the staged
-    ``score_anomalies_*`` then take its fields without another copy."""
-    device = resolve_device(device)
+    tensor on ``device`` (the mesh's lead device), copied there once: the
+    staged ``score_anomalies_*`` then take its fields without another
+    copy."""
+    device = resolve_device(device, mesh)
     return InferenceOutput(*(None if t is None else _as_device(t, device)
                              for t in inference))
 
@@ -119,9 +145,13 @@ def stage_inference(inference: "InferenceOutput", device="cuda"):
 # model forward over the full test set
 # ---------------------------------------------------------------------------
 
-def _forward_chunk(model, x, hyperbolic):
+def _forward_chunk(model, x, hyperbolic, mesh=None):
     """Eval forward of the (B, W) windows ``x``: (hyper, eucl, hyper_x,
-    critic) hyperbolic, (recon, critic) Euclidean."""
+    critic) hyperbolic, (recon, critic) Euclidean. On a mesh each slab of
+    rows runs on its device with the model's parameters copied there."""
+    if mesh is not None:
+        return map_rows(mesh, lambda dev, xs: on_device(
+            model, dev, _forward_chunk, xs, hyperbolic), x)
     if hyperbolic and not model["decoder"].hyperbolic:
         raise ValueError("hyperbolic scoring needs a model with the "
                          "MobiusLinear head (init_tadgan(hyperbolic=True))")
@@ -137,13 +167,14 @@ def _forward_chunk(model, x, hyperbolic):
     return recon, critic
 
 
-def run_inference(params, X, hyperbolic, batch_size=1024,
+def run_inference(params, X, hyperbolic, batch_size=1024, mesh=None,
                   device="cuda") -> InferenceOutput:
     """Forward every window of ``X`` (N, W) in batches of ``batch_size``,
-    each copied to the host as it finishes. Returns numpy arrays:
-    hyperbolic (ball reconstruction, embedded input, critic, tanh output,
-    raw input), Euclidean (reconstruction, raw input, critic)."""
-    device = resolve_device(device)
+    each copied to the host as it finishes (on a mesh, each batch's rows
+    sharded over it). Returns numpy arrays: hyperbolic (ball
+    reconstruction, embedded input, critic, tanh output, raw input),
+    Euclidean (reconstruction, raw input, critic)."""
+    device = resolve_device(device, mesh)
     _check_params_device(params, device)
     X_host = (X.detach().cpu().float().numpy() if torch.is_tensor(X)
               else np.asarray(X, np.float32))
@@ -152,7 +183,7 @@ def run_inference(params, X, hyperbolic, batch_size=1024,
         for i in range(0, len(X_host), batch_size):
             chunk = torch.as_tensor(X_host[i:i + batch_size], device=device)
             outs.append([t.cpu().numpy() for t in
-                         _forward_chunk(params, chunk, hyperbolic)])
+                         _forward_chunk(params, chunk, hyperbolic, mesh)])
     cols = [np.concatenate(col) for col in zip(*outs)]
     if hyperbolic:
         hyper, eucl, hyper_x, critic = cols
@@ -212,24 +243,28 @@ def _critic_scores_from_kde(kde_max, smooth_window):
     return rolling_mean_centered(z, smooth_window, max(smooth_window // 2, 1))
 
 
-def _critic_scores_core(critic, width, smooth_window, kde_version="v1"):
+def _critic_scores_core(critic, width, smooth_window, kde_version="v1",
+                        mesh=None):
     """(N,) critic values -> (T,) smoothed critic scores, T = N + width - 1.
-    ``kde_version`` picks the KDE kernel: "v1" K2, "v2" K3."""
+    ``kde_version`` picks the KDE kernel: "v1" K2, "v2" K3; on a mesh one
+    launch a slab of rows."""
     vals, mask = _critic_antidiag(critic, critic.shape[0], width)
-    return _critic_scores_from_kde(
-        kde_argmax_rows_fused(vals, mask, kde_version), smooth_window)
+    kde = (kde_argmax_rows_fused(vals, mask, kde_version) if mesh is None
+           else kde_argmax_rows_sharded(vals, mask, mesh, kde_version))
+    return _critic_scores_from_kde(kde, smooth_window)
 
 
 def final_critic_scores(critic_score, true_signal, kde_version="v1",
-                        device="cuda"):
+                        mesh=None, device="cuda"):
     """(T,) smoothed critic scores of the (N,) critic values of the (N, W)
     windows, T = N + W - 1, as numpy. The smoothing window is
     ``max(trunc(N * 0.01), 1)``."""
     n, w = np.shape(true_signal)
-    device = resolve_device(device)
+    device = resolve_device(device, mesh)
     with torch.inference_mode():
         out = _critic_scores_core(_as_device(critic_score, device), w,
-                                  max(math.trunc(n * 0.01), 1), kde_version)
+                                  max(math.trunc(n * 0.01), 1), kde_version,
+                                  mesh)
     return out.cpu().numpy()
 
 
@@ -238,7 +273,7 @@ def final_critic_scores(critic_score, true_signal, kde_version="v1",
 # ---------------------------------------------------------------------------
 
 def _rec_errors_core(y, y_hat, rec_error_type, smoothing_window,
-                     score_window=10, smooth=True):
+                     score_window=10, smooth=True, mesh=None):
     """(errors (T,), unrolled prediction (T,)) of the (N, W) windows ``y``
     and their reconstructions ``y_hat``: the pointwise, area (rolling
     trapezoid) or DTW difference of the two unrolled series, then a
@@ -252,7 +287,7 @@ def _rec_errors_core(y, y_hat, rec_error_type, smoothing_window,
         errors = torch.abs(rolling_trapz_centered(true, score_window, half)
                            - rolling_trapz_centered(pred, score_window, half))
     elif rec_error_type == "dtw":
-        errors = dtw_errors(true, pred, score_window)
+        errors = dtw_errors(true, pred, score_window, mesh=mesh)
     else:
         raise ValueError(f"unknown rec_error_type {rec_error_type!r}")
     if smooth:
@@ -262,17 +297,19 @@ def _rec_errors_core(y, y_hat, rec_error_type, smoothing_window,
 
 
 def reconstruction_errors(y, y_hat, rec_error_type="point", score_window=10,
-                          smoothing_window=0.01, smooth=True, device="cuda"):
+                          smoothing_window=0.01, smooth=True, mesh=None,
+                          device="cuda"):
     """(errors (T,), predictions (T,)) as numpy, for (N, W) arrays y and
     y_hat. A float ``smoothing_window`` is a share of N, capped at 200
     windows; an int is taken as it is. A window of 0 is floored at 1."""
     if isinstance(smoothing_window, float):
         smoothing_window = min(math.trunc(len(y) * smoothing_window), 200)
-    device = resolve_device(device)
+    device = resolve_device(device, mesh)
     with torch.inference_mode():
         errors, pred = _rec_errors_core(
             _as_device(y, device), _as_device(y_hat, device), rec_error_type,
-            max(smoothing_window, 1) if smooth else 1, score_window, smooth)
+            max(smoothing_window, 1) if smooth else 1, score_window, smooth,
+            mesh)
     return errors.cpu().numpy(), pred.cpu().numpy()
 
 
@@ -320,22 +357,25 @@ def _check_combination(hyperbolic, combination):
 # ---------------------------------------------------------------------------
 
 def _eucl_scores_core(y, y_hat, critic, rec_error_type, comb, width,
-                      smooth_window, lambda_rec=0.5, kde_version="v1"):
+                      smooth_window, lambda_rec=0.5, kde_version="v1",
+                      mesh=None):
     """The Euclidean scores (T,): the critic pipeline and the smoothed
     reconstruction errors (z-scored, clipped at 0, plus 1), combined. The
     critic pipeline is skipped for ``rec``, which does not read it."""
     _check_combination(False, comb)
-    rec_scores = _eucl_rec_scores(y, y_hat, rec_error_type, smooth_window)
+    rec_scores = _eucl_rec_scores(y, y_hat, rec_error_type, smooth_window,
+                                  mesh)
     critic_scores = None
     if comb != "rec":
         critic_scores = _critic_scores_core(critic, width, smooth_window,
-                                            kde_version)
+                                            kde_version, mesh)
     return _eucl_combine(comb, critic_scores, rec_scores, lambda_rec)
 
 
-def _eucl_rec_scores(y, y_hat, rec_error_type, smooth_window):
+def _eucl_rec_scores(y, y_hat, rec_error_type, smooth_window, mesh=None):
     """The smoothed reconstruction errors, z-scored, clipped at 0, plus 1."""
-    errors, _ = _rec_errors_core(y, y_hat, rec_error_type, smooth_window)
+    errors, _ = _rec_errors_core(y, y_hat, rec_error_type, smooth_window,
+                                 mesh=mesh)
     return zscore(errors).clamp_min(0.0) + 1.0
 
 
@@ -352,27 +392,28 @@ def _eucl_combine(comb, critic_scores, rec_scores, lambda_rec=0.5):
 
 
 def _hyper_scores_core(recons, true, critic, combination, width,
-                       smooth_window, kde_version="v1"):
+                       smooth_window, kde_version="v1", mesh=None):
     """Per-window acosh distances, critic smoothing (truncated to N
     windows), combination."""
-    rec_scores = st.acosh_poincare_distance(recons, true)
+    rec_scores = _rows(mesh, st.acosh_poincare_distance, recons, true)
     critic_scores = None
     if combination in CRITIC_COMBOS:
         critic_scores = _critic_scores_core(critic, width, smooth_window,
-                                            kde_version)
+                                            kde_version, mesh)
         critic_scores = critic_scores[: rec_scores.shape[0]]
     return _combine_device(combination, critic_scores, rec_scores, recons)
 
 
-def _mv_rec_scores(recons, true, hyperbolic, n_real=None):
+def _mv_rec_scores(recons, true, hyperbolic, n_real=None, mesh=None):
     """Per-row rec scores of multivariate rows (..., N, F): the acosh
     Poincare distance (hyperbolic) or the L2 norm of the error
     (Euclidean), z-scored (over each signal's first ``n_real`` rows when
     given), clipped at 0, plus 1."""
     if hyperbolic:
-        raw = st.acosh_poincare_distance(recons, true)
+        raw = _rows(mesh, st.acosh_poincare_distance, recons, true)
     else:
-        raw = torch.linalg.norm(true - recons, dim=-1)
+        raw = _rows(mesh, lambda r, t: torch.linalg.norm(t - r, dim=-1),
+                    recons, true)
     if n_real is None:
         z = zscore(raw)
     else:
@@ -382,77 +423,79 @@ def _mv_rec_scores(recons, true, hyperbolic, n_real=None):
 
 
 def _mv_scores_core(recons, true, critic, combination, hyperbolic, width,
-                    smooth_window, kde_version="v1"):
+                    smooth_window, kde_version="v1", mesh=None):
     """The multivariate scores (N,) of (N, F) rows: per-row rec scores, the
     critic scores truncated to N rows (only for a combination that reads
     them), combined (hypad_tpu/detect/scorer.py:552-579)."""
-    rec_scores = _mv_rec_scores(recons, true, hyperbolic)
+    rec_scores = _mv_rec_scores(recons, true, hyperbolic, mesh=mesh)
     critic_scores = None
     if combination in CRITIC_COMBOS:
         critic_scores = _critic_scores_core(critic, width, smooth_window,
-                                            kde_version)
+                                            kde_version, mesh)
         critic_scores = critic_scores[: rec_scores.shape[0]]
     return _combine_device(combination, critic_scores, rec_scores, recons)
 
 
 def score_anomalies_euclidean(y, y_hat, critic, rec_error_type="point",
-                              comb="mult", lambda_rec=0.5, kde_version="v1",
-                              device="cuda"):
+                              comb="mult", lambda_rec=0.5, mesh=None,
+                              kde_version="v1", device="cuda"):
     """The Euclidean scores (T,) as numpy, from the (N, W) windows, their
     reconstructions and the (N,) critic values (host or device arrays).
     The smoothing window of both the errors and the critic is
     ``max(trunc(N * 0.01), 1)``, an int, so the 200 cap of
     ``reconstruction_errors`` does not apply."""
     n, w = np.shape(y)
-    device = resolve_device(device)
+    device = resolve_device(device, mesh)
     with torch.inference_mode():
         out = _eucl_scores_core(
             _as_device(y, device), _as_device(y_hat, device),
             _as_device(critic, device), rec_error_type, comb, w,
-            max(math.trunc(n * 0.01), 1), lambda_rec, kde_version)
+            max(math.trunc(n * 0.01), 1), lambda_rec, kde_version, mesh)
     return out.cpu().numpy()
 
 
 def score_anomalies_hyperbolic(inference: InferenceOutput, combination,
-                               kde_version="v1", device="cuda"):
+                               mesh=None, kde_version="v1", device="cuda"):
     """The hyperbolic scores (N,) as numpy, from ``run_inference``'s
     output: per-window acosh distances and the critic scores truncated to N
     windows, combined."""
     _check_combination(True, combination)
     n, w = np.shape(inference.true_signal)
-    device = resolve_device(device)
+    device = resolve_device(device, mesh)
     with torch.inference_mode():
         out = _hyper_scores_core(
             _as_device(inference.recons_signal, device),
             _as_device(inference.true_signal, device),
             _as_device(inference.critic_score, device), combination, w,
-            max(math.trunc(n * 0.01), 1), kde_version)
+            max(math.trunc(n * 0.01), 1), kde_version, mesh)
     return out.cpu().numpy()
 
 
 def score_anomalies_multivariate(inference: InferenceOutput, combination,
-                                 hyperbolic, kde_version="v1",
+                                 hyperbolic, mesh=None, kde_version="v1",
                                  device="cuda"):
     """The multivariate scores (N,) as numpy, from ``run_inference``'s
     output of (N, F) rows (host or device arrays)."""
     _check_combination(True, combination)
     n, w = np.shape(inference.true_signal)
-    device = resolve_device(device)
+    device = resolve_device(device, mesh)
     with torch.inference_mode():
         out = _mv_scores_core(
             _as_device(inference.recons_signal, device),
             _as_device(inference.true_signal, device),
             _as_device(inference.critic_score, device), combination,
-            hyperbolic, w, max(math.trunc(n * 0.01), 1), kde_version)
+            hyperbolic, w, max(math.trunc(n * 0.01), 1), kde_version, mesh)
     return out.cpu().numpy()
 
 
-def hyperbolic_window_scores(recons_signal, true_signal, device="cuda"):
+def hyperbolic_window_scores(recons_signal, true_signal, mesh=None,
+                             device="cuda"):
     """Per-window acosh Poincare distance. (N, W) arrays -> (N,) numpy."""
-    device = resolve_device(device)
+    device = resolve_device(device, mesh)
     with torch.inference_mode():
-        d = st.acosh_poincare_distance(_as_device(recons_signal, device),
-                                       _as_device(true_signal, device))
+        d = _rows(mesh, st.acosh_poincare_distance,
+                  _as_device(recons_signal, device),
+                  _as_device(true_signal, device))
     return d.cpu().numpy()
 
 
@@ -461,27 +504,30 @@ def hyperbolic_window_scores(recons_signal, true_signal, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def _detect_core(model, X, hyperbolic, combination, rec_error, width,
-                 smooth_window, kde_version="v1", multivariate=False):
+                 smooth_window, kde_version="v1", multivariate=False,
+                 mesh=None):
     """Forward pass and scoring of the (N, W) windows, or (N, F) rows
     under ``multivariate``, X."""
-    outs = _forward_chunk(model, X, hyperbolic)
+    outs = _forward_chunk(model, X, hyperbolic, mesh)
     if hyperbolic:
         hyper, _, hyper_x, critic = outs
         if multivariate:
             scores = _mv_scores_core(hyper, hyper_x, critic, combination,
-                                     True, width, smooth_window, kde_version)
+                                     True, width, smooth_window, kde_version,
+                                     mesh)
         else:
             scores = _hyper_scores_core(hyper, hyper_x, critic, combination,
-                                        width, smooth_window, kde_version)
+                                        width, smooth_window, kde_version,
+                                        mesh)
         return scores, outs
     recon, critic = outs
     if multivariate:
         scores = _mv_scores_core(recon, X, critic, combination, False, width,
-                                 smooth_window, kde_version)
+                                 smooth_window, kde_version, mesh)
     else:
         scores = _eucl_scores_core(X, recon, critic, rec_error, combination,
                                    width, smooth_window,
-                                   kde_version=kde_version)
+                                   kde_version=kde_version, mesh=mesh)
     return scores, outs
 
 
@@ -506,9 +552,9 @@ def _apply_artifact_opts(inference, artifact_dtype, artifact_set,
 
 
 def detect_scores(params, X, hyperbolic, combination, rec_error="point",
-                  fetch_inference=True, kde_version="v1", device="cuda",
-                  artifact_dtype="float32", artifact_set="full",
-                  multivariate=False):
+                  mesh=None, fetch_inference=True, kde_version="v1",
+                  device="cuda", artifact_dtype="float32",
+                  artifact_set="full", multivariate=False):
     """The whole detection compute on ``device``: returns (final scores as
     numpy, InferenceOutput of numpy arrays or None). The scores are (N,)
     hyperbolic and (N + W - 1,) Euclidean.
@@ -522,7 +568,8 @@ def detect_scores(params, X, hyperbolic, combination, rec_error="point",
     copies only the scores to the host. ``artifact_dtype`` and
     ``artifact_set`` shape the returned inference as
     :func:`_apply_artifact_opts` says; the scores are computed in float32
-    either way.
+    either way. ``mesh``: the windows sharded over its ``dp`` devices, as
+    the module docstring says; ``params`` then lie on its lead device.
 
     Above ``ONE_CALL_MAX_WINDOWS`` windows the forward runs in chunks
     (:func:`run_inference`) and :func:`score_anomalies_hyperbolic` or
@@ -536,21 +583,22 @@ def detect_scores(params, X, hyperbolic, combination, rec_error="point",
     _check_combination(hyperbolic or multivariate, combination)
     if not (hyperbolic or multivariate) and rec_error not in REC_ERRORS:
         raise ValueError(f"unknown rec_error_type {rec_error!r}")
-    device = resolve_device(device)
+    device = resolve_device(device, mesh)
     _check_params_device(params, device)
     if len(X) > ONE_CALL_MAX_WINDOWS:
-        inference = run_inference(params, X, hyperbolic, device=device)
+        inference = run_inference(params, X, hyperbolic, mesh=mesh,
+                                  device=device)
         if multivariate:
-            scores = score_anomalies_multivariate(inference, combination,
-                                                  hyperbolic, kde_version,
-                                                  device)
+            scores = score_anomalies_multivariate(
+                inference, combination, hyperbolic, mesh, kde_version,
+                device)
         elif hyperbolic:
             scores = score_anomalies_hyperbolic(inference, combination,
-                                                kde_version, device)
+                                                mesh, kde_version, device)
         else:
             scores = score_anomalies_euclidean(
                 inference.true_signal, inference.recons_signal,
-                inference.critic_score, rec_error, combination,
+                inference.critic_score, rec_error, combination, mesh=mesh,
                 kde_version=kde_version, device=device)
         if not fetch_inference:
             return scores, None
@@ -563,7 +611,7 @@ def detect_scores(params, X, hyperbolic, combination, rec_error="point",
         scores, outs = _detect_core(params, Xt, hyperbolic, combination,
                                     rec_error, w, max(math.trunc(n * 0.01),
                                                       1), kde_version,
-                                    multivariate)
+                                    multivariate, mesh)
         scores = scores.cpu().numpy()
         if not fetch_inference:
             return scores, None
@@ -605,21 +653,21 @@ def _validate_grid(hyperbolic, combinations, rec_errors, multivariate=False):
 
 def _grid_core(model, X, hyperbolic, combinations, rec_errors, width,
                smooth_window, kde_version="v1", lambda_rec=0.5,
-               multivariate=False):
+               multivariate=False, mesh=None):
     """One forward pass, one critic pipeline (one KDE launch, only if a
     combination reads it), one reconstruction error per rec_error, then
     every combination's tail, each the same operations as the single-cell
     scorer's. Returns {(rec_error or None, combination): (T,) tensor}."""
-    outs = _forward_chunk(model, X, hyperbolic)
+    outs = _forward_chunk(model, X, hyperbolic, mesh)
     critic_scores = None
     if any(cb in CRITIC_COMBOS for cb in combinations):
         critic_scores = _critic_scores_core(outs[-1], width, smooth_window,
-                                            kde_version)
+                                            kde_version, mesh)
     if hyperbolic or multivariate:
         recons, other = (outs[0], outs[2]) if hyperbolic else (outs[0], X)
-        rec_scores = (_mv_rec_scores(recons, other, hyperbolic)
+        rec_scores = (_mv_rec_scores(recons, other, hyperbolic, mesh=mesh)
                       if multivariate else
-                      st.acosh_poincare_distance(recons, other))
+                      _rows(mesh, st.acosh_poincare_distance, recons, other))
         if critic_scores is not None:
             critic_scores = critic_scores[: rec_scores.shape[0]]
         return {(None, cb): _combine_device(cb, critic_scores, rec_scores,
@@ -627,7 +675,8 @@ def _grid_core(model, X, hyperbolic, combinations, rec_errors, width,
                 for cb in combinations}
     out = {}
     for rec_error in rec_errors:
-        rec_scores = _eucl_rec_scores(X, outs[0], rec_error, smooth_window)
+        rec_scores = _eucl_rec_scores(X, outs[0], rec_error, smooth_window,
+                                      mesh)
         for cb in combinations:
             out[(rec_error, cb)] = _eucl_combine(cb, critic_scores,
                                                  rec_scores, lambda_rec)
@@ -635,8 +684,8 @@ def _grid_core(model, X, hyperbolic, combinations, rec_errors, width,
 
 
 def detect_scores_grid(params, X, hyperbolic, combinations,
-                       rec_errors=("point",), kde_version="v1",
-                       device="cuda", multivariate=False):
+                       rec_errors=("point",), mesh=None, multivariate=False,
+                       kde_version="v1", device="cuda"):
     """Every (rec_error x combination) detection cell of the (N, W) windows
     ``X`` (numpy or a tensor on ``device``) from one forward pass and one
     critic KDE launch: each rec_error's unroll and error are computed once,
@@ -657,21 +706,22 @@ def detect_scores_grid(params, X, hyperbolic, combinations,
             f"{'hyperbolic' if hyperbolic else 'multivariate'} grid keys "
             "cells by combination alone and the requested rec_error sweep "
             "collapses to one row per combination", stacklevel=2)
-    device = resolve_device(device)
+    device = resolve_device(device, mesh)
     _check_params_device(params, device)
     if len(X) > ONE_CALL_MAX_WINDOWS:
-        inference = run_inference(params, X, hyperbolic, device=device)
+        inference = run_inference(params, X, hyperbolic, mesh=mesh,
+                                  device=device)
         if multivariate:
             return {(None, cb): score_anomalies_multivariate(
-                        inference, cb, hyperbolic, kde_version, device)
+                        inference, cb, hyperbolic, mesh, kde_version, device)
                     for cb in combinations}
         if hyperbolic:
             return {(None, cb): score_anomalies_hyperbolic(
-                        inference, cb, kde_version, device)
+                        inference, cb, mesh, kde_version, device)
                     for cb in combinations}
         return {(re_, cb): score_anomalies_euclidean(
                     inference.true_signal, inference.recons_signal,
-                    inference.critic_score, re_, cb,
+                    inference.critic_score, re_, cb, mesh=mesh,
                     kde_version=kde_version, device=device)
                 for cb in combinations for re_ in rec_errors}
     Xt = _as_device(X, device)
@@ -679,7 +729,7 @@ def detect_scores_grid(params, X, hyperbolic, combinations,
     with torch.inference_mode():
         out = _grid_core(params, Xt, hyperbolic, combinations, rec_errors, w,
                          max(math.trunc(n * 0.01), 1), kde_version,
-                         multivariate=multivariate)
+                         multivariate=multivariate, mesh=mesh)
         return {cell: out[cell].cpu().numpy() for cell in _cell_order(out)}
 
 
@@ -712,6 +762,49 @@ FLEET_BYTES_PER_WINDOW = 16 * 1024
 FLEET_MAX_BYTES = 16 * 1024 ** 3
 
 _SNAP_ULPS = 256.0
+
+# JAX's canonical fleet shapes (hypad_tpu/detect/scorer.py:794-870), copied
+# as they are: ``train_fleet(canonical=True)`` pads a family's window axis
+# up FLEET_N_RUNGS and its signal axis up FLEET_S_RUNGS (rounded to a
+# device multiple, capped by the (S, T, W, W) pair budget), and the padded
+# row count enters the training draws, so the port pads to JAX's shapes
+# although it compiles none.
+FLEET_MAX_PAIR_ELEMS = 1_400_000_000
+FLEET_N_RUNGS = tuple(
+    b * 2 ** k for k in range(10) for b in (128, 192) if b * 2 ** k <= 131072
+)
+FLEET_S_RUNGS = tuple(
+    b * 2 ** k for k in range(9) for b in (4, 6) if b * 2 ** k <= 1024
+)
+
+
+def _next_rung(n):
+    for r in sorted(FLEET_N_RUNGS):
+        if r >= n:
+            return r
+    return n  # beyond the ladder: exact shape (huge signals are rare)
+
+
+def _next_s_rung(s):
+    for r in sorted(FLEET_S_RUNGS):
+        if r >= s:
+            return r
+    return s
+
+
+def canonical_fleet_shape(S, n_pad, width, ndev=1):
+    """The canonical shape (S_c, N_c) covering an (S, n_pad, width) fleet
+    stack, as JAX's ``canonical_fleet_shape`` gives it: N_c the next window
+    rung, S_c the next signal rung rounded up to a multiple of ``ndev``
+    (the mesh's device count), capped at the signal count whose (S, T, W,
+    W) pair tensor fits ``FLEET_MAX_PAIR_ELEMS`` (``S_c < S`` then means
+    no signal padding)."""
+    N_c = _next_rung(n_pad)
+    per_signal = (N_c + width - 1) * width * width
+    S_chunk = max(int(FLEET_MAX_PAIR_ELEMS // max(per_signal, 1)), 1)
+    s = _next_s_rung(S)
+    s += (-s) % max(ndev, 1)
+    return min(s, S_chunk), N_c
 
 
 def fleet_chunk_plan(S, n_pad):
@@ -878,8 +971,9 @@ def _fleet_stage(X_list, staged, device):
 
 
 def detect_scores_fleet(stacked, X_list, hyperbolic, combination,
-                        rec_error="point", staged=None, canonical=True,
-                        kde_version=None, device="cuda", multivariate=False):
+                        rec_error="point", mesh=None, staged=None,
+                        canonical=True, multivariate=False,
+                        kde_version=None, device="cuda"):
     """The scores of a whole signal family, each signal's as
     :func:`detect_scores` computes them alone: a list of S numpy vectors
     sliced to their true lengths (N_i hyperbolic or multivariate,
@@ -896,8 +990,14 @@ def detect_scores_fleet(stacked, X_list, hyperbolic, combination,
     of the same windows, used instead of padding and copying again.
     ``canonical`` keeps JAX's one observable effect of its canonical
     shapes: scores within 256 ulp of zero (of each signal's largest) snap
-    to exact zero. The port pads to no shape ladder, so the rest of JAX's
-    canonical path has no counterpart.
+    to exact zero. The port's detection pads to no shape ladder (it
+    compiles none), and a stack that ``train_fleet(canonical=True)``
+    padded is taken as it is, its pad signals and windows unread.
+
+    ``mesh``: the signal axis sharded over its ``dp`` devices, each slab of
+    signals scored on its device (one KDE launch a slab) with zero
+    collectives, the scores gathered to the lead device, where the
+    stacked parameters lie.
 
     A family whose peak buffer passes ``FLEET_MAX_BYTES`` is scored in
     chunks of one fixed signal count (``fleet_chunk_plan``), each one KDE
@@ -915,13 +1015,13 @@ def detect_scores_fleet(stacked, X_list, hyperbolic, combination,
         raise ValueError(f"unknown rec_error_type {rec_error!r}")
     cells = _fleet_cells(stacked, X_list, hyperbolic, (combination,),
                          (rec_error,) if eucl else REC_ERRORS[:1], staged,
-                         canonical, kde_version, device, multivariate)
+                         canonical, kde_version, device, multivariate, mesh)
     return [next(iter(c.values())) for c in cells]
 
 
 def detect_scores_fleet_grid(stacked, X_list, hyperbolic, combinations,
-                             rec_errors=("point",), staged=None,
-                             canonical=True, multivariate=False, mesh=None,
+                             rec_errors=("point",), mesh=None, staged=None,
+                             canonical=True, multivariate=False,
                              kde_version=None, device="cuda"):
     """A whole signal family times the whole (rec_error x combination)
     grid at once: the composition of :func:`detect_scores_fleet` (the
@@ -936,23 +1036,20 @@ def detect_scores_fleet_grid(stacked, X_list, hyperbolic, combinations,
     multivariate, N_i + W - 1 Euclidean), the cells in JAX's order;
     hyperbolic and multivariate cells are keyed by combination alone.
     ``staged``, ``canonical`` (the 256-ulp snap of each signal's scores),
-    the ``FLEET_MAX_BYTES`` chunks, ``multivariate`` and ``kde_version``
-    as :func:`detect_scores_fleet` takes them. ``mesh`` (a family over
-    several cards) is not ported (ROADMAP A13)."""
-    if mesh is not None:
-        raise NotImplementedError("fleet detection over several cards (mesh)"
-                                  " is not ported yet (ROADMAP A13)")
+    the ``FLEET_MAX_BYTES`` chunks, ``multivariate``, ``mesh`` and
+    ``kde_version`` as :func:`detect_scores_fleet` takes them."""
     combinations, rec_errors = _validate_grid(hyperbolic, combinations,
                                               rec_errors, multivariate)
     return _fleet_cells(stacked, X_list, hyperbolic, combinations,
                         rec_errors, staged, canonical, kde_version, device,
-                        multivariate)
+                        multivariate, mesh)
 
 
 def _fleet_cells(stacked, X_list, hyperbolic, combinations, rec_errors,
-                 staged, canonical, kde_version, device, multivariate):
+                 staged, canonical, kde_version, device, multivariate,
+                 mesh=None):
     """The body of :func:`detect_scores_fleet_grid` on checked cells."""
-    device = resolve_device(device)
+    device = resolve_device(device, mesh)
     P = getattr(stacked, "params", stacked)
     ref = next(iter(P.values()))
     if ref.device != device:
@@ -965,19 +1062,27 @@ def _fleet_cells(stacked, X_list, hyperbolic, combinations, rec_errors,
     smooth_host = np.maximum(np.trunc(n_host * 0.01).astype(np.int64), 1)
     lens = n_host if (hyperbolic or multivariate) else n_host + width - 1
 
+    devs = [device] if mesh is None else dp_devices(mesh)
+
     def run(lo, size):
-        sl = slice(lo, lo + size)
-        n_real = torch.as_tensor(n_host[sl], device=device)
+        # each device's slab of signals, all enqueued before any is read
+        parts = []
         with torch.inference_mode():
-            out = _grid_core_fleet(
-                {k: v[sl] for k, v in P.items()}, Xs[sl], n_real,
-                n_host[sl], hyperbolic, combinations, rec_errors, width,
-                torch.as_tensor(smooth_host[sl], device=device), kde_version,
-                multivariate)
-            if canonical:
-                n_valid = torch.as_tensor(lens[sl], device=device)
-                out = {c: _snap_scores(v, n_valid) for c, v in out.items()}
-            return {c: v.cpu().numpy() for c, v in out.items()}
+            for i, part in row_slices(size, len(devs)):
+                sl, dev = slice(lo + part.start, lo + part.stop), devs[i]
+                n_real = torch.as_tensor(n_host[sl], device=dev)
+                out = _grid_core_fleet(
+                    {k: v[sl].to(dev) for k, v in P.items()}, Xs[sl].to(dev),
+                    n_real, n_host[sl], hyperbolic, combinations, rec_errors,
+                    width, torch.as_tensor(smooth_host[sl], device=dev),
+                    kde_version, multivariate)
+                if canonical:
+                    n_valid = torch.as_tensor(lens[sl], device=dev)
+                    out = {c: _snap_scores(v, n_valid)
+                           for c, v in out.items()}
+                parts.append(out)
+            return {c: torch.cat([p[c].to(device) for p in parts])
+                    .cpu().numpy() for c in parts[0]}
 
     chunks, _ = fleet_chunk_plan(S, Xs.shape[1])
     if chunks is None:

@@ -54,11 +54,13 @@ def dtw_pair(x, y):
     return _dtw_batch_diag(x[None, :], y[None, :])[0]
 
 
-def dtw_errors(true, pred, score_window=10):
+def dtw_errors(true, pred, score_window=10, mesh=None):
     """The DTW reconstruction error of two (T,) series -> (T,): half a
     window of zeros, the T - L window distances, then zeros to the end
     (L = score_window // 2 * 2 + 1). Leading axes (a fleet's (S, T)) are
-    batched: every window of every series in one wavefront."""
+    batched: every window of every series in one wavefront. ``mesh``
+    (``parallel/mesh.py``): the windows split into the mesh's ``dp``
+    slabs, each slab's wavefront on its device."""
     length = (score_window // 2) * 2 + 1
     half = length // 2
     T = true.shape[-1]
@@ -67,6 +69,12 @@ def dtw_errors(true, pred, score_window=10):
     tw = F.pad(true, (half, half)).unfold(-1, length, 1)[..., :n_windows, :]
     pw = F.pad(pred, (half, half)).unfold(-1, length, 1)[..., :n_windows, :]
     out = true.new_zeros(true.shape)
-    out[..., half:half + n_windows] = _dtw_batch_diag(
-        tw.reshape(-1, length), pw.reshape(-1, length)).reshape(*lead, -1)
+    tw, pw = tw.reshape(-1, length), pw.reshape(-1, length)
+    if mesh is None:
+        d = _dtw_batch_diag(tw, pw)
+    else:
+        from hypad_tpu_torch.parallel.mesh import map_rows
+
+        d = map_rows(mesh, lambda _, a, b: _dtw_batch_diag(a, b), tw, pw)
+    out[..., half:half + n_windows] = d.reshape(*lead, -1)
     return out

@@ -136,3 +136,17 @@ def kde_argmax_rows_fused(vals, mask, version="v1"):
                          f"{KDE_VERSIONS}")
     kernel = kde_argmax_kernel if version == "v1" else kde_argmax_v2_kernel
     return kernel(vals, mask)[0]
+
+
+def kde_argmax_rows_sharded(vals, mask, mesh, version="v1"):
+    """:func:`kde_argmax_rows_fused` over a device mesh, the counterpart of
+    ``kde_argmax_rows_pallas_sharded`` (``hypad_tpu/ops/kde_pallas.py:251``):
+    the (T, W) rows split into the mesh's ``dp`` slabs, one K2 or K3 launch
+    per slab on its device, the values gathered to the lead device. Rows are
+    independent, so the result is the unsharded launch's row for row, ties
+    included; no slab needs the pad rows JAX's ``shard_map`` needs for even
+    shards."""
+    from hypad_tpu_torch.parallel.mesh import map_rows
+
+    return map_rows(mesh, lambda _, v, m: kde_argmax_rows_fused(
+        v.contiguous(), m.contiguous(), version), vals, mask)

@@ -45,6 +45,7 @@ from hypad_tpu_torch.train.losses import (
     critic_step_inputs,
     critic_step_inputs_fleet,
     fleet_forwards,
+    mesh_forwards,
 )
 
 CX_LAYERS = ("dense1", "dense2", "dense3", "dense4", "dense5")
@@ -69,23 +70,30 @@ def _grads(lx, lz, critic_x, critic_z):
     return (dict(zip(px, grads[:len(px)])), dict(zip(pz, grads[len(px):])))
 
 
-def critics_fused_grads_plain(critic_x, critic_z, bigx, bigz, mx, mz):
-    """K4's plain version: autograd of both critics' WGAN-GP losses."""
+def critics_fused_grads_plain(critic_x, critic_z, bigx, bigz, mx, mz,
+                              forwards=None):
+    """K4's plain version: autograd of both critics' WGAN-GP losses.
+    ``forwards``: the critics' forwards when they are not the modules' own
+    (``losses.mesh_forwards``); the gradients are the modules'
+    parameters' either way."""
+    fx, fz = ((critic_x, critic_z) if forwards is None
+              else (forwards.critic_x, forwards.critic_z))
     with torch.enable_grad():
-        lx = critic_loss_stacked(critic_x, bigx, mx, +1)
-        lz = critic_loss_stacked(critic_z, bigz, mz, -1)
+        lx = critic_loss_stacked(fx, bigx, mx, +1)
+        lz = critic_loss_stacked(fz, bigz, mz, -1)
         gx, gz = _grads(lx, lz, critic_x, critic_z)
     return lx.detach(), lz.detach(), gx, gz
 
 
-def critic_step_plain(model, x, draws, hyperbolic):
+def critic_step_plain(model, x, draws, hyperbolic, mesh=None):
     """K5's plain version: the generator forwards, then K4's plain
     version. ``draws``: one step's z_x, a_x, z_z, a_z, m_cx (4, 3B, Hx),
-    m_cz (2, 3B, Hz), m_dec (B, 128)."""
-    bigx, bigz = critic_step_inputs(model, x, draws, hyperbolic)
-    return critics_fused_grads_plain(model["critic_x"], model["critic_z"],
-                                     bigx, bigz, draws["m_cx"],
-                                     draws["m_cz"])
+    m_cz (2, 3B, Hz), m_dec (B, 128). ``mesh``: every forward's rows split
+    over it (``losses.mesh_forwards``), the losses on the lead device."""
+    bigx, bigz = critic_step_inputs(model, x, draws, hyperbolic, mesh)
+    return critics_fused_grads_plain(
+        model["critic_x"], model["critic_z"], bigx, bigz, draws["m_cx"],
+        draws["m_cz"], None if mesh is None else mesh_forwards(model, mesh))
 
 
 @functools.cache

@@ -23,12 +23,22 @@ generator step issues about the launches of one signal's.
   epoch ``n_epochs - 1``, where its chunks end) and its ``log_cb`` /
   ``checkpoint_cb`` / ``return_staged`` contract.
 
+* On a mesh (``parallel/mesh.py``) the SIGNAL axis is sharded over its
+  ``dp`` devices with zero collectives: each device trains its slab of
+  signals, one ``run_fleet_epoch`` body a slab, every slab enqueued before
+  any metric is read. As in JAX the fleet is padded to a device multiple:
+  an equal-length seed band with replicas of its last signal, any other
+  fleet with ``n_real = 0`` dummies that take no step. The returned state
+  keeps the pad signals, the caller's to ignore.
+* ``canonical`` pads the window axis to JAX's rung ladder and the signal
+  axis up its signal rungs (``detect/scorer.py`` ``canonical_fleet_shape``)
+  with dummies, and draws each signal's masked shuffles over the padded
+  row count, as JAX does: a canonical run is not the unpadded run.
+
 Not ported, on purpose: JAX's ``SINGLE_EPOCH_MAX_S`` slicing
 (``_single_epoch_sliced``) works round a v5e code-generation fault that no
 CUDA launch has, and ``epochs_per_call`` fuses epochs into one XLA program,
-which changes no number; the port runs epoch by epoch. ``mesh`` (a fleet
-over several cards) is ROADMAP A13 and ``canonical`` (the JAX compile
-cache's padded shapes) the rest of A10; both raise.
+which changes no number; the port runs epoch by epoch.
 """
 
 from __future__ import annotations
@@ -41,11 +51,14 @@ import torch
 from hypad_tpu_torch._device import resolve_device
 from hypad_tpu_torch.bridge import model_from_state_dict
 from hypad_tpu_torch.optim.radam import AdamState, RAdamState
+from hypad_tpu_torch.parallel.mesh import dp_devices, row_slices
 from hypad_tpu_torch.train.trainer import (
     TrainState,
+    check_mesh_fused,
+    fleet_epoch_device,
     fleet_epoch_draws,
+    fleet_metrics,
     init_train_state,
-    run_fleet_epoch,
 )
 
 
@@ -130,10 +143,64 @@ def init_fleet_state(models, lr, hyperbolic):
                          for m in models])
 
 
-def pad_and_stack(X_list, pad_value=0.0):
-    """Pad (N_i, W) window arrays to the longest N and stack: ((S, N, W)
-    float32 numpy, n_real (S,) int32). No valid step reads a pad row."""
+def _slice_opt(opt, sl, device):
+    if isinstance(opt, RAdamState):
+        return RAdamState(step=opt.step[sl].copy(),
+                          mu={k: v[sl].to(device, copy=True)
+                              for k, v in opt.mu.items()},
+                          nu={k: v[sl].to(device, copy=True)
+                              for k, v in opt.nu.items()})
+    return AdamState(step=opt.step[sl].copy(),
+                     mu=opt.mu[sl].to(device, copy=True),
+                     nu=opt.nu[sl].to(device, copy=True))
+
+
+def _cat_opt(opts, device):
+    step = np.concatenate([o.step for o in opts])
+    if isinstance(opts[0], RAdamState):
+        return RAdamState(step=step,
+                          mu={k: torch.cat([o.mu[k].to(device) for o in opts])
+                              for k in opts[0].mu},
+                          nu={k: torch.cat([o.nu[k].to(device) for o in opts])
+                              for k in opts[0].nu})
+    return AdamState(step=step,
+                     mu=torch.cat([o.mu.to(device) for o in opts]),
+                     nu=torch.cat([o.nu.to(device) for o in opts]))
+
+
+def slice_state(states, sl, device):
+    """Signals ``sl`` (a slice) of a :class:`FleetState`, copied to
+    ``device``: one mesh device's slab."""
+    return FleetState(
+        params={k: v[sl].to(device, copy=True)
+                for k, v in states.params.items()},
+        opt_cx=_slice_opt(states.opt_cx, sl, device),
+        opt_cz=_slice_opt(states.opt_cz, sl, device),
+        opt_gen=_slice_opt(states.opt_gen, sl, device), epoch=states.epoch)
+
+
+def concat_states(parts, device):
+    """One :class:`FleetState` on ``device`` of the slabs ``parts``, in
+    order."""
+    return FleetState(
+        params={k: torch.cat([p.params[k].to(device) for p in parts])
+                for k in parts[0].params},
+        opt_cx=_cat_opt([p.opt_cx for p in parts], device),
+        opt_cz=_cat_opt([p.opt_cz for p in parts], device),
+        opt_gen=_cat_opt([p.opt_gen for p in parts], device),
+        epoch=parts[0].epoch)
+
+
+def pad_and_stack(X_list, pad_value=0.0, target_len=None):
+    """Pad (N_i, W) window arrays to the longest N (or ``target_len``, the
+    canonical path's) and stack: ((S, N, W) float32 numpy, n_real (S,)
+    int32). No valid step reads a pad row."""
     n_max = max(x.shape[0] for x in X_list)
+    if target_len is not None:
+        if target_len < n_max:
+            raise ValueError(f"target_len {target_len} < longest signal "
+                             f"{n_max}")
+        n_max = target_len
     out = np.full((len(X_list), n_max, X_list[0].shape[1]), pad_value,
                   np.float32)
     n_real = np.zeros((len(X_list),), np.int32)
@@ -146,7 +213,7 @@ def pad_and_stack(X_list, pad_value=0.0):
 def train_fleet(states, X_list, *, lr, hyperbolic, batch_size, n_epochs,
                 seed=0, seeds=None, log_cb=None, checkpoint_cb=None,
                 start_epoch=None, ragged=None, return_staged=False,
-                fused_critics="full", mesh=None, canonical=False,
+                fused_critics=False, mesh=None, canonical=False,
                 device="cuda"):
     """Train S models jointly, one batched step per fleet step.
 
@@ -162,22 +229,25 @@ def train_fleet(states, X_list, *, lr, hyperbolic, batch_size, n_epochs,
     ``ragged`` selects nothing here and exists only to keep JAX's
     signature: the port always runs the ragged body, whose draws are each
     signal's single-model draws, and an equal-length fleet simply has no
-    step to mask. As in JAX, False on mixed lengths raises.
+    step to mask. As in JAX, False on mixed lengths, on a fleet a mesh
+    pads with dummies, or with ``canonical`` raises.
 
     ``return_staged``: also return the padded stack on the device,
     ``(states, (Xs, n_real))``, which ``detect_scores_fleet(staged=)``
-    reuses when the family tests on its training windows.
+    reuses when the family tests on its training windows; ``n_real``
+    covers the real signals only, ``Xs`` may carry pad signals and (under
+    ``canonical``) pad windows past them.
 
-    ``fused_critics``: "full" (K5 with a signal axis), True (the fleet's
-    generator forwards, then K4 with a signal axis) or False (autograd)."""
-    if mesh is not None:
-        raise NotImplementedError("train_fleet over several cards (mesh) is "
-                                  "not ported yet (ROADMAP A13)")
-    if canonical:
-        raise NotImplementedError("canonical fleet shapes are not ported "
-                                  "(ROADMAP A10): the port compiles no "
-                                  "shape-keyed programs")
-    device = resolve_device(device)
+    ``fused_critics``: False (autograd, the default), "full" (K5 with a
+    signal axis) or True (the fleet's generator forwards, then K4 with a
+    signal axis); a truthy value on a mesh of more than one device raises
+    JAX's ``ValueError`` before anything else.
+
+    ``mesh`` and ``canonical``: the module docstring. With a mesh the
+    states lie on its lead device, the ``device``; with ``canonical`` the
+    metrics and states carry the pad signals too."""
+    check_mesh_fused(fused_critics, mesh)
+    device = resolve_device(device, mesh)
     S = len(X_list)
     if states.n_signals != S:
         raise ValueError(f"train_fleet: {states.n_signals} states for "
@@ -189,28 +259,80 @@ def train_fleet(states, X_list, *, lr, hyperbolic, batch_size, n_epochs,
     X_list = [x.detach().cpu().numpy() if torch.is_tensor(x)
               else np.asarray(x, np.float32) for x in X_list]
     lens = {x.shape[0] for x in X_list}
-    if ragged is False and len(lens) > 1:
-        raise ValueError("mixed-length fleets require ragged mode")
     if seeds is not None and len(seeds) != S:
         raise ValueError(f"train_fleet: {len(seeds)} seeds for {S} signals")
-    seeds = [int(sd) for sd in seeds] if seeds is not None else [seed] * S
-    Xs_host, n_real = pad_and_stack(X_list)
+    real_lens = np.asarray([x.shape[0] for x in X_list], np.int32)
+    ndev = mesh.size if mesh is not None else 1
+    n_pad, target_len = (-S) % ndev, None
+    if canonical:
+        from hypad_tpu_torch.detect.scorer import canonical_fleet_shape
+
+        if ragged is False:
+            raise ValueError("canonical shapes require the ragged stream")
+        ragged = True
+        S_c, target_len = canonical_fleet_shape(
+            S, max(lens), X_list[0].shape[1], ndev)
+        target_S = max(S_c, S)
+        target_S += (-target_S) % ndev
+        n_pad = target_S - S
+    if seeds is not None and len(lens) == 1 and n_pad and ragged is not True:
+        # an equal-length seed band on a mesh: replicas of the last signal
+        # keep JAX's non-ragged stream (the caller ignores them)
+        X_list = X_list + [X_list[-1]] * n_pad
+        seeds = list(seeds) + [seeds[-1]] * n_pad
+        states = _padded(states, S, n_pad)
+        S, n_pad = len(X_list), 0
+    if ragged is False and (len(lens) > 1 or n_pad):
+        raise ValueError("mixed-length or mesh-padded fleets require "
+                         "ragged mode")
+    seeds = ([int(sd) for sd in seeds] if seeds is not None else [seed] * S)
+    # mesh- and canonical-pad dummies: no real row, so no step; the last seed
+    seeds += seeds[-1:] * n_pad
+    Xs_host, n_real = pad_and_stack(
+        X_list + [np.zeros((1, X_list[0].shape[1]), np.float32)] * n_pad,
+        target_len=target_len)
+    n_real[S:] = 0
+    if n_pad:
+        states = _padded(states, S, n_pad)
     Xs = torch.as_tensor(Xs_host, device=device)
     if start_epoch is not None:
         states.epoch = start_epoch
-    while states.epoch < n_epochs:
-        draws = fleet_epoch_draws(seeds, states.epoch, n_real, batch_size,
-                                  states.params)
-        states, metrics = run_fleet_epoch(states, Xs, n_real, draws, lr=lr,
-                                          hyperbolic=hyperbolic,
-                                          fused_critics=fused_critics)
+    devs = [device] if mesh is None else dp_devices(mesh)
+    slabs = row_slices(len(n_real), len(devs))
+    parts = ([states] if mesh is None else
+             [slice_state(states, sl, devs[i]) for i, sl in slabs])
+    Xparts = ([Xs] if mesh is None else
+              [Xs[sl].to(devs[i]) for i, sl in slabs])
+
+    def merged():
+        return parts[0] if mesh is None else concat_states(parts, device)
+
+    while parts[0].epoch < n_epochs:
+        epoch = parts[0].epoch
+        draws = fleet_epoch_draws(seeds, epoch, n_real, batch_size,
+                                  states.params, n_pad=target_len)
+        means = []
+        for k, (_, sl) in enumerate(slabs):
+            parts[k], m = fleet_epoch_device(
+                parts[k], Xparts[k], n_real[sl],
+                {name: v[sl] for name, v in draws.items()}, lr=lr,
+                hyperbolic=hyperbolic, fused_critics=fused_critics)
+            means.append(m.to(device))
+        metrics = fleet_metrics(torch.cat(means, dim=1).cpu().numpy())
         if log_cb is not None:
-            log_cb(states.epoch, metrics)
+            log_cb(epoch + 1, metrics)
         # JAX's chunks end at every 10th epoch and at epoch n - 1, where
         # its checkpoints fall (hypad_tpu/train/fleet.py:355-366)
-        if checkpoint_cb is not None and (states.epoch % 10 == 0
-                                          or states.epoch == n_epochs - 1):
-            checkpoint_cb(states.epoch, states)
+        if checkpoint_cb is not None and ((epoch + 1) % 10 == 0
+                                          or epoch + 1 == n_epochs - 1):
+            checkpoint_cb(epoch + 1, merged())
+    states = merged()
     if return_staged:
-        return states, (Xs, n_real)
+        return states, (Xs, real_lens)
     return states
+
+
+def _padded(states, S, n_pad):
+    """``states`` with ``n_pad`` copies of its last signal appended."""
+    return stack_states([unstack_state(states, i) for i in range(S)]
+                        + [unstack_state(states, S - 1)] * n_pad)

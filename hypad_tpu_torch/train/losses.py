@@ -28,7 +28,8 @@ the means and the gradient penalty's norm reduce the last two axes. A
 single model's tensors have none; a fleet's (``train/fleet.py``) carry a
 leading signal axis S, and its losses come back (S,), one GP norm a
 signal. :class:`Forwards` names the forwards a loss runs: the model's
-modules (:func:`model_forwards`) or the batched forwards of
+modules (:func:`model_forwards`), the same split over a device mesh's
+``dp`` slabs (:func:`mesh_forwards`), or the batched forwards of
 ``models/fleet.py`` over stacked parameters (:func:`fleet_forwards`).
 """
 
@@ -65,6 +66,36 @@ def model_forwards(model):
     return Forwards(model["encoder"], lambda z, m: dec(z, m[None, None]),
                     model["critic_x"], model["critic_z"],
                     getattr(dec, "hyperbolic_linear", None))
+
+
+def mesh_forwards(model, mesh):
+    """One model's modules as :class:`Forwards` over ``mesh``
+    (``parallel/mesh.py``): each forward's rows (axis -2 of every tensor
+    argument, the keep-masks' too) split into the mesh's ``dp`` slabs, each
+    slab run on its device with differentiable copies of the parameters,
+    the outputs gathered to the lead device, where the losses reduce the
+    whole batch. A gradient through them sums every copy's into the
+    model's parameters."""
+    from hypad_tpu_torch.parallel.mesh import map_rows, on_device
+
+    def sharded(fn):
+        return lambda *args: map_rows(
+            mesh, lambda dev, *a: on_device(model, dev, fn, *a), *args,
+            axis=-2)
+
+    head = getattr(model["decoder"], "hyperbolic_linear", None)
+    return Forwards(
+        sharded(lambda m, x: m["encoder"](x)),
+        sharded(lambda m, z, mk: m["decoder"](z, mk[None, None])),
+        sharded(lambda m, x, mk: m["critic_x"](x, mk)),
+        sharded(lambda m, z, mk: m["critic_z"](z, mk)),
+        None if head is None else sharded(
+            lambda m, x: m["decoder"].hyperbolic_linear(x)))
+
+
+def _forwards(model, mesh):
+    return model_forwards(model) if mesh is None else mesh_forwards(model,
+                                                                    mesh)
 
 
 def fleet_forwards(P):
@@ -119,9 +150,9 @@ def _critic_rows(f, x, draws, hyperbolic):
             _stack_z(f, x, draws["z_z"], draws["a_z"]))
 
 
-def critic_step_inputs(model, x, draws, hyperbolic):
+def critic_step_inputs(model, x, draws, hyperbolic, mesh=None):
     """(bigx, bigz) of one critic step from its draws."""
-    return _critic_rows(model_forwards(model), x, draws, hyperbolic)
+    return _critic_rows(_forwards(model, mesh), x, draws, hyperbolic)
 
 
 def critic_step_inputs_fleet(P, x, draws, hyperbolic):
@@ -163,11 +194,12 @@ def _generator_loss(f, x, hyperbolic, z, masks):
     return REC_WEIGHT * rec + adv, rec
 
 
-def generator_loss(model, x, hyperbolic, z, masks):
+def generator_loss(model, x, hyperbolic, z, masks, mesh=None):
     """(loss, rec) of the generator step. x (B, W); z (B, latent);
     ``masks``: {"m_cx": (4, B, latent), "m_cz": (2, B, latent),
-    "m_dec": (2B, 128)}."""
-    return _generator_loss(model_forwards(model), x, hyperbolic, z, masks)
+    "m_dec": (2B, 128)}. ``mesh``: the forwards split over it
+    (:func:`mesh_forwards`)."""
+    return _generator_loss(_forwards(model, mesh), x, hyperbolic, z, masks)
 
 
 def generator_loss_fleet(P, x, hyperbolic, z, masks):

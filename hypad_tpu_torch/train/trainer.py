@@ -5,10 +5,20 @@ the shuffled windows (drop_last, a fresh shuffle each), then one generator
 pass, with per-epoch mean losses. Each critic step runs one of three paths,
 chosen by ``fused_critics`` as the JAX config names them:
 
-* ``"full"`` (default): K5, the whole step body below the batch gather and
-  above the Adam updates, in one kernel (``critic_step_fused_full``);
+* ``"full"``: K5, the whole step body below the batch gather and above the
+  Adam updates, in one kernel (``critic_step_fused_full``);
 * ``True``: the generator forwards in torch, then K4 (``critics_fused_grads``);
-* ``False``: the autograd composition of ``train/losses.py``.
+* ``False`` (default, as in JAX's ``train_tadgan`` and ``train_fleet``): the
+  autograd composition of ``train/losses.py``, the only path that runs on a
+  mesh of several devices.
+
+With ``mesh`` (``parallel/mesh.py``) each step's rows are split over the
+mesh's ``dp`` devices (:func:`mesh_forwards`): every forward runs slab by
+slab, each slab on its device with differentiable copies of the
+parameters, and its outputs are gathered to the lead device, where the
+losses reduce the whole batch as unsharded (one GP norm over the whole
+flattened batch, the generator loss Σ / B). Backward sums every copy's
+gradient into the lead parameters, which the optimizers update.
 
 On a CPU tensor the two kernel paths run their plain versions. The chosen
 path is never swapped for another. A generator step is autograd of
@@ -128,7 +138,7 @@ def _widths(model):
             lstm0["w_hh"].shape[1] * (2 if "w_ih_rev" in lstm0 else 1))
 
 
-def epoch_draws(generator, n, batch_size, model):
+def epoch_draws(generator, n, batch_size, model, n_real=None):
     """Every random draw of one epoch, on the CPU, from ``generator``.
 
     Critic steps (S = 5 * (n // batch_size)): ``critic_idx`` (S, B),
@@ -137,13 +147,23 @@ def epoch_draws(generator, n, batch_size, model):
     (S, 2, 3B, Hz), ``m_dec`` (S, B, 128). Generator steps: ``gen_idx``,
     ``gen_z``, ``gen_m_cx`` (nb, 4, B, Hx), ``gen_m_cz`` (nb, 2, B, Hz),
     ``gen_m_dec`` (nb, 2B, 128). ``model``: the model, or stacked
-    parameters (only the widths are read)."""
+    parameters (only the widths are read).
+
+    ``n_real``: ``n`` counts padded rows of which the first ``n_real`` are
+    real (a canonical fleet's signal): each shuffle is then JAX's masked
+    one (``_masked_shuffled_index``), the argsort of uniform keys with the
+    pad rows' keys set to 2, so the first ``n_real // B`` batches hold
+    only real rows, and every draw is shaped by the padded count."""
     W, latent, hx, hz, dec_width = _widths(model)
     nb, B = n // batch_size, batch_size
     g = generator
 
     def perm():
-        return torch.randperm(n, generator=g)[:nb * B].view(nb, B)
+        if n_real is None:
+            return torch.randperm(n, generator=g)[:nb * B].view(nb, B)
+        u = torch.rand(n, generator=g)
+        u[int(n_real):] = 2.0
+        return torch.argsort(u, stable=True)[:nb * B].view(nb, B)
 
     def keep(rate, *shape):
         return torch.rand(shape, generator=g) < 1.0 - rate
@@ -167,17 +187,30 @@ def epoch_draws(generator, n, batch_size, model):
     }
 
 
-def _critic_step(model, x, d, hyperbolic, fused_critics):
+_MESH_FUSED = ("fused_critics is a single-device path (the megakernel is not "
+               "shard_map'd over the dp mesh); use the default critic step "
+               "when training over multiple devices")
+
+
+def check_mesh_fused(fused_critics, mesh):
+    """JAX's guard: a truthy ``fused_critics`` on a mesh of more than one
+    device raises (hypad_tpu/train/trainer.py:296-300)."""
+    if fused_critics and mesh is not None and mesh.size > 1:
+        raise ValueError(_MESH_FUSED)
+
+
+def _critic_step(model, x, d, hyperbolic, fused_critics, mesh=None):
+    if fused_critics is False:
+        return critic_step_plain(model, x, d, hyperbolic, mesh)
     if fused_critics == "full":
         return critic_step_fused_full(model, x, d, hyperbolic)
-    if fused_critics is True:
-        bigx, bigz = critic_step_inputs(model, x, d, hyperbolic)
-        return critics_fused_grads(model["critic_x"], model["critic_z"],
-                                   bigx, bigz, d["m_cx"], d["m_cz"])
-    return critic_step_plain(model, x, d, hyperbolic)
+    bigx, bigz = critic_step_inputs(model, x, d, hyperbolic)
+    return critics_fused_grads(model["critic_x"], model["critic_z"],
+                               bigx, bigz, d["m_cx"], d["m_cz"])
 
 
-def critic_pass(state, X, d, *, lr, hyperbolic, fused_critics="full"):
+def critic_pass(state, X, d, *, lr, hyperbolic, fused_critics=False,
+                mesh=None):
     """The epoch's 5 critic passes: one critic step per row of
     ``d["critic_idx"]``, each followed by the two critics' Adam updates.
     ``d`` holds the epoch's draws on X's device. Returns the per-step
@@ -186,6 +219,7 @@ def critic_pass(state, X, d, *, lr, hyperbolic, fused_critics="full"):
             or fused_critics is False):
         raise ValueError('fused_critics must be "full", True or False, '
                          f"got {fused_critics!r}")
+    check_mesh_fused(fused_critics, mesh)
     model = state.model
     opt_cx, opt_cz, _ = make_optimizers(lr, hyperbolic)
     p_cx = critic_params(model["critic_x"], "critic_x")
@@ -195,7 +229,7 @@ def critic_pass(state, X, d, *, lr, hyperbolic, fused_critics="full"):
         x = X[d["critic_idx"][s]]
         lx, lz, gx, gz = _critic_step(model, x, {k: d[k][s]
                                                  for k in CRITIC_DRAWS},
-                                      hyperbolic, fused_critics)
+                                      hyperbolic, fused_critics, mesh)
         state.opt_cx = opt_cx.update(gx, state.opt_cx, p_cx)
         state.opt_cz = opt_cz.update(gz, state.opt_cz, p_cz)
         lxs.append(lx)
@@ -203,7 +237,7 @@ def critic_pass(state, X, d, *, lr, hyperbolic, fused_critics="full"):
     return lxs, lzs
 
 
-def generator_pass(state, X, d, *, lr, hyperbolic):
+def generator_pass(state, X, d, *, lr, hyperbolic, mesh=None):
     """The epoch's generator pass: autograd of ``generator_loss`` on each
     row of ``d["gen_idx"]``, then the generator's optimizer update.
     Returns the per-step (loss, rec) as two lists of 0-d tensors."""
@@ -217,7 +251,7 @@ def generator_pass(state, X, d, *, lr, hyperbolic):
                  "m_dec": d["gen_m_dec"][s]}
         with torch.enable_grad():
             loss, rec = generator_loss(model, x, hyperbolic, d["gen_z"][s],
-                                       masks)
+                                       masks, mesh)
             grads = torch.autograd.grad(loss, list(p_gen.values()))
         state.opt_gen = opt_gen.update(dict(zip(p_gen, grads)),
                                        state.opt_gen, p_gen)
@@ -226,16 +260,20 @@ def generator_pass(state, X, d, *, lr, hyperbolic):
     return lgs, recs
 
 
-def run_epoch(state, X, draws, *, lr, hyperbolic, fused_critics="full"):
+def run_epoch(state, X, draws, *, lr, hyperbolic, fused_critics=False,
+              mesh=None):
     """One epoch on ``X`` (N, W) float32 on the model's device, from
     ``draws`` as :func:`epoch_draws` makes them (on any device): the critic
     passes, then the generator pass. Updates ``state`` in place and returns
     ``(state, metrics)``: the mean critic_x, critic_z, decoder and
-    reconstruction losses as Python floats (reading them synchronises)."""
+    reconstruction losses as Python floats (reading them synchronises).
+    ``mesh``: every step's rows split over its ``dp`` devices; the model
+    and ``X`` lie on its lead device."""
     d = {k: v.to(X.device) for k, v in draws.items()}
     lxs, lzs = critic_pass(state, X, d, lr=lr, hyperbolic=hyperbolic,
-                           fused_critics=fused_critics)
-    lgs, recs = generator_pass(state, X, d, lr=lr, hyperbolic=hyperbolic)
+                           fused_critics=fused_critics, mesh=mesh)
+    lgs, recs = generator_pass(state, X, d, lr=lr, hyperbolic=hyperbolic,
+                               mesh=mesh)
     means = torch.stack([torch.stack(v).mean()
                          for v in (lxs, lzs, lgs, recs)]).tolist()
     state.epoch += 1
@@ -250,8 +288,8 @@ def epoch_generator(seed, epoch):
 
 
 def train_tadgan(model, X, *, lr, hyperbolic, batch_size, n_epochs, seed=0,
-                 device="cuda", fused_critics="full", log_cb=None,
-                 checkpoint_cb=None):
+                 device="cuda", fused_critics=False, log_cb=None,
+                 checkpoint_cb=None, mesh=None):
     """Train ``model`` (an ``init_tadgan`` ModuleDict, or a
     :class:`TrainState` to resume) on windows ``X`` (N, W) for the epochs
     from its ``epoch`` up to ``n_epochs``. ``log_cb(epoch, metrics)`` fires
@@ -259,8 +297,15 @@ def train_tadgan(model, X, *, lr, hyperbolic, batch_size, n_epochs, seed=0,
     after epoch ``n_epochs - 1``. Returns the final :class:`TrainState`.
     The model must lie on ``device``; a CUDA device without CUDA raises.
     ``X`` may be numpy or a tensor; a float32 tensor on ``device`` is used
-    as it is, without a copy."""
-    device = resolve_device(device)
+    as it is, without a copy.
+
+    ``mesh``: data parallelism over its ``dp`` devices (the module
+    docstring); ``device`` is then its lead device. The draws are the
+    unsharded run's, split by rows. A truthy ``fused_critics`` on a mesh
+    of more than one device raises JAX's ``ValueError`` before anything
+    else."""
+    check_mesh_fused(fused_critics, mesh)
+    device = resolve_device(device, mesh)
     state = (model if isinstance(model, TrainState)
              else init_train_state(model, lr, hyperbolic))
     params = list(state.model.parameters())
@@ -274,7 +319,7 @@ def train_tadgan(model, X, *, lr, hyperbolic, batch_size, n_epochs, seed=0,
                             batch_size, state.model)
         state, metrics = run_epoch(state, X, draws, lr=lr,
                                    hyperbolic=hyperbolic,
-                                   fused_critics=fused_critics)
+                                   fused_critics=fused_critics, mesh=mesh)
         if log_cb is not None:
             log_cb(state.epoch, metrics)
         if checkpoint_cb is not None and (state.epoch % 10 == 0
@@ -293,23 +338,37 @@ def make_fleet_optimizers(lr, hyperbolic):
     return adam_fleet(lr), adam_fleet(lr), opt_gen
 
 
-def fleet_valid(n_real, batch_size):
+def fleet_valid(n_real, batch_size, n_steps=None):
     """The step-validity masks of a fleet epoch, as JAX's ragged body makes
     them (hypad_tpu/train/trainer.py:468-476, :512-513): critic (S, 5 nb)
-    = ``tile(j < n_i // B, 5)`` and generator (S, nb), nb = max n_i // B."""
+    = ``tile(j < n_i // B, 5)`` and generator (S, nb), nb = ``n_steps``
+    (the padded row count // B), by default max n_i // B."""
     nb = np.asarray(n_real, np.int64) // batch_size
-    gen = np.arange(int(nb.max(initial=0)))[None, :] < nb[:, None]
+    if n_steps is None:
+        n_steps = int(nb.max(initial=0))
+    gen = np.arange(n_steps)[None, :] < nb[:, None]
     return np.tile(gen, (1, N_CRITICS)), gen
 
 
-def fleet_epoch_draws(seeds, epoch, n_real, batch_size, params):
+def fleet_epoch_draws(seeds, epoch, n_real, batch_size, params, n_pad=None):
     """Every draw of one fleet epoch, on the CPU, signal-major (S, steps,
     ...): signal i's are ``epoch_draws(epoch_generator(seeds[i], epoch),
     n_real[i], batch_size, params)``, the draws a single-model
     ``train_tadgan(seed=seeds[i])`` makes, laid out as JAX's ragged epoch
     lays its steps: critic pass p's step j at ``p * nb + j``, nb = max
-    n_i // B. Steps past a signal's schedule hold zeros (never used)."""
+    n_i // B. Steps past a signal's schedule hold zeros (never used).
+
+    ``n_pad``: the padded row count of a canonical fleet. Signal i's draws
+    are then ``epoch_draws(..., n_pad, batch_size, params,
+    n_real=n_real[i])``, masked shuffles over the padded rows as JAX's
+    canonical fleet draws them, nb = n_pad // B: not the draws of an
+    unpadded run."""
     B = batch_size
+    if n_pad is not None:
+        per = [epoch_draws(epoch_generator(int(sd), epoch), int(n_pad), B,
+                           params, n_real=int(n))
+               for sd, n in zip(seeds, n_real)]
+        return {k: torch.stack([d[k] for d in per]) for k in per[0]}
     nb = [int(n) // B for n in n_real]
     nb_max = max(nb, default=0)
     per = [epoch_draws(epoch_generator(int(sd), epoch), int(n), B, params)
@@ -357,20 +416,38 @@ def _masked_sum(values, valid):
 
 
 def run_fleet_epoch(state, Xs, n_real, draws, *, lr, hyperbolic,
-                    fused_critics="full"):
+                    fused_critics=False):
     """One epoch of S models on the padded windows ``Xs`` (S, N, W) float32
     on the models' device, signal i's real rows ``[0, n_real[i])``, from
-    ``draws`` as :func:`fleet_epoch_draws` lays them out (on any device).
-    ``state`` is a ``train.fleet.FleetState``, updated in place. Returns
-    ``(state, metrics)``, each metric (S,) numpy: the means over each
-    signal's real steps (sum / (5 nb_i) and sum / nb_i, as
+    ``draws`` as :func:`fleet_epoch_draws` lays them out (on any device;
+    their generator step count is the epoch's nb). ``state`` is a
+    ``train.fleet.FleetState``, updated in place. Returns ``(state,
+    metrics)``, each metric (S,) numpy: the means over each signal's real
+    steps (sum / (5 nb_i) and sum / nb_i, as
     hypad_tpu/train/trainer.py:537-545)."""
+    state, means = fleet_epoch_device(state, Xs, n_real, draws, lr=lr,
+                                      hyperbolic=hyperbolic,
+                                      fused_critics=fused_critics)
+    return state, fleet_metrics(means.cpu().numpy())
+
+
+def fleet_metrics(means):
+    """The metrics dict of :func:`fleet_epoch_device`'s (4, S) means."""
+    return dict(zip(("critic_x_loss", "critic_z_loss", "decoder_loss",
+                     "rec_loss"), means))
+
+
+def fleet_epoch_device(state, Xs, n_real, draws, *, lr, hyperbolic,
+                       fused_critics=False):
+    """:func:`run_fleet_epoch` without reading its result: returns
+    ``(state, means)``, the (4, S) means still on the device, so a caller
+    can enqueue several devices' epochs before it waits for any."""
     if not (fused_critics == "full" or fused_critics is True
             or fused_critics is False):
         raise ValueError('fused_critics must be "full", True or False, '
                          f"got {fused_critics!r}")
     B = draws["critic_idx"].shape[-1]
-    valid_c, valid_g = fleet_valid(n_real, B)
+    valid_c, valid_g = fleet_valid(n_real, B, draws["gen_idx"].shape[1])
     # step-major on the device, so each step's slice is contiguous
     d = {k: v.to(Xs.device).transpose(0, 1).contiguous()
          for k, v in draws.items()}
@@ -425,7 +502,5 @@ def run_fleet_epoch(state, Xs, n_real, draws, *, lr, hyperbolic,
                  _masked_sum(recs, vg) / denom_g]
     else:
         sums = [torch.zeros_like(denom_c)] * 4
-    means = torch.stack(sums).cpu().numpy()
     state.epoch += 1
-    return state, dict(zip(("critic_x_loss", "critic_z_loss",
-                            "decoder_loss", "rec_loss"), means))
+    return state, torch.stack(sums)

@@ -31,6 +31,7 @@ from hypad_tpu_torch.data import pipeline as tpipe
 from hypad_tpu_torch.detect import intervals as tiv
 from hypad_tpu_torch.detect import scorer as tsc
 from hypad_tpu_torch.detect.detector import detect_univariate
+from hypad_tpu_torch.parallel.mesh import make_mesh
 from hypad_tpu_torch.train.state_bridge import train_state_from_jax
 from hypad_tpu_torch.utils import artifacts
 from hypad_tpu_torch.utils import checkpoint as tck
@@ -453,6 +454,39 @@ def test_detect_univariate_is_the_cli_detection_on_arrays(tmp_path):
     np.testing.assert_array_equal(got["scores"], scores)
 
 
+def _write_swat(root):
+    """A SWaT corpus (tests/test_torch_mv_cli.py's): 400 rows of 12
+    features, a shift at rows 200-229 of the test split."""
+    os.makedirs(root / "SWAT", exist_ok=True)
+    rng = np.random.default_rng(0)
+    base = rng.standard_normal((400, 12)).cumsum(axis=0) * 0.01
+    for name, shift in (("SWaT_train_mine.csv", 0.0),
+                        ("SWaT_test_mine.csv", 3.0)):
+        vals = base.copy()
+        vals[200:230] += shift
+        df = pd.DataFrame(vals, columns=[f"s{i}" for i in range(12)])
+        df.insert(0, "Timestamp", np.arange(400))
+        df["Normal/Attack"] = "Normal"
+        if shift:
+            df["label"] = (np.arange(400) >= 200) & (np.arange(400) < 230)
+        df.to_csv(root / "SWAT" / name)
+
+
+def _cpu_mesh(monkeypatch):
+    """``make_mesh`` of the CLI patched to ``devices`` CPU shards."""
+    monkeypatch.setattr(
+        tcli, "make_mesh", lambda devices, **kw: (
+            make_mesh([torch.device("cpu")] * devices)
+            if isinstance(devices, int) else None))
+
+
+def _run_intervals(out_root):
+    """{run directory: anomalies.csv rows} under ``out_root``."""
+    return {os.path.relpath(d, out_root): pd.read_csv(
+                os.path.join(d, "anomalies.csv")).to_numpy()
+            for d, _, files in os.walk(out_root) if "anomalies.csv" in files}
+
+
 @pytest.mark.parametrize("argv,override,item", [
     (["sweep", "--canonical"], {}, "A10"),
     (["sweep", "--canonical", "--rec-errors", "point,dtw"], {}, "A10"),
@@ -462,24 +496,64 @@ def test_detect_univariate_is_the_cli_detection_on_arrays(tmp_path):
     (["sweep"], {"devices": 2}, "A13"),
 ])
 def test_unported_cli_options_raise_naming_their_roadmap_item(
-        tmp_path, argv, override, item):
-    """What of ``sweep`` stays unported: ``--canonical`` (A10), alone and
-    with the fleet grid's flags, univariate or multivariate; several
-    cards (A13). The fleet grid itself runs
-    (tests/test_torch_fleet_grid.py)."""
-    cfg = _config(tmp_path, "port", signals=["sig"], **override)
-    with pytest.raises(NotImplementedError, match=item):
-        tcli.main([*argv, "--config", cfg, "--device", "cpu"])
+        tmp_path, monkeypatch, argv, override, item):
+    """What of ``sweep`` was unported until ROADMAP A10 and A13 landed now
+    runs. ``--canonical`` (A10), alone and with the fleet grid's flags,
+    univariate or multivariate, trains the family at JAX's canonical
+    shapes and detects it: every run directory gets its final checkpoint
+    and its results, on a patched 2-shard CPU mesh too (alone: the same
+    intervals). ``devices: 2`` (A13) on a patched 2-shard CPU mesh gives
+    every run directory the intervals of ``devices: 1``."""
+    if override.get("dataset") == "SWAT":
+        _write_swat(tmp_path / "data")
+        extra = dict(signals=["multivariate"], signal_shape=12,
+                     save_plots=False)
+    else:
+        _write_signal(tmp_path / "data")
+        extra = dict(signals=["sig"])
+    if item == "A13":
+        _cpu_mesh(monkeypatch)
+        one = _config(tmp_path, "one", **extra)
+        tcli.main(["sweep", "--config", one, "--device", "cpu"])
+    cfg = _config(tmp_path, "port", **{**override, **extra})
+    results = tcli.main([*argv, "--config", cfg, "--device", "cpu"])
+    assert len(results) == 1
+    run = tcfg.run_dir(tcfg.load_config(cfg))
+    assert os.path.exists(os.path.join(run, "state_final.pt"))
+    if item == "A13":
+        got = _run_intervals(tmp_path / "port")
+        want = _run_intervals(tmp_path / "one")
+        assert list(got) == list(want) and got
+        for k in want:
+            np.testing.assert_array_equal(got[k][:, :2], want[k][:, :2])
+            np.testing.assert_allclose(got[k][:, 2], want[k][:, 2],
+                                       **INTERVAL_SCORE_TOL)
+    elif len(argv) > 2:
+        assert os.path.exists(os.path.join(run, "grid_results.csv"))
+    else:
+        # and on a patched 2-shard CPU mesh, the same intervals
+        assert os.path.exists(os.path.join(run, "anomalies.csv"))
+        _cpu_mesh(monkeypatch)
+        tcli.main([*argv, "--config", _config(
+            tmp_path, "mesh", devices=2, **{**override, **extra}),
+            "--device", "cpu"])
+        got = _run_intervals(tmp_path / "mesh")
+        want = _run_intervals(tmp_path / "port")
+        assert list(got) == list(want) and got
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
 
 
 @pytest.mark.parametrize("override,item", [
     ({"devices": 2}, "A13"), ({"save_plots": True}, None),
 ])
 def test_unported_config_keys_raise_naming_their_roadmap_item(
-        tmp_path, override, item):
-    """``devices`` above 1 raises naming A13; ``save_plots: true``, ported,
-    makes a univariate ``train`` draw ``anomalies.png`` into its run
-    directory, as JAX's does."""
+        tmp_path, monkeypatch, override, item):
+    """``devices: 2`` (A13, ported) trains and detects on a patched 2-shard
+    CPU mesh, each step's rows split over it: the same intervals and
+    confusion as ``devices: 1``; ``save_plots: true``, ported, makes a
+    univariate ``train`` draw ``anomalies.png`` into its run directory, as
+    JAX's does."""
     _write_signal(tmp_path / "data")
     cfg = _config(tmp_path, "port", **override)
     if item is None:
@@ -488,8 +562,13 @@ def test_unported_config_keys_raise_naming_their_roadmap_item(
         assert os.path.getsize(os.path.join(path, "anomalies.png")) > 0
         assert result["scores"].ndim == 1
         return
-    with pytest.raises(NotImplementedError, match=item):
-        tcli.main(["train", "--config", cfg, "--device", "cpu"])
+    _cpu_mesh(monkeypatch)
+    _, _, want = tcli.main(["train", "--config", _config(tmp_path, "one"),
+                            "--device", "cpu"])
+    _, _, got = tcli.main(["train", "--config", cfg, "--device", "cpu"])
+    _same_detection(got, want)
+    again = tcli.main(["detect", "--config", cfg, "--device", "cpu"])
+    _same_detection(again, got)
 
 
 def test_artifact_options_and_staging(tmp_path):

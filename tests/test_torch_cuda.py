@@ -275,7 +275,7 @@ def test_fleet_epoch_on_the_card_tracks_the_cpu(cuda):
         before = ck.critic_step_fused_full.launches
         state, _ = tr.run_fleet_epoch(state, torch.as_tensor(Xs, device=dev),
                                       n_real, draws, lr=5e-4,
-                                      hyperbolic=True)
+                                      hyperbolic=True, fused_critics="full")
         if dev.type == "cuda":
             assert ck.critic_step_fused_full.launches == before + 50
         out[dev.type] = state
@@ -647,3 +647,74 @@ def test_trace_names_k1_and_k2_on_the_card(cuda, tmp_path):
     assert "detect" in {e.get("name") for e in events}
     for name in ("mobius_linear_kernel", "kde_argmax_kernel"):
         assert any(re.search(rf"\b{name}\b", k) for k in kernels), kernels
+
+
+# ---------------------------------------------------------------------------
+# a mesh of two shards on one card (cuda:0 twice), or of two cards
+# ---------------------------------------------------------------------------
+
+def _two_shard_mesh():
+    from hypad_tpu_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    return make_mesh([torch.device("cuda", 0),
+                      torch.device("cuda", 1 if n >= 2 else 0)])
+
+
+@pytest.mark.parametrize("hyperbolic", [True, False])
+def test_sharded_detect_launches_per_shard_and_equals_unsharded(cuda,
+                                                                hyperbolic):
+    """The sharded detect on the card: K1 and K2 (hyperbolic) or K3
+    (Euclidean dtw, v2) once per shard where the unsharded call launches
+    them once; scores within JAX's sharded tolerance (3e-4 / 3e-5)."""
+    import numpy as np
+
+    from hypad_tpu_torch.detect.scorer import detect_scores
+
+    mesh = _two_shard_mesh()
+    model = init_tadgan(torch.Generator().manual_seed(3), 100,
+                        hyperbolic=hyperbolic, device="cuda:0")
+    X = np.random.default_rng(3).uniform(-1, 1, (2003, 100)).astype(
+        np.float32)
+    kw = dict(rec_error="dtw", kde_version="v1" if hyperbolic else "v2",
+              fetch_inference=False, device="cuda:0")
+    counters = [mobius_linear_kernel, kde_argmax_kernel, kde_argmax_v2_kernel]
+    before = [k.launches for k in counters]
+    want, _ = detect_scores(model, X, hyperbolic, "mult", **kw)
+    mid = [k.launches for k in counters]
+    got, _ = detect_scores(model, X, hyperbolic, "mult", mesh=mesh, **kw)
+    after = [k.launches for k in counters]
+    one = [m - b for m, b in zip(mid, before)]
+    assert [a - m for a, m in zip(after, mid)] == [2 * n for n in one]
+    assert one == ([2, 1, 0] if hyperbolic else [0, 0, 1])
+    np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-5)
+
+
+def test_sharded_epoch_matches_unsharded(cuda):
+    """One ``fused_critics`` False epoch on the 2-shard mesh against the
+    unsharded epoch, same weights and draws: losses within 1e-4 / 1e-5,
+    parameters within 5e-3 / 5e-4 (tests/test_trainer.py's dp bounds),
+    K1 twice the unsharded epoch's launches."""
+    import numpy as np
+
+    from hypad_tpu_torch.train import trainer as tr
+
+    X = torch.as_tensor(np.random.default_rng(4).uniform(
+        -1, 1, (256, 100)).astype(np.float32), device="cuda:0")
+    out = []
+    for mesh in (None, _two_shard_mesh()):
+        model = init_tadgan(torch.Generator().manual_seed(4), 100,
+                            hyperbolic=True, device="cuda:0")
+        draws = tr.epoch_draws(tr.epoch_generator(0, 0), 256, 32, model)
+        state = tr.init_train_state(model, 5e-4, True)
+        before = mobius_linear_kernel.launches
+        _, metrics = tr.run_epoch(state, X, draws, lr=5e-4, hyperbolic=True,
+                                  mesh=mesh)
+        out.append((model.state_dict(), metrics,
+                    mobius_linear_kernel.launches - before))
+    (p1, m1, k1), (p2, m2, k2) = out
+    assert k2 == 2 * k1 == 2 * 7 * (256 // 32)
+    for name in m1:
+        np.testing.assert_allclose(m2[name], m1[name], rtol=1e-4, atol=1e-5)
+    for k in p1:
+        torch.testing.assert_close(p2[k], p1[k], rtol=5e-3, atol=5e-4)

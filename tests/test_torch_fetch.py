@@ -1,7 +1,11 @@
 """Port parity: hypad_tpu_torch.data.fetch against the JAX package's fetch
 surface (tests/test_fetch.py's cases), on CSVs written to a tmpdir. The
 port returns ``{column: array}`` tables where JAX returns DataFrames; each
-column must equal the DataFrame's, values and dtype."""
+column must equal the DataFrame's, values and dtype.
+
+No test touches the network: every cache miss fetches from ``S3_URL``
+pointed at a ``file://`` directory in the tmpdir (``pandas.read_csv``
+reads ``file://`` too, so JAX's ``download`` runs on the same file)."""
 
 import numpy as np
 import pandas as pd
@@ -23,6 +27,18 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture
+def remote(tmp_path, monkeypatch):
+    """A ``file://`` bucket root for both packages' ``S3_URL``: a miss of
+    signal ``s`` reads ``remote/d3-ai-orion/s.csv``."""
+    root = tmp_path / "remote"
+    (root / tfetch.BUCKET).mkdir(parents=True)
+    url = "file://" + str(root) + "/{}/{}"
+    monkeypatch.setattr(tfetch, "S3_URL", url)
+    monkeypatch.setattr(jfetch, "S3_URL", url)
+    return root / tfetch.BUCKET
+
+
 def _same_table(got, frame):
     assert list(got) == list(frame.columns)
     for name in frame.columns:
@@ -42,12 +58,55 @@ def test_download_uses_cache(tmp_path):
                                      str(tmp_path)))
 
 
-def test_download_miss_raises_naming_the_cache_path(tmp_path):
+def test_download_miss_raises_naming_the_cache_path(tmp_path, remote):
+    """A miss whose fetch fails (the file is not in the bucket) raises
+    JAX's ``FileNotFoundError`` text, naming the cache path and the URL,
+    and creates no cache directory."""
+    cache = tmp_path / "cache"
     with pytest.raises(FileNotFoundError, match="not cached") as err:
-        tfetch.download("never-existing-signal-xyz", str(tmp_path))
-    assert str(tmp_path / "never-existing-signal-xyz.csv") in str(err.value)
+        tfetch.download("never-existing-signal-xyz", str(cache))
+    assert str(cache / "never-existing-signal-xyz.csv") in str(err.value)
+    assert "remote fetch from file://" in str(err.value)
+    with pytest.raises(FileNotFoundError) as jerr:
+        jfetch.download("never-existing-signal-xyz", str(cache))
+    assert str(err.value).split(" failed (")[0] == \
+        str(jerr.value).split(" failed (")[0]
+    assert not cache.exists()
     with pytest.raises(FileNotFoundError, match="not cached"):
-        tfetch.download_demo(str(tmp_path), n=2)
+        tfetch.download_demo(str(cache), n=2)
+
+
+@pytest.mark.parametrize("name", ["sig", "s3://d3-ai-orion/sub/sig.csv"])
+def test_download_miss_fetches_and_caches_as_jax(tmp_path, remote, name):
+    """A miss reads the remote CSV and writes the cache in pandas'
+    ``to_csv(index=False)`` layout: the port's cache file is byte for byte
+    JAX's, its table JAX's DataFrame, and the next call reads the cache
+    (the remote file gone)."""
+    n = 57
+    rng = np.random.default_rng(3)
+    # six significant digits, which pandas' fast float parser reads
+    # correctly rounded, as the port's reader always does
+    values = np.array([float(f"{v:.6g}") for v in
+                       rng.standard_normal(n) * 10.0 ** rng.integers(-7, 9,
+                                                                      n)])
+    values[[4, 11]] = np.nan
+    values[5] = 2.0
+    frame = pd.DataFrame({"timestamp": 1_222_819_200 + 21600 * np.arange(n),
+                          "value": values,
+                          "tag": [f"t{i % 3}" for i in range(n)]})
+    if name.startswith("s3://"):
+        (remote / "sub").mkdir()
+        frame.to_csv(remote / "sub" / "sig.csv", index=False)
+    else:
+        frame.to_csv(remote / "sig.csv", index=False)
+    got = tfetch.download(name, str(tmp_path / "port"))
+    want = jfetch.download(name, str(tmp_path / "jax"))
+    _same_table(got, want)
+    assert ((tmp_path / "port" / "sig.csv").read_bytes()
+            == (tmp_path / "jax" / "sig.csv").read_bytes())
+    for path in remote.rglob("sig.csv"):
+        path.unlink()
+    _same_table(tfetch.download(name, str(tmp_path / "port")), want)
 
 
 @pytest.mark.parametrize("n,test_size", [(10, 0.3), (7, 0.5), (3, 0.1)])
@@ -115,7 +174,7 @@ def test_nasa_registry_and_constants():
     assert tfetch.casas_anomalies is casas_anomalies
 
 
-def test_download_demo_reads_the_cache(tmp_path):
+def test_download_demo_reads_the_cache(tmp_path, remote):
     for sig in jfetch.NASA_SIGNALS[:2]:
         for part in ("-train", "-test"):
             pd.DataFrame({"timestamp": [1, 2], "value": [0.0, 1.0]}).to_csv(

@@ -26,6 +26,7 @@ from hypad_tpu_torch.manifold import kernels as mk
 from hypad_tpu_torch.models import fleet as mf
 from hypad_tpu_torch.models.tadgan import init_tadgan
 from hypad_tpu_torch.optim import radam
+from hypad_tpu_torch.parallel.mesh import make_mesh
 from hypad_tpu_torch.train import critic_kernel as ck
 from hypad_tpu_torch.train import fleet as fl
 from hypad_tpu_torch.train import state_bridge
@@ -348,8 +349,10 @@ def test_train_fleet_cadence_staging_and_refusals():
     """log_cb after every epoch with (S,) finite metrics; checkpoint_cb
     where JAX's chunks end (hypad_tpu/train/fleet.py:355-366): epochs 10
     and 11 of 12, epoch 2 of 3 resumed from 1; the staged stack is the
-    padded windows; mixed lengths with ``ragged=False``, ``mesh`` and
-    ``canonical`` raise."""
+    padded windows; mixed lengths with ``ragged=False`` raise, and so does
+    ``canonical`` with it; ``mesh`` (a 2-shard CPU mesh) and ``canonical``
+    (2 signals padded to JAX's rungs: 4 signals of 128 windows) run, the
+    real signals' staged windows kept, each state with its pad signals."""
     Xl = [_windows(48, 0), _windows(32, 1)]
     logs, ckpts = [], []
     state = fl.init_fleet_state([_model(i, False) for i in range(2)], LR,
@@ -371,7 +374,18 @@ def test_train_fleet_cadence_staging_and_refusals():
                    n_epochs=3, start_epoch=1, device="cpu",
                    checkpoint_cb=lambda e, s: ckpts.append(e))
     assert ckpts == [2] and state.epoch == 3
-    for kw in ({"ragged": False}, {"mesh": object()}, {"canonical": True}):
-        with pytest.raises((ValueError, NotImplementedError)):
+    for kw in ({"ragged": False}, {"ragged": False, "canonical": True}):
+        with pytest.raises(ValueError):
             fl.train_fleet(state, Xl, lr=LR, hyperbolic=False, batch_size=B,
                            n_epochs=4, device="cpu", **kw)
+    mesh = make_mesh([torch.device("cpu")] * 2)
+    for kw, shape in (({"mesh": mesh}, (2, 48, W)),
+                      ({"canonical": True}, (4, 128, W)),
+                      ({"mesh": mesh, "canonical": True}, (4, 128, W))):
+        out, (Xs, n_real) = fl.train_fleet(
+            fl.init_fleet_state([_model(i, False) for i in range(2)], LR,
+                                False), Xl, lr=LR, hyperbolic=False,
+            batch_size=B, n_epochs=1, device="cpu", return_staged=True, **kw)
+        assert tuple(Xs.shape) == shape and list(n_real) == [48, 32], kw
+        assert out.n_signals == shape[0] and out.epoch == 1, kw
+        np.testing.assert_array_equal(Xs[1, :32].numpy(), Xl[1])

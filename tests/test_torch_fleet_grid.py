@@ -43,6 +43,7 @@ from hypad_tpu.detect import scorer as jsc
 from hypad_tpu.models.tadgan import init_tadgan
 from hypad_tpu.ops import kde as jkde
 from hypad_tpu_torch import bridge
+from hypad_tpu_torch.parallel.mesh import make_mesh
 from hypad_tpu_torch import cli as tcli
 from hypad_tpu_torch.detect import detector as tdet
 from hypad_tpu_torch.detect import scorer as tsc
@@ -208,8 +209,9 @@ def test_fleet_grid_matches_jax_fleet_grid(monkeypatch, kind, canonical):
 
 def test_fleet_grid_chunks_change_no_value(monkeypatch):
     """A budget forced down to two signals a chunk (the tail chunk slid
-    back over the first) gives the one-call grid bit for bit, and so does
-    the staged stack; ``mesh`` raises naming ROADMAP A13."""
+    back over the first) gives the one-call grid bit for bit, and so do
+    the staged stack and the chunks sharded over a 2-shard CPU mesh (each
+    chunk's signals split over it)."""
     stacked, X_list, hyperbolic, mv = _family("euclidean")
     P = bridge.from_jax_stacked_params(stacked, device="cpu")
     args = (P, X_list, hyperbolic, ["mult", "rec"], ["point", "area"])
@@ -226,8 +228,12 @@ def test_fleet_grid_chunks_change_no_value(monkeypatch):
         for cell in a:
             np.testing.assert_array_equal(a[cell], b[cell])
             np.testing.assert_array_equal(a[cell], c[cell])
-    with pytest.raises(NotImplementedError, match="A13"):
-        tsc.detect_scores_fleet_grid(*args, mesh=object(), device="cpu")
+    sharded = tsc.detect_scores_fleet_grid(
+        *args, mesh=make_mesh([torch.device("cpu")] * 2))
+    for a, d in zip(full, sharded):
+        assert list(a) == list(d)
+        for cell in a:
+            np.testing.assert_array_equal(a[cell], d[cell])
 
 
 def test_grid_ranking_orders_cells_as_the_sweep_prints_them():

@@ -3,11 +3,13 @@
 bitwise, on the CPU.
 
 The serial ``find_threshold`` runs scipy's ``fmin`` in both packages. The
-batched path is the numpy replica of that Nelder-Mead, which JAX's
-``_find_thresholds_batch`` runs when its native engine is not built and
-holds bitwise to the engine when it is; the port runs the replica only, and
-is held against JAX both ways. The fixtures are JAX's own
-(tests/test_intervals_batch.py)."""
+batched path is the native C++ engine (``data/native.py``) or, where it is
+not built, the numpy replica of that Nelder-Mead, in both packages; each
+batch case runs the port on both engines (``ENGINES``) and holds each
+against JAX, itself on its engine and on its replica. The fixtures are
+JAX's own (tests/test_intervals_batch.py)."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -19,6 +21,14 @@ from hypad_tpu_torch.detect import intervals as tiv
 
 DYNAMIC_KW = dict(window_size_portion=0.33, window_step_size_portion=0.1,
                   fixed_threshold=False)
+ENGINES = ("native", "numpy")
+_BATCH = tiv._find_thresholds_batch
+
+
+def _on_engine(monkeypatch, engine):
+    """Make the port's batched thresholds run on ``engine``."""
+    monkeypatch.setattr(tiv, "_find_thresholds_batch",
+                        functools.partial(_BATCH, engine=engine))
 
 
 @pytest.fixture(autouse=True)
@@ -71,8 +81,8 @@ def test_find_threshold_and_z_cost_are_bitwise_jax(seed):
 @pytest.mark.parametrize("jax_engine", ["native", "numpy"])
 def test_find_thresholds_batch_is_bitwise_jax(jax_engine, monkeypatch):
     """The batched Nelder-Mead against JAX's, with JAX on its native engine
-    and on its numpy replica; and within 1e-9 of the serial thresholds,
-    as JAX's own test holds its batch."""
+    and on its numpy replica, the port on each of ``ENGINES``; and within
+    1e-9 of the serial thresholds, as JAX's own test holds its batch."""
     if jax_engine == "numpy":
         monkeypatch.setattr(jnative, "find_thresholds",
                             lambda *a, **k: None)
@@ -80,29 +90,33 @@ def test_find_thresholds_batch_is_bitwise_jax(jax_engine, monkeypatch):
     W = _score_matrix(rng, 37, 463)
     W[5] = 1.0                      # constant: std 0, every cost inf
     W[6, ::2] = np.nan
-    got = tiv._find_thresholds_batch(W)
     want = jiv._find_thresholds_batch(W)
-    np.testing.assert_array_equal(got, want)
+    for engine in ENGINES:
+        got = tiv._find_thresholds_batch(W, engine=engine)
+        np.testing.assert_array_equal(got, want, err_msg=engine)
     for c in (0, 1, 17, 36):
         np.testing.assert_allclose(got[c], tiv.find_threshold(W[c]),
                                    rtol=1e-9)
 
 
 @pytest.mark.parametrize("seed", [1, 2, 3])
-def test_dynamic_find_anomalies_batch_matches_jax(seed):
+def test_dynamic_find_anomalies_batch_matches_jax(seed, monkeypatch):
     """JAX's dynamic parity fixture: 11 cells, ragged tail windows,
-    ``lower_threshold`` on seed 2. The batch is bitwise JAX's batch on
-    every cell; on two cells the serial ``find_anomalies`` is bitwise
-    JAX's serial one and equal to the batch."""
+    ``lower_threshold`` on seed 2. The batch, on each of ``ENGINES``, is
+    bitwise JAX's batch on every cell; on two cells the serial
+    ``find_anomalies`` is bitwise JAX's serial one and equal to the
+    batch."""
     rng = np.random.default_rng(seed)
     C, T = 11, 1400 + 37 * seed
     E = _score_matrix(rng, C, T)
     idx = np.arange(T) * 21600
     kw = dict(DYNAMIC_KW, lower_threshold=(seed == 2))
-    got = tiv.find_anomalies_batch(E, idx, **kw)
     want = jiv.find_anomalies_batch(E, idx, **kw)
     assert sum(len(w) for w in want) > 0, "degenerate fixture"
-    _same(got, want, "batch")
+    for engine in ENGINES:
+        _on_engine(monkeypatch, engine)
+        got = tiv.find_anomalies_batch(E, idx, **kw)
+        _same(got, want, f"batch ({engine})")
     for c in (0, 10):
         serial = tiv.find_anomalies(E[c], idx, **kw)
         assert np.array_equal(serial, jiv.find_anomalies(E[c], idx, **kw))
@@ -128,7 +142,7 @@ def test_dynamic_batch_takes_per_cell_indexes_as_jax():
 
 
 @pytest.mark.parametrize("seed", [4, 5])
-def test_dynamic_batch_equals_serial_cell_by_cell(seed):
+def test_dynamic_batch_equals_serial_cell_by_cell(seed, monkeypatch):
     """Every cell of a small grid, with exact-zero runs, a constant cell and
     a run in the truncated tail window, ``lower_threshold`` on one seed
     (threshold windows a third of the series, a quarter of one apart): the
@@ -142,6 +156,10 @@ def test_dynamic_batch_equals_serial_cell_by_cell(seed):
     index = 1e9 + 60.0 * np.arange(T + 99)
     kw = dict(DYNAMIC_KW, window_step_size_portion=0.25,
               lower_threshold=(seed == 5))
-    got = tiv.find_anomalies_batch(E, index, **kw)
-    _same(got, [tiv.find_anomalies(E[c], index, **kw) for c in range(C)])
-    _same(got, jiv.find_anomalies_batch(E, index, **kw), "against JAX")
+    serial = [tiv.find_anomalies(E[c], index, **kw) for c in range(C)]
+    want = jiv.find_anomalies_batch(E, index, **kw)
+    for engine in ENGINES:
+        _on_engine(monkeypatch, engine)
+        got = tiv.find_anomalies_batch(E, index, **kw)
+        _same(got, serial, f"against serial ({engine})")
+        _same(got, want, f"against JAX ({engine})")

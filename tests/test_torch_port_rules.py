@@ -39,6 +39,50 @@ def test_no_jax_or_reference_package_anywhere(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def _code_strings(tree):
+    """The string constants of ``tree`` that are not docstrings."""
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.FunctionDef,
+                                 ast.AsyncFunctionDef, ast.ClassDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_code_reads_the_jax_package_or_its_native_directory(path):
+    """No string the port's code uses names a path of the JAX package or
+    of its ``native/`` directory: the port builds its host engine from its
+    own ``csrc/host/`` copy and reads no file of ``hypad_tpu/``. (Comments
+    and docstrings may cite the JAX source they port.)"""
+    import re
+
+    tree = ast.parse(path.read_text())
+    # a "file.py:line" citation (a kernel's ``replaces``) reads nothing
+    bad = [s for s in _code_strings(tree)
+           if ("hypad_tpu/" in s.replace("hypad_tpu_torch/", "")
+               and not re.fullmatch(r"hypad_tpu/[\w/]+\.py:\d+", s))
+           or "native/" in s or "libhypad_native" in s]
+    # nor is a "native" directory joined into a path
+    bad += [ast.unparse(node) for node in ast.walk(tree)
+            if isinstance(node, ast.Call)
+            and ast.unparse(node.func).endswith(("path.join", "Path"))
+            and any(isinstance(a, ast.Constant) and a.value == "native"
+                    for a in node.args)]
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
+def test_host_engine_sources_include_only_system_headers():
+    """csrc/host/*.cpp, the port's copy of the native engine, includes
+    nothing but the C++ library: no file outside the port."""
+    for src in sorted((PORT / "csrc" / "host").glob("*.cpp")):
+        includes = [line for line in src.read_text().splitlines()
+                    if line.startswith("#include")]
+        assert includes and all("<" in line for line in includes), src
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_no_optional_imports_at_module_top(path):
     tree = ast.parse(path.read_text())

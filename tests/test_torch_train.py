@@ -336,3 +336,24 @@ def test_reconstruction_loss_gradient_matches_jax_near_the_target():
                                rtol=1e-5)
     rel = np.abs(grad(tst.acosh_poincare_distance) - want) / np.abs(want)
     assert rel.max() > 1e-2
+
+
+def test_fused_critics_defaults_are_jax():
+    """C3: every port default of ``fused_critics`` is JAX's (False, the
+    autograd step): ``train_tadgan`` and ``train_fleet`` against JAX's
+    signatures, and the port's own ``run_epoch``, ``run_fleet_epoch`` and
+    ``critic_pass`` with them, so a caller who passes nothing trains as
+    JAX's does."""
+    import inspect
+
+    from hypad_tpu.train import fleet as jfl
+    from hypad_tpu_torch.train import fleet as tfl
+
+    def default(fn):
+        return inspect.signature(fn).parameters["fused_critics"].default
+
+    want = default(jtr.train_tadgan)
+    assert want is False and default(jfl.train_fleet) is False
+    for fn in (ttr.train_tadgan, tfl.train_fleet, ttr.run_epoch,
+               ttr.run_fleet_epoch, ttr.critic_pass):
+        assert default(fn) is want, fn.__name__
