@@ -117,7 +117,8 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    K5 and K4 (B = 64, one signal and three in one launch) at F = 150 and
    256 against their plain versions (K2 and K3: use flags and fallback
    rows bitwise, every other differing row a float64 density tie), and
-   at F = 123 the narrow instances, each named by the profiler; the main
+   at F = 123 the narrow instances (K1 also at SWaT's F = 51), each named
+   by the profiler; the main
    path, ``cli train`` (1 epoch) then ``detect`` on a WADI-format pair
    written here (8,000 training and 50,000 test rows of 123 features,
    three level-shift runs) at configs/multivariate.yaml's widths
@@ -202,7 +203,13 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    plain version, its bound and the narrow instance at F = 100; each
    any-width instance beside its plain version and its bound at the
    width-300 path's shapes, and K1 at (50,000, 256) and at the WADI
-   training shapes (64 and 128 rows of 123);
+   training shapes (64 and 128 rows of 123); then K1 at every training
+   shape, (64, F), (128, F) and (3, 64, F) for F = 51, 100, 123, 150 and
+   256, and at (20,000, 100) and (50,000, 150): within 1e-6 of plain, each
+   signal bitwise its own launch, bitwise the parent's K1 where built,
+   timed in turns beside the parent's, the zero-padded yardstick's (51 and
+   123 padded to 52 and 124, the width the bulk copy takes) and an empty
+   kernel's, with the plain version's time and the bound;
 13. report: one JSON line of the kernels (the wide instances as
    ``{name}_wide`` entries, the any-width ones as ``{name}_xwide``) (with
    each signal-axis kernel's
@@ -2473,8 +2480,9 @@ def mv_kernel_checks(device):
     out = {"k1_err": 0.0, "flips": {"kde_argmax": 0, "kde_argmax_v2": 0},
            "k5_err": 0.0, "k4_err": 0.0}
     # K1: the generator step's 2B and B rows and a detect call's 50,000,
-    # at the wide widths and at the main path's F = 123 (narrow instance)
-    for F, rows in [(F, r) for F in MV_WIDE + (WADI_F,)
+    # at the wide widths and at WADI's F = 123 and SWaT's 51 (narrow
+    # instance)
+    for F, rows in [(F, r) for F in MV_WIDE + (WADI_F, SWAT_F)
                     for r in (2 * MV_BATCH, MV_BATCH, MV_ROWS)]:
         gen = torch.Generator().manual_seed(rows + F)
         head = init_tadgan(gen, F, hyperbolic=True,
@@ -4084,6 +4092,69 @@ def xwide_kernel_timing(device):
     return out
 
 
+def k1_training_timing(device, libs):
+    """K1 at the generator step's shapes, (64, F), (128, F) and (3, 64, F)
+    on the signal axis for F = 51, 100, 123, 150 and 256, and at the
+    detector's (20,000, 100) and (50,000, 150): the kernel within
+    1e-6 of plain, each signal bitwise its own launch, and bitwise the
+    parent's K1 where it was built (a mismatch fails); its time beside the
+    parent's, the zero-padded yardstick's at 51 and 123 (x and W padded to
+    the next width the bulk copy takes, 52 and 124, through the parent's
+    kernel where built, else the tree's), the plain version's, an empty
+    kernel's and the bound. Returns {"empty_kernel_ms": t, "shapes":
+    {shape: record}}."""
+    from hypad_tpu_torch.manifold import kernels as mk
+    from hypad_tpu_torch.profile_detect import cuda_ms
+    from hypad_tpu_torch.profile_k1 import (
+        bulk_width,
+        check_case,
+        in_turns,
+        k1_case,
+        launcher,
+        padded,
+        training_shapes,
+    )
+    from hypad_tpu_torch.profile_kernels import empty_launch
+
+    parent = (launcher(libs["mobius_linear_parent"])
+              if "mobius_linear_parent" in libs else None)
+    empty_ms = in_turns({"empty": empty_launch(libs["empty"].empty_forward)},
+                        100)["empty"]
+    print(f"[timing] K1 at the training shapes; an empty kernel, launch to "
+          f"end: {empty_ms:.5f} ms")
+    shapes = {}
+    for label, rows, F, signals in training_shapes():
+        x, w, b = k1_case(rows, F, signals, device)
+        err, same = check_case(mk.mobius_linear_kernel, x, w, b, label,
+                               parent)
+        if same is False:
+            fail(f"K1 at {label} is not bitwise the parent's K1")
+        calls = {"ms": lambda: mk.mobius_linear_kernel(x, w, b)}
+        if parent is not None:
+            calls["parent_ms"] = lambda: parent(x, w, b)
+        pad = bulk_width(F) if bulk_width(F) != F else None
+        if pad is not None:
+            xp, wp = padded(x, w, pad)
+            yard = parent or mk.mobius_linear_kernel
+            calls["yardstick_ms"] = lambda: yard(xp, wp, b)
+        k = in_turns(calls, 100)
+        k.update(max_abs_err=err, bitwise_parent=same, padded_to=pad,
+                 plain_ms=cuda_ms(lambda: mk.mobius_linear(x, w, b), 20))
+        k["bytes"], k["ops"] = (v * (signals or 1)
+                                for v in k1_cost(rows, F, F))
+        shapes[label] = bound(k)
+        old = (f"parent {k['parent_ms']:.5f} ms" if parent is not None
+               else "parent not built")
+        yard_text = ("no yardstick" if pad is None else
+                     f"yardstick (padded to {pad}) {k['yardstick_ms']:.5f} ms")
+        print(f"[timing] K1 mobius_linear {label}: kernel {k['ms']:.5f} ms, "
+              f"{old}, {yard_text}, plain {k['plain_ms']:.5f} ms, empty "
+              f"kernel {empty_ms:.5f} ms, bound "
+              f"{k['bound_ms']:.6f} ms ({k['bound_by']}); max abs diff "
+              f"{err:.3e}; bitwise the parent: {same}")
+    return {"empty_kernel_ms": empty_ms, "shapes": shapes}
+
+
 def warm_detect_ms(calls, rounds=7):
     """{label: [wall ms of each round]} of warm detect calls, each
     ``calls[label]()`` once a round, in turns, after one warm-up each.
@@ -4320,6 +4391,7 @@ def main():
     epochs, k4, k5 = timed(phase_train_timing, device, train["X"])
     mv_timing = timed(mv_kernel_timing, device)
     xw_timing = timed(xwide_kernel_timing, device)
+    k1_train = timed(k1_training_timing, device, libs)
     paths = {"detect": launches,
              **{f"detect_euclidean_{r}": eucl_launches[r]
                 for r in REC_ERRORS},
@@ -4351,6 +4423,7 @@ def main():
          "ms": k1["ms"], "kernel_ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
          "ms_by_shape": k1["ms_by_shape"],
+         "training_shapes": k1_train["shapes"],
          "empty_kernel_ms": k1["empty_kernel_ms"],
          "cublas_matmul_ms_informative": k1["cublas_matmul_ms"],
          "library_ms": None},
@@ -4514,6 +4587,7 @@ def main():
                "a12": a12_info,
                "a13": a13_info,
                "k1_untimed_shapes": xw_timing["k1_untimed_shapes"],
+               "k1_training_shapes": k1_train,
                "kernels": kernels,
                "phase_seconds": phase_s,
                "seconds": time.perf_counter() - t_start}

@@ -1,6 +1,9 @@
-// One-dimensional bulk copies (cp.async.bulk) from device memory into shared
-// memory, completed on an mbarrier, for Hopper (sm_90). One thread issues a
-// copy; every thread waits on the barrier's phase.
+// Asynchronous copies from device memory into shared memory, for Hopper
+// (sm_90): one-dimensional bulk copies (cp.async.bulk), completed on an
+// mbarrier, where one thread issues a copy and every thread waits on the
+// barrier's phase; and per-thread copies of 4 or 16 bytes (cp.async), which
+// a thread issues without waiting and completes with cp_async_wait or
+// cp_async_wait_all.
 #pragma once
 
 #include <stdint.h>
@@ -60,6 +63,41 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// Copy kBytes (4 or 16; both addresses aligned to it) from device memory
+// to shared memory without waiting.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  static_assert(kBytes == 4 || kBytes == 16, "cp.async copies 4 or 16 bytes");
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src)
+                 : "memory");
+}
+
+// Close this thread's group of the cp.async copies issued since the last.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most kPending of this thread's committed groups are in
+// flight. The completed copies are visible to this thread; sync the
+// threads that read them.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// Wait for every cp.async copy this thread issued, committed or not.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 }  // namespace hypad

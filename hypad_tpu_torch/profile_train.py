@@ -1,17 +1,23 @@
 """Where the time of one warm training epoch goes, on a GPU.
 
     python3 -m hypad_tpu_torch.profile_train [--fused-critics full|true|false]
+        [--width F --windows N]
 
 The A1-sized input of ``chip_smoke.py`` (a 1,420-sample synthetic signal,
 1,320 windows of 100, batch 64: 100 critic steps and 20 generator steps an
 epoch) through the hyperbolic trainer at the published widths, weights from
-seed 0. Two views of a warm epoch:
+seed 0. ``--width`` and ``--windows`` set another input shape: ``--width
+123 --windows 8000 --fused-critics false`` is the WADI-width epoch of
+``chip_smoke.py``'s [mv] (configs/multivariate.yaml's widths; the rows are
+windows of a synthetic signal, so only the shapes are WADI's). Two views of
+a warm epoch:
 
 * phases: the epoch's draws (made on the CPU and copied to the card), the
   critic passes and the generator pass, each timed on the host clock up to
   a synchronise;
 * trace: ``torch.profiler`` over warm epochs, the kernels summed by device
-  time, and the device's busy share of the wall time.
+  time (K1's instances also together), and the device's busy share of the
+  wall time.
 
 Prints one line per phase and per top kernel, then one JSON line; writes
 the profiler's table under ``chiprun_out/``. Needs CUDA.
@@ -35,6 +41,10 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--fused-critics", choices=sorted(MODES),
                         default="full")
+    parser.add_argument("--width", type=int, default=100,
+                        help="window width (a multivariate feature count)")
+    parser.add_argument("--windows", type=int, default=None,
+                        help="windows an epoch (default: A1's 1,320)")
     args = parser.parse_args(argv)
     fused = MODES[args.fused_critics]
 
@@ -50,7 +60,8 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = resolve_device("cuda")
-    X = torch.as_tensor(synthetic_detect_input(A1_WINDOWS, 100,
+    X = torch.as_tensor(synthetic_detect_input(args.windows or A1_WINDOWS,
+                                               args.width,
                                                anomaly_len=50)[0],
                         device=device)
     model = init_tadgan(torch.Generator().manual_seed(0), X.shape[1],
@@ -98,6 +109,10 @@ def main(argv=None):
               f"{name[:110]}")
     device_ms = sum(ms for _, ms, _ in top)
     launches = sum(c for _, _, c in top)
+    k1_ms = sum(ms for name, ms, _ in top if "mobius_linear" in name)
+    k1_launches = sum(c for name, _, c in top if "mobius_linear" in name)
+    print(f"[kernel] K1 (every mobius_linear instance): {k1_ms:.4f} "
+          f"ms/epoch in {k1_launches:g} launches")
     print(f"[trace] wall {wall_ms:.3f} ms/epoch under the profiler, device "
           f"busy {busy_share:.4f} of it, device work {device_ms:.3f} "
           f"ms/epoch in {launches:g} launches")
@@ -108,6 +123,8 @@ def main(argv=None):
         "phase_runs_ms": phases, "wall_ms_under_profiler": wall_ms,
         "busy_share_under_profiler": busy_share,
         "device_ms_per_epoch": device_ms, "launches_per_epoch": launches,
+        "width": X.shape[1], "k1_ms_per_epoch": k1_ms,
+        "k1_launches_per_epoch": k1_launches,
         "top_kernels": [{"name": n, "ms": ms, "launches": c}
                         for n, ms, c in top[:15]]}))
 

@@ -344,6 +344,46 @@ def test_mobius_linear_wide_kernel_signal_axis_is_each_signals_launch(cuda):
     assert (got - mobius_linear(x, w, b)).abs().max().item() <= 1e-6
 
 
+@pytest.mark.parametrize("B,D", [(64, 51), (128, 51), (64, 123),
+                                 (128, 123)])
+def test_mobius_linear_kernel_at_the_multivariate_training_shapes(cuda, B,
+                                                                  D):
+    """K1 at the generator step's 64 and 128 rows at SWaT's and WADI's
+    feature counts (the few-rows path, W staged by cp.async): within 1e-6
+    of the plain version, one launch, and by the profiler the narrow
+    kernel alone."""
+    g = torch.Generator().manual_seed(B + D)
+    head = init_tadgan(g, D, hyperbolic=True,
+                       device=cuda)["decoder"].hyperbolic_linear
+    w, b = head.w.detach(), head.b.detach()
+    x = (torch.rand(B, D, generator=g) * 2 - 1).to(cuda)
+    got, names, launched = _traced(lambda: mobius_linear_kernel(x, w, b),
+                                   mobius_linear_kernel)
+    assert launched == 1
+    assert len(names) == 1 and "mobius_linear_kernel" in names[0]
+    assert (got - mobius_linear(x, w, b)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("D", [123, 150])
+def test_mobius_linear_kernel_signal_axis_at_the_training_shapes(cuda, D):
+    """Three signals of 64 rows at WADI's and CASAS's widths in one launch
+    (narrow and wide few-rows paths): each signal bitwise its own launch,
+    within 1e-6 of the plain version."""
+    g = torch.Generator().manual_seed(D)
+    heads = [init_tadgan(g, D, hyperbolic=True, device=cuda)["decoder"]
+             .hyperbolic_linear for _ in range(3)]
+    w = torch.stack([h.w.detach() for h in heads])
+    b = torch.stack([h.b.detach() for h in heads])
+    x = (torch.rand(3, 64, D, generator=g) * 2 - 1).to(cuda)
+    before = mobius_linear_kernel.launches
+    got = mobius_linear_kernel(x, w, b)
+    assert mobius_linear_kernel.launches == before + 1
+    for i in range(3):
+        assert torch.equal(got[i], mobius_linear_kernel(x[i].contiguous(),
+                                                        w[i], b[i]))
+    assert (got - mobius_linear(x, w, b)).abs().max().item() <= 1e-6
+
+
 @pytest.mark.parametrize("N,W,const,nans", [
     (50000, 150, False, False), (300, 150, True, False),
     (300, 150, False, True), (50000, 256, False, False),

@@ -103,7 +103,8 @@ def _mobius_case(B, D, boundary=False):
 
 
 @pytest.mark.parametrize("B,D,boundary", [(64, 100, False), (5, 100, False),
-                                          (130, 64, False), (8, 100, True)])
+                                          (130, 64, False), (8, 100, True),
+                                          (64, 51, False), (128, 123, False)])
 def test_mobius_linear_matches_jax(B, D, boundary):
     w, b, x = _mobius_case(B, D, boundary)
     jp = {"w": jnp.asarray(w), "b": jnp.asarray(b)}
