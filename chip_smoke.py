@@ -11,7 +11,7 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    (one process per source, all at once) and print the ptxas report; an
    empty kernel (the launch-to-end yardstick) and, where a parent commit's
    sources are unpacked under _checkout/parent (gitignored), the parent's
-   K1, K2 and K3 build in the same round;
+   K1, K2, K3, K4 and K5 build in the same round;
 2. kernels against their plain PyTorch versions on the card: the fused
    MobiusLinear forward (K1) at the detect and training shapes (max abs
    diff <= 1e-6; the diff to the parent's K1 printed where it was built);
@@ -29,7 +29,8 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    blocks, against their plain autograd versions (B = 64 hyperbolic, B = 64
    Euclidean, B = 13, B = 3 with fewer rows than a cluster's blocks, B =
    100 with rows split unevenly; the JAX tests' tolerances; two launches
-   bitwise equal);
+   bitwise equal), after a line a kernel instance (narrow, wide,
+   any-width) of the shared memory a block holds and how it is split;
 3. detect path: a seeded synthetic univariate signal with 3 injected
    anomalies, windowed to 20,000 windows of width 100, through
    ``detect_univariate(..., combination="mult", device="cuda")`` with a
@@ -209,7 +210,11 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    signal bitwise its own launch, bitwise the parent's K1 where built,
    timed in turns beside the parent's, the zero-padded yardstick's (51 and
    123 padded to 52 and 124, the width the bulk copy takes) and an empty
-   kernel's, with the plain version's time and the bound;
+   kernel's, with the plain version's time and the bound; then K5 and K4
+   at profile_critic_step's cases (the critic cases above, F = 150 and
+   300, S = 3 and 9) bitwise the parent's K5 and K4 where built, and
+   timed in turns beside them at B = 64 (both geometries), F = 150 and
+   300, S = 3 and 9;
 13. report: one JSON line of the kernels (the wide instances as
    ``{name}_wide`` entries, the any-width ones as ``{name}_xwide``) (with
    each signal-axis kernel's
@@ -259,8 +264,8 @@ def fail(message):
 
 def phase_build():
     """Build the kernels, an empty kernel (the launch-to-end yardstick) and,
-    where a parent commit is unpacked at PARENT_CSRC, the parent's K1, K2
-    and K3 (from where they lie, with the parent's headers), all nvcc
+    where a parent commit is unpacked at PARENT_CSRC, the parent's K1 to
+    K5 (from where they lie, with the parent's headers), all nvcc
     processes at once. Returns {name: library} of the extra builds."""
     import ctypes
 
@@ -271,6 +276,10 @@ def phase_build():
     parent = PARENT_CSRC.is_dir()
     extra_jobs = {**variant_jobs({"empty": EMPTY_SOURCE}),
                   **(baseline_jobs(PARENT_CSRC, "parent") if parent else {})}
+    if parent:   # K4 and K5, held bitwise against the tree's
+        extra_jobs["critic_step_parent"] = (
+            PARENT_CSRC / "critic_step.cu",
+            _build.BUILD_DIR / "variants" / "libcritic_step_parent.so")
     t0 = time.perf_counter()
     # the host engine (g++) builds while the nvcc processes run
     import concurrent.futures
@@ -292,7 +301,7 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     print(f"[build] {len(report)} sources built in {seconds:.2f} s (all nvcc "
-          f"processes at once); parent K1, K2 and K3 "
+          f"processes at once); parent K1, K2, K3, K4 and K5 "
           f"{'from ' + str(PARENT_CSRC) if parent else 'not present'}")
     return {name: ctypes.CDLL(str(lib)) for name, (_, lib) in
             extra_jobs.items()}
@@ -604,6 +613,22 @@ def phase_critic_kernels(device):
     from hypad_tpu_torch.train import critic_kernel as ck
 
     print(f"[kernels] K5 and K4 launch as {critic_launch_shape()}")
+    for F, instance in ((WIDTH, "narrow, critic_step_kernel<128, .>"),
+                        (150, "wide, critic_step_kernel<256, .>"),
+                        (300, "any-width, critic_step_kernel<0, .>")):
+        dims = (TRAIN_BATCH, F, 20, 20, 20, 50, 50, 64)
+        for label, full in (("K5", True), ("K4", False)):
+            smem = ck.smem_bytes(dims, full, True)
+            if smem is None:
+                fail(f"{label} at F={F} would be refused")
+            held = "/".join("in place" if smem[f"direct_{side}"]
+                            else "resident" for side in "xz")
+            print(f"[kernels] {label} {instance} at B={TRAIN_BATCH}, F={F}: "
+                  f"{smem['block']} bytes of shared memory a block "
+                  f"({smem['static']} static: the row tile, the reduction "
+                  f"scratch, the staging barrier and tables; critic of side "
+                  f"x / z {held}, critic_x {smem['critic_x']}, critic_z "
+                  f"{smem['critic_z']}; any-width tile {smem['tile']})")
     errs = {"critic_step_full": 0.0, "critics_fused_grads": 0.0}
     for hyperbolic, B in ((True, TRAIN_BATCH), (False, TRAIN_BATCH),
                           (True, 13), (True, 3), (True, 100)):
@@ -2436,11 +2461,11 @@ def short_name(name):
 
 def instance_named(name):
     """The instance a profiler kernel name is: "xwide" (an
-    ``_xwide_kernel``, ``critic_step_kernel<0>``), "wide" (a
-    ``_wide_kernel``, ``critic_step_kernel<256>``) or "narrow"."""
-    if "_xwide_kernel" in name or "critic_step_kernel<0>" in name:
+    ``_xwide_kernel``, ``critic_step_kernel<0, ...>``), "wide" (a
+    ``_wide_kernel``, ``critic_step_kernel<256, ...>``) or "narrow"."""
+    if "_xwide_kernel" in name or "critic_step_kernel<0," in name:
         return "xwide"
-    if "_wide_kernel" in name or "critic_step_kernel<256>" in name:
+    if "_wide_kernel" in name or "critic_step_kernel<256," in name:
         return "wide"
     return "narrow"
 
@@ -4155,6 +4180,63 @@ def k1_training_timing(device, libs):
     return {"empty_kernel_ms": empty_ms, "shapes": shapes}
 
 
+def critic_parent_timing(device, libs):
+    """K5 and K4 at every case of ``profile_critic_step.CASES`` (this
+    script's critic cases, F = 150 and 300, S = 3 and 9), from prepared
+    slots: two launches the same bits, and bitwise the parent's K5 and K4
+    where ``_checkout/parent``'s ``critic_step.cu`` was built (a mismatch
+    fails); at the shapes of ``TIMED``, the tree's and the parent's
+    launches timed in turns (parent, tree, tree, parent, twice; medians).
+    Returns {case label: record}."""
+    import statistics as stats
+
+    from hypad_tpu_torch import profile_critic_step as pcs
+    from hypad_tpu_torch.profile_detect import cuda_ms
+    from hypad_tpu_torch.train import critic_kernel as ck
+
+    variants = {"tree": ck._lib()}
+    if "critic_step_parent" in libs:
+        variants["parent"] = ck.bind(libs["critic_step_parent"])
+    out = {}
+    for case in pcs.CASES:
+        hyperbolic, _, _, signals = case
+        label = pcs.case_label(*case)
+        inputs = pcs.case_inputs(device, *case)
+        runs = {name: pcs.launchers(lib, hyperbolic, signals, inputs)
+                for name, lib in variants.items()}
+        got = {}
+        for name, (k5, k4, out5, out4) in runs.items():
+            (a5, b5), (a4, b4) = (pcs.run_twice(k5, out5),
+                                  pcs.run_twice(k4, out4))
+            if not (pcs.same_bits(a5, b5) and pcs.same_bits(a4, b4)):
+                fail(f"two launches of the {name}'s K5 or K4 differ at "
+                     f"{label}")
+            got[name] = a5 + a4
+        rec = {"bitwise_parent": None}
+        if "parent" in got:
+            rec["bitwise_parent"] = pcs.same_bits(got["tree"], got["parent"])
+            if not rec["bitwise_parent"]:
+                fail(f"K5 or K4 at {label} is not bitwise the parent's")
+        if case in pcs.TIMED:
+            order = (["parent", "tree", "tree", "parent"] if "parent" in runs
+                     else ["tree"])
+            ms = {name: ([], []) for name in runs}
+            for _ in range(2):
+                for name in order:
+                    for k in (0, 1):
+                        ms[name][k].append(cuda_ms(runs[name][k], 100))
+            rec.update({f"{pre}{name}": stats.median(ms[name][k])
+                        for name in runs
+                        for k, pre in ((0, "k5_ms_"), (1, "k4_ms_"))})
+        out[label] = rec
+        times = ", ".join(f"{key[:2].upper()} {key[6:]} {v:.5f} ms"
+                          for key, v in rec.items() if key != "bitwise_parent")
+        print(f"[kernels] K5 and K4 at {label}: bitwise the parent: "
+              f"{rec['bitwise_parent']}; two launches the same bits"
+              f"{'; ' + times if times else ''}")
+    return out
+
+
 def warm_detect_ms(calls, rounds=7):
     """{label: [wall ms of each round]} of warm detect calls, each
     ``calls[label]()`` once a round, in turns, after one warm-up each.
@@ -4392,6 +4474,11 @@ def main():
     mv_timing = timed(mv_kernel_timing, device)
     xw_timing = timed(xwide_kernel_timing, device)
     k1_train = timed(k1_training_timing, device, libs)
+    critic_parent = timed(critic_parent_timing, device, libs)
+    a1 = critic_parent["B=64 F=100 hyperbolic"]
+    for k, pre in ((k4, "k4_ms_"), (k5, "k5_ms_")):
+        k["parent_ms"] = a1.get(pre + "parent")
+        k["bitwise_parent"] = a1["bitwise_parent"]
     paths = {"detect": launches,
              **{f"detect_euclidean_{r}": eucl_launches[r]
                 for r in REC_ERRORS},
@@ -4472,6 +4559,8 @@ def main():
          "max_abs_err": k45_err["critics_fused_grads"],
          "tolerance": tol_text.format(*K4_TOL),
          "launch_shape": k4["launch_shape"],
+         "parent_ms": k4["parent_ms"],
+         "bitwise_parent": k4["bitwise_parent"],
          "ms": k4["ms"], "kernel_ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
          "library_ms": None},
@@ -4484,6 +4573,8 @@ def main():
          "max_abs_err": k45_err["critic_step_full"],
          "tolerance": tol_text.format(*K5_TOL),
          "launch_shape": k5["launch_shape"],
+         "parent_ms": k5["parent_ms"],
+         "bitwise_parent": k5["bitwise_parent"],
          "ms": k5["ms"], "kernel_ms": k5["ms"], "plain_ms": k5["plain_ms"],
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
          "library_ms": None},
@@ -4588,6 +4679,7 @@ def main():
                "a13": a13_info,
                "k1_untimed_shapes": xw_timing["k1_untimed_shapes"],
                "k1_training_shapes": k1_train,
+               "critic_step_parent_cases": critic_parent,
                "kernels": kernels,
                "phase_seconds": phase_s,
                "seconds": time.perf_counter() - t_start}

@@ -2,8 +2,8 @@
 // (sm_90): one-dimensional bulk copies (cp.async.bulk), completed on an
 // mbarrier, where one thread issues a copy and every thread waits on the
 // barrier's phase; and per-thread copies of 4 or 16 bytes (cp.async), which
-// a thread issues without waiting and completes with cp_async_wait or
-// cp_async_wait_all.
+// a thread issues without waiting and completes with cp_async_wait,
+// cp_async_wait_all, or an arrival on an mbarrier (cp_async_arrive).
 #pragma once
 
 #include <stdint.h>
@@ -49,6 +49,23 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// Initialise a barrier that `count` arrivals complete (see mbar_init).
+__device__ __forceinline__ void mbar_init_count(uint64_t* bar,
+                                                unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Arrive on the barrier once every cp.async this thread has issued so far
+// has landed (one of the arrivals the barrier was initialised to count).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 
 // Wait until the barrier's phase of the given parity has completed.

@@ -31,9 +31,10 @@
 //
 // Bound on the H100: at B = 64 K4 moves about 0.15 MB and does about 5.5
 // MFLOP, K5 about 0.77 MB and 22 MFLOP (chip_smoke.py's count), which is
-// under a microsecond either way. What limits the kernel is the chain
-// itself: each thread's serial run of dependent FMA and L2-load iterations
-// through some 40 phases (layers, reductions over the batch).
+// under a microsecond either way. What limits the kernel is its chains:
+// each thread's serial run of dependent FMAs through some 40 phases
+// (layers, reductions over the batch), the gradient partials' chains over
+// rows read from L2, and the block and cluster barriers between them.
 //
 // Design: two clusters of kClusterBlocks blocks, one per side, and no
 // grid-wide sync. critic_x needs only x, a_x and the decoder forward;
@@ -66,26 +67,64 @@
 // block reads from another, are read with __ldcg (L2, past L1); nothing
 // the kernel writes is read through __ldg or a const __restrict__ pointer.
 //
-// Weights are read from global memory, where they stay L2-resident (the
-// generator weights are about 640 KB f32 at the published widths, beyond
-// the 227 KB of shared memory a block may have). Activations, backward
-// diagonals, chains and partials live in a global workspace that the
-// wrapper allocates (critic_step_workspace_floats). Shared memory holds the
-// 33 KB tile of layer input rows and the 68-byte reduction scratch, under
-// the 48 KB a block gets without an opt-in. Arithmetic is f32 FMA in
-// ascending index order, no TF32 and no tensor cores.
+// Weights. Under K5 each block holds its critic, (w, b) of every layer,
+// resident in dynamic shared memory: every thread copies its share by
+// 16-byte cp.async at the kernel's start and arrives on the staging
+// mbarrier when its copies have landed, so the copy (13 KB for critic_x
+// and 3.5 KB for critic_z at the published widths) overlaps the generator
+// forwards, and the critic's forward, GP v-chain and e-chain (which read W
+// transposed), u-chain and gradient partials read it there. A segment is
+// copied from the 16-byte boundary below its first float (rows of 50 or
+// 123 floats, and a stacked signal's slice, start on any 4-byte boundary),
+// and a table in shared memory says where each landed. The generator's
+// weights (about 370 KB a side-x block) are read where they lie in device
+// memory, L2-resident, 4 at a time (float4) where a layer's rows lie
+// 16-byte aligned. K4 reads its critic where it lies too. Each output is
+// still one thread's ascending-k FMA chain from 0.0f with the bias added
+// after, on the same values: only where a weight is read from changes, so
+// the bits are the parent layout's, which read every weight in place.
 //
-// Measured at B = 64 on an NVIDIA H100 80GB HBM3 at 700 W
-// (hypad_tpu_torch/profile_critic_step.py: CUDA events over 200 launches,
-// the variants in turns): K5 0.109 ms and K4 0.052 ms a launch, against
-// 0.414 and 0.174 ms for the former layout of one block a side. This code
-// at a cluster size of 1 gives that layout's bits and takes 0.464 and
-// 0.218 ms; at 16 blocks a side, a non-portable cluster, 0.097 and 0.048
-// ms. Halving the rows a block owns again gains 11%, so what is left is
-// mostly each output's serial dot product, a chain of up to 128 FMAs on
-// weights read from L2, which no row split shortens. K5 - K4, about the
-// decoder's forwards, is 0.057 ms. Not yet done: the weights in shared or
-// distributed shared memory, then wgmma.
+// Why not more in shared memory: staging the generator's layers too,
+// through a ring of slots refilled by bulk copies (cp.async.bulk) or
+// every thread's cp.async, was built and measured. The copies set the
+// generator's pace (a side-x block's 381 KB at 14 to 25 GB/s a block) and
+// every staged variant ran slower than this layout; in K4, the critic's
+// copy at the start, with nothing to overlap it, cost more than reading
+// from shared memory saved. A weight in L2 costs a chain no more than one
+// in shared memory here: what sets the pace is the chains' length and the
+// barriers (PERF.md).
+//
+// Shared memory a block: the 33 KB static tile of layer input rows (the
+// any-width instance's tile is dynamic, after the critic), the 68-byte
+// reduction scratch and the staging barrier and tables; then, as dynamic
+// memory, K5's resident critic and the any-width tile. Activations,
+// backward diagonals, chains and partials live in a global workspace that
+// the wrapper allocates (critic_step_workspace_floats). Arithmetic is f32
+// FMA in ascending index order, no TF32 and no tensor cores. K4 and K5 are
+// separate instances (K4's holds no generator code), and the decoder and
+// encoder sides are not inlined: either way the float4 loops cost the
+// critic, in the same body, enough registers to spill. The host computes a
+// launch's plan and lets the instance take its dynamic shared memory once
+// for each set of widths.
+//
+// Cluster order: where a launch's blocks fit on the card's SMs at once (8
+// signals and fewer on the H100's 132), the grid is (16, S), each signal's
+// side-x and side-z clusters side by side. Past that the clusters take two
+// waves, and the grid is (8, S, 2), blockIdx.z the side, so that every
+// side-x cluster (the longer side) is launched ahead of every side-z one
+// and the second wave holds short side-z clusters. (The second layout at
+// one signal cost K4 and K5 1 to 3 us against the first.)
+//
+// Measured at B = 64 on an NVIDIA H100 80GB HBM3, 700.00 W
+// (hypad_tpu_torch/profile_critic_step.py against the former layout, in
+// turns, 200 launches each): K5 0.088 ms against 0.110 (0.082 against
+// 0.102 Euclidean, 0.149 against 0.191 at a window of 300), K4 0.052
+// against 0.053; with 9 signals K5 0.091 against 0.150 and K4 0.053
+// against 0.076. The probe that only copies the critic takes 0.004 ms; the
+// one that copies nothing, 0.087: the copy is hidden. What is left is the
+// chains (the generator's layers, then the critic's forward, GP chain and
+// gradient partials over rows read from L2) and the cluster barriers. The
+// former layout took 0.414 and 0.174 ms as one block a side.
 
 // Wide instance: multivariate feature counts above 128 (CASAS's 150, up to
 // 256) make bigx, the encoder's input, the decoder's output and the
@@ -99,13 +138,16 @@
 //
 // Any-width instance (kIn = kAnyIn): above 256 (a window of 300, or a
 // stream of more features) the tile grows with the width, so this instance
-// stages its rows in dynamic shared memory, as many rows at a time as the
-// launch gave it room for (up to 32, at least one: 32 x 301 floats, 38.5
-// KB, at 300; one row of up to 58,000 floats), and the Mobius head's clamp
-// chain reads its row again for each pass instead of holding it in
-// registers. The launch shape (two clusters of 8 blocks of 512 threads) and
-// every sum's order are the other instances', so it computes the same bits
-// they would.
+// stages its rows in dynamic shared memory after K5's resident critic, up
+// to 32 rows at a time (at least one), and
+// the Mobius head's clamp chain reads its row again for each pass instead of
+// holding it in registers. The launch shape (two clusters of 8 blocks of 512
+// threads) and every sum's order are the other instances', so it computes
+// the same bits they would. Where a side's critic does not fit beside a
+// tile row (critic_x past about 2,700 floats at the published hidden
+// widths), K5 reads it in place as K4 does; past one tile row of the
+// widest input (about 58,000 floats) a launch returns
+// cudaErrorInvalidValue.
 
 // Signal axis (the fleet's counterpart of jax.vmap): the grid's y is the
 // signal. Every slot carries a byte stride from one signal's slice to the
@@ -113,12 +155,28 @@
 // and a block offsets each slot it reads or writes by blockIdx.y times that
 // stride. A signal's two clusters run the single-signal launch's code on
 // its own slices, so each signal gets the bits of its own launch; a cluster
-// never spans two signals (clusters are (8, 1, 1)).
+// never spans two signals (clusters are (8, 1, 1)). The plan depends on the
+// widths alone; where a signal's rows lie off a 16-byte boundary only moves
+// them within their resident places.
+
+// Probe builds (profile_critic_step.py), for timing only: HYPAD_CS_PROBE 1
+// copies the critic's weights as K5 would, waits, and exits ("stage"); 2
+// issues no copy and waits for none, computing on whatever shared memory
+// holds ("smem_w": the numbers are wrong).
+#ifndef HYPAD_CS_PROBE
+#define HYPAD_CS_PROBE 0
+#endif
 
 #include <cooperative_groups.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <array>
+#include <map>
+#include <mutex>
+#include <utility>
+
+#include "bulk_copy.cuh"
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -139,6 +197,7 @@ constexpr int kWideMaxIn = 256;
 constexpr int kWideTileRows = 32;
 constexpr int kAnyIn = 0;  // the any-width instance: a dynamic tile
 constexpr int kSmemLimit = 227 * 1024;  // shared memory a block may have
+constexpr int kMaxCritic = 5;  // critic layers
 
 template <int kIn>
 __host__ __device__ constexpr int tile_rows() {
@@ -169,16 +228,36 @@ enum Slot {
   kSlots = 70
 };
 enum Dim { DB, DW, DL, DHX, DHZ, DHE, DD1, DHD, kDims };
+static_assert(GCX - CX == GCZ - CZ, "gradients are laid out as the weights");
+
+// How the blocks of one side hold their critic's weights, from the widths
+// alone (computed by the host once for each set of widths): `resident`,
+// every layer's (w, b) in dynamic shared memory, w of layer i at woff[i]
+// floats and b at boff[i], the any-width instance's tile after them
+// (`tile` floats at `critic`); else read where they lie in device memory,
+// the tile alone in dynamic memory. Layer i takes rows[i] outputs of din[i]
+// inputs.
+struct Plan {
+  int resident, critic, tile, ncrit;
+  int rows[kMaxCritic], din[kMaxCritic];
+  int woff[kMaxCritic], boff[kMaxCritic];
+};
 
 struct Args {
   void* p[kSlots];
   long long stride[kSlots];  // bytes from one signal's slice to the next
   int B, W, L, Hx, Hz, He, D1, Hd;
   int full, hyperbolic;
+  Plan plan[2];  // side x, side z
 };
 
-struct Lstm {
-  const float *w, *bi, *bh;  // one direction: w_ih (4H, in), b_ih, b_hh
+// A block's critic in shared memory: the barrier its copies complete, one
+// arrival a thread, and where each layer's w and b lie (in shared memory
+// or, not resident, in device memory).
+struct Staging {
+  uint64_t bar;
+  const float* w[kMaxCritic];
+  const float* b[kMaxCritic];
 };
 
 // The rows one block of a cluster owns: rows [b0, b0 + nb) of a (B, .)
@@ -234,6 +313,62 @@ __host__ __device__ size_t total_ws(const Args& a) {
   return side_x_ws(a) + critic_ws(3 * a.B, a.B, a.L, a.Hz, 2) + encoder_ws(a);
 }
 
+// The widest layer input (or MobiusLinear head) a launch stages: the
+// critics' inputs and hidden widths, and under K5 the generator's.
+int widest(const Args& a) {
+  int w = 0;
+  const int in[] = {a.W, a.L, a.Hx, a.Hz};
+  const int gen[] = {a.D1, 2 * a.Hd, 2 * a.He};
+  for (int v : in) w = v > w ? v : w;
+  if (a.full)
+    for (int v : gen) w = v > w ? v : w;
+  return w;
+}
+
+// ---------------------------------------------------------------------------
+// the critic's plan (host and device)
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// Floats a segment of n floats takes, copied from the 16-byte boundary
+// below its first float (a row of 50 or 123 floats, or a stacked signal's
+// slice, starts on any 4-byte boundary), rounded up to 16 bytes.
+__host__ __device__ constexpr int seg_floats(int n) { return round4(n + 3); }
+
+// The layout of one side's dynamic shared memory (dyn_floats of it), the
+// critic `resident` or not; false where a tile row of the any-width
+// instance does not fit beside what the critic takes.
+bool plan(const Args& a, int side, bool any, int dyn_floats, bool resident,
+          Plan* P) {
+  *P = Plan{};
+  P->resident = resident;
+  const int in = side == 0 ? a.W : a.L, H = side == 0 ? a.Hx : a.Hz;
+  const int nl = side == 0 ? 4 : 2;
+  P->ncrit = nl + 1;
+  for (int i = 0; i <= nl; ++i) {
+    P->rows[i] = i < nl ? H : 1;
+    P->din[i] = i == 0 ? in : H;
+    P->woff[i] = P->critic;
+    if (resident) P->critic += seg_floats(P->rows[i] * P->din[i]);
+    P->boff[i] = P->critic;
+    if (resident) P->critic += seg_floats(P->rows[i]);
+  }
+  if (P->critic > dyn_floats) return false;
+  if (any) {  // up to kWideTileRows rows, at least one
+    const int ld = widest(a) | 1;
+    int rows = (dyn_floats - P->critic) / ld;
+    rows = rows < kWideTileRows ? rows : kWideTileRows;
+    if (rows < 1) return false;
+    P->tile = round4(rows * ld);
+  }
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// staging on the device
+// ---------------------------------------------------------------------------
+
 // Slot s of this block's signal (blockIdx.y).
 __device__ __forceinline__ void* slot(const Args& a, int s) {
   return static_cast<char*>(a.p[s]) + (long long)blockIdx.y * a.stride[s];
@@ -244,6 +379,94 @@ __device__ __forceinline__ const float* in_ptr(const Args& a, int s) {
 __device__ __forceinline__ float* out_ptr(const Args& a, int s) {
   return static_cast<float*>(slot(a, s));
 }
+
+// Floats from the 16-byte boundary below p to p.
+__device__ __forceinline__ int lag(const float* p) {
+  return (int)(((uintptr_t)p & 15u) >> 2);
+}
+
+// Every thread: its share of the copies of the block's critic, (w, b) of
+// every layer, into its resident place, 16 bytes a copy (cp.async), each
+// segment from the 16-byte boundary below its first float (a row of 50 or
+// 123 floats, or a stacked signal's slice, starts on any 4-byte boundary),
+// rounded up to 16 bytes; then an arrival on the staging barrier once its
+// copies have landed. Thread 0 writes where each segment's first float
+// lands, or, not resident, where it lies in device memory (read after the
+// next block barrier).
+__device__ void stage_critic(const Args& a, const Plan& P, int pslot,
+                             Staging& st, float* dyn) {
+  for (int q = 0; q < 2 * P.ncrit; ++q) {
+    const int i = q >> 1;
+    const bool w = (q & 1) == 0;
+    const float* src = in_ptr(a, pslot + q);
+    const float** tab = w ? st.w : st.b;
+    if (!P.resident) {
+      if (threadIdx.x == 0) tab[i] = src;
+      continue;
+    }
+    float* d = dyn + (w ? P.woff[i] : P.boff[i]);
+    const int lg = lag(src);
+    const int groups = (lg + (w ? P.rows[i] * P.din[i] : P.rows[i]) + 3) / 4;
+#if HYPAD_CS_PROBE != 2
+    for (int g = threadIdx.x; g < groups; g += blockDim.x)
+      hypad::cp_async<16>(d + 4 * g, src - lg + 4 * g);
+#endif
+    if (threadIdx.x == 0) tab[i] = d + lg;
+  }
+#if HYPAD_CS_PROBE != 2
+  if (P.resident) {
+    hypad::cp_async_commit();
+    hypad::cp_async_arrive(&st.bar);
+  }
+#endif
+}
+
+// Every thread: the resident critic has landed.
+__device__ __forceinline__ void wait_critic(const Plan& P, Staging& st) {
+#if HYPAD_CS_PROBE != 2
+  if (P.resident) hypad::mbar_wait(&st.bar, 0);
+#endif
+}
+
+// acc[q] += x[k] w[q][k] for k = 0 .. din - 1 in ascending order, one FMA
+// each, for N rows w[q] at once; float4 loads of the rows where `quad`
+// (each w[q] 16-byte aligned, din a multiple of 4), one float a load
+// otherwise: the same chains either way.
+template <int N>
+__device__ __forceinline__ void dot(const float* x, const float* const* w,
+                                    int din, bool quad, float* acc) {
+  if (quad) {
+    for (int k = 0; k < din; k += 4) {
+      float4 wq[N];
+#pragma unroll
+      for (int q = 0; q < N; ++q)
+        wq[q] = *reinterpret_cast<const float4*>(w[q] + k);
+      const float x0 = x[k], x1 = x[k + 1], x2 = x[k + 2], x3 = x[k + 3];
+#pragma unroll
+      for (int q = 0; q < N; ++q) {
+        acc[q] = fmaf(x0, wq[q].x, acc[q]);
+        acc[q] = fmaf(x1, wq[q].y, acc[q]);
+        acc[q] = fmaf(x2, wq[q].z, acc[q]);
+        acc[q] = fmaf(x3, wq[q].w, acc[q]);
+      }
+    }
+    return;
+  }
+  for (int k = 0; k < din; ++k) {
+    const float xk = x[k];
+#pragma unroll
+    for (int q = 0; q < N; ++q) acc[q] = fmaf(xk, w[q][k], acc[q]);
+  }
+}
+
+// What a phase of a block finds in shared memory: the critic's staging
+// state and the tile of layer input rows.
+struct Smem {
+  const Plan* P;
+  Staging* st;
+  float* tile;
+  int tile_floats;  // the any-width instance's tile; the others' is static
+};
 
 // Sum of v over the block, the same bits on every thread and every launch.
 __device__ float block_sum(float v, float* red) {
@@ -275,24 +498,18 @@ __device__ __forceinline__ float sigmoid(float x) {
 // sectors each: K5 took 2.61 ms a launch at B = 64 on an H100 80GB HBM3 at
 // 700 W; a warp per output with a shuffle sum, 1.62 ms.)
 
-// Bytes of dynamic shared memory this launch has (the any-width tile).
-__device__ __forceinline__ unsigned dynamic_smem_bytes() {
-  unsigned bytes;
-  asm volatile("mov.u32 %0, %%dynamic_smem_size;" : "=r"(bytes));
-  return bytes;
-}
-
-// Stage the owned rows of in (., din) into `tile`, up to kTileRows at a
+// Stage the owned rows of in (., din) into the tile, up to kTileRows at a
 // time (the any-width instance: as many as its dynamic tile holds, at most
 // kWideTileRows), and run body(t0, n, ld, src) on each stage: row r of src
 // (= tile, stride ld) holds owned row rows.at(t0 + r).
 template <int kIn, typename Body>
 __device__ void for_row_tiles(const float* in, const Rows& rows, int din,
-                              float* tile, Body body) {
+                              Smem sm, Body body) {
   const int ld = din | 1;
   int at_a_time = tile_rows<kIn>();
   if constexpr (kIn == kAnyIn)
-    at_a_time = min(kWideTileRows, (int)(dynamic_smem_bytes() / (4u * ld)));
+    at_a_time = min(kWideTileRows, sm.tile_floats / ld);
+  float* tile = sm.tile;
   for (int t0 = 0; t0 < rows.count(); t0 += at_a_time) {
     const int n = min(rows.count() - t0, at_a_time);
     __syncthreads();  // the previous stage's readers are done
@@ -305,54 +522,63 @@ __device__ void for_row_tiles(const float* in, const Rows& rows, int din,
   }
 }
 
-// out (rows, dout) = in (rows, din) W^T (+ b), tanh'd when `act_tanh`.
+// Whether the rows of w (din floats each from w) lie 16-byte aligned, so
+// that a dot product loads 4 weights at a time.
+__device__ __forceinline__ bool quad_rows(const float* w, int din) {
+  return din % 4 == 0 && lag(w) == 0;
+}
+
+// out (rows, dout) = in (rows, din) W^T (+ b), tanh'd when `act_tanh`: W
+// (dout, din) at slot `wslot`, b at `bslot` (none where it is negative),
+// read where they lie in device memory.
 template <int kIn>
-__device__ void linear(const float* in, const Rows& rows, int din,
-                       const float* W, const float* b, float* out, int dout,
-                       bool act_tanh, float* tile) {
-  for_row_tiles<kIn>(in, rows, din, tile,
-                     [&](int t0, int n, int ld, const float* src) {
+__device__ void linear(const Args& a, Smem sm, int wslot, int bslot, int din,
+                       int dout, const float* in, const Rows& rows,
+                       float* out, bool act_tanh) {
+  const float* W = in_ptr(a, wslot);
+  const float* b = bslot >= 0 ? in_ptr(a, bslot) : nullptr;
+  const bool quad = quad_rows(W, din);
+  for_row_tiles<kIn>(in, rows, din, sm,
+                     [&](int t0, int n, int xld, const float* src) {
     for (int idx = threadIdx.x; idx < n * dout; idx += blockDim.x) {
       const int j = idx / n, r = idx - j * n;
-      const float* x = src + r * ld;
-      const float* w = W + (size_t)j * din;
+      const float* wr = W + (size_t)j * din;
       float acc = 0.0f;
-      for (int k = 0; k < din; ++k) acc = fmaf(x[k], w[k], acc);
+      dot<1>(src + r * xld, &wr, din, quad, &acc);
       if (b) acc = acc + b[j];
       out[(size_t)rows.at(t0 + r) * dout + j] = act_tanh ? tanhf(acc) : acc;
     }
   });
 }
 
-// One bidirectional LSTM layer at T = 1 with zero state: out (rows, 2H),
-// [forward, reverse] on the feature axis; inverted dropout when `keep`.
+// One direction (`dir` 0 forward, 1 reverse) of a bidirectional LSTM layer
+// at T = 1 with zero state: w_ih (4H, din), b_ih and b_hh at slots `base`
+// .. base + 2, read where they lie; columns [dir H, dir H + H) of out
+// (rows, 2H), [forward, reverse] on the feature axis; inverted dropout
+// when `keep`.
 template <int kIn>
-__device__ void bilstm_t1(const float* in, const Rows& rows, int din, Lstm fw,
-                          Lstm bw, int H, const uint8_t* keep, float kscale,
-                          float* out, float* tile) {
+__device__ void lstm_dir(const Args& a, Smem sm, int base, int H, int din,
+                         int dir, const float* in, const Rows& rows,
+                         const uint8_t* keep, float kscale, float* out) {
+  const float* Wih = in_ptr(a, base);
+  const float* bih = in_ptr(a, base + 1);
+  const float* bhh = in_ptr(a, base + 2);
   const int width = 2 * H;
-  for_row_tiles<kIn>(in, rows, din, tile,
-                     [&](int t0, int n, int ld, const float* src) {
-    for (int idx = threadIdx.x; idx < n * width; idx += blockDim.x) {
-      const int c = idx / n, r = idx - c * n;
-      const bool rev = c >= H;
-      const int j = rev ? c - H : c;
-      const Lstm d = rev ? bw : fw;
-      const float* x = src + r * ld;
-      const float* wi = d.w + (size_t)j * din;
-      const float* wg = d.w + (size_t)(2 * H + j) * din;
-      const float* wo = d.w + (size_t)(3 * H + j) * din;
-      float gi = 0.0f, gg = 0.0f, go = 0.0f;
-      for (int k = 0; k < din; ++k) {
-        const float xk = x[k];
-        gi = fmaf(xk, wi[k], gi);
-        gg = fmaf(xk, wg[k], gg);
-        go = fmaf(xk, wo[k], go);
-      }
-      gi = gi + d.bi[j] + d.bh[j];
-      gg = gg + d.bi[2 * H + j] + d.bh[2 * H + j];
-      go = go + d.bi[3 * H + j] + d.bh[3 * H + j];
-      const size_t o = (size_t)rows.at(t0 + r) * width + c;
+  const bool quad = quad_rows(Wih, din);
+  for_row_tiles<kIn>(in, rows, din, sm,
+                     [&](int t0, int n, int xld, const float* src) {
+    for (int idx = threadIdx.x; idx < n * H; idx += blockDim.x) {
+      const int j = idx / n, r = idx - j * n;
+      // gates i, g, o: rows j, 2H + j, 3H + j
+      const float* wr[3] = {Wih + (size_t)j * din,
+                            Wih + (size_t)(2 * H + j) * din,
+                            Wih + (size_t)(3 * H + j) * din};
+      float g[3] = {0.0f, 0.0f, 0.0f};
+      dot<3>(src + r * xld, wr, din, quad, g);
+      const float gi = g[0] + bih[j] + bhh[j];
+      const float gg = g[1] + bih[2 * H + j] + bhh[2 * H + j];
+      const float go = g[2] + bih[3 * H + j] + bhh[3 * H + j];
+      const size_t o = (size_t)rows.at(t0 + r) * width + dir * H + j;
       float h = sigmoid(go) * tanhf(sigmoid(gi) * tanhf(gg));
       if (keep) h = keep[o] ? h / kscale : 0.0f;
       out[o] = h;
@@ -462,11 +688,15 @@ __device__ void mobius_rows(const float* u, const Rows& rows, int W,
   }
 }
 
-// Cluster 0 of K5: the decoder on the block's rows of z_x, then those rows
-// of bigx = [x, x_fake, interp_x].
+// Cluster 0 of K5: the decoder on the block's rows of z_x (dense1, lstm.0
+// and lstm.1 each forward then reverse, dense2, and when hyperbolic the
+// MobiusLinear head), then those rows of bigx = [x, x_fake, interp_x]. Not
+// inlined, as the encoder side: their float4 loops, in the kernel's own
+// body, cost the critic after them enough registers to spill.
 template <int kIn>
-__device__ void decoder_side(const Args& a, const Rows& rows, float* ws,
-                             float* bigx, float* tile) {
+__device__ __noinline__ void decoder_side(const Args& a, Smem sm,
+                                          const Rows& rows, float* ws,
+                                          float* bigx) {
   const int B = a.B, W = a.W, Hd = a.Hd;
   float* d1 = ws;
   float* h1 = d1 + (size_t)B * a.D1;
@@ -474,29 +704,24 @@ __device__ void decoder_side(const Args& a, const Rows& rows, float* ws,
   float* xdec = h2 + (size_t)2 * B * Hd;
   float* u = xdec + (size_t)B * W;
   float* xfake = bigx + (size_t)B * W;
-  const Lstm l0f{in_ptr(a, DEC + 2), in_ptr(a, DEC + 3), in_ptr(a, DEC + 4)};
-  const Lstm l0b{in_ptr(a, DEC + 5), in_ptr(a, DEC + 6), in_ptr(a, DEC + 7)};
-  const Lstm l1f{in_ptr(a, DEC + 8), in_ptr(a, DEC + 9), in_ptr(a, DEC + 10)};
-  const Lstm l1b{in_ptr(a, DEC + 11), in_ptr(a, DEC + 12),
-                 in_ptr(a, DEC + 13)};
+  const uint8_t* mdec = static_cast<const uint8_t*>(slot(a, MDEC));
 
-  linear<kIn>(in_ptr(a, ZX), rows, a.L, in_ptr(a, DEC), in_ptr(a, DEC + 1), d1,
-         a.D1, false, tile);
-  __syncthreads();
-  bilstm_t1<kIn>(d1, rows, a.D1, l0f, l0b, Hd,
-            static_cast<const uint8_t*>(slot(a, MDEC)), kDecKeep, h1, tile);
-  __syncthreads();
-  bilstm_t1<kIn>(h1, rows, 2 * Hd, l1f, l1b, Hd, nullptr, 1.0f, h2, tile);
-  __syncthreads();
-  linear<kIn>(h2, rows, 2 * Hd, in_ptr(a, DEC + 14), in_ptr(a, DEC + 15),
-         a.hyperbolic ? xdec : xfake, W, true, tile);
-  __syncthreads();
+  linear<kIn>(a, sm, DEC, DEC + 1, a.L, a.D1, in_ptr(a, ZX), rows, d1,
+              false);
+  for (int dir = 0; dir < 2; ++dir)
+    lstm_dir<kIn>(a, sm, DEC + 2 + 3 * dir, Hd, a.D1, dir, d1, rows, mdec,
+                  kDecKeep, h1);
+  for (int dir = 0; dir < 2; ++dir)
+    lstm_dir<kIn>(a, sm, DEC + 8 + 3 * dir, Hd, 2 * Hd, dir, h1, rows,
+                  nullptr, 1.0f, h2);
+  linear<kIn>(a, sm, DEC + 14, DEC + 15, 2 * Hd, W, h2, rows,
+              a.hyperbolic ? xdec : xfake, true);
   if (a.hyperbolic) {
-    linear<kIn>(xdec, rows, W, in_ptr(a, DEC + 16), nullptr, u, W, false, tile);
+    linear<kIn>(a, sm, DEC + 16, -1, W, W, xdec, rows, u, false);
     __syncthreads();
     mobius_rows<kIn>(u, rows, W, in_ptr(a, DEC + 17), xfake);
-    __syncthreads();
   }
+  __syncthreads();
   const float* x = in_ptr(a, X);
   const float* ax = in_ptr(a, AX);
   for (int idx = threadIdx.x; idx < rows.nb * W; idx += blockDim.x) {
@@ -508,18 +733,18 @@ __device__ void decoder_side(const Args& a, const Rows& rows, float* ws,
   __syncthreads();
 }
 
-// Cluster 1 of K5: the encoder on the block's rows of x, then those rows of
-// bigz = [z_enc, z_z, interp_z].
+// Cluster 1 of K5: the encoder on the block's rows of x (its LSTM forward
+// then reverse, then its dense layer), then those rows of bigz = [z_enc,
+// z_z, interp_z].
 template <int kIn>
-__device__ void encoder_side(const Args& a, const Rows& rows, float* ws,
-                             float* bigz, float* tile) {
+__device__ __noinline__ void encoder_side(const Args& a, Smem sm,
+                                          const Rows& rows, float* ws,
+                                          float* bigz) {
   const int B = a.B, L = a.L;
-  const Lstm f{in_ptr(a, ENC), in_ptr(a, ENC + 1), in_ptr(a, ENC + 2)};
-  const Lstm b{in_ptr(a, ENC + 3), in_ptr(a, ENC + 4), in_ptr(a, ENC + 5)};
-  bilstm_t1<kIn>(in_ptr(a, X), rows, a.W, f, b, a.He, nullptr, 1.0f, ws, tile);
-  __syncthreads();
-  linear<kIn>(ws, rows, 2 * a.He, in_ptr(a, ENC + 6), in_ptr(a, ENC + 7), bigz, L,
-         false, tile);
+  for (int dir = 0; dir < 2; ++dir)
+    lstm_dir<kIn>(a, sm, ENC + 3 * dir, a.He, a.W, dir, in_ptr(a, X), rows,
+                  nullptr, 1.0f, ws);
+  linear<kIn>(a, sm, ENC + 6, ENC + 7, 2 * a.He, L, ws, rows, bigz, false);
   __syncthreads();
   const float* zz = in_ptr(a, ZZ);
   const float* az = in_ptr(a, AZ);
@@ -533,31 +758,39 @@ __device__ void encoder_side(const Args& a, const Rows& rows, float* ws,
 }
 
 // One critic's loss and parameter gradients on stacked rows `big` (3B, in):
-// `nl` hidden layers of width H, then the scalar output layer. Parameters
-// and gradients at slots [first, first + 2 (nl + 1)), (w, b) per layer.
-// Every block of the cluster calls it; `rank` is the block's rank.
-template <int kIn>
-__device__ void critic(const Args& a, int rank, const float* big, int in,
-                       int H, int nl, int pslot, int gslot,
+// `nl` hidden layers of width H, then the scalar output layer, whose (w, b)
+// K5 reads where its staging tables point (into shared memory where the
+// plan holds the critic resident) and K4 where they lie in device memory;
+// gradients at slots
+// [gslot, gslot + 2 (nl + 1)), (w, b) per layer. Every block of the cluster
+// calls it; `rank` is the block's rank.
+template <int kIn, bool kFull>
+__device__ void critic(const Args& a, Smem sm, int rank,
+                       const float* big, int in, int H, int nl, int gslot,
                        const uint8_t* masks, float keep, float sign,
-                       float* loss, float* ws, float* red, float* tile) {
+                       float* loss, float* ws, float* red) {
   const int B = a.B, R = 3 * B;
   const int wide = in > H ? in : H;
   const Rows rows = rank_rows(B, rank, 3);   // stacked rows b, B + b, 2B + b
   const Rows brows = rank_rows(B, rank, 1);  // batch rows b
-  const float* Wl[5];
-  const float* bl[5];
+  // layer i's W (row j at Wl(i) + j d_in(i)) and b; resident, they are
+  // waited for once layer 0's rows are staged
+  const int pslot = gslot - (GCX - CX);
+  auto Wl = [&](int i) {
+    return kFull ? sm.st->w[i] : in_ptr(a, pslot + 2 * i);
+  };
+  auto bl = [&](int i) {
+    return kFull ? sm.st->b[i] : in_ptr(a, pslot + 2 * i + 1);
+  };
   float* gW[5];
   float* gb[5];
   int off[6] = {0};  // layer i's w in the flat (P,) gradient, then its b
   for (int i = 0; i <= nl; ++i) {
-    Wl[i] = in_ptr(a, pslot + 2 * i);
-    bl[i] = in_ptr(a, pslot + 2 * i + 1);
     gW[i] = out_ptr(a, gslot + 2 * i);
     gb[i] = out_ptr(a, gslot + 2 * i + 1);
     off[i + 1] = off[i] + (i < nl ? H * (i == 0 ? in : H) + H : H + 1);
   }
-  const int P = off[nl + 1];
+  const int NP = off[nl + 1];
   float* hs = ws;                                // nl x (R, H)
   float* Ds = hs + (size_t)nl * R * H;           // nl x (R, H)
   float* out = Ds + (size_t)nl * R * H;          // (R,)
@@ -566,14 +799,14 @@ __device__ void critic(const Args& a, int rank, const float* big, int in,
   float* v1 = v0 + (size_t)B * wide;             // (B, wide)
   float* e0 = v1 + (size_t)B * wide;             // (R, H)
   float* e1 = e0 + (size_t)R * H;                // (R, H)
-  float* wlp = e1 + (size_t)R * H;               // kClusterBlocks x (P,)
-  float* gpp = wlp + (size_t)kClusterBlocks * P;   // kClusterBlocks x (P,)
-  float* scal = gpp + (size_t)kClusterBlocks * P;  // wl, then sum g^2, by rank
-  float* my_wl = wlp + (size_t)rank * P;  // this rank's wl-path partials
-  float* my_gp = gpp + (size_t)rank * P;  // this rank's GP-path partials
+  float* wlp = e1 + (size_t)R * H;               // kClusterBlocks x (NP,)
+  float* gpp = wlp + (size_t)kClusterBlocks * NP;   // kClusterBlocks x (NP,)
+  float* scal = gpp + (size_t)kClusterBlocks * NP;  // wl, then sum g^2, by rank
+  float* my_wl = wlp + (size_t)rank * NP;  // this rank's wl-path partials
+  float* my_gp = gpp + (size_t)rank * NP;  // this rank's GP-path partials
   auto h_in = [&](int i) { return i == 0 ? big : hs + (size_t)(i - 1) * R * H; };
   auto d_in = [&](int i) { return i == 0 ? in : H; };
-  const float* Wo = Wl[nl];
+  const float* Wo = Wl(nl);
   const float csc = (float)((double)sign / (double)B);
   auto c_of = [&](int r) { return r < B ? -csc : (r < 2 * B ? csc : 0.0f); };
 
@@ -583,15 +816,17 @@ __device__ void critic(const Args& a, int rank, const float* big, int in,
     float* hi = hs + (size_t)i * R * H;
     float* Di = Ds + (size_t)i * R * H;
     const uint8_t* mi = masks + (size_t)i * R * H;
-    for_row_tiles<kIn>(h_in(i), rows, din, tile,
+    const float* Wi = Wl(i);
+    const float* bi = bl(i);
+    for_row_tiles<kIn>(h_in(i), rows, din, sm,
                        [&](int t0, int n, int ld, const float* src) {
+      if (kFull && i == 0) wait_critic(*sm.P, *sm.st);
       for (int idx = threadIdx.x; idx < n * H; idx += blockDim.x) {
         const int j = idx / n, r = idx - j * n;
-        const float* x = src + r * ld;
-        const float* w = Wl[i] + (size_t)j * din;
+        const float* w = Wi + (size_t)j * din;
         float acc = 0.0f;
-        for (int k = 0; k < din; ++k) acc = fmaf(x[k], w[k], acc);
-        const float pre = acc + bl[i][j];
+        dot<1>(src + r * ld, &w, din, false, &acc);
+        const float pre = acc + bi[j];
         const bool pos = pre >= 0.0f;
         const size_t o = (size_t)rows.at(t0 + r) * H + j;
         const bool kept = mi[o] != 0;
@@ -601,12 +836,15 @@ __device__ void critic(const Args& a, int rank, const float* big, int in,
     });
     __syncthreads();
   }
+  // (a rank that owns no rows never staged any: its copies land here)
+  if (kFull) wait_critic(*sm.P, *sm.st);
   const float* hL = hs + (size_t)(nl - 1) * R * H;
+  const float bo = bl(nl)[0];
   for (int t = threadIdx.x; t < rows.count(); t += blockDim.x) {
     const int r = rows.at(t);
     float acc = 0.0f;
     for (int j = 0; j < H; ++j) acc = fmaf(hL[(size_t)r * H + j], Wo[j], acc);
-    out[r] = acc + bl[nl][0];
+    out[r] = acc + bo;
   }
   __syncthreads();
   float part = 0.0f;
@@ -616,6 +854,13 @@ __device__ void critic(const Args& a, int rank, const float* big, int in,
   }
   const float wl_part = block_sum(part, red);
 
+  // The GP chains' rows of width d in v0 or v1 (each (B, wide)): a rank's
+  // rows lie d floats apart from where its first row lies at width wide,
+  // so that ranks a layer apart (between the cluster barriers) never touch
+  // the same floats; row r of the returned base is at r d.
+  auto gp_rows = [&](float* buf, int d) {
+    return buf + (size_t)brows.b0 * (wide - d);
+  };
   // GP input gradient: the backward chain on the interpolate rows
   const float* v = nullptr;  // null: Wo broadcast over the rows
   float* vbuf[2] = {v0, v1};
@@ -629,19 +874,20 @@ __device__ void critic(const Args& a, int rank, const float* big, int in,
     }
     __syncthreads();
     const int din = d_in(i);
-    float* vn = vbuf[i & 1];
+    const float* Wi = Wl(i);
+    float* vn = gp_rows(vbuf[i & 1], din);
     for (int idx = threadIdx.x; idx < brows.nb * din; idx += blockDim.x) {
       const int o = brows.b0 * din + idx;
       const int r = o / din, k = o - r * din;
       float acc = 0.0f;
       for (int j = 0; j < H; ++j)
-        acc = fmaf(wi[(size_t)r * H + j], Wl[i][(size_t)j * din + k], acc);
+        acc = fmaf(wi[(size_t)r * H + j], Wi[(size_t)j * din + k], acc);
       vn[o] = acc;
     }
     __syncthreads();
     v = vn;
   }
-  float* g = vbuf[0];  // the chain ends at i = 0
+  float* g = gp_rows(vbuf[0], in);  // the chain ends at i = 0
   part = 0.0f;
   for (int idx = threadIdx.x; idx < brows.nb * in; idx += blockDim.x) {
     const float gv = g[(size_t)brows.b0 * in + idx];
@@ -670,6 +916,7 @@ __device__ void critic(const Args& a, int rank, const float* big, int in,
   for (int i = nl - 1; i >= 0; --i) {
     const float* Di = Ds + (size_t)i * R * H;
     float* en = ebuf[i & 1];
+    const float* Wn = Wl(i + 1);
     for (int idx = threadIdx.x; idx < rows.count() * H; idx += blockDim.x) {
       const int t = idx / H, j = idx - t * H;
       const int r = rows.at(t);
@@ -677,7 +924,6 @@ __device__ void critic(const Args& a, int rank, const float* big, int in,
       float acc;
       if (e) {
         acc = 0.0f;
-        const float* Wn = Wl[i + 1];
         for (int m = 0; m < H; ++m)
           acc = fmaf(e[(size_t)r * H + m], Wn[(size_t)m * H + j], acc);
       } else {
@@ -724,12 +970,12 @@ __device__ void critic(const Args& a, int rank, const float* big, int in,
     g[o] = coef * g[o];
   }
   __syncthreads();
-  float* u = g;
+  float* u = g;  // in vbuf[0], then alternating
   for (int i = 0; i < nl; ++i) {
     const int din = d_in(i);
     const float* wi = wgp + (size_t)i * B * H;
     const float* Di = Ds + (size_t)i * R * H + (size_t)2 * B * H;
-    float* un = u == v0 ? v1 : v0;
+    float* un = gp_rows(vbuf[(i + 1) & 1], H);
     for (int idx = threadIdx.x; idx < H * din; idx += blockDim.x) {
       const int j = idx / din, k = idx - j * din;
       float acc = 0.0f;
@@ -738,14 +984,14 @@ __device__ void critic(const Args& a, int rank, const float* big, int in,
       });
       my_gp[off[i] + idx] = acc;
     }
-    for_row_tiles<kIn>(u, brows, din, tile,
+    const float* Wi = Wl(i);
+    for_row_tiles<kIn>(u, brows, din, sm,
                        [&](int t0, int n, int ld, const float* src) {
       for (int idx = threadIdx.x; idx < n * H; idx += blockDim.x) {
         const int j = idx / n, r = idx - j * n;
-        const float* x = src + r * ld;
-        const float* w = Wl[i] + (size_t)j * din;
+        const float* w = Wi + (size_t)j * din;
         float acc = 0.0f;
-        for (int k = 0; k < din; ++k) acc = fmaf(x[k], w[k], acc);
+        dot<1>(src + r * ld, &w, din, false, &acc);
         const size_t o = (size_t)brows.at(t0 + r) * H + j;
         un[o] = Di[o] * acc;
       }
@@ -762,7 +1008,7 @@ __device__ void critic(const Args& a, int rank, const float* big, int in,
   // Barrier 2: every partial is written. Each gradient entry has one owner
   // thread in the cluster, which adds the ranks' partials in rank order:
   // (wl-path sum) + (GP-path sum) for a weight, the wl-path sum for a bias.
-  // Entry f of the flat (P,) layout belongs to cluster thread f mod
+  // Entry f of the flat (NP,) layout belongs to cluster thread f mod
   // (kClusterBlocks blockDim). The layer loop has a constant bound, so the
   // pointer arrays stay in registers.
   cg::this_cluster().sync();
@@ -777,11 +1023,11 @@ __device__ void critic(const Args& a, int rank, const float* big, int in,
       const int k = f - off[i];
       float acc = __ldcg(wlp + f);
       for (int q = 1; q < kClusterBlocks; ++q)
-        acc = acc + __ldcg(wlp + (size_t)q * P + f);
+        acc = acc + __ldcg(wlp + (size_t)q * NP + f);
       if (k < wsize) {
         float gp = __ldcg(gpp + f);
         for (int q = 1; q < kClusterBlocks; ++q)
-          gp = gp + __ldcg(gpp + (size_t)q * P + f);
+          gp = gp + __ldcg(gpp + (size_t)q * NP + f);
         gW[i][k] = acc + gp;
       } else {
         gb[i][k - wsize] = acc;
@@ -790,52 +1036,75 @@ __device__ void critic(const Args& a, int rank, const float* big, int in,
   }
 }
 
-// Blocks [0, kClusterBlocks) form cluster 0 (the decoder, then critic_x),
-// the rest cluster 1 (the encoder, then critic_z).
-template <int kIn>
-__global__ void __launch_bounds__(kThreads) critic_step_kernel(Args a) {
+// A signal's side-x cluster runs the decoder, then critic_x, its side-z
+// cluster the encoder, then critic_z (see Cluster order for where each
+// lies in the grid). kFull: K5, the generator
+// forwards first, reading their weights where they lie, the critic's
+// weights copied into shared memory meanwhile where the plan has them
+// resident. Else K4, which reads the critic's weights where they lie (a
+// copy at its start cost more than reading them from shared memory saved)
+// and whose instances hold no generator or staging code, which would cost
+// the critic registers. The arguments stay where the launch put them
+// (__grid_constant__), which the phases address.
+template <int kIn, bool kFull>
+__global__ void __launch_bounds__(kThreads)
+    critic_step_kernel(const __grid_constant__ Args a) {
   __shared__ float red[kWarps + 1];
   // 33,024 bytes narrow, 32,896 wide; the any-width instance's tile is
   // dynamic shared memory
   __shared__ float static_tile[kIn == kAnyIn ? 1
                                              : tile_rows<kIn>() * (kIn + 1)];
-  extern __shared__ float dynamic_tile[];
-  float* tile = kIn == kAnyIn ? dynamic_tile : static_tile;
+  __shared__ Staging st;
+  extern __shared__ __align__(16) float dyn[];
+  // the grid (16, S) has z 0; the grid (8, S, 2) has x under 8
+  const int side = (int)blockIdx.z + (blockIdx.x < kClusterBlocks ? 0 : 1);
+  const Plan& P = a.plan[side];
+  const Smem sm{&P, &st, kIn == kAnyIn ? dyn + P.critic : static_tile,
+                P.tile};
+  if constexpr (kFull) {
+    if (threadIdx.x == 0) hypad::mbar_init_count(&st.bar, kThreads);
+    __syncthreads();
+    stage_critic(a, P, side == 0 ? CX : CZ, st, dyn);
+  }
+#if HYPAD_CS_PROBE == 1
+  // the copies alone
+  if constexpr (kFull) wait_critic(P, st);
+  return;
+#endif
   const int rank = (int)cg::this_cluster().block_rank();
   const Rows rows = rank_rows(a.B, rank, 1);
   float* ws = out_ptr(a, WS);
   float* loss = out_ptr(a, LOSS);
-  if (blockIdx.x < kClusterBlocks) {
+  if (side == 0) {
     float* bigx = out_ptr(a, BIGX);
     float* cws = ws;
-    if (a.full)
-      decoder_side<kIn>(a, rows, cws + critic_ws(3 * a.B, a.B, a.W, a.Hx, 4),
-                   bigx, tile);
-    critic<kIn>(a, rank, bigx, a.W, a.Hx, 4, CX, GCX,
-           static_cast<const uint8_t*>(slot(a, MCX)), kCxKeep, +1.0f, loss,
-           cws, red, tile);
+    if constexpr (kFull)
+      decoder_side<kIn>(a, sm, rows,
+                        cws + critic_ws(3 * a.B, a.B, a.W, a.Hx, 4), bigx);
+    critic<kIn, kFull>(a, sm, rank, bigx, a.W, a.Hx, 4, GCX,
+                       static_cast<const uint8_t*>(slot(a, MCX)), kCxKeep,
+                       +1.0f, loss, cws, red);
   } else {
     float* bigz = out_ptr(a, BIGZ);
     float* cws = ws + side_x_ws(a);
-    if (a.full)
-      encoder_side<kIn>(a, rows, cws + critic_ws(3 * a.B, a.B, a.L, a.Hz, 2),
-                   bigz, tile);
-    critic<kIn>(a, rank, bigz, a.L, a.Hz, 2, CZ, GCZ,
-           static_cast<const uint8_t*>(slot(a, MCZ)), kCzKeep, -1.0f,
-           loss + 1, cws, red, tile);
+    if constexpr (kFull)
+      encoder_side<kIn>(a, sm, rows,
+                        cws + critic_ws(3 * a.B, a.B, a.L, a.Hz, 2), bigz);
+    critic<kIn, kFull>(a, sm, rank, bigz, a.L, a.Hz, 2, GCZ,
+                       static_cast<const uint8_t*>(slot(a, MCZ)), kCzKeep,
+                       -1.0f, loss + 1, cws, red);
   }
 }
 
-// The widest layer input (or MobiusLinear head) a launch stages: the
-// critics' inputs and hidden widths, and under K5 the generator's.
-int widest(const Args& a) {
-  int w = 0;
-  const int in[] = {a.W, a.L, a.Hx, a.Hz};
-  const int gen[] = {a.D1, 2 * a.Hd, 2 * a.He};
-  for (int v : in) w = v > w ? v : w;
-  if (a.full)
-    for (int v : gen) w = v > w ? v : w;
-  return w;
+using KernelFn = void (*)(Args);
+
+// The instance a launch of widest input `w` takes: narrow up to kMaxIn,
+// wide up to kWideMaxIn, any-width above.
+template <bool kFull>
+KernelFn instance_of(int w) {
+  return w > kWideMaxIn ? critic_step_kernel<kAnyIn, kFull>
+         : w > kMaxIn   ? critic_step_kernel<kWideMaxIn, kFull>
+                        : critic_step_kernel<kMaxIn, kFull>;
 }
 
 bool fill(Args* a, void* const* ptrs, const long long* strides,
@@ -859,47 +1128,120 @@ bool fill(Args* a, void* const* ptrs, const long long* strides,
   return true;
 }
 
+// How a launch at a set of widths holds its weights: its instance, that
+// instance's static shared memory, the dynamic shared memory a block takes,
+// and each side's plan. K4 reads every weight where it lies; K5 holds a
+// side's critic resident where it fits beside a tile row, else reads it
+// where it lies too.
+struct Setup {
+  KernelFn kernel;
+  int static_bytes, dyn;
+  Plan plan[2];
+};
+
+cudaError_t make_setup(const Args& a, Setup* s) {
+  const int w = widest(a);
+  s->kernel = a.full ? instance_of<true>(w) : instance_of<false>(w);
+  cudaFuncAttributes attr;
+  const cudaError_t got = cudaFuncGetAttributes(&attr, s->kernel);
+  if (got != cudaSuccess) return got;
+  s->static_bytes = (int)attr.sharedSizeBytes;
+  const int floats = (kSmemLimit - s->static_bytes) / 4;
+  int most = 0;
+  for (int side = 0; side < 2; ++side) {
+    Plan& P = s->plan[side];
+    const bool any = w > kWideMaxIn;
+    if (!(a.full && plan(a, side, any, floats, true, &P)) &&
+        !plan(a, side, any, floats, false, &P))
+      return cudaErrorInvalidValue;
+    most = max(most, P.critic + P.tile);
+  }
+  s->dyn = 4 * most;
+  return cudaSuccess;
+}
+
+// The setup of a launch at a's widths, made once for each set of widths
+// (a refusal too); other errors are not kept.
+cudaError_t setup_of(const Args& a, Setup* s) {
+  static std::mutex mu;
+  static std::map<std::array<int, kDims + 2>,
+                  std::pair<cudaError_t, Setup>> made;
+  const std::array<int, kDims + 2> key = {
+      a.B, a.W, a.L, a.Hx, a.Hz, a.He, a.D1, a.Hd, a.full, a.hyperbolic};
+  const std::lock_guard<std::mutex> hold(mu);
+  auto it = made.find(key);
+  if (it == made.end()) {
+    Setup fresh;
+    const cudaError_t err = make_setup(a, &fresh);
+    if (err != cudaSuccess && err != cudaErrorInvalidValue) return err;
+    it = made.emplace(key, std::make_pair(err, fresh)).first;
+  }
+  *s = it->second.second;
+  return it->second.first;
+}
+
+// Lets `kernel` take `dyn` bytes of dynamic shared memory on the current
+// device (once for each device and instance, unless a launch needs more),
+// and gives the device's SM count (`sms`, asked once for each device).
+cudaError_t prepare_device(KernelFn kernel, int dyn, int* sms) {
+  static std::mutex mu;
+  static std::map<std::pair<int, KernelFn>, int> allowed;
+  static std::map<int, int> sm_count;
+  int device = 0;
+  const cudaError_t got = cudaGetDevice(&device);
+  if (got != cudaSuccess) return got;
+  const std::lock_guard<std::mutex> hold(mu);
+  auto known = sm_count.find(device);
+  if (known == sm_count.end()) {
+    int n = 0;
+    const cudaError_t asked =
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    if (asked != cudaSuccess) return asked;
+    known = sm_count.emplace(device, n).first;
+  }
+  *sms = known->second;
+  int& have = allowed[{device, kernel}];
+  if (dyn <= have) return cudaSuccess;
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (set == cudaSuccess) have = dyn;
+  return set;
+}
+
 // Two clusters of kClusterBlocks blocks for each of `signals` signals
-// (blockIdx.y). A refused launch (a cluster the card cannot place, for
-// one) comes back as its error code.
+// (blockIdx.y), laid out as Cluster order says, each block with the shared
+// memory its plan takes. A
+// refused launch (a cluster the card cannot place, or widths not even one
+// tile row of fits) comes back as its error code.
 int launch(void* const* ptrs, const long long* strides, const int* dims,
            int signals, int full, int hyperbolic, void* stream) {
   Args a;
   if (signals < 1 || signals > 65535 ||
       !fill(&a, ptrs, strides, dims, full, hyperbolic))
     return cudaErrorInvalidValue;
+  Setup s;
+  const cudaError_t planned = setup_of(a, &s);
+  if (planned != cudaSuccess) return planned;
+  a.plan[0] = s.plan[0];
+  a.plan[1] = s.plan[1];
+  int sms = 0;
+  const cudaError_t ready = prepare_device(s.kernel, s.dyn, &sms);
+  if (ready != cudaSuccess) return ready;
+  const bool side_major = 2 * kClusterBlocks * signals > sms;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
   cluster[0].val.clusterDim.x = kClusterBlocks;
   cluster[0].val.clusterDim.y = 1;
   cluster[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2 * kClusterBlocks, signals);
+  cfg.gridDim = side_major ? dim3(kClusterBlocks, signals, 2)
+                            : dim3(2 * kClusterBlocks, signals, 1);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = s.dyn;
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  // the narrow instance up to kMaxIn, the wide one up to kWideMaxIn, the
-  // any-width one above, with a dynamic tile of up to kWideTileRows rows of
-  // the widest input (stride | 1), at least one
-  const int w = widest(a);
-  void (*kernel)(Args) = w > kWideMaxIn ? critic_step_kernel<kAnyIn>
-                         : w > kMaxIn   ? critic_step_kernel<kWideMaxIn>
-                                        : critic_step_kernel<kMaxIn>;
-  if (w > kWideMaxIn) {
-    const size_t row = sizeof(float) * (size_t)(w | 1);
-    const size_t room = kSmemLimit - sizeof(float) * (kWarps + 2);
-    if (row > room) return cudaErrorInvalidValue;
-    const size_t rows = room / row < kWideTileRows ? room / row
-                                                   : kWideTileRows;
-    cfg.dynamicSmemBytes = rows * row;
-    const cudaError_t attr = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)cfg.dynamicSmemBytes);
-    if (attr != cudaSuccess) return attr;
-  }
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, s.kernel, a);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
@@ -926,6 +1268,27 @@ extern "C" void critic_step_launch_shape(int* shape) {
   shape[0] = 2;
   shape[1] = kClusterBlocks;
   shape[2] = kThreads;
+}
+
+// Bytes of shared memory a block of K4 or K5 holds for these dims, full
+// (K5) or not, and of which part: [0] static (the tile, the reduction
+// scratch, the staging barrier and tables), [1] the resident critic of
+// side x, [2] of side z, [3] the any-width tile, [4] 1 where side x reads
+// its critic's weights where they lie, [5] side z. Returns the block's
+// total (static and dynamic), or -1 where the launch would be refused.
+extern "C" long long critic_step_smem_bytes(const int* dims, int full,
+                                            int hyperbolic, long long* parts) {
+  Args a;
+  void* none[kSlots] = {};
+  Setup s;
+  if (!fill(&a, none, nullptr, dims, full, hyperbolic) ||
+      setup_of(a, &s) != cudaSuccess)
+    return -1;
+  const Plan &x = s.plan[0], &z = s.plan[1];
+  const long long got[6] = {s.static_bytes, 4LL * x.critic, 4LL * z.critic,
+                            4LL * x.tile,   !x.resident,    !z.resident};
+  for (int q = 0; q < 6; ++q) parts[q] = got[q];
+  return (long long)s.static_bytes + s.dyn;
 }
 
 // K4: both critics' losses and gradients from bigx, bigz, mx, mz. `ptrs`

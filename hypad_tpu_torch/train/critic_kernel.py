@@ -12,11 +12,14 @@ version beside it, which is the autograd composition of the training losses
 card the kernel is held against autodiff. Each wrapper counts its kernel
 launches in ``.launches``, those of the wide instance (widths of 129 to
 256, multivariate feature counts) in ``.wide_launches`` too, and those of
-the any-width instance (above 256) in ``.xwide_launches``. The any-width
-instance stages its input rows in dynamic shared memory, at least one row
-of the widest input at a time, so a launch takes widths up to about 58,000
-floats (227 KB); a wider launch is refused by the card and the wrapper
-raises its CUDA error.
+the any-width instance (above 256) in ``.xwide_launches``. K5 holds each
+side's critic resident in shared memory where it fits beside a tile of at
+least one row of the widest input (side x up to about 2,700 floats at the
+published hidden widths) and reads it where it lies in device memory past
+that, as it reads the generator's weights; K4 reads every weight where it
+lies. Either takes widths up to about 58,000 floats, one row of the widest
+input in 227 KB of shared memory; a wider launch is refused
+(``cudaErrorInvalidValue``) and the wrapper raises its CUDA error.
 
 Both return ``(lx, lz, grads_cx, grads_cz)``: 0-d loss tensors and dicts of
 gradients keyed like the port's ``state_dict`` (``"critic_x.dense1.w"``).
@@ -119,7 +122,31 @@ def bind(lib):
         lib.critic_step_full_signals_forward.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         lib.critic_step_full_signals_forward.restype = ctypes.c_int
+    # the shared-memory report (a baseline source may predate it too)
+    if hasattr(lib, "critic_step_smem_bytes"):
+        lib.critic_step_smem_bytes.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                               ctypes.c_int, ctypes.c_void_p]
+        lib.critic_step_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+SMEM_PARTS = ("static", "critic_x", "critic_z", "tile", "direct_x",
+              "direct_z")
+
+
+def smem_bytes(dims, full, hyperbolic, lib=None):
+    """{"block": bytes of shared memory a block of K5 (``full``) or K4
+    holds at ``dims`` (B, W, L, Hx, Hz, He, D1, Hd), and each part of it:
+    SMEM_PARTS: bytes, and 1 where a side's critic reads its weights where
+    they lie in device memory}, as the library plans them; None where the
+    launch would be refused."""
+    lib = lib or _lib()
+    parts = (ctypes.c_longlong * len(SMEM_PARTS))()
+    total = lib.critic_step_smem_bytes(_dims(*dims), int(full),
+                                       int(bool(hyperbolic)), parts)
+    if total < 0:
+        return None
+    return {"block": int(total), **dict(zip(SMEM_PARTS, map(int, parts)))}
 
 
 def launch_shape():
@@ -501,15 +528,26 @@ def critics_fused_grads_fleet(P, bigx, bigz, mx, mz):
         return critics_fused_grads_fleet_plain(P, bigx, bigz, mx, mz)
     if device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {device}")
-    slots = _FleetSlots(device, S)
+    slots, dims, out = k4_fleet_launch_args(P, bigx, bigz, mx, mz)
+    _run_fleet("critics_fused_grads_signals_forward", slots, dims, S)
+    _build.count_launch(critics_fused_grads, kind)
+    return out
+
+
+def k4_fleet_launch_args(P, bigx, bigz, mx, mz,
+                         name="critics_fused_grads_fleet"):
+    """K4's signal-axis slot tables (a ``_FleetSlots``), dims and the
+    outputs (lx (S,), lz (S,), grads_cx, grads_cz) it fills, for inputs
+    the wrapper has checked."""
+    S, R = bigx.shape[:2]
+    W, L, Hx, Hz = _fleet_widths(P)
+    slots = _FleetSlots(bigx.device, S)
     for slot, key, t in ((SLOT_BIGX, "bigx", bigx), (SLOT_BIGZ, "bigz", bigz),
                          (SLOT_MCX, "mx", mx), (SLOT_MCZ, "mz", mz)):
         slots.put(slot, t, key, name)
     gx, gz, loss = _fleet_critic_slots(slots, P, S, name)
-    _run_fleet("critics_fused_grads_signals_forward", slots,
-               _dims(R // 3, W, L, Hx, Hz), S)
-    _build.count_launch(critics_fused_grads, kind)
-    return loss[:, 0], loss[:, 1], gx, gz
+    return slots, _dims(R // 3, W, L, Hx, Hz), (loss[:, 0], loss[:, 1], gx,
+                                                 gz)
 
 
 def critic_step_fused_full_fleet(P, x, draws, hyperbolic):
@@ -549,6 +587,24 @@ def critic_step_fused_full_fleet(P, x, draws, hyperbolic):
         return critic_step_fleet_plain(P, x, d, hyperbolic)
     if device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {device}")
+    slots, dims, out, _rows = k5_fleet_launch_args(P, x, d, hyperbolic)
+    _run_fleet("critic_step_full_signals_forward", slots, dims, S,
+               int(bool(hyperbolic)))
+    _build.count_launch(critic_step_fused_full, kind)
+    return out
+
+
+def k5_fleet_launch_args(P, x, d, hyperbolic,
+                         name="critic_step_fused_full_fleet"):
+    """K5's signal-axis slot tables, dims and outputs, as
+    :func:`k4_fleet_launch_args`, and last the stacked rows (bigx, bigz)
+    the kernel writes; ``d`` holds one step's draws with a leading S."""
+    device = x.device
+    S, B, W = x.shape
+    _, L, Hx, Hz = _fleet_widths(P)
+    He = P["encoder.lstm.0.w_hh"].shape[2]
+    Hd = P["decoder.lstm.0.w_hh"].shape[2]
+    D1 = P["decoder.dense1.w"].shape[1]
     slots = _FleetSlots(device, S)
     for slot, key in ((SLOT_ZX, "z_x"), (SLOT_AX, "a_x"), (SLOT_ZZ, "z_z"),
                       (SLOT_AZ, "a_z"), (SLOT_MDEC, "m_dec"),
@@ -559,10 +615,9 @@ def critic_step_fused_full_fleet(P, x, draws, hyperbolic):
     bigz = torch.empty((S, 3 * B, L), dtype=torch.float32, device=device)
     slots.put(SLOT_BIGX, bigx, "bigx", name)
     slots.put(SLOT_BIGZ, bigz, "bigz", name)
+    gen = ENC_KEYS + DEC_KEYS + (HEAD_KEYS if hyperbolic else ())
     for i, key in enumerate(gen):
         slots.put(SLOT_ENC + i, P[key], key, name)
     gx, gz, loss = _fleet_critic_slots(slots, P, S, name)
-    _run_fleet("critic_step_full_signals_forward", slots,
-               _dims(B, W, L, Hx, Hz, He, D1, Hd), S, int(bool(hyperbolic)))
-    _build.count_launch(critic_step_fused_full, kind)
-    return loss[:, 0], loss[:, 1], gx, gz
+    return (slots, _dims(B, W, L, Hx, Hz, He, D1, Hd),
+            (loss[:, 0], loss[:, 1], gx, gz), (bigx, bigz))

@@ -1,0 +1,10 @@
+// The cluster group of the CPU emulation (see cuda_runtime.h).
+#pragma once
+#include "cuda_runtime.h"
+namespace cooperative_groups {
+struct cluster_group {
+  unsigned block_rank() const { return emu::ctx.blk->rank; }
+  void sync() const { emu::cluster_sync(); }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups

@@ -1,0 +1,343 @@
+// The CPU emulation's launch and copies (see cuda_runtime.h). A launch runs
+// its clusters one after another. Within a cluster every CUDA thread is a
+// pthread; in the free schedule all of them run at once, and in an ordered
+// one the blocks take turns between cluster barriers, one block at a time,
+// in ascending or descending rank order. Where the kernel is free of races
+// between ranks, every schedule gives the same bits; where a rank reads
+// what another writes between the same two cluster barriers, the two
+// orders give different ones.
+#include <pthread.h>
+
+#include <chrono>
+#include <condition_variable>
+#include <cstdio>
+#include <cstdlib>
+#include <map>
+#include <memory>
+#include <mutex>
+#include <thread>
+
+#include "bulk_copy.cuh"
+#include "cuda_runtime.h"
+
+namespace emu {
+thread_local Ctx ctx;
+static int g_order = 0;  // 0 free, 1 ascending ranks, 2 descending
+static int g_lazy = 0;   // copies land when waited for
+static size_t g_static = 33712;
+static int g_sms = 132;
+size_t static_bytes() { return g_static; }
+int sm_count() { return g_sms; }
+
+[[noreturn]] static void die(const char* what) {
+  fprintf(stderr, "critic_emu: %s\n", what);
+  abort();
+}
+
+struct Cluster {
+  unsigned size;
+  std::mutex m;
+  std::condition_variable cv;
+  unsigned turn = 0;  // the position in the order whose block runs
+  struct Pass {
+    Cluster* c;
+    void operator()() noexcept {
+      std::lock_guard<std::mutex> g(c->m);
+      ++c->turn;
+      c->cv.notify_all();
+    }
+  };
+  struct Reset {
+    Cluster* c;
+    void operator()() noexcept {
+      std::lock_guard<std::mutex> g(c->m);
+      c->turn = 0;
+      c->cv.notify_all();
+    }
+  };
+  std::vector<std::unique_ptr<std::barrier<Pass>>> handoff;  // a block's
+  std::unique_ptr<std::barrier<Reset>> all;  // every thread of the cluster
+  unsigned position(unsigned rank) const {
+    return g_order == 2 ? size - 1 - rank : rank;
+  }
+};
+
+static void wait_turn() {
+  if (!g_order) return;
+  Cluster& c = *ctx.blk->cluster;
+  const unsigned pos = c.position(ctx.blk->rank);
+  std::unique_lock<std::mutex> g(c.m);
+  if (!c.cv.wait_for(g, std::chrono::seconds(120),
+                     [&] { return c.turn == pos; }))
+    die("a block waits for its turn for ever");
+}
+static void pass_turn() {
+  if (g_order) ctx.blk->cluster->handoff[ctx.blk->rank]->arrive_and_wait();
+}
+void cluster_sync() {
+  pass_turn();
+  ctx.blk->cluster->all->arrive_and_wait();
+  wait_turn();
+}
+
+// ---- copies and mbarriers ----
+struct CopyRec {
+  void* d;
+  const void* s;
+  bool done = false;
+};
+using Copies = std::vector<std::shared_ptr<CopyRec>>;
+thread_local std::vector<Copies> t_groups;
+thread_local Copies t_current;
+struct Bar {
+  int count = 1, pending = 1;
+  long tx = 0, queued = 0;
+  unsigned phase = 0;
+  struct Bulk {
+    void* d;
+    const void* s;
+    unsigned n;
+  };
+  std::vector<Bulk> q;          // lazy bulk copies
+  std::vector<Copies> arrivals;  // cp.async arrivals not yet landed
+};
+static std::mutex mu;
+static std::condition_variable cv;
+static std::map<uint64_t*, Bar> bars;
+
+static void perform(std::shared_ptr<CopyRec>& c) {
+  if (!c->done) {
+    memcpy(c->d, c->s, 16);
+    c->done = true;
+  }
+}
+static void settle(Bar& b) {
+  for (size_t i = 0; i < b.arrivals.size();) {
+    bool all = true;
+    for (auto& c : b.arrivals[i]) all = all && c->done;
+    if (!all) {
+      ++i;
+      continue;
+    }
+    b.arrivals.erase(b.arrivals.begin() + i);
+    if (--b.pending < 0) die("too many arrivals on an mbarrier");
+  }
+}
+static void try_complete(Bar& b, bool force) {
+  if (force)
+    for (auto& arr : b.arrivals)
+      for (auto& c : arr) perform(c);
+  settle(b);
+  if (b.pending != 0) return;
+  if (g_lazy && b.queued) {
+    if (!force || b.tx != b.queued) return;
+    for (auto& c : b.q) memcpy(c.d, c.s, c.n);
+    b.q.clear();
+    b.tx = b.queued = 0;
+  } else if (b.tx != 0) {
+    return;
+  }
+  b.phase++;
+  b.pending = b.count;
+  cv.notify_all();
+}
+static void settle_all() {
+  for (auto& kv : bars) try_complete(kv.second, false);
+}
+
+// ---- the launch ----
+struct Thread {
+  Block* blk;
+  unsigned tid;
+  void (*body)(void*);
+  void* arg;
+};
+static void* thread_main(void* p) {
+  t_groups.clear();
+  t_current.clear();
+  auto* t = static_cast<Thread*>(p);
+  ctx = Ctx{t->blk, t->tid};
+  wait_turn();
+  t->body(t->arg);
+  pass_turn();
+  return nullptr;
+}
+void run_grid(dim3 grid, dim3 block, size_t dyn, void (*body)(void*),
+              void* arg, unsigned per) {
+  for (unsigned z = 0; z < grid.z; ++z)
+  for (unsigned y = 0; y < grid.y; ++y)
+    for (unsigned c0 = 0; c0 < grid.x; c0 += per) {
+      Cluster cl;
+      cl.size = per;
+      for (unsigned r = 0; r < per; ++r)
+        cl.handoff.emplace_back(
+            new std::barrier<Cluster::Pass>(block.x, Cluster::Pass{&cl}));
+      cl.all.reset(
+          new std::barrier<Cluster::Reset>(per * block.x, Cluster::Reset{&cl}));
+      std::vector<Block> blks(per);
+      std::vector<std::vector<char>> mem;
+      for (unsigned r = 0; r < per; ++r) {
+        Block& b = blks[r];
+        b.bx = c0 + r;
+        b.by = y;
+        b.bz = z;
+        b.nthreads = block.x;
+        b.rank = r;
+        b.bar = new std::barrier<>(block.x);
+        for (unsigned w = 0; w < block.x / 32; ++w)
+          b.warp_bar.push_back(new std::barrier<>(32));
+        b.exf.assign(block.x, 0.f);
+        b.exu.assign(block.x, 0u);
+        // shared memory starts as NaN bytes, so a read of a float that
+        // was never written shows
+        for (int k = 0; k < 3; ++k) {
+          mem.emplace_back(80000, (char)0xff);
+          b.shared[k] = mem.back().data();
+        }
+        mem.emplace_back(dyn + 64, (char)0xff);
+        b.dyn = (char*)(((uintptr_t)mem.back().data() + 15) & ~(uintptr_t)15);
+        b.dyn_bytes = dyn;
+        b.cluster = &cl;
+      }
+      std::vector<Thread> ts(per * block.x);
+      std::vector<pthread_t> th(per * block.x);
+      pthread_attr_t attr;
+      pthread_attr_init(&attr);
+      pthread_attr_setstacksize(&attr, 1 << 18);
+      for (unsigned i = 0; i < per * block.x; ++i) {
+        ts[i] = Thread{&blks[i / block.x], i % block.x, body, arg};
+        if (pthread_create(&th[i], &attr, thread_main, &ts[i]))
+          die("pthread_create failed");
+      }
+      // a launch that hangs (a barrier some thread never reaches) ends
+      // the process instead of the test run
+      std::mutex wm;
+      std::condition_variable wcv;
+      bool finished = false;
+      std::thread watchdog([&] {
+        std::unique_lock<std::mutex> g(wm);
+        if (!wcv.wait_for(g, std::chrono::seconds(300),
+                          [&] { return finished; }))
+          die("a cluster ran for 300 s: a barrier some thread never reaches");
+      });
+      for (auto& t : th) pthread_join(t, nullptr);
+      {
+        std::lock_guard<std::mutex> g(wm);
+        finished = true;
+      }
+      wcv.notify_all();
+      watchdog.join();
+      pthread_attr_destroy(&attr);
+      std::lock_guard<std::mutex> g(mu);
+      for (auto& kv : bars) {
+        const Bar& b = kv.second;
+        if (b.pending != b.count || b.tx != 0 || !b.q.empty() ||
+            !b.arrivals.empty())
+          die("copies still in flight when the block exits");
+      }
+      bars.clear();
+      for (auto& b : blks) {
+        delete b.bar;
+        for (auto* w : b.warp_bar) delete w;
+      }
+    }
+}
+}  // namespace emu
+
+namespace hypad {
+using emu::bars;
+using emu::cv;
+using emu::mu;
+void mbar_init(uint64_t* bar) {
+  std::lock_guard<std::mutex> g(mu);
+  bars[bar] = emu::Bar{};
+}
+void mbar_init_count(uint64_t* bar, unsigned count) {
+  std::lock_guard<std::mutex> g(mu);
+  emu::Bar b;
+  b.count = b.pending = (int)count;
+  bars[bar] = b;
+}
+void mbar_expect_bytes(uint64_t* bar, unsigned bytes) {
+  std::lock_guard<std::mutex> g(mu);
+  auto& b = bars.at(bar);
+  b.tx += bytes;
+  b.pending--;
+  emu::try_complete(b, false);
+}
+void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  if (((uintptr_t)dst & 15) || ((uintptr_t)src & 15) || (bytes & 15) ||
+      !bytes)
+    emu::die("a bulk copy off the 16-byte boundary");
+  std::lock_guard<std::mutex> g(mu);
+  auto& b = bars.at(bar);
+  if (emu::g_lazy) {
+    b.q.push_back({dst, src, bytes});
+    b.queued += bytes;
+  } else {
+    memcpy(dst, src, bytes);
+    b.tx -= bytes;
+    emu::try_complete(b, false);
+  }
+}
+void mbar_wait(uint64_t* bar, unsigned parity) {
+  std::unique_lock<std::mutex> g(mu);
+  auto& b = bars.at(bar);
+  const auto t0 = std::chrono::steady_clock::now();
+  while ((b.phase & 1u) == parity) {
+    emu::try_complete(b, true);
+    if ((b.phase & 1u) != parity) break;
+    cv.wait_for(g, std::chrono::milliseconds(20));
+    if (std::chrono::steady_clock::now() - t0 > std::chrono::seconds(60))
+      emu::die("an mbarrier wait hangs");
+  }
+}
+void cp_async16(void* dst, const void* src) {
+  if (((uintptr_t)dst & 15) || ((uintptr_t)src & 15))
+    emu::die("a cp.async off the 16-byte boundary");
+  auto rec = std::make_shared<emu::CopyRec>();
+  rec->d = dst;
+  rec->s = src;
+  std::lock_guard<std::mutex> g(mu);
+  if (!emu::g_lazy) emu::perform(rec);
+  emu::t_current.push_back(rec);
+}
+void cp_async_commit() {
+  emu::t_groups.push_back(std::move(emu::t_current));
+  emu::t_current.clear();
+}
+void cp_async_wait_all() {
+  std::lock_guard<std::mutex> g(mu);
+  for (auto& gr : emu::t_groups)
+    for (auto& c : gr) emu::perform(c);
+  emu::t_groups.clear();
+  for (auto& c : emu::t_current) emu::perform(c);
+  emu::t_current.clear();
+  emu::settle_all();
+}
+void cp_async_arrive(uint64_t* bar) {
+  std::lock_guard<std::mutex> g(mu);
+  auto& b = bars.at(bar);
+  emu::Copies mine;
+  for (auto& gr : emu::t_groups)
+    for (auto& c : gr)
+      if (!c->done) mine.push_back(c);
+  for (auto& c : emu::t_current)
+    if (!c->done) mine.push_back(c);
+  b.arrivals.push_back(std::move(mine));
+  emu::try_complete(b, false);
+}
+}  // namespace hypad
+
+// The schedule of later launches: `order` 0 free, 1 ascending ranks, 2
+// descending; `lazy` 1 lands copies only when waited for; the static
+// shared memory the launch's plan assumes; the card's SM count (which
+// decides the grid's layout). The SM count is read once a device, so it
+// is set before the first launch.
+extern "C" void critic_emu_schedule(int order, int lazy, long long stat,
+                                    int sms) {
+  emu::g_order = order;
+  emu::g_lazy = lazy;
+  emu::g_static = (size_t)stat;
+  emu::g_sms = sms;
+}

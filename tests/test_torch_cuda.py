@@ -616,6 +616,93 @@ def test_critic_step_xwide_signal_axis_is_each_signals_launch(cuda):
 
 
 # ---------------------------------------------------------------------------
+# K5 with its critic resident in shared memory: the staging's edges
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hyperbolic,B,width", [(True, 64, 123),
+                                                (False, 64, 123),
+                                                (True, 64, 51),
+                                                (True, 64, 256),
+                                                (True, 100, 100),
+                                                (True, 100, 150)])
+def test_critic_step_kernels_at_the_staging_edges(cuda, hyperbolic, B,
+                                                  width):
+    """K5 and K4 where the weights are awkward: rows of 123 and 51 floats
+    (492 and 204 bytes, off the 16-byte boundary a copy needs, and no
+    float4 loads), the Mobius head at 256, and B = 100 (13 rows a rank, one
+    rank 9): against autograd within the other checks' tolerances, two
+    launches bitwise equal."""
+    from hypad_tpu_torch.profile_critic_step import critic_case
+    from hypad_tpu_torch.train import critic_kernel as ck
+
+    model, x, d = critic_case(cuda, hyperbolic, B, width)
+    got = ck.critic_step_fused_full(model, x, d, hyperbolic)
+    again = ck.critic_step_fused_full(model, x, d, hyperbolic)
+    torch.cuda.synchronize()
+    _assert_critic_close(got, ck.critic_step_plain(model, x, d, hyperbolic),
+                         dict(rtol=5e-5, atol=2e-6),
+                         dict(rtol=1e-4, atol=1e-6))
+    _assert_bitwise(got, again)
+    bigx, bigz = ck.critic_step_inputs(model, x, d, hyperbolic)
+    args = (model["critic_x"], model["critic_z"], bigx, bigz, d["m_cx"],
+            d["m_cz"])
+    got = ck.critics_fused_grads(*args)
+    _assert_critic_close(got, ck.critics_fused_grads_plain(*args),
+                         dict(rtol=2e-5, atol=1e-6),
+                         dict(rtol=5e-5, atol=5e-7))
+    _assert_bitwise(got, ck.critics_fused_grads(*args))
+
+
+def test_critic_step_signal_axis_with_unaligned_slices(cuda):
+    """K5 with a signal axis at width 123: each signal's slice of a
+    stacked weight starts off the 16-byte boundary (a (123,) bias is 492
+    bytes), so its critic lands elsewhere in its resident place; each
+    signal bitwise its own single-signal launch."""
+    from hypad_tpu_torch.profile_critic_step import case_inputs
+    from hypad_tpu_torch.profile_critic_step import critic_case
+    from hypad_tpu_torch.train import critic_kernel as ck
+
+    P, x, d = case_inputs(cuda, True, 64, 123, 3)
+    assert P["decoder.dense2.b"][1].data_ptr() % 16 != 0
+    got = ck.critic_step_fused_full_fleet(P, x, d, True)
+    for i in range(3):
+        model, xi, di = critic_case(cuda, True, 64, 123, seed=i)
+        one = ck.critic_step_fused_full(model, xi, di, True)
+        assert torch.equal(got[0][i], one[0])
+        assert torch.equal(got[1][i], one[1])
+        for j in (2, 3):
+            for k in one[j]:
+                assert torch.equal(got[j][k][i], one[j][k]), k
+
+
+def test_critic_step_reads_in_place_what_it_cannot_stage(cuda):
+    """Past the widths whose critic and generator rows fit in shared
+    memory, K5 reads a side's weights where they lie (at 4,000 side x,
+    whose critic_x is 320 KB; side z still stages), with the same
+    tolerances and two launches the same bits; past one tile row of the
+    widest input (about 58,000 floats) the launch is refused, the wrapper
+    raises its CUDA error and no launch is counted."""
+    from hypad_tpu_torch.profile_critic_step import critic_case
+    from hypad_tpu_torch.train import critic_kernel as ck
+
+    smem = ck.smem_bytes((8, 4000, 20, 20, 20, 50, 50, 64), True, False)
+    assert (smem["direct_x"], smem["direct_z"]) == (1, 0)
+    model, x, d = critic_case(cuda, False, 8, 4000)
+    got = ck.critic_step_fused_full(model, x, d, False)
+    _assert_critic_close(got, ck.critic_step_plain(model, x, d, False),
+                         dict(rtol=5e-5, atol=2e-6),
+                         dict(rtol=1e-4, atol=1e-6))
+    _assert_bitwise(got, ck.critic_step_fused_full(model, x, d, False))
+    model, x, d = critic_case(cuda, False, 8, 60000)
+    before = ck.critic_step_fused_full.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ck.critic_step_fused_full(model, x, d, False)
+    assert ck.critic_step_fused_full.launches == before
+    assert ck.smem_bytes((8, 60000, 20, 20, 20, 50, 50, 64), True,
+                         False) is None
+
+
+# ---------------------------------------------------------------------------
 # the side modules on the card: the Mobius GRU and the device trace
 # ---------------------------------------------------------------------------
 
