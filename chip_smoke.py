@@ -234,8 +234,6 @@ import subprocess
 import time
 from pathlib import Path
 
-H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
-H100_F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM
 # exps on the special-function units: 16 per clock per SM, 132 SMs, at the
 # 1.98 GHz boost clock (H100 SXM); an estimate beside the table's bound
 H100_SFU_EXP_PER_S = 132 * 16 * 1.98e9
@@ -907,10 +905,7 @@ def phase_train_timing(device, X):
     for name, k in (("K5 critic_step_full", k5), ("K4 critics_fused_grads",
                                                   k4)):
         k["launch_shape"] = shape
-        t_bytes = k["bytes"] / H100_BYTES_PER_S * 1e3
-        t_ops = k["ops"] / H100_F32_FLOP_PER_S * 1e3
-        k["bound_ms"] = max(t_bytes, t_ops)
-        k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        bound(k)
         print(f"[timing] {name} at B={TRAIN_BATCH}, {shape}: kernel "
               f"{k['ms']:.5f} ms, plain {k['plain_ms']:.5f} ms, bound {k['bound_ms']:.6f} ms "
               f"({k['bound_by']}: {k['bytes']} bytes, {k['ops']} ops; far "
@@ -1018,6 +1013,7 @@ def fleet_kernel_checks(device):
         mobius_linear_kernel,
     )
     from hypad_tpu_torch.profile_detect import cuda_ms
+    from hypad_tpu_torch.profile_k1 import k1_cost
     from hypad_tpu_torch.train import critic_kernel as ck
     from hypad_tpu_torch.train import fleet as fl
 
@@ -3940,6 +3936,7 @@ def mv_kernel_timing(device):
     )
     from hypad_tpu_torch.profile_critic_step import critic_case
     from hypad_tpu_torch.profile_detect import cuda_ms
+    from hypad_tpu_torch.profile_k1 import k1_cost
     from hypad_tpu_torch.profile_kernels import k2_case
     from hypad_tpu_torch.train import critic_kernel as ck
 
@@ -4043,6 +4040,7 @@ def xwide_kernel_timing(device):
     )
     from hypad_tpu_torch.profile_critic_step import critic_case
     from hypad_tpu_torch.profile_detect import cuda_ms
+    from hypad_tpu_torch.profile_k1 import k1_cost
     from hypad_tpu_torch.profile_kernels import k2_case
     from hypad_tpu_torch.train import critic_kernel as ck
 
@@ -4118,10 +4116,11 @@ def xwide_kernel_timing(device):
 
 
 def k1_training_timing(device, libs):
-    """K1 at the generator step's shapes, (64, F), (128, F) and (3, 64, F)
-    on the signal axis for F = 51, 100, 123, 150 and 256, and at the
-    detector's (20,000, 100) and (50,000, 150): the kernel within
-    1e-6 of plain, each signal bitwise its own launch, and bitwise the
+    """K1 at ``profile_k1.training_shapes``: the generator step's (64, F),
+    (128, F) and (3, 64, F) on the signal axis for F = 51, 100, 123, 150,
+    256 and 300, and the many-rows shapes (20,000, 100), (20,000, 150),
+    (50,000, 150), (50,000, 256), (2,000, 300) and (4,096, 512): the kernel
+    within 1e-6 of plain, each signal bitwise its own launch, and bitwise the
     parent's K1 where it was built (a mismatch fails); its time beside the
     parent's, the zero-padded yardstick's at 51 and 123 (x and W padded to
     the next width the bulk copy takes, 52 and 124, through the parent's
@@ -4136,6 +4135,7 @@ def k1_training_timing(device, libs):
         in_turns,
         k1_case,
         launcher,
+        k1_cost,
         padded,
         training_shapes,
     )
@@ -4252,19 +4252,12 @@ def warm_detect_ms(calls, rounds=7):
     return walls
 
 
-def k1_cost(rows, din, dout):
-    """(bytes, operations) of K1: x, W, b read once, out written once; the
-    product plus the ~16 f32 operations of the clamp chain per output."""
-    return (4 * (rows * din + dout * din + dout + rows * dout),
-            2 * rows * din * dout + 16 * rows * dout)
-
-
 def bound(k):
-    """Set k's bound_ms and bound_by from its bytes and ops."""
-    t_bytes = k["bytes"] / H100_BYTES_PER_S * 1e3
-    t_ops = k["ops"] / H100_F32_FLOP_PER_S * 1e3
-    k["bound_ms"] = max(t_bytes, t_ops)
-    k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    """Set k's bound_ms and bound_by from its bytes and ops
+    (``profile_k1.bound``: the H100's peak rates)."""
+    from hypad_tpu_torch.profile_k1 import bound as least_time
+
+    k["bound_ms"], k["bound_by"] = least_time(k["bytes"], k["ops"])
     return k
 
 
@@ -4292,6 +4285,7 @@ def phase_timing(device, X, model, eucl_model, libs):
         kde_argmax_v2_kernel,
     )
     from hypad_tpu_torch.profile_detect import cuda_ms
+    from hypad_tpu_torch.profile_k1 import k1_cost
     from hypad_tpu_torch.profile_kernels import empty_launch, tie_flips
 
     def detect(m, hyperbolic, **kw):

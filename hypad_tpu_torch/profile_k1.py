@@ -2,7 +2,7 @@
 on a GPU: where its time goes, and what a zero-padded launch would cost.
 
     python3 -m hypad_tpu_torch.profile_k1 --baseline-dir DIR [--reps N]
-        [--variant kFewWarps=2 ...]
+        [--variant kFewWarps=2 ...] [--widths 150 256 ...]
 
 ``DIR`` holds another ``mobius_linear.cu`` of the same C interface, for
 example a parent commit's ``hypad_tpu_torch/csrc`` unpacked with ``git
@@ -10,8 +10,11 @@ archive`` into the gitignored ``_checkout/``.
 
 Shapes: the generator step's 2B and B rows (128 and 64, batch 64) and 64
 rows a signal on the signal axis (S = 3), at the feature counts of the
-shipped configurations and the wide instance's (51, 100, 123, 150, 256),
-and the detector's (20,000, 100) and (50,000, 150).
+shipped configurations, the wide instance's and the any-width one's (51,
+100, 123, 150, 256, 300), and the many-rows shapes: the detector's (20,000,
+100), the CASAS-width detections (20,000 and 50,000 rows of 150), the wide
+instance's (50,000, 256) and the any-width instance's (2,000, 300) and
+(4,096, 512).
 
 At each shape:
 
@@ -27,11 +30,17 @@ At each shape:
   shared memory holds), of both; and of the tree, "fma" and "epilogue",
   built to exit after the FMAs and after the epilogue (neither stores);
   so that W's staging is about full - no_w, the FMAs fma - stage, the
-  epilogue epilogue - fma and the store full - epilogue; an empty kernel's
+  epilogue epilogue - fma and the store full - epilogue (the baseline's
+  at the few-rows shapes only; the tree's also at every shape above 128
+  columns, whose probe builds wait for their copies before they exit); the
+  plain version's time and the bound (``k1_cost``); an empty kernel's
   launch-to-end time; and, at 51 and 123, the yardstick of JAX's
   wrapper, which pads the lanes: x and W zero-padded to the next width
   the bulk copy takes (52, 124) and the baseline's K1 launched on them
-  (the padding itself is timed apart).
+  (the padding itself is timed apart); and on the host clock, the
+  baseline's and the tree's call in turns (``host_in_turns``: the
+  wrapper and the C entry up to the launch, the shape's planning
+  included).
 
 The tree's probes come from its ``HYPAD_K1_PROBE`` hooks (1 stage, 2 no_w,
 3 fma, 4 epilogue); a baseline without them (the K1 of before the hooks)
@@ -50,6 +59,7 @@ import json
 import re
 import statistics
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -59,10 +69,15 @@ from hypad_tpu_torch.manifold import kernels as mk
 from hypad_tpu_torch.profile_critic_step import OUT, variant_jobs
 from hypad_tpu_torch.profile_detect import OUT_DIR, cuda_ms
 
-TRAIN_WIDTHS = (51, 100, 123, 150, 256)
+TRAIN_WIDTHS = (51, 100, 123, 150, 256, 300)
 TRAIN_BATCH = 64    # configs' batch_size: the step runs 2B and B rows
 FLEET_SIGNALS = 3
-MANY_ROWS = ((20_000, 100), (50_000, 150))
+MANY_ROWS = ((20_000, 100), (20_000, 150), (50_000, 150), (50_000, 256),
+             (2_000, 300), (4_096, 512))
+# peak rates of the H100 SXM (data sheet): HBM3, f32 outside the tensor
+# cores
+H100_BYTES_PER_S = 3.35e12
+H100_F32_FLOP_PER_S = 67e12
 K1_TOL = 1e-6
 PROBES = {"stage": 1, "no_w": 2, "fma": 3, "epilogue": 4}
 # the K1 of before the HYPAD_K1_PROBE hooks: (old, new) text substitutions
@@ -118,6 +133,37 @@ def variant_source(text, spec):
             raise RuntimeError(f"mobius_linear.cu does not define {name} "
                                "once")
     return text
+
+
+def k1_cost(rows, din, dout):
+    """(bytes, operations) of K1: x, W, b read once, out written once; the
+    product plus the ~16 f32 operations of the clamp chain per output."""
+    return (4 * (rows * din + dout * din + dout + rows * dout),
+            2 * rows * din * dout + 16 * rows * dout)
+
+
+def bound(nbytes, ops):
+    """(ms, "bytes" or "operations"): the least time on the H100 of work
+    that moves ``nbytes`` and does ``ops`` f32 operations, the larger of
+    the bytes over the memory rate and the operations over the f32 rate,
+    and which of the two it is."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k1_bound_ms(rows, width, signals=None):
+    """The least time of K1 at (rows, width) (``signals`` stacked) on the
+    H100 (``bound``)."""
+    return bound(*(v * (signals or 1) for v in k1_cost(rows, width, width)))[0]
+
+
+def probed(rows, width):
+    """Whether the probe builds are timed at (rows, width): the few-rows
+    shapes, and every shape above 128 columns (the tree's wide and
+    any-width instances wait for their copies before a probe exits; the
+    narrow many-rows kernel would exit with a tile's copy in flight)."""
+    return rows <= 2 * TRAIN_BATCH or width > 128
 
 
 def bulk_width(width):
@@ -253,8 +299,34 @@ def in_turns(fns, reps):
     return {label: statistics.median(t) for label, t in times.items()}
 
 
-def profile(fns, reps):
-    """One record a shape: checks and times (see the module's docstring)."""
+def host_us(fn, calls=200):
+    """The median microseconds of the host that a call of ``fn`` takes,
+    over ``calls`` calls; the device is synchronised every 10 calls,
+    outside the timed spans, so that its queue never fills."""
+    times = []
+    for i in range(calls):
+        if i % 10 == 0:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def host_in_turns(fns):
+    """{label: median us} of ``host_us`` of each ``fns[label]``, in the
+    order given, then reversed, then given again."""
+    order = list(fns)
+    times = {label: [] for label in order}
+    for label in order + order[::-1] + order:
+        times[label].append(host_us(fns[label]))
+    return {label: statistics.median(t) for label, t in times.items()}
+
+
+def profile(fns, reps, widths=None):
+    """One record a shape (those of ``widths`` where given): checks and
+    times (see the module's docstring)."""
     from hypad_tpu_torch.profile_kernels import empty_launch
 
     empty = empty_launch(fns["empty"])
@@ -262,6 +334,8 @@ def profile(fns, reps):
     print(f"[k1] an empty kernel, launch to end: "
           f"{records['empty_kernel_ms']:.5f} ms")
     for label, rows, width, signals in training_shapes():
+        if widths and width not in widths:
+            continue
         x, w, b = k1_case(rows, width, signals)
         err, same = check_case(fns["tree"], x, w, b, label, fns["baseline"])
         calls = {"baseline": lambda: fns["baseline"](x, w, b),
@@ -281,18 +355,26 @@ def profile(fns, reps):
             calls[f"yardstick (padded to {pad})"] = (
                 lambda: fns["baseline"](xp, wp, b))
             calls["padding x and W"] = lambda: padded(x, w, pad)
-        # the probes at the few-rows shapes only: a "stage" probe of many
-        # rows would exit with a tile's copy in flight
-        for name, fn in (fns["probes"].items() if rows <= 2 * TRAIN_BATCH
-                         else ()):
-            calls[f"probe {name}"] = lambda fn=fn: fn(x, w, b)
+        # the baseline's probes at the few-rows shapes only (see probed)
+        for name, fn in fns["probes"].items():
+            if probed(rows, width) and (rows <= 2 * TRAIN_BATCH
+                                        or name.startswith("tree_")):
+                calls[f"probe {name}"] = lambda fn=fn: fn(x, w, b)
         rec = {"max_abs_err": err, "bitwise_baseline": same,
-               "ms": in_turns(calls, reps)}
+               "ms": in_turns(calls, reps),
+               "plain_ms": cuda_ms(lambda: mk.mobius_linear(x, w, b),
+                                   max(reps // 10, 5)),
+               "bound_ms": k1_bound_ms(rows, width, signals),
+               "host_us": host_in_turns({"baseline": calls["baseline"],
+                                         "tree": calls["tree"]})}
         records[label] = rec
         t = rec["ms"]
         print(f"[k1] {label}: baseline {t['baseline']:.5f} ms, tree "
-              f"{t['tree']:.5f} ms; max abs diff {err:.3e}, bitwise the "
-              f"baseline: {same}; "
+              f"{t['tree']:.5f} ms, plain {rec['plain_ms']:.5f} ms, bound "
+              f"{rec['bound_ms']:.6f} ms; max abs diff {err:.3e}, bitwise "
+              f"the baseline: {same}; host us baseline "
+              f"{rec['host_us']['baseline']:.2f}, tree "
+              f"{rec['host_us']['tree']:.2f}; "
               + ", ".join(f"{k} {v:.5f}" for k, v in t.items()
                           if k not in ("baseline", "tree")))
     return records
@@ -303,6 +385,8 @@ def main(argv=None):
     parser.add_argument("--baseline-dir", required=True,
                         help="directory of the baseline's mobius_linear.cu")
     parser.add_argument("--reps", type=int, default=200)
+    parser.add_argument("--widths", type=int, nargs="*",
+                        help="only the shapes of these widths")
     parser.add_argument("--variant", nargs="*", default=(),
                         help="also build the tree with these constants "
                         "(name=value,...), check its bits, and time it")
@@ -311,7 +395,7 @@ def main(argv=None):
         raise SystemExit("profile_k1: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     fns = build(args.baseline_dir, args.variant)
-    records = profile(fns, args.reps)
+    records = profile(fns, args.reps, args.widths)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()

@@ -1,7 +1,7 @@
 """Where the time of one warm training epoch goes, on a GPU.
 
     python3 -m hypad_tpu_torch.profile_train [--fused-critics full|true|false]
-        [--width F --windows N]
+        [--width F --windows N] [--k1-baseline DIR]
 
 The A1-sized input of ``chip_smoke.py`` (a 1,420-sample synthetic signal,
 1,320 windows of 100, batch 64: 100 critic steps and 20 generator steps an
@@ -19,6 +19,13 @@ a warm epoch:
   time (K1's instances also together), and the device's busy share of the
   wall time.
 
+With ``--k1-baseline DIR`` (a directory holding another
+``mobius_linear.cu`` of the same C interface, for example a parent commit's
+``hypad_tpu_torch/csrc`` unpacked with ``git archive`` into the gitignored
+``_checkout/``), also warm epochs' wall time with K1 launched through that
+source's library and through the tree's, in turns (baseline, tree, tree,
+baseline, three times; medians): what K1's host side costs an epoch.
+
 Prints one line per phase and per top kernel, then one JSON line; writes
 the profiler's table under ``chiprun_out/``. Needs CUDA.
 """
@@ -26,15 +33,56 @@ the profiler's table under ``chiprun_out/``. Needs CUDA.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import statistics
 import time
+from pathlib import Path
 
 import torch
 
 from hypad_tpu_torch.profile_detect import profile_calls
 
 MODES = {"full": "full", "true": True, "false": False}
+
+
+def k1_in_turns(one_epoch, baseline_dir, rounds=3):
+    """{"baseline": ms, "tree": ms}: the median wall time of a warm epoch
+    (host clock, up to a synchronise) with K1 launched through the library
+    of ``baseline_dir``'s ``mobius_linear.cu`` and through the tree's, in
+    turns (baseline, tree, tree, baseline, ``rounds`` times)."""
+    from hypad_tpu_torch import _build
+    from hypad_tpu_torch.manifold import kernels as mk
+    from hypad_tpu_torch.profile_critic_step import OUT
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    lib = OUT / "libk1_train_baseline.so"
+    _build.compile_sources(
+        {"k1_baseline": (Path(baseline_dir) / "mobius_linear.cu", lib)})
+    base = ctypes.CDLL(str(lib))
+    entries = {"baseline": (mk.bind(base), mk.bind_signals(base)),
+               "tree": (mk._lib(), mk._lib_signals())}
+    saved = mk._lib, mk._lib_signals
+    walls = {name: [] for name in entries}
+    try:
+        for _ in range(rounds):
+            for name in ("baseline", "tree", "tree", "baseline"):
+                one, signals = entries[name]
+                mk._lib = lambda one=one: one
+                mk._lib_signals = lambda signals=signals: signals
+                one_epoch()  # each library's first launches at each shape
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one_epoch()
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        mk._lib, mk._lib_signals = saved
+    for name, runs in walls.items():
+        print(f"[k1 host] warm epoch with the {name}'s K1: "
+              f"{statistics.median(runs):.3f} ms (median of {len(runs)}, "
+              f"runs {runs})")
+    return {name: statistics.median(runs) for name, runs in walls.items()}
 
 
 def main(argv=None):
@@ -45,6 +93,9 @@ def main(argv=None):
                         help="window width (a multivariate feature count)")
     parser.add_argument("--windows", type=int, default=None,
                         help="windows an epoch (default: A1's 1,320)")
+    parser.add_argument("--k1-baseline", metavar="DIR",
+                        help="directory of another mobius_linear.cu: also "
+                        "time warm epochs with its K1 and the tree's")
     args = parser.parse_args(argv)
     fused = MODES[args.fused_critics]
 
@@ -100,6 +151,8 @@ def main(argv=None):
     for name, ms in medians.items():
         print(f"[phase] {name}: {ms:.3f} ms (median of 3, runs {phases[name]})")
     print(f"[phase] epoch: {sum(medians.values()):.3f} ms")
+    k1_epochs = (k1_in_turns(one_epoch, args.k1_baseline)
+                 if args.k1_baseline else None)
 
     # an epoch is ~20,000 launches: no Chrome trace, which would be tens of MB
     top, busy_share, wall_ms = profile_calls(
@@ -125,6 +178,7 @@ def main(argv=None):
         "device_ms_per_epoch": device_ms, "launches_per_epoch": launches,
         "width": X.shape[1], "k1_ms_per_epoch": k1_ms,
         "k1_launches_per_epoch": k1_launches,
+        "epoch_ms_by_k1": k1_epochs,
         "top_kernels": [{"name": n, "ms": ms, "launches": c}
                         for n, ms, c in top[:15]]}))
 

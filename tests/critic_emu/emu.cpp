@@ -57,6 +57,7 @@ struct Cluster {
   };
   std::vector<std::unique_ptr<std::barrier<Pass>>> handoff;  // a block's
   std::unique_ptr<std::barrier<Reset>> all;  // every thread of the cluster
+  std::vector<Block*> blocks;                 // by rank
   unsigned position(unsigned rank) const {
     return g_order == 2 ? size - 1 - rank : rank;
   }
@@ -74,6 +75,13 @@ static void wait_turn() {
 static void pass_turn() {
   if (g_order) ctx.blk->cluster->handoff[ctx.blk->rank]->arrive_and_wait();
 }
+void* map_shared(void* p, unsigned rank) {
+  Block& mine = *ctx.blk;
+  const ptrdiff_t off = (char*)p - mine.dyn;
+  if (off < 0 || (size_t)off >= mine.dyn_bytes || rank >= mine.cluster->size)
+    die("a distributed shared memory address outside the dynamic region");
+  return mine.cluster->blocks[rank]->dyn + off;
+}
 void cluster_sync() {
   pass_turn();
   ctx.blk->cluster->all->arrive_and_wait();
@@ -84,6 +92,7 @@ void cluster_sync() {
 struct CopyRec {
   void* d;
   const void* s;
+  unsigned n = 16;
   bool done = false;
 };
 using Copies = std::vector<std::shared_ptr<CopyRec>>;
@@ -107,7 +116,7 @@ static std::map<uint64_t*, Bar> bars;
 
 static void perform(std::shared_ptr<CopyRec>& c) {
   if (!c->done) {
-    memcpy(c->d, c->s, 16);
+    memcpy(c->d, c->s, c->n);
     c->done = true;
   }
 }
@@ -183,6 +192,9 @@ void run_grid(dim3 grid, dim3 block, size_t dyn, void (*body)(void*),
         b.bz = z;
         b.nthreads = block.x;
         b.rank = r;
+        b.gx = grid.x;
+        b.gy = grid.y;
+        b.gz = grid.z;
         b.bar = new std::barrier<>(block.x);
         for (unsigned w = 0; w < block.x / 32; ++w)
           b.warp_bar.push_back(new std::barrier<>(32));
@@ -198,6 +210,7 @@ void run_grid(dim3 grid, dim3 block, size_t dyn, void (*body)(void*),
         b.dyn = (char*)(((uintptr_t)mem.back().data() + 15) & ~(uintptr_t)15);
         b.dyn_bytes = dyn;
         b.cluster = &cl;
+        cl.blocks.push_back(&b);
       }
       std::vector<Thread> ts(per * block.x);
       std::vector<pthread_t> th(per * block.x);
@@ -292,12 +305,13 @@ void mbar_wait(uint64_t* bar, unsigned parity) {
       emu::die("an mbarrier wait hangs");
   }
 }
-void cp_async16(void* dst, const void* src) {
-  if (((uintptr_t)dst & 15) || ((uintptr_t)src & 15))
-    emu::die("a cp.async off the 16-byte boundary");
+void cp_async_n(void* dst, const void* src, unsigned bytes) {
+  if (((uintptr_t)dst & (bytes - 1)) || ((uintptr_t)src & (bytes - 1)))
+    emu::die("a cp.async off its size's boundary");
   auto rec = std::make_shared<emu::CopyRec>();
   rec->d = dst;
   rec->s = src;
+  rec->n = bytes;
   std::lock_guard<std::mutex> g(mu);
   if (!emu::g_lazy) emu::perform(rec);
   emu::t_current.push_back(rec);
@@ -313,6 +327,14 @@ void cp_async_wait_all() {
   emu::t_groups.clear();
   for (auto& c : emu::t_current) emu::perform(c);
   emu::t_current.clear();
+  emu::settle_all();
+}
+void cp_async_wait_groups(int pending) {
+  std::lock_guard<std::mutex> g(mu);
+  while ((int)emu::t_groups.size() > pending) {
+    for (auto& c : emu::t_groups.front()) emu::perform(c);
+    emu::t_groups.erase(emu::t_groups.begin());
+  }
   emu::settle_all();
 }
 void cp_async_arrive(uint64_t* bar) {

@@ -71,11 +71,11 @@ def emulated_source(text):
     return text
 
 
-def build_emulated(text, root, sms):
-    """The emulated library of CUDA source ``text``, built with g++ once
-    for each text under ``root`` (shared by the test workers), on a card of
-    ``sms`` SMs: one loaded copy of the library for each SM count, since
-    the launch asks a device's SM count once."""
+def compile_emulated(text, root, sms):
+    """The path of the emulated library of CUDA source ``text``, built with
+    g++ once for each text under ``root`` (shared by the test workers), on
+    a card of ``sms`` SMs: one copy of the library for each SM count, since
+    a launch may ask a device's SM count once."""
     emu = "".join((EMU / name).read_text() for name in sorted(
         ("emu.cpp", "bulk_copy.cuh", "cuda_runtime.h",
          "cooperative_groups.h")))
@@ -102,9 +102,15 @@ def build_emulated(text, root, sms):
         copy = out / f"libcritic_emu_{sms}.so"
         if not copy.exists():
             shutil.copy(lib, copy)
+    return copy
+
+
+def build_emulated(text, root, sms):
+    """The emulated critic-step library of CUDA source ``text`` (see
+    compile_emulated), bound as ``critic_kernel.bind`` binds the card's."""
     from hypad_tpu_torch.train import critic_kernel as ck
 
-    lib = ck.bind(ctypes.CDLL(str(copy)))
+    lib = ck.bind(ctypes.CDLL(str(compile_emulated(text, root, sms))))
     lib.critic_emu_schedule.argtypes = [ctypes.c_int, ctypes.c_int,
                                         ctypes.c_longlong, ctypes.c_int]
     lib.critic_emu_schedule(FREE, 0, STATIC, sms)

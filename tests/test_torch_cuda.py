@@ -317,7 +317,8 @@ def _traced(fn, kernel, tries=3):
 def test_mobius_linear_wide_kernel_matches_plain(cuda, B, D):
     """K1's wide kernel (W staged whole at 150, in k-chunks at 256) against
     the plain version within 1e-6, one launch each, and by the profiler
-    the wide kernel alone."""
+    the wide kernel alone: its ring where many rows meet a W too wide for
+    a block beside their tiles ((50,000, 256), (5,000, 200) on 132 SMs)."""
     g = torch.Generator().manual_seed(B + D)
     head = init_tadgan(g, D, hyperbolic=True,
                        device=cuda)["decoder"].hyperbolic_linear
@@ -327,6 +328,8 @@ def test_mobius_linear_wide_kernel_matches_plain(cuda, B, D):
                                    mobius_linear_kernel)
     assert launched == 1
     assert len(names) == 1 and "mobius_linear_wide_kernel" in names[0]
+    ring = (B, D) in ((50000, 256), (5000, 200))
+    assert ("mobius_linear_wide_kernel_ring" in names[0]) is ring, names
     assert (got - mobius_linear(x, w, b)).abs().max().item() <= 1e-6
 
 
@@ -338,6 +341,26 @@ def test_mobius_linear_wide_kernel_signal_axis_is_each_signals_launch(cuda):
     b = torch.stack([h.b.detach() for h in heads])
     x = (torch.rand(3, 2000, 150, generator=g) * 2 - 1).to(cuda)
     got = mobius_linear_kernel(x, w, b)
+    for i in range(3):
+        assert torch.equal(got[i], mobius_linear_kernel(x[i].contiguous(),
+                                                        w[i], b[i]))
+    assert (got - mobius_linear(x, w, b)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("B,D", [(64, 150), (5000, 150), (20000, 150),
+                                 (64, 256), (5000, 256), (64, 300),
+                                 (2000, 300), (50000, 300), (4096, 512)])
+def test_mobius_linear_wide_instances_repeat_their_bits_on_each_signal(
+        cuda, B, D):
+    """K1's instances above 128 columns, few rows and many (the wide
+    kernel and its ring, the any-width split and ring kernels): three
+    signals in one launch, each bitwise its own single-signal launch, two
+    launches the same bits, within 1e-6 of the plain version."""
+    from hypad_tpu_torch.profile_k1 import k1_case
+
+    x, w, b = k1_case(B, D, 3, device=cuda)
+    got = mobius_linear_kernel(x, w, b)
+    assert torch.equal(got, mobius_linear_kernel(x, w, b))
     for i in range(3):
         assert torch.equal(got[i], mobius_linear_kernel(x[i].contiguous(),
                                                         w[i], b[i]))
@@ -495,12 +518,14 @@ def test_rolling_sums_are_the_same_bits_on_every_call(cuda, n):
 
 @pytest.mark.parametrize("B,din,dout", [(64, 300, 300), (128, 512, 512),
                                         (4096, 1024, 1024), (50000, 300, 300),
-                                        (300, 257, 100), (100, 64, 700)])
+                                        (300, 257, 100), (100, 64, 700),
+                                        (64, 300, 12000)])
 def test_mobius_linear_xwide_kernel_matches_plain(cuda, B, din, dout):
-    """K1's any-width kernel (columns in chunks of 256, k in chunks of 64,
-    the row's products held in the output until the epilogue) against the
-    plain version within 1e-6, one launch each, and by the profiler the
-    any-width kernel alone."""
+    """K1's any-width kernels against the plain version within 1e-6, one
+    launch each, and by the profiler the one that takes the shape alone:
+    the split kernel where a cluster holds W (dout up to 512) and walks at
+    most 2 tiles, else the ring (at 12,000 columns with each row's products
+    in the output, as no warp's rows of them fit in shared memory)."""
     g = torch.Generator().manual_seed(B + din + dout)
     w = (torch.randn(dout, din, generator=g) / (din * dout) ** 0.5).to(cuda)
     b = (torch.randn(dout, generator=g) / 400).to(cuda)
@@ -510,7 +535,11 @@ def test_mobius_linear_xwide_kernel_matches_plain(cuda, B, din, dout):
     got, names, launched = _traced(lambda: mobius_linear_kernel(x, w, b),
                                    mobius_linear_kernel)
     assert launched == 1 and mobius_linear_kernel.xwide_launches > before
-    assert len(names) == 1 and "mobius_linear_xwide_kernel" in names[0]
+    split = (B, din, dout) in ((64, 300, 300), (128, 512, 512),
+                               (300, 257, 100))
+    want = ("mobius_linear_xwide_kernel_split" if split
+            else "mobius_linear_xwide_kernel_ring")
+    assert len(names) == 1 and want in names[0], names
     assert (got - mobius_linear(x, w, b)).abs().max().item() <= 1e-6
 
 

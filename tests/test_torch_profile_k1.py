@@ -11,12 +11,17 @@ import torch
 from hypad_tpu_torch import _build
 from hypad_tpu_torch.manifold.kernels import mobius_linear
 from hypad_tpu_torch.profile_k1 import (
+    MANY_ROWS,
     PROBES,
     bulk_width,
     check_case,
+    k1_bound_ms,
     k1_case,
+    k1_cost,
+    bound,
     padded,
     probe_source,
+    probed,
     training_shapes,
     variant_source,
 )
@@ -34,12 +39,49 @@ def test_bulk_width_is_the_next_width_a_bulk_copy_takes(width, want):
 def test_training_shapes_cover_the_generator_step_and_the_detector():
     shapes = {label: (rows, width, signals)
               for label, rows, width, signals in training_shapes()}
-    for width in (51, 100, 123, 150, 256):
+    for width in (51, 100, 123, 150, 256, 300):
         assert shapes[f"(128, {width})"] == (128, width, None)
         assert shapes[f"(64, {width})"] == (64, width, None)
         assert shapes[f"(3, 64, {width})"] == (64, width, 3)
-    assert shapes["(20000, 100)"] == (20000, 100, None)
-    assert shapes["(50000, 150)"] == (50000, 150, None)
+    for rows, width in ((20000, 100), (20000, 150), (50000, 150),
+                        (50000, 256), (2000, 300), (4096, 512)):
+        assert shapes[f"({rows}, {width})"] == (rows, width, None)
+    assert len(shapes) == 6 * 3 + 6
+
+
+@pytest.mark.parametrize("label,rows,width,signals", training_shapes())
+def test_every_shape_has_its_bound(label, rows, width, signals):
+    """Each timed shape's bound is the larger of k1_cost's bytes at 3.35
+    TB/s and operations at 67 TFLOP/s, times the signals."""
+    nbytes, ops = k1_cost(rows, width, width)
+    s = signals or 1
+    want = max(s * nbytes / 3.35e12, s * ops / 67e12) * 1e3
+    assert k1_bound_ms(rows, width, signals) == pytest.approx(want,
+                                                              rel=1e-12)
+
+
+@pytest.mark.parametrize("nbytes,ops,want", [
+    (3.35e12, 67e11, (1000.0, "bytes")), (3.35e11, 67e12, (1000.0,
+                                                           "operations"))])
+def test_bound_is_the_slower_of_bytes_and_operations(nbytes, ops, want):
+    ms, by = bound(nbytes, ops)
+    assert ms == pytest.approx(want[0], rel=1e-12) and by == want[1]
+
+
+def test_k1_cost_counts_each_input_once_and_the_clamp_chain():
+    assert k1_cost(2, 3, 5) == (4 * (6 + 15 + 5 + 10), 2 * 30 + 16 * 10)
+
+
+@pytest.mark.parametrize("rows,width,want", [
+    (64, 51, True), (128, 123, True), (20000, 100, False),
+    (20000, 150, True), (50000, 256, True), (2000, 300, True)])
+def test_probes_run_where_their_builds_wait_for_their_copies(rows, width,
+                                                             want):
+    """The probe builds are timed at the few-rows shapes and above 128
+    columns, never on the narrow many-rows kernel (whose probe would exit
+    with a tile's bulk copy in flight)."""
+    assert probed(rows, width) is want
+    assert all(probed(r, w) for r, w in MANY_ROWS if w > 128)
 
 
 @pytest.mark.parametrize("rows,width,signals", [(64, 51, None),
