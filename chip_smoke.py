@@ -21,8 +21,7 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    fallback rows bitwise ``masked_median``, NaN where it is NaN, values
    elsewhere at tie level (a differing value is a sample of its own row,
    at most 1% of rows differ), the flips printed; K3 against K2 at tie
-   level; K2 bitwise the parent's K2 and K3 at tie level against the
-   parent's K3 (its kernel, then the fallback outside it) where built;
+   level; K2 and K3 bitwise the parent's K2 and K3 where built;
    ``kde_argmax_rows_fused`` launches K2 ("v1") or K3 ("v2") alone, no
    sort, as the profiler shows; the checks are ``profile_kernels``' own;
    and the critic-step kernels K5 and K4, each launched as 2 clusters of 8
@@ -117,7 +116,8 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    F), (128, F) and (50,000, F)), K2 and K3 (T = 50,000 + F - 1 rows of width F) and
    K5 and K4 (B = 64, one signal and three in one launch) at F = 150 and
    256 against their plain versions (K2 and K3: use flags and fallback
-   rows bitwise, every other differing row a float64 density tie), and
+   rows bitwise, every other differing row a float64 density tie; K2 and
+   K3 bitwise the parent's where built), and
    at F = 123 the narrow instances (K1 also at SWaT's F = 51), each named
    by the profiler; the main
    path, ``cli train`` (1 epoch) then ``detect`` on a WADI-format pair
@@ -142,9 +142,12 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    any-width instances of K1 (at (64, W), (128, W) and (4,096, W)), K2
    and K3 (T = 4,096 rows at W = 300 and 512, 2,048 at 1,024, the plain
    K2 128 rows at a time; a constant run and NaNs at 300) for W = 300,
-   512 and 1,024, and K5 and K4 (B = 64, one signal and three in one
-   launch) at 300 and 512 against their plain versions, each named by
-   the profiler; the main path at width 300 through the CLI, on a
+   512 and 1,024, and at 4,396 rows of 4,097 with a constant run or NaNs
+   (past kK3TriMaxW: K3 on the one-block-a-row kernel, named by the
+   profiler) (K2 and K3 bitwise the parent's where built), and K5
+   and K4 (B = 64, one signal and three in one launch) at 300 and 512
+   against their plain versions, each named by the profiler; the main
+   path at width 300 through the CLI, on a
    WADI-format stream of 300 features (2,000 training and 2,000 test
    rows): ``train`` (1 epoch, fused_critics "full": the any-width K5 and
    K1), ``detect`` (K1 2, K2 1) against train's own detection and
@@ -200,10 +203,13 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    value, and each kernel's time beside its plain version's and its bound
    at the path's shapes (K1 at the detect shape and at the generator
    step's two, beside an empty kernel; cuBLAS's f32 x @ w.T as an
-   informative line, not K1's function); each wide instance beside its
-   plain version, its bound and the narrow instance at F = 100; each
+   informative line, not K1's function; the KDE kernels' bound the
+   largest of bytes, f32 operations and exps at the special-function
+   units' rate, both operation bounds printed); each wide instance beside
+   its plain version, its bound and the narrow instance at F = 100; each
    any-width instance beside its plain version and its bound at the
-   width-300 path's shapes, and K1 at (50,000, 256) and at the WADI
+   width-300 path's shapes (K2 and K3 of both, in turns with the parent's
+   where built), and K1 at (50,000, 256) and at the WADI
    training shapes (64 and 128 rows of 123); then K1 at every training
    shape, (64, F), (128, F) and (3, 64, F) for F = 51, 100, 123, 150 and
    256, and at (20,000, 100) and (50,000, 150): within 1e-6 of plain, each
@@ -234,9 +240,6 @@ import subprocess
 import time
 from pathlib import Path
 
-# exps on the special-function units: 16 per clock per SM, 132 SMs, at the
-# 1.98 GHz boost clock (H100 SXM); an estimate beside the table's bound
-H100_SFU_EXP_PER_S = 132 * 16 * 1.98e9
 SCORE_TOL = dict(rtol=1e-4, atol=1e-6)   # tests/test_torch_detect.py
 FORWARD_TOL = dict(rtol=1e-5, atol=1e-6)  # tests/test_torch_eucl.py
 REC_ERRORS = ("point", "area", "dtw")
@@ -346,41 +349,66 @@ def kernels_launched(fn, tries=8):
     return names
 
 
+def parent_kde(libs):
+    """{"kde_argmax": fn, "kde_argmax_v2": fn} of the parent's K2 and K3
+    where its kernels were built (``phase_build``), each (vals, mask) ->
+    (value, use) in one launch as the detector runs it; else {}."""
+    from hypad_tpu_torch.ops import kde_kernel as kk
+    from hypad_tpu_torch.profile_kernels import bind_k3, kernel_then_median
+
+    if "kde_argmax_parent" not in libs:
+        return {}
+    k2 = kk.bind(libs["kde_argmax_parent"], "kde_argmax_forward")
+    k3, outside = bind_k3(libs, "parent")
+    return {"kde_argmax": lambda v, m: kk.launch_with(k2, v, m),
+            "kde_argmax_v2": ((lambda v, m: kernel_then_median(k3, v, m))
+                              if outside else
+                              (lambda v, m: kk.launch_with(k3, v, m)))}
+
+
+def check_parent_bits(name, got, parent, vals, mask, case):
+    """Fails unless the kernel ``name``'s (value, use) ``got`` equals the
+    parent's kernel's bit for bit (``parent``: ``parent_kde``'s); returns
+    the words for the check's line ("" without the parent)."""
+    from hypad_tpu_torch.profile_kernels import same_values
+
+    if name not in parent:
+        return ""
+    import torch
+
+    old = parent[name](vals, mask)
+    if not (same_values(old[0], got[0]) and torch.equal(old[1], got[1])):
+        fail(f"{name} differs from the parent's kernel's bits at {case}")
+    return "; bitwise the parent's"
+
+
 def phase_kernels(device, libs):
     """K1, K2 and K3 against their plain versions at the shapes of the
     detect and training paths and at the edge cases, and against the
-    parent's where they were built; returns the largest K1 diffs (plain,
-    parent) and the K2 and K3 tie flips summed over the cases."""
+    parent's where they were built (K2 and K3 bitwise); returns the largest
+    K1 diffs (plain, parent) and the K2 and K3 tie flips summed over the
+    cases."""
     import torch
 
     from hypad_tpu_torch.data.pipeline import A1_BATCH_SIZE as TRAIN_BATCH
     from hypad_tpu_torch.manifold import kernels as mk
     from hypad_tpu_torch.models.tadgan import init_tadgan
-    from hypad_tpu_torch.ops import kde_kernel as kk
     from hypad_tpu_torch.ops.kde_kernel import (
         kde_argmax_kernel,
         kde_argmax_rows_fused,
         kde_argmax_v2_kernel,
     )
     from hypad_tpu_torch.profile_kernels import (
-        bind_k3,
         check_k1,
         check_k2,
         check_k3,
-        kernel_then_median,
         same_values,
         tie_flips,
     )
 
     parent = libs.get("mobius_linear_parent")
     parent_fn = mk.bind(parent) if parent is not None else None
-    parent_k2 = parent_k3 = None
-    if "kde_argmax_parent" in libs:
-        parent_k2 = kk.bind(libs["kde_argmax_parent"], "kde_argmax_forward")
-        k3_fn, outside = bind_k3(libs, "parent")
-        parent_k3 = ((lambda v, m: kernel_then_median(k3_fn, v, m))
-                     if outside else
-                     (lambda v, m: kk.launch_with(k3_fn, v, m)))
+    parent_kdes = parent_kde(libs)
     k1_err, k1_parent = 0.0, None
     # detect: the decoder head and the target embedding on every window;
     # train: the generator step's decoder head on 2B rows and target
@@ -437,21 +465,16 @@ def phase_kernels(device, libs):
         (value, use), (value3, use3) = (outs["kde_argmax"],
                                         outs["kde_argmax_v2"])
         rec = check_k2(value, use, vals, mask, case=case)
-        same = ""
-        if parent_k2 is not None:
-            old = kk.launch_with(parent_k2, vals, mask)
-            if not (same_values(old[0], value) and torch.equal(old[1], use)):
-                fail(f"kde_argmax differs from the parent's K2 at {case}")
-            same = "; bitwise the parent's K2"
+        same = check_parent_bits("kde_argmax", (value, use), parent_kdes,
+                                 vals, mask, case)
         print(f"[kernels] kde_argmax {case}: use flags bitwise; "
               f"{rec['fallback_rows']} rows on the median fallback, bitwise "
               f"masked_median; {rec['flips_vs_plain']} tie flips against its "
               f"plain version{same}")
         flips_total["kde_argmax"] += rec["flips_vs_plain"]
-        old3 = parent_k3(vals, mask) if parent_k3 is not None else None
-        rec3 = check_k3(value3, use3, vals, mask, old3, case)
-        vs_parent = ("" if old3 is None else
-                     f", {rec3['flips_vs_baseline']} against the parent's K3")
+        rec3 = check_k3(value3, use3, vals, mask, case=case)
+        vs_parent = check_parent_bits("kde_argmax_v2", (value3, use3),
+                                      parent_kdes, vals, mask, case)
         print(f"[kernels] kde_argmax_v2 {case}: use flags bitwise; "
               f"{rec3['fallback_rows']} rows on the median fallback, bitwise "
               f"masked_median; {rec3['flips_vs_plain']} tie flips against "
@@ -2472,11 +2495,12 @@ def kernel_named(names, kind):
     return len(names) == 1 and instance_named(names[0]) == kind
 
 
-def mv_kernel_checks(device):
+def mv_kernel_checks(device, libs):
     """The wide instances against their plain versions at F = 150 and 256,
     at the multivariate path's shapes, and one case of width at most 128
-    launching the narrow instance (by the profiler's kernel names).
-    Returns the largest errors and the tie flips."""
+    launching the narrow instance (by the profiler's kernel names); K2 and
+    K3 bitwise the parent's where it was built. Returns the largest errors
+    and the tie flips."""
     import torch
 
     from hypad_tpu_torch.manifold import kernels as mk
@@ -2500,6 +2524,7 @@ def mv_kernel_checks(device):
 
     out = {"k1_err": 0.0, "flips": {"kde_argmax": 0, "kde_argmax_v2": 0},
            "k5_err": 0.0, "k4_err": 0.0}
+    parent = parent_kde(libs)
     # K1: the generator step's 2B and B rows and a detect call's 50,000,
     # at the wide widths and at WADI's F = 123 and SWaT's 51 (narrow
     # instance)
@@ -2541,12 +2566,14 @@ def mv_kernel_checks(device):
                      f"{case}")
             flips = near_tie_flips(value[use], want[use], vals[use],
                                    mask[use])
+            same = check_parent_bits(name, (value, use), parent, vals, mask,
+                                     case)
             out["flips"][name] += flips
             values[name] = value
             print(f"[mv] {name} {case}: use flags bitwise; "
                   f"{int((~use).sum())} fallback rows bitwise masked_median;"
                   f" {flips} flips against the plain version, each a float64"
-                  f" density tie; launches {short_name(names[0])}")
+                  f" density tie{same}; launches {short_name(names[0])}")
         cross = near_tie_flips(values["kde_argmax_v2"][use],
                                values["kde_argmax"][use], vals[use],
                                mask[use])
@@ -2567,8 +2594,20 @@ def mv_kernel_checks(device):
 
 
 XWIDE = (300, 512, 1024)    # the any-width instances' checks
-XWIDE_KDE_ROWS = {300: 4096, 512: 4096, 1024: 2048}   # T of K2 / K3
+# K3 past the group kernels' widest row (kK3TriMaxW, 4,096): the
+# one-block-a-row kde_argmax_v2_xwide_kernel, on 300 windows
+XWIDE_PAST_GROUPS = 4097
+XWIDE_KDE_ROWS = {300: 4096, 512: 4096, 1024: 2048,     # T of K2 / K3
+                  XWIDE_PAST_GROUPS: XWIDE_PAST_GROUPS + 299}
 XWIDE_PLAIN_BLOCK = 128     # the plain K2's rows a block: (128, W, W) f32
+
+
+def xwide_plain_block(width):
+    """The plain K2's rows a block at ``width``: XWIDE_PLAIN_BLOCK up to
+    1,024 columns, fewer past it, so that the (rows, W, W) f32
+    intermediate stays at 0.5 GB."""
+    return min(XWIDE_PLAIN_BLOCK,
+               max(1, XWIDE_PLAIN_BLOCK * 1024 ** 2 // width ** 2))
 
 
 def critic_instance_check(device, F, tag):
@@ -2622,15 +2661,20 @@ def critic_instance_check(device, F, tag):
     return e5, e4, names, k4_names
 
 
-def xwide_kernel_checks(device):
+def xwide_kernel_checks(device, libs):
     """The any-width instances (widths above 256) against their plain
     versions, each named by the profiler: K1 at (64, W), (128, W) and
     (4,096, W) and K2 and K3 on T rows (XWIDE_KDE_ROWS: 4,096 at 300 and
     512, 2,048 at 1,024, the plain K2 taking XWIDE_PLAIN_BLOCK rows at a
     time so that its (rows, W, W) intermediate stays at 0.5 GB) for W =
-    300, 512 and 1,024, with a constant run and NaNs at 300; K5 and K4 at
-    B = 64, W = 300 and 512, one signal and three in one launch. Returns
-    the largest errors and the tie flips."""
+    300, 512 and 1,024, with a constant run and NaNs at 300, and on
+    4,396 rows of XWIDE_PAST_GROUPS (4,097) columns with a constant run or
+    NaNs, where K3 must launch the one-block-a-row
+    kde_argmax_v2_xwide_kernel (the group kernels take up to kK3TriMaxW
+    columns; below it they must be the ones launched); K5 and K4 at B = 64,
+    W = 300 and 512, one signal and three in one launch; K2 and K3 bitwise
+    the parent's where it was built. Returns the largest errors and the tie
+    flips."""
     import functools
 
     import torch
@@ -2649,12 +2693,18 @@ def xwide_kernel_checks(device):
     from hypad_tpu_torch.profile_kernels import (
         check_k1,
         k2_case,
+        k3_constants,
         near_tie_flips,
         same_values,
     )
 
     out = {"k1_err": 0.0, "flips": {"kde_argmax": 0, "kde_argmax_v2": 0},
            "k5_err": 0.0, "k4_err": 0.0, "names": {}}
+    parent = parent_kde(libs)
+    tri_max = k3_constants()["kK3TriMaxW"]
+    if not tri_max < XWIDE_PAST_GROUPS <= 2 * tri_max:
+        fail(f"kK3TriMaxW = {tri_max}: XWIDE_PAST_GROUPS "
+             f"({XWIDE_PAST_GROUPS}) no longer lies just past it")
     for F in XWIDE:
         for rows in (MV_BATCH, 2 * MV_BATCH, 4096):
             gen = torch.Generator().manual_seed(rows + F)
@@ -2675,9 +2725,15 @@ def xwide_kernel_checks(device):
             out["k1_err"] = max(out["k1_err"], err)
             print(f"[xwide] K1 mobius_linear ({rows}, {F}) x ({F}, {F}): "
                   f"max abs diff {err:.3e}{launched}")
-    cases = [(F, 0, False) for F in XWIDE] + [(300, 10 + 300 + 400, False),
-                                              (300, 0, True)]
-    for F, runs, nans in cases:
+    # (width, constant run end, NaNs, traced): one trace a width. Past
+    # kK3TriMaxW the 300 windows are fewer than the row's columns, so the
+    # NaNs reach every row: a case of their own, all fallback rows; the
+    # constant run (windows 10 to 299) gives the last 290 rows
+    cases = ([(F, 0, False, True) for F in XWIDE]
+             + [(300, 10 + 300 + 400, False, False), (300, 0, True, False),
+                (XWIDE_PAST_GROUPS, 300, False, True),
+                (XWIDE_PAST_GROUPS, 0, True, False)])
+    for F, runs, nans, traced in cases:
         T = XWIDE_KDE_ROWS[F]
         vals, mask = k2_case(T - F + 1, F, runs, device, nans)
         case = (f"T={vals.shape[0]} W={F}"
@@ -2685,15 +2741,22 @@ def xwide_kernel_checks(device):
         values = {}
         for name, kernel, plain in (
                 ("kde_argmax", kde_argmax_kernel, functools.partial(
-                    kde_argmax_rows_and_use, block=XWIDE_PLAIN_BLOCK)),
+                    kde_argmax_rows_and_use, block=xwide_plain_block(F))),
                 ("kde_argmax_v2", kde_argmax_v2_kernel,
                  kde_argmax_rows_v2_and_use)):
             launched = ""
-            if not (runs or nans):   # one trace a width
+            if traced:
                 names = kernels_launched(lambda: kernel(vals, mask))
                 if not kernel_named(names, "xwide"):
                     fail(f"{name} at {case} launched {names}")
-                out["names"][name] = short_name(names[0])
+                expect = {"kde_argmax": "kde_argmax_xwide_kernel",
+                          "kde_argmax_v2": (
+                              "kde_argmax_v2_xwide_kernel" if F > tri_max
+                              else "kde_argmax_v2_group_xwide_kernel")}[name]
+                if short_name(names[0]).split("<")[0] != expect:
+                    fail(f"{name} at {case} launched {names}, not {expect}")
+                key = name if F <= tri_max else f"{name}_past_groups"
+                out["names"][key] = short_name(names[0])
                 launched = f"; launches {short_name(names[0])}"
             value, use = kernel(vals, mask)
             want, want_use = plain(vals, mask)
@@ -2705,12 +2768,14 @@ def xwide_kernel_checks(device):
                      f"{case}")
             flips = near_tie_flips(value[use], want[use], vals[use],
                                    mask[use])
+            same = check_parent_bits(name, (value, use), parent, vals, mask,
+                                     case)
             out["flips"][name] += flips
             values[name] = value
             print(f"[xwide] {name} {case}: use flags bitwise; "
                   f"{int((~use).sum())} fallback rows bitwise masked_median;"
                   f" {flips} flips against the plain version, each a float64"
-                  f" density tie{launched}")
+                  f" density tie{same}{launched}")
         cross = near_tie_flips(values["kde_argmax_v2"][use],
                                values["kde_argmax"][use], vals[use],
                                mask[use])
@@ -3914,11 +3979,34 @@ def phase_a13(device, card, main, eucl_model, grid_scores, cards=None):
     return paths, info
 
 
-def mv_kernel_timing(device):
+def in_turns_ms(fn, parent_fn, reps):
+    """(ms, parent ms or None): ``cuda_ms`` of ``fn`` alone, or of ``fn``
+    and ``parent_fn`` in turns (parent, tree, tree, parent), each the mean
+    of its two runs."""
+    from hypad_tpu_torch.profile_detect import cuda_ms
+
+    if parent_fn is None:
+        return cuda_ms(fn, reps), None
+    t = {"tree": [], "parent": []}
+    for which in ("parent", "tree", "tree", "parent"):
+        t[which].append(cuda_ms(fn if which == "tree" else parent_fn, reps))
+    return statistics.mean(t["tree"]), statistics.mean(t["parent"])
+
+
+def kde_timing_text(k):
+    """The parent's time (where timed) and both operation bounds of a KDE
+    kernel's timing record, for its line."""
+    parent = ("" if k.get("parent_ms") is None
+              else f", the parent's {k['parent_ms']:.5f} ms in turns")
+    return f"{parent}; {kde_bounds_text(k)}"
+
+
+def mv_kernel_timing(device, libs):
     """Each wide instance's time beside its plain version, its bound and
     the narrow instance at F = 100, in one call: K1 at (50,000, 150), K2
-    and K3 on the detect call's anti-diagonal rows at W = 150, K5 and K4
-    at B = 64 and F = 150. Returns {name: timing dict}."""
+    and K3 on the detect call's anti-diagonal rows at W = 150 (in turns
+    with the parent's where it was built), K5 and K4 at B = 64 and F =
+    150. Returns {name: timing dict}."""
     import torch
 
     from hypad_tpu_torch.manifold.kernels import (
@@ -3958,6 +4046,7 @@ def mv_kernel_timing(device):
          "shape": f"({MV_ROWS}, {CASAS_F})"}
     k["bytes"], k["ops"] = k1_cost(MV_ROWS, CASAS_F, CASAS_F)
     out["mobius_linear_wide"] = bound(k)
+    parent = parent_kde(libs)
     for name, kernel, plain in (
             ("kde_argmax_wide", kde_argmax_kernel, kde_argmax_rows_and_use),
             ("kde_argmax_v2_wide", kde_argmax_v2_kernel,
@@ -3966,7 +4055,11 @@ def mv_kernel_timing(device):
         nv, nm = k2_case(MV_ROWS, WIDTH, 0, device)
         got, use = kernel(vals, mask)
         want, _ = plain(vals, mask)
-        k = {"ms": cuda_ms(lambda: kernel(vals, mask), 30),
+        old = parent.get(name[:-len("_wide")])
+        ms, parent_ms = in_turns_ms(
+            lambda: kernel(vals, mask),
+            None if old is None else (lambda: old(vals, mask)), 30)
+        k = {"ms": ms, "parent_ms": parent_ms,
              "plain_ms": cuda_ms(lambda: plain(vals, mask), 3),
              "narrow_ms_at_F100": cuda_ms(lambda: kernel(nv, nm), 30),
              "max_abs_err": (got[use] - want[use]).abs().max().item(),
@@ -4008,17 +4101,19 @@ def mv_kernel_timing(device):
     for name, k in out.items():
         print(f"[timing] {name} at {k['shape']}: kernel {k['ms']:.5f} ms, "
               f"plain {k['plain_ms']:.5f} ms, bound {k['bound_ms']:.6f} ms "
-              f"({k['bound_by']}: {k['bytes']} bytes, {k['ops']} ops); the "
+              f"({k['bound_by']}: {k['bytes']} bytes, {k['ops']} ops"
+              f"{kde_timing_text(k) if 'exps' in k else ''}); the "
               f"narrow instance at F = {WIDTH}: {k['narrow_ms_at_F100']:.5f} "
               f"ms")
     return out
 
 
-def xwide_kernel_timing(device):
+def xwide_kernel_timing(device, libs):
     """Each any-width instance's time beside its plain version and its
     bound at the width-300 path's shapes (``phase_xwide``): K1 at
     (XW_TEST_ROWS, 300), K2 and K3 on that detect call's anti-diagonal
-    rows, K5 and K4 at B = 64; and K1 at shapes not timed before, the wide
+    rows (K2 and K3 in turns with the parent's where it was built), K5 and
+    K4 at B = 64; and K1 at shapes not timed before, the wide
     instance at (50,000, 256) and the narrow one at the WADI training
     shapes (64 and 128 rows of 123). Returns {name: timing dict}."""
     import functools
@@ -4062,6 +4157,7 @@ def xwide_kernel_timing(device):
         return bound(k)
 
     out = {"mobius_linear_xwide": k1_timing(XW_TEST_ROWS, XW_F)}
+    parent = parent_kde(libs)
     for name, kernel, plain in (
             ("kde_argmax_xwide", kde_argmax_kernel, functools.partial(
                 kde_argmax_rows_and_use, block=XWIDE_PLAIN_BLOCK)),
@@ -4070,7 +4166,11 @@ def xwide_kernel_timing(device):
         vals, mask = k2_case(XW_TEST_ROWS, XW_F, 0, device)
         got, use = kernel(vals, mask)
         want, _ = plain(vals, mask)
-        k = {"ms": cuda_ms(lambda: kernel(vals, mask), 20),
+        old = parent.get(name[:-len("_xwide")])
+        ms, parent_ms = in_turns_ms(
+            lambda: kernel(vals, mask),
+            None if old is None else (lambda: old(vals, mask)), 20)
+        k = {"ms": ms, "parent_ms": parent_ms,
              "plain_ms": cuda_ms(lambda: plain(vals, mask), 3),
              "max_abs_err": (got[use] - want[use]).abs().max().item(),
              "shape": f"({vals.shape[0]}, {XW_F})"}
@@ -4103,7 +4203,8 @@ def xwide_kernel_timing(device):
     for name, k in out.items():
         print(f"[timing] {name} at {k['shape']}: kernel {k['ms']:.5f} ms, "
               f"plain {k['plain_ms']:.5f} ms, bound {k['bound_ms']:.6f} ms "
-              f"({k['bound_by']}: {k['bytes']} bytes, {k['ops']} ops)")
+              f"({k['bound_by']}: {k['bytes']} bytes, {k['ops']} ops"
+              f"{kde_timing_text(k) if 'exps' in k else ''})")
     out["k1_untimed_shapes"] = {}
     for rows, F in ((MV_ROWS, 256), (MV_BATCH, WADI_F),
                     (2 * MV_BATCH, WADI_F)):
@@ -4253,12 +4354,29 @@ def warm_detect_ms(calls, rounds=7):
 
 
 def bound(k):
-    """Set k's bound_ms and bound_by from its bytes and ops
-    (``profile_k1.bound``: the H100's peak rates)."""
+    """Set k's bound_ms and bound_by from its bytes, ops and, for the KDE
+    kernels, exps (``profile_k1.bound``: the H100's peak rates); a record
+    with exps also gets ``bound_terms``, the terms of its bound that are
+    computed, not measured: the exps and both operation bounds apart,
+    ``f32_ms`` (the f32 rate) and ``sfu_ms`` (the exps on the
+    special-function units)."""
+    from hypad_tpu_torch.profile_k1 import H100_SFU_EXP_PER_S
     from hypad_tpu_torch.profile_k1 import bound as least_time
 
-    k["bound_ms"], k["bound_by"] = least_time(k["bytes"], k["ops"])
+    k["bound_ms"], k["bound_by"] = least_time(k["bytes"], k["ops"],
+                                              k.get("exps", 0))
+    if "exps" in k:
+        k["bound_terms"] = {
+            "exps": k["exps"], "f32_ms": least_time(0, k["ops"])[0],
+            "sfu_ms": k["exps"] / H100_SFU_EXP_PER_S * 1e3}
     return k
+
+
+def kde_bounds_text(k):
+    """The two operation bounds of a KDE kernel's record, for a line."""
+    b = k["bound_terms"]
+    return (f"f32 operations {b['f32_ms']:.6f} ms, SFU {b['sfu_ms']:.6f} ms "
+            f"for {b['exps']} exps")
 
 
 def phase_timing(device, X, model, eucl_model, libs):
@@ -4364,13 +4482,12 @@ def phase_timing(device, X, model, eucl_model, libs):
         k["exps"] = int(pairs)
         k["ops"] = int(6 * pairs + 8 * cnt.sum().item())
         bound(k)
-        k["sfu_ms"] = k["exps"] / H100_SFU_EXP_PER_S * 1e3
     for name, k in (("K2 kde_argmax, median fallback included", k2),
                     ("K3 kde_argmax_v2, median fallback included", k3)):
         print(f"[timing] {name}: kernel {k['ms']:.5f} ms, plain "
               f"{k['plain_ms']:.5f} ms, bound {k['bound_ms']:.5f} ms "
-              f"({k['bound_by']}: {k['bytes']} bytes, {k['ops']} ops); SFU "
-              f"estimate {k['sfu_ms']:.5f} ms for {k['exps']} exps")
+              f"({k['bound_by']}: {k['bytes']} bytes, {k['ops']} ops; "
+              f"{kde_bounds_text(k)})")
     if not np.isfinite([k1["ms"], k2["ms"], k3["ms"]]).all():
         fail("a kernel time is not finite")
     return wps, k1, k2, k3
@@ -4446,8 +4563,8 @@ def main():
     k45_err = timed(phase_critic_kernels, device)
     # the wide instances, named by the profiler before the long traces of
     # [fleet]
-    mv_errs = timed(mv_kernel_checks, device)
-    xw_errs = timed(xwide_kernel_checks, device)
+    mv_errs = timed(mv_kernel_checks, device, libs)
+    xw_errs = timed(xwide_kernel_checks, device, libs)
     launches, X, model, main_det = timed(phase_main_path, device)
     eucl_launches, eucl_model = timed(phase_eucl_detect, device)
     train = timed(phase_train, device)
@@ -4465,8 +4582,8 @@ def main():
     timed(phase_staged, device, X, eucl_model, model)
     wps, k1, k2, k3 = timed(phase_timing, device, X, model, eucl_model, libs)
     epochs, k4, k5 = timed(phase_train_timing, device, train["X"])
-    mv_timing = timed(mv_kernel_timing, device)
-    xw_timing = timed(xwide_kernel_timing, device)
+    mv_timing = timed(mv_kernel_timing, device, libs)
+    xw_timing = timed(xwide_kernel_timing, device, libs)
     k1_train = timed(k1_training_timing, device, libs)
     critic_parent = timed(critic_parent_timing, device, libs)
     a1 = critic_parent["B=64 F=100 hyperbolic"]
@@ -4521,7 +4638,7 @@ def main():
          "median_fallback": "in the kernel, one launch",
          "tie_flips": k2["tie_flips"],
          "edge_case_tie_flips": kde_flips["kde_argmax"],
-         "exps": k2["exps"], "sfu_ms": k2["sfu_ms"],
+         "bound_terms": k2["bound_terms"],
          "ms": k2["ms"], "kernel_ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": None},
@@ -4540,7 +4657,7 @@ def main():
          "median_fallback": "in the kernel, one launch",
          "tie_flips": k3["tie_flips"],
          "edge_case_tie_flips": kde_flips["kde_argmax_v2"],
-         "exps": k3["exps"], "sfu_ms": k3["sfu_ms"],
+         "bound_terms": k3["bound_terms"],
          "ms": k3["ms"], "kernel_ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "library_ms": None},
@@ -4607,6 +4724,8 @@ def main():
             "shape": w["shape"], "ms": w["ms"], "kernel_ms": w["ms"],
             "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
             "bound_by": w["bound_by"],
+            **{key: w[key] for key in ("parent_ms", "bound_terms")
+               if key in w},
             "narrow_instance_ms_at_F100": w["narrow_ms_at_F100"],
             "library_ms": None})
     # the any-width instances (widths above 256), each with the launches
@@ -4643,7 +4762,10 @@ def main():
                           "(gap <= n 2^-22)"),
             "shape": w["shape"], "ms": w["ms"], "kernel_ms": w["ms"],
             "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
-            "bound_by": w["bound_by"], "library_ms": None})
+            "bound_by": w["bound_by"],
+            **{key: w[key] for key in ("parent_ms", "bound_terms")
+               if key in w},
+            "library_ms": None})
     for k in kernels:
         by_s = fleet["kernels"].get(k["name"])
         if by_s:

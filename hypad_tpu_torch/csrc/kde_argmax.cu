@@ -88,32 +88,55 @@
 // profile_kernels.py --k3-variant: these 0.1040 ms, 16-row blocks (two an
 // SM) 0.1050-0.1053, 8-row blocks (four an SM) 0.1141.
 
-// Wide instances: multivariate detection skews (N, F) rows with F up to 256
-// (CASAS's 150), so each kernel has a second instance for rows of 129 to
-// 256 entries, which each entry point picks by width: a lane
-// holds 8 entries of a row in the warp phases, phase 4 takes a row's first
-// max over up to 64 blocks, and a block holds 16 rows in both (16 x 64
-// blocks of 4 = 1,024 threads), so in K3 a warp spans two blocks of 4 of 16
-// rows and its branches on I are no longer uniform. The arithmetic per row
-// is the narrow instances'. The narrow instances (rows up to 128) are the
-// code they were before.
+// K2's wide instance: multivariate detection skews (N, F) rows with F up to
+// 256 (CASAS's 150), so K2 has a second instance for rows of 129 to 256
+// entries, which its entry point picks by width: a lane holds 8 entries of
+// a row in the warp phases, phase 4 takes a row's first max over up to 64
+// blocks, and a block holds 16 rows (16 x 64 blocks of 4 = 1,024 threads).
+// The arithmetic per row is the narrow instance's.
 
-// Any-width instances: rows wider than 256 (a univariate window of 300, a
-// stream of more features) go to kde_argmax_xwide_kernel (K2) and
-// kde_argmax_v2_xwide_kernel (K3), one block a row of up to 16 warps, each
-// thread owning samples tid, tid + blockDim, ... and reading the row from
-// global memory (L1-resident), so no width is too wide. A sample's density
-// is its own sum: K2 over j ascending, K3 in v2's order (1, then for each
-// offset r the forward term of pair (i, i - r) and the back term of pair
-// (i + r, i)); each pair's exp is computed by both of its samples' threads.
-// The row statistics and the first max are block sums and a block argmax in
-// a fixed order; the median fallback ranks each candidate (the samples and
+// K2's any-width instance: rows wider than 256 (a univariate window of 300,
+// a stream of more features) go to kde_argmax_xwide_kernel, one block a row
+// of up to 16 warps, each thread owning samples tid, tid + blockDim, ... and
+// reading the row from global memory (L1-resident), so no width is too
+// wide; a sample's density is its own sum over j ascending. The row
+// statistics and the first max are block sums and a block argmax in a
+// fixed order; the median fallback ranks each candidate (the samples and
 // the first masked entry, which sort as the plain version's fill f32 max,
 // NaNs last) against the whole row, one candidate a thread, and takes the
-// first in index order that holds the rank.
+// first in index order that holds the rank. kde_argmax_v2_xwide_kernel is
+// the same for K3 (each density in v2's order, each pair's exp computed by
+// both of its samples' threads); it takes only rows wider than kK3TriMaxW.
+//
+// K3 above 128 columns (kde_argmax_v2_group_wide_kernel<R> up to 256,
+// kde_argmax_v2_group_xwide_kernel<R> up to kK3TriMaxW): the narrow K3's
+// rounds, one exp per pair and the same carries (add_round), on a group of
+// R rows x nb blocks of 4 (R a power of 2, 8 up to 256 columns, about
+// kK3GroupThreads threads above; whole warps; thread (r, I) = I * R + r),
+// synchronised by its own named barrier, so that the 2-3 groups of a block
+// never wait for each other. In round D only the threads with a left
+// partner (I >= D) compute exps, so a group's busy warps fall from all to
+// none over its nb rounds; the parent ran one such triangle of 16 rows a
+// block behind one barrier. The blocks are persistent (one an SM), group g
+// of block b walking row groups g * blocks + b, + blocks G, ...: where a
+// last walk does not fill the grid, every SM keeps some groups, which run
+// their rounds with the SM to themselves. What bounds it on the H100: issue
+// (about 290 instructions a round of 16 pairs, 176 of them the pairs'
+// scale and exp, at about 73% of the SM's rate at W = 150); the hand-off
+// through shared memory is about 6% of the time and the barrier 7%
+// (profile_kernels.py's probes). Each density keeps v2's order bit for bit
+// (the narrow K3's schedule), and the row statistics and the median keep
+// the parent instance's order: rows up to 256 through load_row<8> and
+// row_median<8> (one warp a row), wider rows through xw_block_sum's tree
+// over min(ceil(W / 32), 16) virtual warps, computed by one warp, and
+// xw_order_stat's ranking by the whole group.
 
 #include <float.h>
 #include <math.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include "common.cuh"
 
@@ -128,13 +151,22 @@ constexpr int kK2Rows = 16;  // rows per block of K2
 // other values beside these.
 constexpr int kK3Rows = 32;
 constexpr int kByOffsetBlocksPerSM = 1;
-// The wide instances (rows of 129 to 256, multivariate feature counts): 16
-// rows a block in both, so that 64 blocks of 4 samples a row make at most
-// 1,024 threads; K2's at two blocks an SM (32 registers, as the narrow
-// K2's), K3's at one (64).
+// K2's wide instance (rows of 129 to 256, multivariate feature counts): 16
+// rows a block, so that 64 blocks of 4 samples a row make at most 1,024
+// threads, at two blocks an SM (32 registers, as the narrow K2's).
 constexpr int kWideRows = 16;
 // The any-width instances: warps a block (one block a row).
 constexpr int kXwMaxWarps = 16;
+// K3 above 128 columns: the threads a group of rows aims at, the most
+// groups a block, a block's threads at most (one block an SM, 64
+// registers), and the widest row (wider rows take the one-block-a-row
+// kde_argmax_v2_xwide_kernel). profile_kernels.py --k3-variant times other
+// values.
+constexpr int kK3GroupThreads = 512;
+constexpr int kK3MaxGroups = 7;
+constexpr int kK3Threads = 1024;
+constexpr int kK3TriMaxW = 4096;
+constexpr int kK3GroupBar = 1;  // group g's barrier: kK3GroupBar + g
 
 // Rows a block of the instance for rows up to kW wide.
 template <int kW, bool kByOffset>
@@ -635,25 +667,16 @@ kde_argmax_wide_kernel(const float* __restrict__ vals,
   kde_argmax_body<kWideMaxW, false>(vals, mask, kde_val, use, rows, width);
 }
 
-__global__ void __launch_bounds__(kWideRows * kWideMaxW / 4, 1)
-kde_argmax_v2_wide_kernel(const float* __restrict__ vals,
-                          const unsigned char* __restrict__ mask,
-                          float* __restrict__ kde_val,
-                          unsigned char* __restrict__ use, int rows,
-                          int width) {
-  kde_argmax_body<kWideMaxW, true>(vals, mask, kde_val, use, rows, width);
-}
-
 template <int kW, bool kByOffset>
 int launch(const float* vals, const unsigned char* mask, float* kde_val,
            unsigned char* use, int rows, int width, void* stream) {
   if (rows < 0 || width < 1 || width > kW) return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
   constexpr int kRows = block_rows<kW, kByOffset>();
-  const auto kernel =
-      kW > kMaxW ? (kByOffset ? kde_argmax_v2_wide_kernel
-                              : kde_argmax_wide_kernel)
-                 : (kByOffset ? kde_argmax_v2_kernel : kde_argmax_kernel);
+  static_assert(!(kByOffset && kW > kMaxW), "K3 above 128: launch_group");
+  const auto kernel = kW > kMaxW ? kde_argmax_wide_kernel
+                                 : (kByOffset ? kde_argmax_v2_kernel
+                                              : kde_argmax_kernel);
   const int nb = row_blocks<kRows>(width);
   const size_t smem = smem_bytes<kRows>(nb, kByOffset);
   cudaError_t err = cudaFuncSetAttribute(
@@ -875,6 +898,490 @@ int launch_xwide(const float* vals, const unsigned char* mask, float* kde_val,
   return cudaGetLastError();
 }
 
+// ---- K3 above 128 columns: groups of rows under named barriers ----
+
+// Named barrier `id` of `threads` threads (whole warps).
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Floats of a row of samples (and bytes of its mask) in a group's shared
+// memory: the row's nb blocks of 4; above 256 columns (any) a multiple of 8
+// blocks plus one (on the H100 2-6% faster there, 6% slower at 150
+// columns).
+__host__ __device__ inline int group_row_floats(int nb, bool any) {
+  return 4 * (any ? nb + (9 - nb % 8) % 8 : nb);
+}
+
+// Bytes of one group's shared memory: K3's Smem for R rows of nb blocks,
+// and one int for the median's selections, rounded to 16.
+__host__ __device__ inline size_t group_smem(int R, int nb, bool any) {
+  const int wp = group_row_floats(nb, any);
+  const size_t b = sizeof(float4) * 2 * R * hand_stride(nb) +
+                   sizeof(float) * (R * wp + R * nb + 2 * R) +
+                   sizeof(int) * (R * nb + 1) + R * wp + R;
+  return (b + 15) / 16 * 16;
+}
+
+__device__ inline Smem carve_group(unsigned char* raw, int R, int nb,
+                                   bool any, int** sel) {
+  const int wp = group_row_floats(nb, any);
+  Smem m;
+  m.col = reinterpret_cast<float4*>(raw);
+  m.vs = reinterpret_cast<float*>(m.col + 2 * R * hand_stride(nb));
+  m.best = m.vs + R * wp;
+  m.scale = m.best + R * nb;
+  m.cnt = m.scale + R;
+  m.best_i = reinterpret_cast<int*>(m.cnt + R);
+  *sel = m.best_i + R * nb;
+  m.in = reinterpret_cast<unsigned char*>(*sel + 1);
+  m.use = m.in + R * wp;
+  return m;
+}
+
+// A row's count, variance and Scott scale as kde_argmax_xwide_body
+// computes them (xw_block_sum over min(ceil(W / 32), kXwMaxWarps) warps,
+// each thread summing entries tid, tid + 32 warps, ...), by one warp: lane
+// l sums virtual thread (w, l)'s entries for each virtual warp w, the warp
+// sums them as warp w would, and lane w keeps warp w's sum for the final
+// warp sum. Writes the sentinel row and its mask to `vs` and `in`.
+__device__ void load_row_any(const float* v, const unsigned char* mk,
+                             int width, int lane, float* vs,
+                             unsigned char* in, float* cnt_out,
+                             float* var_out, float* scale_out) {
+  const int nvw = min((width + 31) / 32, kXwMaxWarps), nt = 32 * nvw;
+  float wc = 0.0f, wsum = 0.0f;
+  for (int w = 0; w < nvw; ++w) {
+    float c = 0.0f, s = 0.0f;
+    for (int i = 32 * w + lane; i < width; i += nt)
+      if (mk[i]) {
+        c += 1.0f;
+        s += v[i];
+      }
+    c = hypad::warp_sum(c);
+    s = hypad::warp_sum(s);
+    if (lane == w) {
+      wc = c;
+      wsum = s;
+    }
+  }
+  const float cnt = hypad::warp_sum(wc), sum = hypad::warp_sum(wsum);
+  const float cnt_f = fmaxf(cnt, 1.0f);
+  const float mean = sum / cnt_f;
+  float wss = 0.0f;
+  for (int w = 0; w < nvw; ++w) {
+    float ss = 0.0f;
+    for (int i = 32 * w + lane; i < width; i += nt)
+      if (mk[i]) {
+        const float c = v[i] - mean;
+        ss += c * c;
+      }
+    ss = hypad::warp_sum(ss);
+    if (lane == w) wss = ss;
+  }
+  const float var = hypad::warp_sum(wss) / fmaxf(cnt_f - 1.0f, 1.0f);
+  const float h2 = var * powf(cnt_f, -0.4f);
+  *cnt_out = cnt;
+  *var_out = var;
+  *scale_out = -0.5f / (h2 > 0.0f ? h2 : 1.0f);
+  for (int i = lane; i < width; i += 32) {
+    vs[i] = mk[i] ? v[i] : kSentinel;
+    in[i] = mk[i];
+  }
+}
+
+// xw_order_stat over a row held in shared memory (vs: the samples where
+// `in` holds), by the `gthreads` threads of a group under barrier `bar`:
+// the first candidate in index order (the samples and the masked entry
+// `fill`, -1 for none) with fewer than k + 1 smaller and at least k + 1
+// smaller-or-equal entries, masked entries ranked as f32 max; NaN where no
+// candidate holds the rank.
+__device__ float group_order_stat(const float* vs, const unsigned char* in,
+                                  int width, int fill, int k, int* sel,
+                                  int gt, int gthreads, int bar) {
+  group_sync(bar, gthreads);
+  if (gt == 0) *sel = 0x7fffffff;
+  group_sync(bar, gthreads);
+  for (int c = gt; c < width; c += gthreads) {
+    if (!in[c] && c != fill) continue;
+    const float x = in[c] ? vs[c] : FLT_MAX;
+    int less = 0, eq = 0;
+    for (int j = 0; j < width; ++j) {
+      const float y = in[j] ? vs[j] : FLT_MAX;
+      less += y < x;
+      eq += y == x;
+    }
+    if (less <= k && k < less + eq) atomicMin(sel, c);
+  }
+  group_sync(bar, gthreads);
+  const int c = *sel;
+  if (c == 0x7fffffff) return __int_as_float(0x7fc00000);
+  return in[c] ? vs[c] : FLT_MAX;
+}
+
+// The densities of samples 4I..4I+3 of row r in v2's order, as
+// densities_by_offset sums them, on a group of R rows: the hand-off under
+// the group's barrier `bar`. A thread past the group's R x nb (`live`
+// false) computes nothing and meets every barrier.
+template <int R>
+__device__ __forceinline__ void group_densities(const Smem& m, int r, int I,
+                                                bool live, int nb, int wp,
+                                                int width, int bar,
+                                                int gthreads, float (&p)[4]) {
+  const float sc = m.scale[r];
+  const float4* vrow4 = reinterpret_cast<const float4*>(m.vs + r * wp);
+  const float4 v4 = vrow4[I];
+  const float vi[4] = {v4.x, v4.y, v4.z, v4.w};
+  const int inside = width - 4 * I;  // below 4 only in the last block
+  float e[4][4];
+#pragma unroll
+  for (int a = 1; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < a; ++b)
+      e[a][b] = live && a < inside ? pair_term(sc, vi[a], vi[b]) : 0.0f;
+  p[0] = 1.0f;  // the self pairs: exp(0) = 1
+  p[1] = (1.0f + e[1][0]) + e[2][1];
+  p[2] = (1.0f + e[2][1]) + e[3][2];
+  p[3] = 1.0f;
+  Carry c = {{e[1][0], e[2][0], e[3][0]}, e[3][1], e[2][0],
+             {e[3][2], e[3][1], e[3][0]}};
+
+  const int last = live ? max(I, nb - 1 - I) + 1 : 0;
+  const int stride = hand_stride(nb);
+  float4* const hand0 = m.col + r * stride;
+  for (int D = 1; D <= nb; ++D) {
+    float4* hand = hand0 + (D & 1) * (R * stride);
+    const bool left = live && D <= I, right = live && I + D < nb;
+    float f[4][4];
+    if (left) {
+      const float4 w4 = vrow4[I - D];
+      const float vj[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) f[a][b] = pair_term(sc, vi[a], vj[b]);
+      if (inside < 4) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          if (a >= inside)
+#pragma unroll
+            for (int b = 0; b < 4; ++b) f[a][b] = 0.0f;
+      }
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        hand[4 * (I - D) + b] = make_float4(f[0][b], f[1][b], f[2][b],
+                                            f[3][b]);
+    }
+    group_sync(bar, gthreads);
+    const float4* gh = hand + 4 * I;
+    if (left && right) {
+      add_round<true, true>(p, c, f, gh);
+    } else if (left) {
+      add_round<true, false>(p, c, f, gh);
+    } else if (right) {
+      add_round<false, true>(p, c, f, gh);
+    } else if (D == last) {
+      add_round<false, false>(p, c, f, gh);
+    }
+  }
+}
+
+// K3 on rows of 129 to kK3TriMaxW (kAny: above 256), groups of R rows of
+// `gthreads` threads, blockDim.x / gthreads groups a block.
+template <int R, bool kAny>
+__device__ __forceinline__ void kde_argmax_v2_group_body(
+    const float* __restrict__ vals, const unsigned char* __restrict__ mask,
+    float* __restrict__ kde_val, unsigned char* __restrict__ use, int rows,
+    int width, int gthreads) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nb = (width + 3) / 4, wp = group_row_floats(nb, kAny);
+  const int G = blockDim.x / gthreads;
+  const int g = threadIdx.x / gthreads, gt = threadIdx.x - g * gthreads;
+  int* sel;
+  const Smem m = carve_group(smem_raw + g * group_smem(R, nb, kAny), R, nb,
+                             kAny, &sel);
+  const int warp = gt >> 5, lane = gt & 31, gwarps = gthreads >> 5;
+  const int bar = kK3GroupBar + g;
+  const int n_groups = (rows + R - 1) / R, step = gridDim.x * G;
+  const int I_own = gt / R;
+  const bool live = I_own < nb;
+  const int I = live ? I_own : 0, r = live ? gt - I_own * R : 0;
+
+  // group g of block b walks row groups g * blocks + b + k * (blocks G):
+  // a last walk that does not fill the grid leaves each SM some groups
+  for (int q = g * gridDim.x + blockIdx.x; q < n_groups; q += step) {
+    const int row0 = q * R;
+    // 1. statistics and the sentinel row, one warp a row
+    for (int rr = warp; rr < R; rr += gwarps) {
+      const int row = row0 + rr;
+      float* vrow = m.vs + rr * wp;
+      unsigned char* irow = m.in + rr * wp;
+      if (row < rows) {
+        float cnt, var, scale;
+        if constexpr (kAny) {
+          load_row_any(vals + (size_t)row * width, mask + (size_t)row * width,
+                       width, lane, vrow, irow, &cnt, &var, &scale);
+        } else {
+          const RowStats<kWideMaxW / 32> s = load_row<kWideMaxW / 32>(
+              vals + (size_t)row * width, mask + (size_t)row * width, width,
+              lane, vrow);
+#pragma unroll
+          for (int k = 0; k < kWideMaxW / 32; ++k)
+            if (lane + 32 * k < width) irow[lane + 32 * k] = s.mi[k];
+          cnt = s.cnt;
+          var = s.var;
+          scale = s.scale;
+        }
+        if (lane == 0) {
+          m.scale[rr] = scale;
+          m.cnt[rr] = cnt;
+          m.use[rr] = (cnt > 1.0f && var > 0.0f) ? 1 : 0;
+        }
+      } else {  // past the last row: computed on sentinels, never written
+        for (int i = lane; i < width; i += 32) {
+          vrow[i] = kSentinel;
+          irow[i] = 0;
+        }
+        if (lane == 0) {
+          m.scale[rr] = -0.5f;
+          m.cnt[rr] = 0.0f;
+          m.use[rr] = 1;
+        }
+      }
+      for (int i = width + lane; i < wp; i += 32) {
+        vrow[i] = kSentinel;
+        irow[i] = 0;
+      }
+    }
+    group_sync(bar, gthreads);
+
+    // 2. densities; 3. each block's first max (masked: -inf)
+    float p[4];
+    group_densities<R>(m, r, I, live, nb, wp, width, bar, gthreads, p);
+    if (live) {
+      float best = -INFINITY;
+      int best_i = 0x7fffffff;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int i = 4 * I + a;
+        if (i >= width) continue;
+        const float dens = m.in[r * wp + i] ? p[a] : -INFINITY;
+        if (dens > best || best_i == 0x7fffffff) {
+          best = dens;
+          best_i = i;
+        }
+      }
+      m.best[r * nb + I] = best;
+      m.best_i[r * nb + I] = best_i;
+    }
+    group_sync(bar, gthreads);
+
+    // 4. per row, one warp: the argmax across the blocks (rows up to 256:
+    // or the median, row_median); then, above 256, each fallback row's
+    // median by the whole group
+    for (int rr = warp; rr < R; rr += gwarps) {
+      const int row = row0 + rr;
+      if (row >= rows) continue;  // uniform across the warp
+      const float* vrow = m.vs + rr * wp;
+      float out;
+      if (m.use[rr]) {
+        float b = -INFINITY;
+        int bi = 0x7fffffff;
+        for (int q2 = lane; q2 < nb; q2 += 32) {
+          const float ob = m.best[rr * nb + q2];
+          const int oi = m.best_i[rr * nb + q2];
+          if (ob > b || (ob == b && oi < bi)) {
+            b = ob;
+            bi = oi;
+          }
+        }
+#pragma unroll
+        for (int offset = 16; offset > 0; offset >>= 1) {
+          const float ob = __shfl_xor_sync(hypad::kFullMask, b, offset);
+          const int oi = __shfl_xor_sync(hypad::kFullMask, bi, offset);
+          if (ob > b || (ob == b && oi < bi)) {
+            b = ob;
+            bi = oi;
+          }
+        }
+        out = vrow[bi];  // a masked-in sample: the sentinel never wins
+      } else if constexpr (!kAny) {
+        out = row_median<kWideMaxW / 32>(vrow, m.in + rr * wp, width,
+                                         (int)m.cnt[rr], lane);
+      } else {
+        continue;
+      }
+      if (lane == 0) {
+        kde_val[row] = out;
+        use[row] = m.use[rr];
+      }
+    }
+    if constexpr (kAny) {
+      for (int rr = 0; rr < R; ++rr) {
+        const int row = row0 + rr;
+        if (row >= rows || m.use[rr]) continue;  // uniform across the group
+        const float* vrow = m.vs + rr * wp;
+        const unsigned char* irow = m.in + rr * wp;
+        // the masked median: ranks (cnt - 1) // 2 and cnt // 2 (width - 1
+        // and 0 for a row of no sample), averaged in f32
+        group_sync(bar, gthreads);
+        if (gt == 0) *sel = 0x7fffffff;
+        group_sync(bar, gthreads);
+        for (int i = gt; i < width; i += gthreads)
+          if (!irow[i]) {
+            atomicMin(sel, i);
+            break;
+          }
+        group_sync(bar, gthreads);
+        const int fill = *sel == 0x7fffffff ? -1 : *sel;
+        const int n = (int)m.cnt[rr];
+        const int k_lo = n > 0 ? (n - 1) / 2 : width - 1;
+        const float lo = group_order_stat(vrow, irow, width, fill, k_lo, sel,
+                                          gt, gthreads, bar);
+        const float hi = group_order_stat(vrow, irow, width, fill, n / 2, sel,
+                                          gt, gthreads, bar);
+        if (gt == 0) {
+          kde_val[row] = 0.5f * (lo + hi);
+          use[row] = 0;
+        }
+      }
+    }
+    group_sync(bar, gthreads);  // the group's shared memory is free again
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(kK3Threads, 1)
+kde_argmax_v2_group_wide_kernel(const float* __restrict__ vals,
+                                const unsigned char* __restrict__ mask,
+                                float* __restrict__ kde_val,
+                                unsigned char* __restrict__ use, int rows,
+                                int width, int gthreads) {
+  kde_argmax_v2_group_body<R, false>(vals, mask, kde_val, use, rows, width,
+                                     gthreads);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kK3Threads, 1)
+kde_argmax_v2_group_xwide_kernel(const float* __restrict__ vals,
+                                 const unsigned char* __restrict__ mask,
+                                 float* __restrict__ kde_val,
+                                 unsigned char* __restrict__ use, int rows,
+                                 int width, int gthreads) {
+  kde_argmax_v2_group_body<R, true>(vals, mask, kde_val, use, rows, width,
+                                    gthreads);
+}
+
+// The group plan of a K3 launch on rows of 129 to kK3TriMaxW: R rows a
+// group (the largest power of 2 at most kK3GroupThreads / nb, 8 at most up
+// to 256 columns and 4 above), G groups a block (by threads, the shared
+// memory a block may opt in to and kK3MaxGroups), one persistent block an
+// SM at most; G = 0 where one group does not fit a block.
+struct GroupPlan {
+  int R, gthreads, G, blocks;
+  size_t smem;
+};
+
+inline GroupPlan group_plan(int rows, int width, int sms, int smem_optin) {
+  GroupPlan pl;
+  const int nb = (width + 3) / 4;
+  const int cap = width > kWideMaxW ? 4 : 8;
+  pl.R = 1;
+  while (2 * pl.R <= min(cap, kK3GroupThreads / nb)) pl.R *= 2;
+  pl.gthreads = (pl.R * nb + 31) / 32 * 32;
+  const size_t gsmem = group_smem(pl.R, nb, width > kWideMaxW);
+  pl.G = min(kK3MaxGroups, min(kK3Threads / pl.gthreads,
+                               (int)(smem_optin / gsmem)));
+  pl.blocks = 0;
+  pl.smem = 0;
+  if (pl.G < 1) return pl;
+  const int n_groups = (rows + pl.R - 1) / pl.R;
+  pl.blocks = max(1, min((n_groups + pl.G - 1) / pl.G, sms));
+  pl.smem = pl.G * gsmem;
+  return pl;
+}
+
+// The current device's SM count and the dynamic shared memory a block may
+// opt in to, asked once for each device.
+struct Card {
+  int sms, smem_optin;
+};
+
+cudaError_t current_card(Card* card) {
+  static std::mutex mu;
+  static std::map<int, Card> known;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> hold(mu);
+  auto it = known.find(device);
+  if (it == known.end()) {
+    Card c;
+    err = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &c.smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return err;
+    it = known.emplace(device, c).first;
+  }
+  *card = it->second;
+  return cudaSuccess;
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory on the current
+// device: once for each device and kernel, unless a launch needs more.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  static std::mutex mu;
+  static std::map<std::pair<int, Kernel>, size_t> allowed;
+  int device = 0;
+  const cudaError_t got = cudaGetDevice(&device);
+  if (got != cudaSuccess) return got;
+  const std::lock_guard<std::mutex> hold(mu);
+  size_t& now = allowed[std::make_pair(device, kernel)];
+  if (smem <= now) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) now = smem;
+  return err;
+}
+
+template <class Kernel>
+int launch_group_k(Kernel kernel, const GroupPlan& pl, const float* vals,
+                   const unsigned char* mask, float* kde_val,
+                   unsigned char* use, int rows, int width, void* stream) {
+  const cudaError_t err = allow_smem(kernel, pl.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<pl.blocks, pl.G * pl.gthreads, pl.smem, (cudaStream_t)stream>>>(
+      vals, mask, kde_val, use, rows, width, pl.gthreads);
+  return cudaGetLastError();
+}
+
+int launch_group(const float* vals, const unsigned char* mask,
+                 float* kde_val, unsigned char* use, int rows, int width,
+                 void* stream) {
+  if (rows < 0 || width <= kMaxW || width > kK3TriMaxW)
+    return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  Card card;
+  const cudaError_t err = current_card(&card);
+  if (err != cudaSuccess) return err;
+  const GroupPlan pl = group_plan(rows, width, card.sms, card.smem_optin);
+  if (pl.G < 1)  // a card with too little shared memory for one group
+    return launch_xwide<true>(vals, mask, kde_val, use, rows, width, stream);
+  const auto kernel =
+      width <= kWideMaxW
+          ? (pl.R >= 8   ? kde_argmax_v2_group_wide_kernel<8>
+             : pl.R == 4 ? kde_argmax_v2_group_wide_kernel<4>
+                         : kde_argmax_v2_group_wide_kernel<2>)
+          : (pl.R >= 4   ? kde_argmax_v2_group_xwide_kernel<4>
+             : pl.R == 2 ? kde_argmax_v2_group_xwide_kernel<2>
+                         : kde_argmax_v2_group_xwide_kernel<1>);
+  return launch_group_k(kernel, pl, vals, mask, kde_val, use, rows, width,
+                        stream);
+}
+
 }  // namespace
 
 // vals (rows, width) f32, mask (rows, width) bool bytes -> kde_val (rows,)
@@ -895,15 +1402,36 @@ extern "C" int kde_argmax_forward(const float* vals, const unsigned char* mask,
                                               width, stream);
 }
 
-// The same with K3: the densities summed by offset, in v2's order.
+// The group plan (group_plan) of a K3 launch on `rows` rows of `width`
+// columns (129 to kK3TriMaxW) on a card of `sms` SMs whose blocks may opt
+// in to `smem_optin` bytes of dynamic shared memory: out = {R, gthreads, G,
+// blocks, smem}. Returns cudaErrorInvalidValue where the group kernels do
+// not take the shape (launch_group then launches the one-block-a-row
+// kernel where the width is at most kK3TriMaxW). Launches nothing: for
+// tests and profilers.
+extern "C" int kde_argmax_v2_group_plan(int rows, int width, int sms,
+                                        int smem_optin, long long* out) {
+  if (rows < 1 || width <= kMaxW || width > kK3TriMaxW || sms < 1)
+    return cudaErrorInvalidValue;
+  const GroupPlan pl = group_plan(rows, width, sms, smem_optin);
+  if (pl.G < 1) return cudaErrorInvalidValue;
+  const long long got[5] = {pl.R, pl.gthreads, pl.G, pl.blocks,
+                            (long long)pl.smem};
+  for (int i = 0; i < 5; ++i) out[i] = got[i];
+  return cudaSuccess;
+}
+
+// The same with K3: the densities summed by offset, in v2's order. Rows of
+// 129 to kK3TriMaxW launch the group kernels, wider rows the one-block-a-row
+// kde_argmax_v2_xwide_kernel.
 extern "C" int kde_argmax_v2_forward(const float* vals,
                                      const unsigned char* mask,
                                      float* kde_val, unsigned char* use,
                                      int rows, int width, void* stream) {
-  if (width > kWideMaxW)
+  if (width > kK3TriMaxW)
     return launch_xwide<true>(vals, mask, kde_val, use, rows, width, stream);
-  return width > kMaxW ? launch<kWideMaxW, true>(vals, mask, kde_val, use,
-                                                 rows, width, stream)
+  return width > kMaxW ? launch_group(vals, mask, kde_val, use, rows, width,
+                                      stream)
                        : launch<kMaxW, true>(vals, mask, kde_val, use, rows,
                                              width, stream);
 }

@@ -14,7 +14,10 @@ version, ``hypad_tpu_torch.ops.kde.kde_argmax_rows_and_use`` or
 
 Rows up to 128 wide go to each kernel's narrow instance, rows of 129 to 256
 (multivariate feature counts) to its wide instance, wider rows to its
-any-width instance; no width takes the plain version on the card.
+any-width instance (``.wide_launches`` and ``.xwide_launches`` count those
+two); K3's wide and any-width instances are its group kernels up to 4,096
+columns (``kK3TriMaxW``) and its one-block-a-row kernel past them. No width
+takes the plain version on the card.
 
 A kernel's densities agree with its plain version's to within ulps, so
 where densities tie to the last bits the argmax may pick another sample of

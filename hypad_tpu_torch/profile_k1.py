@@ -78,6 +78,9 @@ MANY_ROWS = ((20_000, 100), (20_000, 150), (50_000, 150), (50_000, 256),
 # cores
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOP_PER_S = 67e12
+# accurate expf issues one ex2 on the special-function units: 16 a clock an
+# SM, 132 SMs, at the 1.98 GHz boost clock
+H100_SFU_EXP_PER_S = 132 * 16 * 1.98e9
 K1_TOL = 1e-6
 PROBES = {"stage": 1, "no_w": 2, "fma": 3, "epilogue": 4}
 # the K1 of before the HYPAD_K1_PROBE hooks: (old, new) text substitutions
@@ -142,13 +145,14 @@ def k1_cost(rows, din, dout):
             2 * rows * din * dout + 16 * rows * dout)
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, exps=0):
     """(ms, "bytes" or "operations"): the least time on the H100 of work
-    that moves ``nbytes`` and does ``ops`` f32 operations, the larger of
-    the bytes over the memory rate and the operations over the f32 rate,
-    and which of the two it is."""
+    that moves ``nbytes``, does ``ops`` f32 operations and ``exps``
+    accurate exps, the largest of the bytes over the memory rate, the
+    operations over the f32 rate and the exps over the special-function
+    units' rate, and which it is (the exps are operations too)."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_FLOP_PER_S * 1e3
+    t_ops = max(ops / H100_F32_FLOP_PER_S, exps / H100_SFU_EXP_PER_S) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 

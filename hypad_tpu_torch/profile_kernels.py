@@ -2,7 +2,8 @@
 baseline's, on a GPU.
 
     python3 -m hypad_tpu_torch.profile_kernels --baseline-dir DIR
-        [--reps N] [--k3-variant kK3Rows=8,kByOffsetBlocksPerSM=4 ...]
+        [--reps N] [--k3-variant kK3GroupThreads=256,kK3MaxGroups=4 ...]
+        [--wide-only]
 
 ``DIR`` holds another ``mobius_linear.cu`` and ``kde_argmax.cu`` of the same
 C interfaces, for example a parent commit's ``hypad_tpu_torch/csrc``
@@ -12,7 +13,10 @@ unpacked with ``git archive`` into the gitignored ``_checkout/``. Its K3 is
 of ``DIR/kde_argmax.cu``. The baseline's sources build where they lie, so
 they include their own headers; the tree's, an empty kernel and, with
 ``--k3-variant``, the tree's source with K3's launch constants
-(``kK3Rows``, ``kByOffsetBlocksPerSM``) set otherwise build at once with
+(``K3_CONSTANTS``: the narrow instance's ``kK3Rows`` and
+``kByOffsetBlocksPerSM``, the wider instances' ``kK3GroupThreads``,
+``kK3MaxGroups``, ``kK3Threads`` and ``kK3TriMaxW``) set otherwise, and
+with ``--k3-probe`` the probe builds of ``K3_PROBES``, build at once with
 them.
 
 Checks, at the main path's shapes:
@@ -38,6 +42,20 @@ kernel plus the fallback's sort where the fallback is outside it), and the
 scorer's IQR quartiles and its whole IQR stage on K2's output, with two
 ``torch.quantile`` calls as the baseline against ``scorer.quartiles``' one
 sort; then the K3 variants in turns (in order, then reversed, twice).
+
+Then the instances above 128 columns (``kde_shapes``: the CASAS-width
+detect at 50,000 and 20,000 windows, the wide instance's widest and
+narrowest widths, the width-300 detect and ``chip_smoke.py``'s any-width
+checks), with the detector's narrow shape as a yardstick: K2 and K3 of the
+tree bitwise the baseline's (K3 tie level where the baseline's fallback
+runs outside it), K3's use flags bitwise and its values at a float64
+density tie of the plain version's, each K3 variant bitwise the tree's,
+on those shapes and on ``WIDE_EDGE_CASES``; then the times of the
+baseline's and the tree's K2 and K3 in turns (baseline, tree, tree,
+baseline, twice), their medians, each shape's pairs and its bound
+(``kde_cost``), and the K3 variants in turns. ``--wide-only`` runs only
+this part.
+
 Prints one line per check and time, then the card and one JSON line. Needs
 CUDA; the libraries go under ``hypad_tpu_torch/_build/variants/``.
 """
@@ -48,6 +66,7 @@ import argparse
 import ctypes
 import json
 import re
+import statistics
 import subprocess
 from pathlib import Path
 
@@ -63,7 +82,7 @@ from hypad_tpu_torch.ops.kde import (
 )
 from hypad_tpu_torch.ops.unroll import antidiagonal_gather, masked_median
 from hypad_tpu_torch.profile_critic_step import OUT, variant_jobs
-from hypad_tpu_torch.profile_detect import cuda_ms
+from hypad_tpu_torch.profile_detect import OUT_DIR, cuda_ms
 
 EMPTY_SOURCE = """
 #include <cuda_runtime.h>
@@ -81,7 +100,52 @@ K2_CASES = ((20_000, WIDTH, 0, False), (300, WIDTH, 250, False),
             (300, WIDTH, 0, True), (300, 1, 0, False), (300, 4, 0, False),
             (300, 5, 0, False))
 SMOOTH = 200  # the scorer's smoothing window at 20,000 windows
-K3_CONSTANTS = ("kK3Rows", "kByOffsetBlocksPerSM")
+K3_CONSTANTS = ("kK3Rows", "kByOffsetBlocksPerSM", "kK3GroupThreads",
+                "kK3MaxGroups", "kK3Threads", "kK3TriMaxW")
+# (windows, row width) of the KDE shapes above 128 columns, in the order
+# of ``kde_shapes``; the anti-diagonal rows are windows + width - 1
+WIDE_SHAPES = ((50_000, 150), (20_000, 150), (50_000, 256), (50_000, 129))
+XWIDE_SHAPES = ((2_000, 300), (3_797, 300), (3_585, 512), (1_025, 1_024))
+NARROW_SHAPE = (20_000, WIDTH)
+# (windows, row width, constant run end, NaNs) checked beside the shapes:
+# fallback rows and masked edges of each instance, and the widths on
+# either side of 256
+WIDE_EDGE_CASES = ((300, 150, 250, False), (300, 150, 0, True),
+                   (1_000, 257, 0, False), (1_000, 300, 710, False),
+                   (1_000, 300, 0, True), (200, 129, 0, True))
+
+
+# probe builds of the tree's K3 above 128 columns, timed only (their values
+# are wrong): (old, new) text substitutions of csrc/kde_argmax.cu, each old
+# text found the given number of times
+K3_PROBES = {
+    # each pair's term without its exp
+    "no_exp": ((("  return expf(sc * (d * d));\n", "  return sc * (d * d);\n"),
+                1),),
+    # the group kernels' rounds without the hand-off's barrier
+    "no_bar": ((("    group_sync(bar, gthreads);\n"
+                 "    const float4* gh = hand + 4 * I;\n",
+                 "    const float4* gh = hand + 4 * I;\n"), 1),),
+    # the group kernels' rounds without the hand-off through shared memory
+    "no_hand": (((
+        "        hand[4 * (I - D) + b] = make_float4(f[0][b], f[1][b], f[2][b],\n"
+        "                                            f[3][b]);\n"
+        "    }\n    group_sync(bar, gthreads);\n"
+        "    const float4* gh = hand + 4 * I;\n",
+        "        f[0][b] += 0.0f;\n    }\n    group_sync(bar, gthreads);\n"
+        "    const float4 zeros[4] = {};\n    const float4* gh = zeros;\n"),
+        1),),
+}
+
+
+def k3_probe_source(text, name):
+    """``text`` (csrc/kde_argmax.cu) built as the K3 probe ``name``."""
+    for (old, new), n in K3_PROBES[name]:
+        if text.count(old) != n:
+            raise RuntimeError(f"probe {name!r}: csrc/kde_argmax.cu does not "
+                               f"hold this text {n} times:\n{old}")
+        text = text.replace(old, new)
+    return text
 
 
 def k3_variant_source(text, spec):
@@ -99,10 +163,63 @@ def k3_variant_source(text, spec):
     return text
 
 
-def build(baseline_dir, k3_variants=()):
+def kde_shapes():
+    """[(label, windows, width)] of the KDE timings above 128 columns, the
+    narrow detect shape first as the yardstick: T = windows + width - 1
+    anti-diagonal rows of ``width``."""
+    return [(f"{kind} ({n + w - 1}, {w})", n, w)
+            for kind, shapes in (("narrow", (NARROW_SHAPE,)),
+                                 ("wide", WIDE_SHAPES),
+                                 ("xwide", XWIDE_SHAPES))
+            for n, w in shapes]
+
+
+def kde_pairs(windows, width):
+    """Unordered pairs of masked-in samples over the anti-diagonal rows of
+    ``windows`` windows of ``width``: row t holds the entries (i, j) with
+    i + j = t, 0 <= i < windows, 0 <= j < width."""
+    total = 0
+    for t in range(windows + width - 1):
+        cnt = min(t, width - 1) - max(0, t - windows + 1) + 1
+        total += cnt * (cnt - 1) // 2
+    return total
+
+
+def kde_cost(windows, width):
+    """(bytes, f32 operations, exps) of one K2 or K3 launch on those rows:
+    vals (f32) and mask (bool) read once, value (f32) and use (bool)
+    written once; each unordered pair's difference, square, scale, exp and
+    two sums (6 operations, one exp), ~8 operations a sample for the
+    statistics."""
+    rows = windows + width - 1
+    pairs = kde_pairs(windows, width)
+    return (5 * rows * width + 5 * rows, 6 * pairs + 8 * windows * width,
+            pairs)
+
+
+def kde_bound_ms(windows, width):
+    """(ms, "bytes" or "operations") of ``kde_cost`` at the H100's rates
+    (``profile_k1.bound``, the exps at the special-function units')."""
+    from hypad_tpu_torch.profile_k1 import bound
+
+    return bound(*kde_cost(windows, width))
+
+
+def k3_constants(text=None):
+    """{name: value} of ``K3_CONSTANTS`` and ``kMaxW`` as ``text``
+    (csrc/kde_argmax.cu by default) defines them."""
+    if text is None:
+        text = (_build.CSRC / "kde_argmax.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                text).group(1))
+            for name in K3_CONSTANTS + ("kMaxW",)}
+
+
+def build(baseline_dir, k3_variants=(), k3_probes=()):
     """{"k1": (baseline fn, tree fn), "k2": (...), "k3": (...),
-    "k3_fallback_outside": bool, "k3_variants": {spec: fn}, "empty": fn}:
-    every library built at once, the baseline's from where it lies."""
+    "k3_fallback_outside": bool, "k3_variants": {spec: fn}, "k3_probes":
+    {name: fn}, "empty": fn}: every library built at once, the baseline's
+    from where it lies."""
     base = Path(baseline_dir)
     tree = (_build.CSRC / "kde_argmax.cu").read_text()
     sources = {"empty": EMPTY_SOURCE,
@@ -111,10 +228,15 @@ def build(baseline_dir, k3_variants=()):
                "kde_argmax_tree": tree}
     for i, spec in enumerate(k3_variants):
         sources[f"k3_variant{i}"] = k3_variant_source(tree, spec)
+    for name in k3_probes:
+        sources[f"k3_probe_{name}"] = k3_probe_source(tree, name)
     jobs = {**variant_jobs(sources), **baseline_jobs(base, "baseline")}
     for name, (_, log) in _build.compile_sources(jobs).items():
+        if name.startswith("mobius_linear"):
+            continue
         for line in log.splitlines():
-            if "registers" in line or "stack frame" in line:
+            if ("registers" in line or "stack frame" in line
+                    or "Compiling entry" in line):
                 print(f"[build] {name}: {line.strip()}")
     libs = {name: ctypes.CDLL(str(lib)) for name, (_, lib) in jobs.items()}
     empty = libs["empty"].empty_forward
@@ -128,8 +250,11 @@ def build(baseline_dir, k3_variants=()):
     variants = {spec: kk.bind(libs[f"k3_variant{i}"],
                               "kde_argmax_v2_forward")
                 for i, spec in enumerate(k3_variants)}
+    probes = {f"probe {name}": kk.bind(libs[f"k3_probe_{name}"],
+                                       "kde_argmax_v2_forward")
+              for name in k3_probes}
     return {"k1": k1, "k2": k2, "k3": k3, "k3_fallback_outside": k3_outside,
-            "k3_variants": variants, "empty": empty}
+            "k3_variants": variants, "k3_probes": probes, "empty": empty}
 
 
 def baseline_jobs(base, tag):
@@ -362,6 +487,97 @@ def check(fns):
     return records
 
 
+def check_wide(fns):
+    """The tree's K2 and K3 against the baseline's and K3 against its
+    plain version on ``kde_shapes`` and ``WIDE_EDGE_CASES`` (see the module
+    docstring); one line a case. Returns the records."""
+    k3_base = baseline_k3(fns)
+    cases = [(n, w, 0, False) for _, n, w in kde_shapes()]
+    records = {}
+    for n, width, runs, nans in cases + list(WIDE_EDGE_CASES):
+        vals, mask = k2_case(n, width, runs, nans=nans)
+        case = (f"T={vals.shape[0]} W={width}"
+                f"{' constant run' if runs else ''}{' NaNs' if nans else ''}")
+        old, new = (kk.launch_with(f, vals, mask) for f in fns["k2"])
+        if not (same_values(new[0], old[0]) and torch.equal(new[1], old[1])):
+            fail(f"K2 differs from the baseline K2's bits at {case}")
+        old3 = k3_base(vals, mask)
+        new3, use3 = kk.launch_with(fns["k3"][1], vals, mask)
+        again = kk.launch_with(fns["k3"][1], vals, mask)
+        torch.cuda.synchronize()
+        if not (same_values(again[0], new3) and torch.equal(again[1], use3)):
+            fail(f"two K3 launches differ at {case}")
+        bitwise = same_values(new3, old3[0]) and torch.equal(use3, old3[1])
+        if not (bitwise or fns["k3_fallback_outside"]):
+            fail(f"K3 differs from the baseline K3's bits at {case}")
+        plain, plain_use = kde_argmax_rows_v2_and_use(vals, mask)
+        if not torch.equal(use3, plain_use):
+            fail(f"K3 use flags differ from the plain version's at {case}")
+        if not same_values(new3[~use3], masked_median(vals, mask)[~use3]):
+            fail(f"K3 fallback rows differ from masked_median at {case}")
+        rec = {"bitwise_baseline": bitwise,
+               "fallback_rows": int((~use3).sum()),
+               "flips_vs_plain": near_tie_flips(new3[use3], plain[use3],
+                                                vals[use3], mask[use3]),
+               "flips_vs_k2": near_tie_flips(new3[use3], new[0][use3],
+                                             vals[use3], mask[use3])}
+        for spec, fn in fns["k3_variants"].items():
+            got = kk.launch_with(fn, vals, mask)
+            if not (same_values(got[0], new3) and torch.equal(got[1], use3)):
+                fail(f"K3 variant {spec} differs from the tree's K3 at "
+                     f"{case}")
+        print(f"[check] wide {case}: K2 bitwise the baseline's; K3 "
+              f"{'bitwise' if bitwise else 'not bitwise'} the baseline's, "
+              f"two launches bitwise, use flags bitwise, "
+              f"{rec['fallback_rows']} fallback rows bitwise masked_median, "
+              f"{rec['flips_vs_plain']} density-tie flips against plain, "
+              f"{rec['flips_vs_k2']} against K2; variants "
+              f"{sorted(fns['k3_variants'])} bitwise")
+        records[case] = rec
+    return records
+
+
+def time_wide(fns, reps):
+    """{label: record} of ``kde_shapes``: the baseline's and the tree's K2
+    and K3 in turns (baseline, tree, tree, baseline, twice), ms of each
+    run and the medians, the pairs and the bound; then {label: {variant:
+    [ms]}} of the K3 variants and probes in turns. One line a shape."""
+    out, variants = {}, {}
+    for label, n, width in kde_shapes():
+        vals, mask = k2_case(n, width)
+        rec = {"rows": vals.shape[0], "width": width,
+               "pairs": kde_pairs(n, width)}
+        rec["bound_ms"], rec["bound_by"] = kde_bound_ms(n, width)
+        for kernel in ("k2", "k3"):
+            t = {"baseline": [], "tree": []}
+            for which in ("baseline", "tree", "tree", "baseline") * 2:
+                f = fns[kernel][which == "tree"]
+                t[which].append(cuda_ms(
+                    lambda f=f: kk.launch_with(f, vals, mask), reps))
+            rec[kernel] = {**t, **{f"{w}_median": statistics.median(t[w])
+                                   for w in t}}
+        print(f"[time] {label}: K2 baseline {rec['k2']['baseline_median']:.5f}"
+              f" / tree {rec['k2']['tree_median']:.5f} ms, K3 baseline "
+              f"{rec['k3']['baseline_median']:.5f} / tree "
+              f"{rec['k3']['tree_median']:.5f} ms (medians of 4 in turns); "
+              f"{rec['pairs']} pairs, bound {rec['bound_ms']:.5f} ms "
+              f"({rec['bound_by']})")
+        if fns["k3_variants"] or fns["k3_probes"]:
+            named = {"tree": fns["k3"][1], **fns["k3_variants"],
+                     **fns["k3_probes"]}
+            order = list(named)
+            v = {name: [] for name in named}
+            for name in order + order[::-1]:
+                v[name].append(cuda_ms(
+                    lambda f=named[name]: kk.launch_with(f, vals, mask),
+                    reps))
+            variants[label] = v
+            print(f"[time] K3 variants {label}: "
+                  f"{ {k: [round(x, 5) for x in ms] for k, ms in v.items()} }")
+        out[label] = rec
+    return out, variants
+
+
 def torch_quantile_quartiles(x):
     """The baseline's quartiles: two ``torch.quantile`` calls, a sort
     each."""
@@ -442,17 +658,30 @@ def main(argv=None):
                         help="also build the tree's K3 with these launch "
                         "constants (name=value,...), check that it gives "
                         "the tree's bits, and time it")
+    parser.add_argument("--k3-probe", nargs="*", default=(),
+                        choices=sorted(K3_PROBES),
+                        help="also build these probes of the tree's K3 and "
+                        "time them beside it above 128 columns")
+    parser.add_argument("--wide-only", action="store_true",
+                        help="only the KDE shapes above 128 columns")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    fns = build(args.baseline_dir, args.k3_variant)
-    records = check(fns)
-    times = time_all(fns, args.reps)
+    fns = build(args.baseline_dir, args.k3_variant, args.k3_probe)
+    records, times = {}, {}
+    if not args.wide_only:
+        records = check(fns)
+        times = time_all(fns, args.reps)
+    records["wide"] = check_wide(fns)
+    times["wide"], times["wide_k3_variants"] = time_wide(fns, args.reps // 4)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(card)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "profile_kernels.json").write_text(json.dumps(
+        {"card": card, "checks": records, "times_ms": times}, indent=1))
     print(json.dumps({"card": card, "checks": records, "times_ms": times}))
 
 

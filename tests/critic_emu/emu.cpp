@@ -5,7 +5,11 @@
 // in ascending or descending rank order. Where the kernel is free of races
 // between ranks, every schedule gives the same bits; where a rank reads
 // what another writes between the same two cluster barriers, the two
-// orders give different ones.
+// orders give different ones. In the same way the warps of a block may
+// take turns between block barriers (__syncthreads and named barriers),
+// one warp at a time in ascending or descending order, each running to its
+// next barrier: a warp that reads what another warp writes before the
+// same barrier then sees it in one order and not in the other.
 #include <pthread.h>
 
 #include <chrono>
@@ -26,6 +30,8 @@ static int g_order = 0;  // 0 free, 1 ascending ranks, 2 descending
 static int g_lazy = 0;   // copies land when waited for
 static size_t g_static = 33712;
 static int g_sms = 132;
+static int g_worder = 0;  // warps: 0 free, 1 ascending, 2 descending
+static int g_border = 0;  // clusters of a launch: 0 ascending, 1 descending
 size_t static_bytes() { return g_static; }
 int sm_count() { return g_sms; }
 
@@ -86,6 +92,65 @@ void cluster_sync() {
   pass_turn();
   ctx.blk->cluster->all->arrive_and_wait();
   wait_turn();
+}
+
+// ---- the warps' turns within a block ----
+struct Turns {
+  unsigned nw;
+  std::mutex m;
+  std::unique_ptr<std::condition_variable[]> cv;  // a warp's
+  unsigned pos = 0;  // the position in the order whose warp runs
+  std::vector<char> done;
+  std::unique_ptr<std::atomic<char>[]> exiting;
+  struct Pass {
+    Turns* t;
+    unsigned w;
+    void operator()() noexcept {
+      std::lock_guard<std::mutex> g(t->m);
+      if (t->exiting[w]) t->done[w] = 1;
+      for (unsigned k = 0; k < t->nw; ++k) {
+        t->pos = (t->pos + 1) % t->nw;
+        if (!t->done[t->warp_at(t->pos)]) break;
+      }
+      t->cv[t->warp_at(t->pos)].notify_all();
+    }
+  };
+  std::vector<std::unique_ptr<std::barrier<Pass>>> hand;  // a warp's
+  unsigned warp_at(unsigned p) const { return g_worder == 2 ? nw - 1 - p : p; }
+};
+
+static Turns* turns() { return static_cast<Turns*>(ctx.blk->turns); }
+static void warp_wait_turn() {
+  if (!g_worder) return;
+  Turns& t = *turns();
+  const unsigned w = ctx.tid / 32;
+  std::unique_lock<std::mutex> g(t.m);
+  if (!t.cv[w].wait_for(g, std::chrono::seconds(120),
+                        [&] { return t.warp_at(t.pos) == w; }))
+    die("a warp waits for its turn for ever");
+}
+static void warp_pass_turn() {
+  if (g_worder) turns()->hand[ctx.tid / 32]->arrive_and_wait();
+}
+static void warp_exit() {
+  if (!g_worder) return;
+  turns()->exiting[ctx.tid / 32] = 1;
+  warp_pass_turn();
+}
+void block_barrier(std::barrier<>& bar) {
+  warp_pass_turn();
+  bar.arrive_and_wait();
+  warp_wait_turn();
+}
+static std::barrier<>& named_barrier(int id, int threads) {
+  Block& b = *ctx.blk;
+  std::lock_guard<std::mutex> g(b.named_m);
+  auto& slot = b.named[id];
+  if (!slot) slot.reset(new std::barrier<>(threads));
+  return *slot;
+}
+void named_sync(int id, int threads) {
+  block_barrier(named_barrier(id, threads));
 }
 
 // ---- copies and mbarriers ----
@@ -167,7 +232,9 @@ static void* thread_main(void* p) {
   auto* t = static_cast<Thread*>(p);
   ctx = Ctx{t->blk, t->tid};
   wait_turn();
+  warp_wait_turn();
   t->body(t->arg);
+  warp_exit();
   pass_turn();
   return nullptr;
 }
@@ -175,7 +242,8 @@ void run_grid(dim3 grid, dim3 block, size_t dyn, void (*body)(void*),
               void* arg, unsigned per) {
   for (unsigned z = 0; z < grid.z; ++z)
   for (unsigned y = 0; y < grid.y; ++y)
-    for (unsigned c0 = 0; c0 < grid.x; c0 += per) {
+    for (unsigned k = 0; k < grid.x; k += per) {
+      const unsigned c0 = g_border ? (grid.x - 1) / per * per - k : k;
       Cluster cl;
       cl.size = per;
       for (unsigned r = 0; r < per; ++r)
@@ -211,6 +279,17 @@ void run_grid(dim3 grid, dim3 block, size_t dyn, void (*body)(void*),
         b.dyn_bytes = dyn;
         b.cluster = &cl;
         cl.blocks.push_back(&b);
+        Turns* tn = new Turns;
+        tn->nw = (block.x + 31) / 32;
+        tn->done.assign(tn->nw, 0);
+        tn->cv.reset(new std::condition_variable[tn->nw]);
+        tn->exiting.reset(new std::atomic<char>[tn->nw]);
+        for (unsigned w = 0; w < tn->nw; ++w) {
+          tn->exiting[w] = 0;
+          tn->hand.emplace_back(new std::barrier<Turns::Pass>(
+              std::min(32u, block.x - 32 * w), Turns::Pass{tn, w}));
+        }
+        b.turns = tn;
       }
       std::vector<Thread> ts(per * block.x);
       std::vector<pthread_t> th(per * block.x);
@@ -252,6 +331,7 @@ void run_grid(dim3 grid, dim3 block, size_t dyn, void (*body)(void*),
       for (auto& b : blks) {
         delete b.bar;
         for (auto* w : b.warp_bar) delete w;
+        delete static_cast<Turns*>(b.turns);
       }
     }
 }
@@ -356,6 +436,13 @@ void cp_async_arrive(uint64_t* bar) {
 // shared memory the launch's plan assumes; the card's SM count (which
 // decides the grid's layout). The SM count is read once a device, so it
 // is set before the first launch.
+// The warps' order within a block in later launches: 0 free, 1 ascending,
+// 2 descending (see the top of this file); and the order of a launch's
+// clusters (blocks), which run one after another: 0 ascending, 1
+// descending.
+extern "C" void emu_warp_order(int order) { emu::g_worder = order; }
+extern "C" void emu_block_order(int order) { emu::g_border = order; }
+
 extern "C" void critic_emu_schedule(int order, int lazy, long long stat,
                                     int sms) {
   emu::g_order = order;

@@ -874,3 +874,50 @@ def test_sharded_epoch_matches_unsharded(cuda):
         np.testing.assert_allclose(m2[name], m1[name], rtol=1e-4, atol=1e-5)
     for k in p1:
         torch.testing.assert_close(p2[k], p1[k], rtol=5e-3, atol=5e-4)
+
+
+@pytest.mark.parametrize("N,W,const,nans", [
+    (2000, 129, False, False), (5000, 150, False, False),
+    (300, 150, True, False), (300, 150, False, True),
+    (3000, 256, False, False), (1000, 257, False, False),
+    (2000, 300, False, False), (1000, 300, True, False),
+    (1000, 300, False, True), (1000, 512, False, False),
+    (500, 1024, False, False), (64, 4096, False, False),
+    (300, 4096, True, False), (64, 4097, False, False)])
+def test_kde_argmax_v2_group_kernels(cuda, N, W, const, nans):
+    """K3 above 128 columns: the group kernels up to kK3TriMaxW (4,096)
+    columns, the one-block-a-row kde_argmax_v2_xwide_kernel past it, named
+    by the profiler; two launches give the same bits; use flags bitwise and
+    fallback rows bitwise masked_median; the other rows at a float64
+    density tie of the plain v2 form's and of K2's."""
+    from hypad_tpu_torch.profile_kernels import (
+        k3_constants,
+        near_tie_flips,
+        same_values,
+    )
+
+    assert k3_constants()["kK3TriMaxW"] == 4096
+    critic = torch.randn(N, generator=torch.Generator().manual_seed(N + W))
+    if const:
+        critic[10:N] = 0.5
+    if nans:
+        critic[:2] = critic[100:200] = float("nan")
+    vals, mask = antidiagonal_gather(critic.to(cuda)[:, None].expand(N, W))
+    (got, use), names, launched = _traced(
+        lambda: kde_argmax_v2_kernel(vals, mask), kde_argmax_v2_kernel)
+    assert launched == 1 and len(names) == 1
+    want_name = ("kde_argmax_v2_xwide_kernel" if W > 4096 else
+                 "kde_argmax_v2_group_xwide_kernel" if W > 256 else
+                 "kde_argmax_v2_group_wide_kernel")
+    assert want_name in names[0]
+    again, again_use = kde_argmax_v2_kernel(vals, mask)
+    assert same_values(again, got) and torch.equal(again_use, use)
+    want, want_use = kde_argmax_rows_v2_and_use(vals, mask)
+    assert torch.equal(use, want_use)
+    assert same_values(got[~use], masked_median(vals, mask)[~use])
+    if const:
+        assert (~use).sum() > 0
+    near_tie_flips(got[use], want[use], vals[use], mask[use])
+    k2, k2_use = kde_argmax_kernel(vals, mask)
+    assert torch.equal(k2_use, use)
+    near_tie_flips(got[use], k2[use], vals[use], mask[use])
