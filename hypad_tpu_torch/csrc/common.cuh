@@ -15,4 +15,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+#ifdef __CUDACC__
+// 2^x on the special-function unit (ex2.approx.ftz.f32, one MUFU.EX2): a
+// relative error of about 2^-22, subnormal arguments and results flushed
+// to zero, 2^-inf = +0. The CPU emulation (tests/critic_emu) brings a
+// stand-in of its own.
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+#endif
+
 }  // namespace hypad

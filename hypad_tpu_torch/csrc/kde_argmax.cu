@@ -35,10 +35,19 @@
 //
 // Shared design:
 // - Each unordered pair's exp is computed once and added to both samples'
-//   densities: (v_i - v_j)^2 equals (v_j - v_i)^2 bit for bit, so each term
-//   is the plain version's. `expf` stays at full accuracy (`__expf` would
-//   move densities by ~1e-6 relative, far above the last-ulp ties the
-//   tie-level check allows).
+//   densities: (v_i - v_j)^2 equals (v_j - v_i)^2 bit for bit, so both get
+//   the same term. The narrow instances and K3 take it from the accurate
+//   `expf`. K2's group kernels (above 128 columns) take it as 2^(scl d^2)
+//   from the SFU's ex2.approx.ftz (k2_term, kK2Ex2), scl = scale log2(e)
+//   once a row: a pair costs about 6 issue slots there, not 13. Its error,
+//   about 2^-22 of the term plus the argument's rounding, is of the order of
+//   `expf`'s last ulp, far inside the n 2^-22 (relative) of a density that
+//   the tie-level check allows (profile_kernels.near_tie_flips). Measured on
+//   an H100 80GB HBM3 (profile_kernels.py --wide-only, every kde_shapes
+//   case): K2's flips against its plain version with ex2 within the count
+//   of the `expf` kernels it replaced (47-570 a shape against 56-574),
+//   each a float64 tie, use flags and fallback rows bitwise. K3 keeps `expf`:
+//   its contract is v2's terms, in v2's order, one by one.
 // - A row's samples form nb blocks of 4 (padding holds the sentinel). One
 //   thread owns one block of one row: its 4 densities stay in registers. A
 //   thread block of R rows (K2 16, K3 32) has R * nb threads, nb at least
@@ -88,25 +97,44 @@
 // profile_kernels.py --k3-variant: these 0.1040 ms, 16-row blocks (two an
 // SM) 0.1050-0.1053, 8-row blocks (four an SM) 0.1141.
 
-// K2's wide instance: multivariate detection skews (N, F) rows with F up to
-// 256 (CASAS's 150), so K2 has a second instance for rows of 129 to 256
-// entries, which its entry point picks by width: a lane holds 8 entries of
-// a row in the warp phases, phase 4 takes a row's first max over up to 64
-// blocks, and a block holds 16 rows (16 x 64 blocks of 4 = 1,024 threads).
-// The arithmetic per row is the narrow instance's.
+// The wide instances of kde_argmax_body (rows of 129 to 256, kW =
+// kWideMaxW: a lane holds 8 entries of a row in the warp phases, phase 4
+// takes a row's first max over up to 64 blocks, 16 rows a block) are no
+// longer launched: the group kernels below took their rows. They stay for
+// the CPU emulation's comparison (tests/test_torch_k2_emulated.py,
+// tests/test_torch_k3_emulated.py).
 
-// K2's any-width instance: rows wider than 256 (a univariate window of 300,
-// a stream of more features) go to kde_argmax_xwide_kernel, one block a row
-// of up to 16 warps, each thread owning samples tid, tid + blockDim, ... and
-// reading the row from global memory (L1-resident), so no width is too
-// wide; a sample's density is its own sum over j ascending. The row
-// statistics and the first max are block sums and a block argmax in a
-// fixed order; the median fallback ranks each candidate (the samples and
-// the first masked entry, which sort as the plain version's fill f32 max,
-// NaNs last) against the whole row, one candidate a thread, and takes the
-// first in index order that holds the rank. kde_argmax_v2_xwide_kernel is
-// the same for K3 (each density in v2's order, each pair's exp computed by
-// both of its samples' threads); it takes only rows wider than kK3TriMaxW.
+// The any-width instances: rows wider than kK3TriMaxW go to
+// kde_argmax_xwide_kernel (K2) and kde_argmax_v2_xwide_kernel (K3), one
+// block a row of up to 16 warps, each thread owning samples tid, tid +
+// blockDim, ... and reading the row from global memory (L1-resident), so no
+// width is too wide; a sample's density is its own sum over j ascending
+// (K2) or in v2's order (K3), each pair's exp computed by both of its
+// samples' threads. The row statistics and the first max are block sums
+// and a block argmax in a fixed order; the median fallback ranks each
+// candidate (the samples and the first masked entry, which sort as the
+// plain version's fill f32 max, NaNs last) against the whole row, one
+// candidate a thread, and takes the first in index order that holds the
+// rank.
+//
+// K2 above 128 columns (kde_argmax_group_wide_kernel<R> up to 256,
+// kde_argmax_group_xwide_kernel<R> up to kK3TriMaxW): the narrow K2's
+// round-robin (densities_by_sample: nb / 2 rounds, every block busy in each
+// but the last of an even nb, one exp a pair) on K3's groups of rows below,
+// each group under its own named barrier, with the same plan (aiming at
+// kK2GroupThreads threads a group up to 256 columns and kK2XGroupThreads
+// above, where smaller groups were faster), persistent blocks and
+// group-major walk; thread (r, I) = r * nb + I, as in the narrow K2, and a
+// group's hand-off 2 R nb float4s. A density's order of additions depends
+// on nb only, so with the `expf` term (kK2Ex2 = 0) K2 up to 256 columns
+// gives the bits of the wide instance it replaced (kde_argmax_body<256,
+// false>); the statistics and medians keep the order of the instances
+// replaced, as K3's do, so use flags and fallback rows keep their bits at
+// every width. What bounds it on the H100: the SFU and issue together (a
+// round of 16 pairs is about 133 instructions, 16 of them MUFU.EX2 at 8
+// cycles a warp each); at (50,149, 150) the kernel issues at about 56% of
+// the SM's rate, the barrier about 10% of the time and the hand-off 5%
+// (profile_kernels.py's probes).
 //
 // K3 above 128 columns (kde_argmax_v2_group_wide_kernel<R> up to 256,
 // kde_argmax_v2_group_xwide_kernel<R> up to kK3TriMaxW): the narrow K3's
@@ -151,9 +179,10 @@ constexpr int kK2Rows = 16;  // rows per block of K2
 // other values beside these.
 constexpr int kK3Rows = 32;
 constexpr int kByOffsetBlocksPerSM = 1;
-// K2's wide instance (rows of 129 to 256, multivariate feature counts): 16
+// The wide instances of kde_argmax_body (kW = kWideMaxW, rows of 129 to
+// 256; no longer launched, kept for the CPU emulation's comparison): 16
 // rows a block, so that 64 blocks of 4 samples a row make at most 1,024
-// threads, at two blocks an SM (32 registers, as the narrow K2's).
+// threads.
 constexpr int kWideRows = 16;
 // The any-width instances: warps a block (one block a row).
 constexpr int kXwMaxWarps = 16;
@@ -167,6 +196,16 @@ constexpr int kK3MaxGroups = 7;
 constexpr int kK3Threads = 1024;
 constexpr int kK3TriMaxW = 4096;
 constexpr int kK3GroupBar = 1;  // group g's barrier: kK3GroupBar + g
+// K2 on rows of 129 to kK3TriMaxW (its group kernels, blocks of at most
+// kK3Threads threads, one an SM, as K3's): the threads a group aims at up
+// to 256 columns and above, the most groups a block, and the pair's term,
+// 2^(scale log2(e) d^2) on the SFU's ex2 (1) or expf (0).
+// profile_kernels.py --k2-variant times other values.
+constexpr int kK2GroupThreads = 512;
+constexpr int kK2XGroupThreads = 256;
+constexpr int kK2MaxGroups = 7;
+constexpr int kK2Ex2 = 1;
+constexpr float kLog2e = 1.44269504088896341f;
 
 // Rows a block of the instance for rows up to kW wide.
 template <int kW, bool kByOffset>
@@ -197,14 +236,15 @@ __host__ __device__ inline int row_blocks(int width) {
 // 8 rows of a quarter warp fall on distinct banks
 __host__ __device__ inline int hand_stride(int nb) { return 4 * nb + 1; }
 
-template <int R>
-__host__ __device__ inline int col_float4s(int nb, bool by_offset) {
+// float4s of R rows' hand-off buffers (two, alternating by round): K2's
+// column partials, nb a row, or K3's handed terms
+__host__ __device__ inline int col_float4s(int R, int nb, bool by_offset) {
   return 2 * R * (by_offset ? hand_stride(nb) : nb);
 }
 
 template <int R>
 __host__ __device__ inline size_t smem_bytes(int nb, bool by_offset) {
-  return sizeof(float4) * col_float4s<R>(nb, by_offset) +
+  return sizeof(float4) * col_float4s(R, nb, by_offset) +
          sizeof(float) * (R * 4 * nb + R * nb + 2 * R) +
          sizeof(int) * R * nb + R * 4 * nb + R;
 }
@@ -213,7 +253,7 @@ template <int R>
 __device__ inline Smem carve(unsigned char* raw, int nb, bool by_offset) {
   Smem m;
   m.col = reinterpret_cast<float4*>(raw);
-  m.vs = reinterpret_cast<float*>(m.col + col_float4s<R>(nb, by_offset));
+  m.vs = reinterpret_cast<float*>(m.col + col_float4s(R, nb, by_offset));
   m.best = m.vs + R * 4 * nb;
   m.scale = m.best + R * nb;
   m.cnt = m.scale + R;
@@ -327,12 +367,39 @@ __device__ __noinline__ float row_median(const float* v,
   return 0.5f * (order_stat(y, cand, k_lo) + order_stat(y, cand, cnt / 2));
 }
 
-// K2's densities of samples 4I..4I+3 of row r, summed by sample.
-template <int R>
+// Named barrier `id` of `threads` threads (whole warps).
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The barrier of a round of K2's densities: the block's, or (the group
+// kernels) the group's named barrier.
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+struct GroupSync {
+  int bar, threads;
+  __device__ __forceinline__ void operator()() const {
+    group_sync(bar, threads);
+  }
+};
+
+// K2's term of one pair at difference d: exp(sc d^2) by expf or, with
+// kEx2, 2^(sc d^2) on the SFU, sc then the scale times log2(e).
+template <bool kEx2>
+__device__ __forceinline__ float k2_term(float sc, float d) {
+  return kEx2 ? hypad::ex2_approx(sc * (d * d)) : expf(sc * (d * d));
+}
+
+// K2's densities of samples 4I..4I+3 of row r, summed by sample; `sync` is
+// the round's barrier. A thread that is not `live` (past a group's R x nb)
+// computes nothing that is kept and meets every barrier.
+template <int R, bool kEx2, class Sync>
 __device__ __forceinline__ void densities_by_sample(const Smem& m, int r,
-                                                    int I, int nb, int wp,
+                                                    int I, bool live, int nb,
+                                                    int wp, Sync sync,
                                                     float (&p)[4]) {
-  const float sc = m.scale[r];
+  const float sc = kEx2 ? m.scale[r] * kLog2e : m.scale[r];
   const float4* vrow4 = reinterpret_cast<const float4*>(m.vs + r * wp);
   const float4 v4 = vrow4[I];
   const float vi[4] = {v4.x, v4.y, v4.z, v4.w};
@@ -342,8 +409,7 @@ __device__ __forceinline__ void densities_by_sample(const Smem& m, int r,
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int b = a + 1; b < 4; ++b) {
-      const float d = vi[a] - vi[b];
-      const float e = expf(sc * (d * d));
+      const float e = k2_term<kEx2>(sc, vi[a] - vi[b]);
       p[a] += e;
       p[b] += e;
     }
@@ -351,7 +417,7 @@ __device__ __forceinline__ void densities_by_sample(const Smem& m, int r,
   for (int off = 1; off <= half; ++off) {
     const bool last_even = 2 * off == nb;  // the pairs of round nb / 2 once
     float4* slot = m.col + ((off & 1) * R + r) * nb;
-    if (!(last_even && I >= half)) {
+    if (live && !(last_even && I >= half)) {
       const int J = I + off < nb ? I + off : I + off - nb;
       const float4 w4 = vrow4[J];
       const float vj[4] = {w4.x, w4.y, w4.z, w4.w};
@@ -360,15 +426,14 @@ __device__ __forceinline__ void densities_by_sample(const Smem& m, int r,
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
-          const float d = vi[a] - vj[b];
-          const float e = expf(sc * (d * d));
+          const float e = k2_term<kEx2>(sc, vi[a] - vj[b]);
           p[a] += e;
           c[b] += e;
         }
       slot[J] = make_float4(c[0], c[1], c[2], c[3]);
     }
-    __syncthreads();
-    if (!(last_even && I < half)) {
+    sync();
+    if (live && !(last_even && I < half)) {
       const float4 c = slot[I];
       p[0] += c.x;
       p[1] += c.y;
@@ -581,7 +646,7 @@ __device__ __forceinline__ void kde_argmax_body(
   } else {
     r = threadIdx.x / nb;
     I = threadIdx.x - r * nb;
-    densities_by_sample<kRows>(m, r, I, nb, wp, p);
+    densities_by_sample<kRows, false>(m, r, I, true, nb, wp, BlockSync{}, p);
   }
 
   // 3. first max over the block's samples (masked: -inf), ascending
@@ -659,24 +724,14 @@ kde_argmax_v2_kernel(const float* __restrict__ vals,
   kde_argmax_body<kMaxW, true>(vals, mask, kde_val, use, rows, width);
 }
 
-__global__ void __launch_bounds__(kWideRows * kWideMaxW / 4, 2)
-kde_argmax_wide_kernel(const float* __restrict__ vals,
-                       const unsigned char* __restrict__ mask,
-                       float* __restrict__ kde_val,
-                       unsigned char* __restrict__ use, int rows, int width) {
-  kde_argmax_body<kWideMaxW, false>(vals, mask, kde_val, use, rows, width);
-}
-
-template <int kW, bool kByOffset>
+// The narrow instances (rows up to kMaxW); wider rows: launch_group.
+template <bool kByOffset>
 int launch(const float* vals, const unsigned char* mask, float* kde_val,
            unsigned char* use, int rows, int width, void* stream) {
-  if (rows < 0 || width < 1 || width > kW) return cudaErrorInvalidValue;
+  if (rows < 0 || width < 1 || width > kMaxW) return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
-  constexpr int kRows = block_rows<kW, kByOffset>();
-  static_assert(!(kByOffset && kW > kMaxW), "K3 above 128: launch_group");
-  const auto kernel = kW > kMaxW ? kde_argmax_wide_kernel
-                                 : (kByOffset ? kde_argmax_v2_kernel
-                                              : kde_argmax_kernel);
+  constexpr int kRows = block_rows<kMaxW, kByOffset>();
+  const auto kernel = kByOffset ? kde_argmax_v2_kernel : kde_argmax_kernel;
   const int nb = row_blocks<kRows>(width);
   const size_t smem = smem_bytes<kRows>(nb, kByOffset);
   cudaError_t err = cudaFuncSetAttribute(
@@ -898,12 +953,7 @@ int launch_xwide(const float* vals, const unsigned char* mask, float* kde_val,
   return cudaGetLastError();
 }
 
-// ---- K3 above 128 columns: groups of rows under named barriers ----
-
-// Named barrier `id` of `threads` threads (whole warps).
-__device__ __forceinline__ void group_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
+// ---- K2 and K3 above 128 columns: groups of rows under named barriers ----
 
 // Floats of a row of samples (and bytes of its mask) in a group's shared
 // memory: the row's nb blocks of 4; above 256 columns (any) a multiple of 8
@@ -913,22 +963,25 @@ __host__ __device__ inline int group_row_floats(int nb, bool any) {
   return 4 * (any ? nb + (9 - nb % 8) % 8 : nb);
 }
 
-// Bytes of one group's shared memory: K3's Smem for R rows of nb blocks,
-// and one int for the median's selections, rounded to 16.
-__host__ __device__ inline size_t group_smem(int R, int nb, bool any) {
+// Bytes of one group's shared memory: the Smem of R rows of nb blocks (K2's
+// hand-off or K3's, by_offset), and one int for the median's selections,
+// rounded to 16.
+__host__ __device__ inline size_t group_smem(int R, int nb, bool any,
+                                             bool by_offset) {
   const int wp = group_row_floats(nb, any);
-  const size_t b = sizeof(float4) * 2 * R * hand_stride(nb) +
-                   sizeof(float) * (R * wp + R * nb + 2 * R) +
-                   sizeof(int) * (R * nb + 1) + R * wp + R;
+  const size_t b =
+      sizeof(float4) * 2 * R * (by_offset ? hand_stride(nb) : nb) +
+      sizeof(float) * (R * wp + R * nb + 2 * R) +
+      sizeof(int) * (R * nb + 1) + R * wp + R;
   return (b + 15) / 16 * 16;
 }
 
 __device__ inline Smem carve_group(unsigned char* raw, int R, int nb,
-                                   bool any, int** sel) {
+                                   bool any, bool by_offset, int** sel) {
   const int wp = group_row_floats(nb, any);
   Smem m;
   m.col = reinterpret_cast<float4*>(raw);
-  m.vs = reinterpret_cast<float*>(m.col + 2 * R * hand_stride(nb));
+  m.vs = reinterpret_cast<float*>(m.col + col_float4s(R, nb, by_offset));
   m.best = m.vs + R * wp;
   m.scale = m.best + R * nb;
   m.cnt = m.scale + R;
@@ -1086,10 +1139,13 @@ __device__ __forceinline__ void group_densities(const Smem& m, int r, int I,
   }
 }
 
-// K3 on rows of 129 to kK3TriMaxW (kAny: above 256), groups of R rows of
-// `gthreads` threads, blockDim.x / gthreads groups a block.
-template <int R, bool kAny>
-__device__ __forceinline__ void kde_argmax_v2_group_body(
+// K3 (kByOffset) or K2 on rows of 129 to kK3TriMaxW (kAny: above 256),
+// groups of R rows of `gthreads` threads, blockDim.x / gthreads groups a
+// block. Thread (r, I) of a group is gt = I * R + r in K3 (a warp holds
+// block I of every row), r * nb + I in K2 (a warp holds neighbouring blocks
+// of a row, as the narrow K2).
+template <int R, bool kAny, bool kByOffset>
+__device__ __forceinline__ void kde_argmax_group_body(
     const float* __restrict__ vals, const unsigned char* __restrict__ mask,
     float* __restrict__ kde_val, unsigned char* __restrict__ use, int rows,
     int width, int gthreads) {
@@ -1098,14 +1154,25 @@ __device__ __forceinline__ void kde_argmax_v2_group_body(
   const int G = blockDim.x / gthreads;
   const int g = threadIdx.x / gthreads, gt = threadIdx.x - g * gthreads;
   int* sel;
-  const Smem m = carve_group(smem_raw + g * group_smem(R, nb, kAny), R, nb,
-                             kAny, &sel);
+  const Smem m =
+      carve_group(smem_raw + g * group_smem(R, nb, kAny, kByOffset), R, nb,
+                  kAny, kByOffset, &sel);
   const int warp = gt >> 5, lane = gt & 31, gwarps = gthreads >> 5;
   const int bar = kK3GroupBar + g;
   const int n_groups = (rows + R - 1) / R, step = gridDim.x * G;
-  const int I_own = gt / R;
-  const bool live = I_own < nb;
-  const int I = live ? I_own : 0, r = live ? gt - I_own * R : 0;
+  bool live;
+  int I, r;
+  if constexpr (kByOffset) {
+    const int I_own = gt / R;
+    live = I_own < nb;
+    I = live ? I_own : 0;
+    r = live ? gt - I_own * R : 0;
+  } else {
+    const int r_own = gt / nb;
+    live = r_own < R;
+    I = live ? gt - r_own * nb : 0;
+    r = live ? r_own : 0;
+  }
 
   // group g of block b walks row groups g * blocks + b + k * (blocks G):
   // a last walk that does not fill the grid leaves each SM some groups
@@ -1157,7 +1224,12 @@ __device__ __forceinline__ void kde_argmax_v2_group_body(
 
     // 2. densities; 3. each block's first max (masked: -inf)
     float p[4];
-    group_densities<R>(m, r, I, live, nb, wp, width, bar, gthreads, p);
+    if constexpr (kByOffset) {
+      group_densities<R>(m, r, I, live, nb, wp, width, bar, gthreads, p);
+    } else {
+      densities_by_sample<R, kK2Ex2 != 0>(m, r, I, live, nb, wp,
+                                          GroupSync{bar, gthreads}, p);
+    }
     if (live) {
       float best = -INFINITY;
       int best_i = 0x7fffffff;
@@ -1257,8 +1329,8 @@ kde_argmax_v2_group_wide_kernel(const float* __restrict__ vals,
                                 float* __restrict__ kde_val,
                                 unsigned char* __restrict__ use, int rows,
                                 int width, int gthreads) {
-  kde_argmax_v2_group_body<R, false>(vals, mask, kde_val, use, rows, width,
-                                     gthreads);
+  kde_argmax_group_body<R, false, true>(vals, mask, kde_val, use, rows, width,
+                                        gthreads);
 }
 
 template <int R>
@@ -1268,30 +1340,58 @@ kde_argmax_v2_group_xwide_kernel(const float* __restrict__ vals,
                                  float* __restrict__ kde_val,
                                  unsigned char* __restrict__ use, int rows,
                                  int width, int gthreads) {
-  kde_argmax_v2_group_body<R, true>(vals, mask, kde_val, use, rows, width,
-                                    gthreads);
+  kde_argmax_group_body<R, true, true>(vals, mask, kde_val, use, rows, width,
+                                       gthreads);
 }
 
-// The group plan of a K3 launch on rows of 129 to kK3TriMaxW: R rows a
-// group (the largest power of 2 at most kK3GroupThreads / nb, 8 at most up
-// to 256 columns and 4 above), G groups a block (by threads, the shared
-// memory a block may opt in to and kK3MaxGroups), one persistent block an
-// SM at most; G = 0 where one group does not fit a block.
+template <int R>
+__global__ void __launch_bounds__(kK3Threads, 1)
+kde_argmax_group_wide_kernel(const float* __restrict__ vals,
+                             const unsigned char* __restrict__ mask,
+                             float* __restrict__ kde_val,
+                             unsigned char* __restrict__ use, int rows,
+                             int width, int gthreads) {
+  kde_argmax_group_body<R, false, false>(vals, mask, kde_val, use, rows,
+                                         width, gthreads);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kK3Threads, 1)
+kde_argmax_group_xwide_kernel(const float* __restrict__ vals,
+                              const unsigned char* __restrict__ mask,
+                              float* __restrict__ kde_val,
+                              unsigned char* __restrict__ use, int rows,
+                              int width, int gthreads) {
+  kde_argmax_group_body<R, true, false>(vals, mask, kde_val, use, rows, width,
+                                        gthreads);
+}
+
+// The group plan of a K3 (by_offset) or K2 launch on rows of 129 to
+// kK3TriMaxW: R rows a group (the largest power of 2 at most
+// kK3GroupThreads / nb, K2 kK2GroupThreads / nb up to 256 columns and
+// kK2XGroupThreads / nb above, 8 at most up to 256 columns and 4 above), G
+// groups a block (by threads, the shared memory a block may opt in to and
+// kK3MaxGroups or kK2MaxGroups), one persistent block an SM at most; G = 0
+// where one group does not fit a block.
 struct GroupPlan {
   int R, gthreads, G, blocks;
   size_t smem;
 };
 
-inline GroupPlan group_plan(int rows, int width, int sms, int smem_optin) {
+inline GroupPlan group_plan(int rows, int width, int sms, int smem_optin,
+                            bool by_offset) {
   GroupPlan pl;
   const int nb = (width + 3) / 4;
   const int cap = width > kWideMaxW ? 4 : 8;
+  const int aim = by_offset              ? kK3GroupThreads
+                  : width > kWideMaxW ? kK2XGroupThreads
+                                      : kK2GroupThreads;
   pl.R = 1;
-  while (2 * pl.R <= min(cap, kK3GroupThreads / nb)) pl.R *= 2;
+  while (2 * pl.R <= min(cap, aim / nb)) pl.R *= 2;
   pl.gthreads = (pl.R * nb + 31) / 32 * 32;
-  const size_t gsmem = group_smem(pl.R, nb, width > kWideMaxW);
-  pl.G = min(kK3MaxGroups, min(kK3Threads / pl.gthreads,
-                               (int)(smem_optin / gsmem)));
+  const size_t gsmem = group_smem(pl.R, nb, width > kWideMaxW, by_offset);
+  pl.G = min(by_offset ? kK3MaxGroups : kK2MaxGroups,
+             min(kK3Threads / pl.gthreads, (int)(smem_optin / gsmem)));
   pl.blocks = 0;
   pl.smem = 0;
   if (pl.G < 1) return pl;
@@ -1358,6 +1458,28 @@ int launch_group_k(Kernel kernel, const GroupPlan& pl, const float* vals,
   return cudaGetLastError();
 }
 
+// The group kernel of a plan's R rows a group: K3's or K2's, the wide one
+// up to 256 columns (R 8, 4 or 2), the any-width one above (4, 2 or 1).
+template <bool kByOffset>
+auto group_kernel(int R, bool wide) {
+  if constexpr (kByOffset) {
+    return wide ? (R >= 8   ? kde_argmax_v2_group_wide_kernel<8>
+                   : R == 4 ? kde_argmax_v2_group_wide_kernel<4>
+                            : kde_argmax_v2_group_wide_kernel<2>)
+                : (R >= 4   ? kde_argmax_v2_group_xwide_kernel<4>
+                   : R == 2 ? kde_argmax_v2_group_xwide_kernel<2>
+                            : kde_argmax_v2_group_xwide_kernel<1>);
+  } else {
+    return wide ? (R >= 8   ? kde_argmax_group_wide_kernel<8>
+                   : R == 4 ? kde_argmax_group_wide_kernel<4>
+                            : kde_argmax_group_wide_kernel<2>)
+                : (R >= 4   ? kde_argmax_group_xwide_kernel<4>
+                   : R == 2 ? kde_argmax_group_xwide_kernel<2>
+                            : kde_argmax_group_xwide_kernel<1>);
+  }
+}
+
+template <bool kByOffset>
 int launch_group(const float* vals, const unsigned char* mask,
                  float* kde_val, unsigned char* use, int rows, int width,
                  void* stream) {
@@ -1367,19 +1489,27 @@ int launch_group(const float* vals, const unsigned char* mask,
   Card card;
   const cudaError_t err = current_card(&card);
   if (err != cudaSuccess) return err;
-  const GroupPlan pl = group_plan(rows, width, card.sms, card.smem_optin);
+  const GroupPlan pl =
+      group_plan(rows, width, card.sms, card.smem_optin, kByOffset);
   if (pl.G < 1)  // a card with too little shared memory for one group
-    return launch_xwide<true>(vals, mask, kde_val, use, rows, width, stream);
-  const auto kernel =
-      width <= kWideMaxW
-          ? (pl.R >= 8   ? kde_argmax_v2_group_wide_kernel<8>
-             : pl.R == 4 ? kde_argmax_v2_group_wide_kernel<4>
-                         : kde_argmax_v2_group_wide_kernel<2>)
-          : (pl.R >= 4   ? kde_argmax_v2_group_xwide_kernel<4>
-             : pl.R == 2 ? kde_argmax_v2_group_xwide_kernel<2>
-                         : kde_argmax_v2_group_xwide_kernel<1>);
-  return launch_group_k(kernel, pl, vals, mask, kde_val, use, rows, width,
-                        stream);
+    return launch_xwide<kByOffset>(vals, mask, kde_val, use, rows, width,
+                                   stream);
+  return launch_group_k(group_kernel<kByOffset>(pl.R, width <= kWideMaxW),
+                        pl, vals, mask, kde_val, use, rows, width, stream);
+}
+
+// The plan's five numbers {R, gthreads, G, blocks, smem} in `out`, or
+// cudaErrorInvalidValue where the group kernels do not take the shape.
+int plan_out(int rows, int width, int sms, int smem_optin, bool by_offset,
+             long long* out) {
+  if (rows < 1 || width <= kMaxW || width > kK3TriMaxW || sms < 1)
+    return cudaErrorInvalidValue;
+  const GroupPlan pl = group_plan(rows, width, sms, smem_optin, by_offset);
+  if (pl.G < 1) return cudaErrorInvalidValue;
+  const long long got[5] = {pl.R, pl.gthreads, pl.G, pl.blocks,
+                            (long long)pl.smem};
+  for (int i = 0; i < 5; ++i) out[i] = got[i];
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1387,19 +1517,20 @@ int launch_group(const float* vals, const unsigned char* mask,
 // vals (rows, width) f32, mask (rows, width) bool bytes -> kde_val (rows,)
 // f32 (the density argmax, or the masked median where use is 0), use
 // (rows,) bool bytes; contiguous, on the device. Rows up to kMaxW wide
-// launch the narrow instance, rows up to kWideMaxW the wide one, wider rows
-// the any-width one. Launches
+// launch the narrow instance, rows up to kK3TriMaxW the group kernels
+// (kde_argmax_group_wide_kernel up to 256, kde_argmax_group_xwide_kernel
+// above), wider rows the one-block-a-row kde_argmax_xwide_kernel. Launches
 // on `stream` and returns cudaGetLastError() (or cudaErrorInvalidValue for
 // shapes it does not take). K2: the densities summed by sample.
 extern "C" int kde_argmax_forward(const float* vals, const unsigned char* mask,
                                   float* kde_val, unsigned char* use, int rows,
                                   int width, void* stream) {
-  if (width > kWideMaxW)
+  if (width > kK3TriMaxW)
     return launch_xwide<false>(vals, mask, kde_val, use, rows, width, stream);
-  return width > kMaxW ? launch<kWideMaxW, false>(vals, mask, kde_val, use,
-                                                  rows, width, stream)
-                       : launch<kMaxW, false>(vals, mask, kde_val, use, rows,
-                                              width, stream);
+  return width > kMaxW ? launch_group<false>(vals, mask, kde_val, use, rows,
+                                             width, stream)
+                       : launch<false>(vals, mask, kde_val, use, rows, width,
+                                       stream);
 }
 
 // The group plan (group_plan) of a K3 launch on `rows` rows of `width`
@@ -1411,14 +1542,13 @@ extern "C" int kde_argmax_forward(const float* vals, const unsigned char* mask,
 // tests and profilers.
 extern "C" int kde_argmax_v2_group_plan(int rows, int width, int sms,
                                         int smem_optin, long long* out) {
-  if (rows < 1 || width <= kMaxW || width > kK3TriMaxW || sms < 1)
-    return cudaErrorInvalidValue;
-  const GroupPlan pl = group_plan(rows, width, sms, smem_optin);
-  if (pl.G < 1) return cudaErrorInvalidValue;
-  const long long got[5] = {pl.R, pl.gthreads, pl.G, pl.blocks,
-                            (long long)pl.smem};
-  for (int i = 0; i < 5; ++i) out[i] = got[i];
-  return cudaSuccess;
+  return plan_out(rows, width, sms, smem_optin, true, out);
+}
+
+// The same for a K2 launch.
+extern "C" int kde_argmax_group_plan(int rows, int width, int sms,
+                                     int smem_optin, long long* out) {
+  return plan_out(rows, width, sms, smem_optin, false, out);
 }
 
 // The same with K3: the densities summed by offset, in v2's order. Rows of
@@ -1430,8 +1560,8 @@ extern "C" int kde_argmax_v2_forward(const float* vals,
                                      int rows, int width, void* stream) {
   if (width > kK3TriMaxW)
     return launch_xwide<true>(vals, mask, kde_val, use, rows, width, stream);
-  return width > kMaxW ? launch_group(vals, mask, kde_val, use, rows, width,
-                                      stream)
-                       : launch<kMaxW, true>(vals, mask, kde_val, use, rows,
-                                             width, stream);
+  return width > kMaxW ? launch_group<true>(vals, mask, kde_val, use, rows,
+                                            width, stream)
+                       : launch<true>(vals, mask, kde_val, use, rows, width,
+                                      stream);
 }

@@ -15,13 +15,15 @@ version, ``hypad_tpu_torch.ops.kde.kde_argmax_rows_and_use`` or
 Rows up to 128 wide go to each kernel's narrow instance, rows of 129 to 256
 (multivariate feature counts) to its wide instance, wider rows to its
 any-width instance (``.wide_launches`` and ``.xwide_launches`` count those
-two); K3's wide and any-width instances are its group kernels up to 4,096
-columns (``kK3TriMaxW``) and its one-block-a-row kernel past them. No width
-takes the plain version on the card.
+two); the wide and any-width instances of K2 and K3 are their group kernels
+up to 4,096 columns (``kK3TriMaxW``) and their one-block-a-row kernels past
+them. No width takes the plain version on the card.
 
-A kernel's densities agree with its plain version's to within ulps, so
-where densities tie to the last bits the argmax may pick another sample of
-the same row: the two agree at tie level, as K2 and K3 do with each other.
+A kernel's densities agree with its plain version's to within ulps (K2's
+group kernels take each pair's term from the SFU's ``ex2``, within about
+2^-22 of it), so where densities tie to the last bits the argmax may pick
+another sample of the same row: the two agree at tie level, as K2 and K3
+do with each other.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@ baseline's, on a GPU.
 
     python3 -m hypad_tpu_torch.profile_kernels --baseline-dir DIR
         [--reps N] [--k3-variant kK3GroupThreads=256,kK3MaxGroups=4 ...]
-        [--wide-only]
+        [--k3-probe no_exp ...] [--k2-variant kK2Ex2=0 ...]
+        [--k2-probe no_exp no_hand] [--wide-only]
 
 ``DIR`` holds another ``mobius_linear.cu`` and ``kde_argmax.cu`` of the same
 C interfaces, for example a parent commit's ``hypad_tpu_torch/csrc``
@@ -17,7 +18,10 @@ they include their own headers; the tree's, an empty kernel and, with
 ``kByOffsetBlocksPerSM``, the wider instances' ``kK3GroupThreads``,
 ``kK3MaxGroups``, ``kK3Threads`` and ``kK3TriMaxW``) set otherwise, and
 with ``--k3-probe`` the probe builds of ``K3_PROBES``, build at once with
-them.
+them; ``--k2-variant`` and ``--k2-probe`` do the same for K2
+(``K2_CONSTANTS``: its group kernels' launch constants and ``kK2Ex2``, the
+pair's term as ``expf`` (0) or the SFU's ``ex2`` (1); ``K2_PROBES``, built
+of the baseline too where its source holds the probe's text).
 
 Checks, at the main path's shapes:
 
@@ -53,8 +57,12 @@ density tie of the plain version's, each K3 variant bitwise the tree's,
 on those shapes and on ``WIDE_EDGE_CASES``; then the times of the
 baseline's and the tree's K2 and K3 in turns (baseline, tree, tree,
 baseline, twice), their medians, each shape's pairs and its bound
-(``kde_cost``), and the K3 variants in turns. ``--wide-only`` runs only
-this part.
+(``kde_cost``), and the K3 and K2 variants and probes in turns.
+``--wide-only`` runs only this part. K2 on rows of 129 to ``kK3TriMaxW``
+columns (its group kernels) is held at tie level against the baseline's
+and its plain version: use flags and fallback rows bitwise, each other
+differing row a float64 density tie (``near_tie_flips``), the flips
+printed; K2 on narrower and wider rows bitwise the baseline's.
 
 Prints one line per check and time, then the card and one JSON line. Needs
 CUDA; the libraries go under ``hypad_tpu_torch/_build/variants/``.
@@ -102,6 +110,8 @@ K2_CASES = ((20_000, WIDTH, 0, False), (300, WIDTH, 250, False),
 SMOOTH = 200  # the scorer's smoothing window at 20,000 windows
 K3_CONSTANTS = ("kK3Rows", "kByOffsetBlocksPerSM", "kK3GroupThreads",
                 "kK3MaxGroups", "kK3Threads", "kK3TriMaxW")
+K2_CONSTANTS = ("kK2GroupThreads", "kK2XGroupThreads", "kK2MaxGroups",
+                "kK2Ex2")
 # (windows, row width) of the KDE shapes above 128 columns, in the order
 # of ``kde_shapes``; the anti-diagonal rows are windows + width - 1
 WIDE_SHAPES = ((50_000, 150), (20_000, 150), (50_000, 256), (50_000, 129))
@@ -138,23 +148,49 @@ K3_PROBES = {
 }
 
 
-def k3_probe_source(text, name):
-    """``text`` (csrc/kde_argmax.cu) built as the K3 probe ``name``."""
-    for (old, new), n in K3_PROBES[name]:
-        if text.count(old) != n:
+# probe builds of K2 above 128 columns, timed only (their values are
+# wrong), as K3_PROBES; a count of None takes the text wherever it is (the
+# probe of a baseline whose K2 lies elsewhere in its source, or of the
+# narrow instance too), and the probe must change the source
+K2_PROBES = {
+    # each pair's term without its exp (every KDE instance's)
+    "no_exp": ((("expf(", "("), None), (("hypad::ex2_approx(", "("), None)),
+    # the rounds without the hand-off through shared memory: the column
+    # partials kept live but not stored, zeros read instead
+    "no_hand": (
+        (("slot[J] = make_float4(c[0], c[1], c[2], c[3]);",
+          'asm volatile("" ::"f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));'),
+         None),
+        (("const float4 c = slot[I];",
+          "const float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);"), None)),
+    # the rounds without their barrier (the tree's K2 only)
+    "no_bar": ((("    sync();\n", ""), 1),),
+}
+
+
+def k3_probe_source(text, name, probes=K3_PROBES):
+    """``text`` (csrc/kde_argmax.cu) built as the probe ``name`` of
+    ``probes`` (K3_PROBES or K2_PROBES)."""
+    out = text
+    for (old, new), n in probes[name]:
+        if n is not None and out.count(old) != n:
             raise RuntimeError(f"probe {name!r}: csrc/kde_argmax.cu does not "
                                f"hold this text {n} times:\n{old}")
-        text = text.replace(old, new)
-    return text
+        out = out.replace(old, new)
+    if out == text:
+        raise RuntimeError(f"probe {name!r}: csrc/kde_argmax.cu holds none "
+                           f"of its text")
+    return out
 
 
-def k3_variant_source(text, spec):
-    """``text`` (csrc/kde_argmax.cu) with the K3 launch constants that
-    ``spec`` ("name=value,name=value") names set to its values."""
+def k3_variant_source(text, spec, constants=K3_CONSTANTS):
+    """``text`` (csrc/kde_argmax.cu) with the launch constants of
+    ``constants`` (K3_CONSTANTS or K2_CONSTANTS) that ``spec``
+    ("name=value,name=value") names set to its values."""
     for item in spec.split(","):
         name, value = item.split("=")
-        if name not in K3_CONSTANTS:
-            raise ValueError(f"{name} is not one of {K3_CONSTANTS}")
+        if name not in constants:
+            raise ValueError(f"{name} is not one of {constants}")
         text, n = re.subn(rf"constexpr int {name} = \d+;",
                           f"constexpr int {name} = {int(value)};", text)
         if n != 1:
@@ -205,21 +241,41 @@ def kde_bound_ms(windows, width):
     return bound(*kde_cost(windows, width))
 
 
-def k3_constants(text=None):
-    """{name: value} of ``K3_CONSTANTS`` and ``kMaxW`` as ``text``
-    (csrc/kde_argmax.cu by default) defines them."""
+def k3_constants(text=None, names=K3_CONSTANTS + ("kMaxW",)):
+    """{name: value} of ``names`` (``K3_CONSTANTS`` and ``kMaxW`` by
+    default) as ``text`` (csrc/kde_argmax.cu by default) defines them."""
     if text is None:
         text = (_build.CSRC / "kde_argmax.cu").read_text()
     return {name: int(re.search(rf"constexpr int {name} = (\d+);",
                                 text).group(1))
-            for name in K3_CONSTANTS + ("kMaxW",)}
+            for name in names}
 
 
-def build(baseline_dir, k3_variants=(), k3_probes=()):
+def k2_probe_sources(tree, base, names):
+    """{library name: (label, source)} of the K2 probes ``names`` of the
+    tree's source ("probe NAME") and, where its text takes the probe, of
+    the baseline's ("probe baseline NAME", built beside the tree's, so with
+    the tree's headers)."""
+    sources = {}
+    for name in names:
+        sources[f"k2_probe_{name}"] = (f"probe {name}", k3_probe_source(
+            tree, name, K2_PROBES))
+        try:
+            sources[f"k2_probe_baseline_{name}"] = (
+                f"probe baseline {name}", k3_probe_source(
+                    (base / "kde_argmax.cu").read_text(), name, K2_PROBES))
+        except RuntimeError:
+            print(f"[build] the baseline's K2 does not take probe {name!r}")
+    return sources
+
+
+def build(baseline_dir, k3_variants=(), k3_probes=(), k2_variants=(),
+          k2_probes=()):
     """{"k1": (baseline fn, tree fn), "k2": (...), "k3": (...),
     "k3_fallback_outside": bool, "k3_variants": {spec: fn}, "k3_probes":
-    {name: fn}, "empty": fn}: every library built at once, the baseline's
-    from where it lies."""
+    {name: fn}, "k2_variants": {spec: fn}, "k2_probes": {name: fn},
+    "empty": fn}: every library built at once, the baseline's from where
+    it lies."""
     base = Path(baseline_dir)
     tree = (_build.CSRC / "kde_argmax.cu").read_text()
     sources = {"empty": EMPTY_SOURCE,
@@ -230,6 +286,11 @@ def build(baseline_dir, k3_variants=(), k3_probes=()):
         sources[f"k3_variant{i}"] = k3_variant_source(tree, spec)
     for name in k3_probes:
         sources[f"k3_probe_{name}"] = k3_probe_source(tree, name)
+    for i, spec in enumerate(k2_variants):
+        sources[f"k2_variant{i}"] = k3_variant_source(tree, spec,
+                                                      K2_CONSTANTS)
+    k2_probe_libs = k2_probe_sources(tree, base, k2_probes)
+    sources.update({lib: src for lib, (_, src) in k2_probe_libs.items()})
     jobs = {**variant_jobs(sources), **baseline_jobs(base, "baseline")}
     for name, (_, log) in _build.compile_sources(jobs).items():
         if name.startswith("mobius_linear"):
@@ -253,8 +314,15 @@ def build(baseline_dir, k3_variants=(), k3_probes=()):
     probes = {f"probe {name}": kk.bind(libs[f"k3_probe_{name}"],
                                        "kde_argmax_v2_forward")
               for name in k3_probes}
+    k2_variants = {spec: kk.bind(libs[f"k2_variant{i}"],
+                                 "kde_argmax_forward")
+                   for i, spec in enumerate(k2_variants)}
+    k2_probes = {label: kk.bind(libs[lib], "kde_argmax_forward")
+                 for lib, (label, _) in k2_probe_libs.items()}
     return {"k1": k1, "k2": k2, "k3": k3, "k3_fallback_outside": k3_outside,
-            "k3_variants": variants, "k3_probes": probes, "empty": empty}
+            "k3_variants": variants, "k3_probes": probes,
+            "k2_variants": k2_variants, "k2_probes": k2_probes,
+            "empty": empty}
 
 
 def baseline_jobs(base, tag):
@@ -487,20 +555,97 @@ def check(fns):
     return records
 
 
+def plain_k2(width):
+    """K2's plain version at ``width``, its (rows, W, W) intermediate kept
+    at 0.5 GB past 1,024 columns' 128 rows a block."""
+    import functools
+
+    block = min(1024, max(1, 128 * 1024 ** 2 // width ** 2))
+    return functools.partial(kde_argmax_rows_and_use, block=block)
+
+
+def k2_near_ties(got, vals, mask, baseline, case):
+    """K2's (value, use) ``got`` on rows its group kernels take, against
+    its plain version and the ``baseline``'s (value, use): use flags and
+    fallback rows bitwise both, the other rows at a float64 density tie
+    (``near_tie_flips``). Returns {"bitwise_baseline", "fallback_rows",
+    "flips_vs_plain", "flips_vs_baseline", "baseline_flips_vs_plain"}."""
+    value, use = got
+    plain, plain_use = plain_k2(vals.shape[1])(vals, mask)
+    if not (torch.equal(use, plain_use) and torch.equal(use, baseline[1])):
+        fail(f"K2 use flags differ from the plain version's or the "
+             f"baseline's at {case}")
+    fallback = ~use
+    if not (same_values(value[fallback], masked_median(vals, mask)[fallback])
+            and same_values(value[fallback], baseline[0][fallback])):
+        fail(f"K2 fallback rows differ from masked_median or the "
+             f"baseline's at {case}")
+    rows = (vals[use], mask[use])
+    return {"bitwise_baseline": same_values(value, baseline[0]),
+            "fallback_rows": int(fallback.sum()),
+            "flips_vs_plain": near_tie_flips(value[use], plain[use], *rows),
+            "flips_vs_baseline": near_tie_flips(value[use],
+                                                baseline[0][use], *rows),
+            "baseline_flips_vs_plain": near_tie_flips(baseline[0][use],
+                                                      plain[use], *rows)}
+
+
+def check_wide_k2(fns, vals, mask, case, tri_max):
+    """The tree's K2 against the baseline's: two launches bitwise; on rows
+    of 129 to ``tri_max`` columns (the group kernels) ``k2_near_ties``, on
+    others bitwise the baseline's; each K2 variant bitwise the tree's or,
+    where its arithmetic differs, at ``k2_near_ties`` of the baseline.
+    Returns (the tree's output, the record)."""
+    old, new = (kk.launch_with(f, vals, mask) for f in fns["k2"])
+    again = kk.launch_with(fns["k2"][1], vals, mask)
+    if not (same_values(again[0], new[0]) and torch.equal(again[1], new[1])):
+        fail(f"two K2 launches differ at {case}")
+    width = vals.shape[1]
+    if 128 < width <= tri_max:
+        rec = k2_near_ties(new, vals, mask, old, case)
+    elif same_values(new[0], old[0]) and torch.equal(new[1], old[1]):
+        rec = {"bitwise_baseline": True}
+    else:
+        fail(f"K2 differs from the baseline K2's bits at {case}")
+    rec["variants_bitwise"] = {}
+    for spec, fn in fns["k2_variants"].items():
+        got = kk.launch_with(fn, vals, mask)
+        bitwise = same_values(got[0], new[0]) and torch.equal(got[1], new[1])
+        if not bitwise:
+            if not 128 < width <= tri_max:
+                fail(f"K2 variant {spec} differs from the tree's K2 at "
+                     f"{case}")
+            rec.setdefault("variant_vs_baseline", {})[spec] = k2_near_ties(
+                got, vals, mask, old, case)
+        rec["variants_bitwise"][spec] = bitwise
+    return new, rec
+
+
 def check_wide(fns):
-    """The tree's K2 and K3 against the baseline's and K3 against its
-    plain version on ``kde_shapes`` and ``WIDE_EDGE_CASES`` (see the module
-    docstring); one line a case. Returns the records."""
+    """The tree's K2 and K3 against the baseline's and their plain versions
+    on ``kde_shapes`` and ``WIDE_EDGE_CASES`` (see the module docstring);
+    one line a case. Returns the records."""
     k3_base = baseline_k3(fns)
+    tri_max = k3_constants()["kK3TriMaxW"]
     cases = [(n, w, 0, False) for _, n, w in kde_shapes()]
     records = {}
     for n, width, runs, nans in cases + list(WIDE_EDGE_CASES):
         vals, mask = k2_case(n, width, runs, nans=nans)
         case = (f"T={vals.shape[0]} W={width}"
                 f"{' constant run' if runs else ''}{' NaNs' if nans else ''}")
-        old, new = (kk.launch_with(f, vals, mask) for f in fns["k2"])
-        if not (same_values(new[0], old[0]) and torch.equal(new[1], old[1])):
-            fail(f"K2 differs from the baseline K2's bits at {case}")
+        new, k2 = check_wide_k2(fns, vals, mask, case, tri_max)
+        k2_words = ("bitwise the baseline's" if k2["bitwise_baseline"] else
+                    "use flags and fallback rows bitwise the baseline's")
+        if "flips_vs_plain" in k2:
+            k2_words += (f", {k2['flips_vs_plain']} density-tie flips against"
+                         f" plain (baseline {k2['baseline_flips_vs_plain']}),"
+                         f" {k2['flips_vs_baseline']} against the baseline")
+        if k2["variants_bitwise"]:
+            k2_words += f", variants bitwise the tree {k2['variants_bitwise']}"
+        for spec, v in k2.get("variant_vs_baseline", {}).items():
+            same = "bitwise" if v["bitwise_baseline"] else "not bitwise"
+            k2_words += (f", variant {spec} {same} the baseline "
+                         f"({v['flips_vs_plain']} flips against plain)")
         old3 = k3_base(vals, mask)
         new3, use3 = kk.launch_with(fns["k3"][1], vals, mask)
         again = kk.launch_with(fns["k3"][1], vals, mask)
@@ -520,13 +665,14 @@ def check_wide(fns):
                "flips_vs_plain": near_tie_flips(new3[use3], plain[use3],
                                                 vals[use3], mask[use3]),
                "flips_vs_k2": near_tie_flips(new3[use3], new[0][use3],
-                                             vals[use3], mask[use3])}
+                                             vals[use3], mask[use3]),
+               "k2": k2}
         for spec, fn in fns["k3_variants"].items():
             got = kk.launch_with(fn, vals, mask)
             if not (same_values(got[0], new3) and torch.equal(got[1], use3)):
                 fail(f"K3 variant {spec} differs from the tree's K3 at "
                      f"{case}")
-        print(f"[check] wide {case}: K2 bitwise the baseline's; K3 "
+        print(f"[check] wide {case}: K2 {k2_words}; K3 "
               f"{'bitwise' if bitwise else 'not bitwise'} the baseline's, "
               f"two launches bitwise, use flags bitwise, "
               f"{rec['fallback_rows']} fallback rows bitwise masked_median, "
@@ -540,8 +686,9 @@ def check_wide(fns):
 def time_wide(fns, reps):
     """{label: record} of ``kde_shapes``: the baseline's and the tree's K2
     and K3 in turns (baseline, tree, tree, baseline, twice), ms of each
-    run and the medians, the pairs and the bound; then {label: {variant:
-    [ms]}} of the K3 variants and probes in turns. One line a shape."""
+    run and the medians, the pairs and the bound; then {label: {"k3" or
+    "k2": {variant: [ms]}}} of the K3 and K2 variants and probes in turns.
+    One line a shape."""
     out, variants = {}, {}
     for label, n, width in kde_shapes():
         vals, mask = k2_case(n, width)
@@ -562,17 +709,19 @@ def time_wide(fns, reps):
               f"{rec['k3']['tree_median']:.5f} ms (medians of 4 in turns); "
               f"{rec['pairs']} pairs, bound {rec['bound_ms']:.5f} ms "
               f"({rec['bound_by']})")
-        if fns["k3_variants"] or fns["k3_probes"]:
-            named = {"tree": fns["k3"][1], **fns["k3_variants"],
-                     **fns["k3_probes"]}
+        for kernel in ("k3", "k2"):
+            named = {"tree": fns[kernel][1], **fns[f"{kernel}_variants"],
+                     **fns[f"{kernel}_probes"]}
+            if len(named) == 1:
+                continue
             order = list(named)
             v = {name: [] for name in named}
             for name in order + order[::-1]:
                 v[name].append(cuda_ms(
                     lambda f=named[name]: kk.launch_with(f, vals, mask),
                     reps))
-            variants[label] = v
-            print(f"[time] K3 variants {label}: "
+            variants.setdefault(label, {})[kernel] = v
+            print(f"[time] {kernel.upper()} variants {label}: "
                   f"{ {k: [round(x, 5) for x in ms] for k, ms in v.items()} }")
         out[label] = rec
     return out, variants
@@ -662,19 +811,28 @@ def main(argv=None):
                         choices=sorted(K3_PROBES),
                         help="also build these probes of the tree's K3 and "
                         "time them beside it above 128 columns")
+    parser.add_argument("--k2-variant", nargs="*", default=(),
+                        help="also build the tree's K2 with these constants "
+                        "(name=value,...; kK2Ex2=0 for expf), check it and "
+                        "time it")
+    parser.add_argument("--k2-probe", nargs="*", default=(),
+                        choices=sorted(K2_PROBES),
+                        help="also build these probes of the tree's K2 (and "
+                        "the baseline's) and time them above 128 columns")
     parser.add_argument("--wide-only", action="store_true",
                         help="only the KDE shapes above 128 columns")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    fns = build(args.baseline_dir, args.k3_variant, args.k3_probe)
+    fns = build(args.baseline_dir, args.k3_variant, args.k3_probe,
+                args.k2_variant, args.k2_probe)
     records, times = {}, {}
     if not args.wide_only:
         records = check(fns)
         times = time_all(fns, args.reps)
     records["wide"] = check_wide(fns)
-    times["wide"], times["wide_k3_variants"] = time_wide(fns, args.reps // 4)
+    times["wide"], times["wide_variants"] = time_wide(fns, args.reps // 4)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()

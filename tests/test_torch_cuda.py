@@ -921,3 +921,72 @@ def test_kde_argmax_v2_group_kernels(cuda, N, W, const, nans):
     k2, k2_use = kde_argmax_kernel(vals, mask)
     assert torch.equal(k2_use, use)
     near_tie_flips(got[use], k2[use], vals[use], mask[use])
+
+
+@pytest.mark.parametrize("N,W,const,nans", [
+    (2000, 129, False, False), (5000, 150, False, False),
+    (300, 150, True, False), (300, 150, False, True),
+    (3000, 256, False, False), (300, 256, True, False),
+    (1000, 257, False, False), (2000, 300, False, False),
+    (1000, 300, True, False), (1000, 300, False, True),
+    (1000, 512, False, False), (500, 1024, False, False),
+    (64, 4096, False, False), (300, 4096, True, False),
+    (64, 4097, False, False), (300, 4097, False, True)])
+def test_kde_argmax_group_kernels(cuda, N, W, const, nans):
+    """K2 above 128 columns: the group kernels up to kK3TriMaxW (4,096)
+    columns, the one-block-a-row kde_argmax_xwide_kernel past it, named by
+    the profiler; two launches give the same bits; use flags bitwise and
+    fallback rows bitwise masked_median; the other rows at a float64
+    density tie of the plain version's."""
+    from hypad_tpu_torch.profile_kernels import (
+        k3_constants,
+        near_tie_flips,
+        plain_k2,
+        same_values,
+    )
+
+    assert k3_constants()["kK3TriMaxW"] == 4096
+    critic = torch.randn(N, generator=torch.Generator().manual_seed(N + W))
+    if const:
+        critic[10:N] = 0.5
+    if nans:
+        critic[:2] = critic[100:200] = float("nan")
+    vals, mask = antidiagonal_gather(critic.to(cuda)[:, None].expand(N, W))
+    (got, use), names, launched = _traced(
+        lambda: kde_argmax_kernel(vals, mask), kde_argmax_kernel)
+    assert launched == 1 and len(names) == 1
+    want_name = ("kde_argmax_xwide_kernel" if W > 4096 else
+                 "kde_argmax_group_xwide_kernel" if W > 256 else
+                 "kde_argmax_group_wide_kernel")
+    assert want_name in names[0] and "_v2_" not in names[0]
+    again, again_use = kde_argmax_kernel(vals, mask)
+    assert same_values(again, got) and torch.equal(again_use, use)
+    want, want_use = plain_k2(W)(vals, mask)
+    assert torch.equal(use, want_use)
+    assert same_values(got[~use], masked_median(vals, mask)[~use])
+    if const or nans:
+        assert (~use).sum() > 0
+    near_tie_flips(got[use], want[use], vals[use], mask[use])
+
+
+@pytest.mark.parametrize("W", [150, 300, 1024])
+def test_kde_argmax_group_kernels_rows_bitwise_their_own_launch(cuda, W):
+    """A fleet detection launches K2 once on every signal's rows: in the
+    group kernels a row's bits do not depend on where it lies in the
+    launch, so each signal's rows equal its own launch's bit for bit."""
+    from hypad_tpu_torch.profile_kernels import same_values
+
+    parts = []
+    for i, n in enumerate((700, 1_300, 301)):
+        critic = torch.randn(n, generator=torch.Generator().manual_seed(i))
+        parts.append(antidiagonal_gather(
+            critic.to(cuda)[:, None].expand(n, W)))
+    vals = torch.cat([v for v, _ in parts])
+    mask = torch.cat([m for _, m in parts])
+    got, use = kde_argmax_kernel(vals, mask)
+    start = 0
+    for v, m in parts:
+        own, own_use = kde_argmax_kernel(v, m)
+        rows = slice(start, start + v.shape[0])
+        assert same_values(got[rows], own) and torch.equal(use[rows], own_use)
+        start += v.shape[0]
