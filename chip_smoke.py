@@ -14,14 +14,20 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    K1, K2, K3, K4 and K5 build in the same round;
 2. kernels against their plain PyTorch versions on the card: the fused
    MobiusLinear forward (K1) at the detect and training shapes (max abs
-   diff <= 1e-6; the diff to the parent's K1 printed where it was built);
+   diff <= 1e-6; every K1 case of the script bitwise the parent's K1 where
+   it was built);
    K2 and K3, each of whose one launch also takes the masked-median
    fallback, on eight cases (the detect shape, W = 64, constant runs of 30
    and 240, NaNs in the critic, row widths 1, 4 and 5): use flags bitwise,
    fallback rows bitwise ``masked_median``, NaN where it is NaN, values
    elsewhere at tie level (a differing value is a sample of its own row,
    at most 1% of rows differ), the flips printed; K3 against K2 at tie
-   level; K2 and K3 bitwise the parent's K2 and K3 where built;
+   level; K3 bitwise the parent's K3 where built, K2 too except where its
+   bits may differ by design (``k2_tie_level``: its term is the SFU's ex2
+   at every width up to 4,096), where its use flags and fallback rows are
+   bitwise the parent's, each other flip is a float64 density tie of the
+   parent's pick and of the plain version's, and its flips against plain
+   are at most twice the parent's plus 2;
    ``kde_argmax_rows_fused`` launches K2 ("v1") or K3 ("v2") alone, no
    sort, as the profiler shows; the checks are ``profile_kernels``' own;
    and the critic-step kernels K5 and K4, each launched as 2 clusters of 8
@@ -206,7 +212,8 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    value, and each kernel's time beside its plain version's and its bound
    at the path's shapes (K1 at the detect shape and at the generator
    step's two, beside an empty kernel; cuBLAS's f32 x @ w.T as an
-   informative line, not K1's function; the KDE kernels' bound the
+   informative line, not K1's function; K2 and K3 at the detect shape in
+   turns with the parent's where built; the KDE kernels' bound the
    largest of bytes, f32 operations and exps at the special-function
    units' rate, both operation bounds printed); each wide instance beside
    its plain version, its bound and the narrow instance at F = 100; each
@@ -216,10 +223,13 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    training shapes (64 and 128 rows of 123); then K1 at every training
    shape, (64, F), (128, F) and (3, 64, F) for F = 51, 100, 123, 150 and
    256, and at (20,000, 100) and (50,000, 150): within 1e-6 of plain, each
-   signal bitwise its own launch, bitwise the parent's K1 where built,
-   timed in turns beside the parent's, the zero-padded yardstick's (51 and
-   123 padded to 52 and 124, the width the bulk copy takes) and an empty
-   kernel's, with the plain version's time and the bound; then K5 and K4
+   signal bitwise its own launch, bitwise the parent's K1 where built, the
+   instance it launches named (traced right after [xwide]'s kernel checks:
+   the few-rows split instance at the generator step's shapes up to 256
+   columns), timed in turns beside the
+   parent's, the zero-padded yardstick's (51 and 123 padded to 52 and 124,
+   the width the bulk copy takes) and an empty kernel's, with the plain
+   version's time and the bound; then K5 and K4
    at profile_critic_step's cases (the critic cases above, F = 150 and
    300, S = 3 and 9) bitwise the parent's K5 and K4 where built, and
    timed in turns beside them at B = 64 (both geometries), F = 150 and
@@ -328,28 +338,11 @@ def kde_case(device, n, width, runs, nans=False):
 
 def kernels_launched(fn, tries=8):
     """Names of the device kernels that ``fn()`` launches, from a second
-    call: the profiler can miss a kernel's first launch (its module is
-    loaded lazily then). A trace with no device event (it happens now and
-    then, after many traces) is taken again after a short pause, up to
-    ``tries`` times."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    call under the profiler, a trace with no device event taken again
+    (``profile_k1.launched``)."""
+    from hypad_tpu_torch.profile_k1 import launched
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-        if names:
-            return names
-        print("[kernels] the profiler recorded no device event; tracing "
-              "again")
-        time.sleep(0.5)
-    return names
+    return launched(fn, tries)
 
 
 def parent_kde(libs):
@@ -370,15 +363,15 @@ def parent_kde(libs):
 
 
 def k2_tie_level(width):
-    """Whether K2's bits at ``width`` may differ from the parent's: K2 on
-    its group kernels' rows (129 to kK3TriMaxW columns) sums in another
-    order than the parent's K2x and, with the SFU's ex2 term (kK2Ex2), with
-    another term than any parent K2; its contract is tie level
+    """Whether K2's bits at ``width`` may differ from the parent's
+    (``profile_kernels.k2_tie_level``): with the SFU's ex2 term (kK2Ex2)
+    every K2 row up to kK3TriMaxW columns, the narrow kernel's too; with
+    ``expf`` the group kernels' rows above 256, which sum in another order
+    than the parent's K2x. K2's contract is tie level
     (csrc/kde_argmax.cu's header)."""
-    from hypad_tpu_torch.profile_kernels import k3_constants
+    from hypad_tpu_torch.profile_kernels import k2_tie_level as tie_level
 
-    c = k3_constants(names=("kK3TriMaxW", "kK2Ex2"))
-    return (128 if c["kK2Ex2"] else 256) < width <= c["kK3TriMaxW"]
+    return tie_level(width)
 
 
 def check_parent_bits(name, got, parent, vals, mask, case):
@@ -409,6 +402,45 @@ def check_parent_bits(name, got, parent, vals, mask, case):
             f"flips against it, each a float64 density tie")
 
 
+def k1_bitwise_parent(libs, got, x, w, b, case):
+    """Fails unless K1's output ``got`` at (x, w, b) equals the parent's K1's
+    bit for bit, where the parent was built (``phase_build``); returns the
+    words for the check's line ("" without the parent)."""
+    if "mobius_linear_parent" not in libs:
+        return ""
+    import torch
+
+    from hypad_tpu_torch.profile_k1 import launcher
+
+    if not torch.equal(got, launcher(libs["mobius_linear_parent"])(x, w, b)):
+        fail(f"K1 at {case} is not bitwise the parent's K1")
+    return "; bitwise the parent's"
+
+
+def k2_density_ties(value, use, vals, mask, parent, case):
+    """Where ``k2_tie_level``: K2's flips against its plain version, each a
+    float64 density tie (``near_tie_flips``), at most twice the parent's K2's
+    plus 2 where it was built (``parent``: ``parent_kde``'s); returns the
+    words for the check's line ("" elsewhere)."""
+    if not k2_tie_level(vals.shape[1]):
+        return ""
+    from hypad_tpu_torch.ops.kde import kde_argmax_rows_and_use
+    from hypad_tpu_torch.profile_kernels import near_tie_flips
+
+    want = kde_argmax_rows_and_use(vals, mask)[0][use]
+    rows = (vals[use], mask[use])
+    flips = near_tie_flips(value[use], want, *rows)
+    if "kde_argmax" not in parent:
+        return f"; {flips} flips against plain, each a float64 density tie"
+    old = near_tie_flips(parent["kde_argmax"](vals, mask)[0][use], want,
+                         *rows)
+    if flips > 2 * old + 2:
+        fail(f"kde_argmax flips against plain at {case}: {flips}, more than "
+             f"twice the parent's {old} plus 2")
+    return (f"; {flips} flips against plain, each a float64 density tie "
+            f"(the parent's {old}; at most 2x + 2)")
+
+
 def phase_kernels(device, libs):
     """K1, K2 and K3 against their plain versions at the shapes of the
     detect and training paths and at the edge cases, and against the
@@ -433,8 +465,6 @@ def phase_kernels(device, libs):
         tie_flips,
     )
 
-    parent = libs.get("mobius_linear_parent")
-    parent_fn = mk.bind(parent) if parent is not None else None
     parent_kdes = parent_kde(libs)
     k1_err, k1_parent = 0.0, None
     # detect: the decoder head and the target embedding on every window;
@@ -451,16 +481,13 @@ def phase_kernels(device, libs):
         b = head.b.detach()
         x = (torch.rand(rows, dim, generator=gen) * 2 - 1).to(device)
         got = mk.mobius_linear_kernel(x, w, b)
-        parent_got = (None if parent_fn is None
-                      else mk.launch_with(parent_fn, x, w, b))
         torch.cuda.synchronize()
         case = (f"({rows}, {dim}) x ({dim}, {dim})"
                 f"{' w x 1e6' if w_scale != 1.0 else ''}")
-        err, d = check_k1(got, x, w, b, parent_got, case)
-        vs_parent = ""
-        if d is not None:
-            k1_parent = max(k1_parent or 0.0, d)
-            vs_parent = f"; {d:.3e} from the parent's kernel"
+        err, _ = check_k1(got, x, w, b, case=case)
+        vs_parent = k1_bitwise_parent(libs, got, x, w, b, case)
+        if vs_parent:
+            k1_parent = 0.0
         print(f"[kernels] K1 mobius_linear {case}: max abs diff {err:.3e}"
               f"{vs_parent}")
         k1_err = max(k1_err, err)
@@ -494,6 +521,7 @@ def phase_kernels(device, libs):
         rec = check_k2(value, use, vals, mask, case=case)
         same = check_parent_bits("kde_argmax", (value, use), parent_kdes,
                                  vals, mask, case)
+        same += k2_density_ties(value, use, vals, mask, parent_kdes, case)
         print(f"[kernels] kde_argmax {case}: use flags bitwise; "
               f"{rec['fallback_rows']} rows on the median fallback, bitwise "
               f"masked_median; {rec['flips_vs_plain']} tie flips against its "
@@ -1050,11 +1078,11 @@ def fleet_step_case(device, S, B, hyperbolic=True):
             {k: v.to(device) for k, v in d.items()})
 
 
-def fleet_kernel_checks(device):
+def fleet_kernel_checks(device, libs):
     """K1, K5 and K4 with a signal axis at S = 1, 3 and 9: one launch each,
-    each signal bitwise its single-signal launch, the plain version's
-    tolerance; timed against S single launches. Returns {kernel: {S:
-    record}}."""
+    each signal bitwise its single-signal launch (K1 also bitwise the
+    parent's K1 where it was built), the plain version's tolerance; timed
+    against S single launches. Returns {kernel: {S: record}}."""
     import torch
 
     from hypad_tpu_torch.data.pipeline import A1_BATCH_SIZE as TRAIN_BATCH
@@ -1063,7 +1091,7 @@ def fleet_kernel_checks(device):
         mobius_linear_kernel,
     )
     from hypad_tpu_torch.profile_detect import cuda_ms
-    from hypad_tpu_torch.profile_k1 import k1_cost
+    from hypad_tpu_torch.profile_k1 import k1_cost, launcher
     from hypad_tpu_torch.train import critic_kernel as ck
     from hypad_tpu_torch.train import fleet as fl
 
@@ -1081,6 +1109,7 @@ def fleet_kernel_checks(device):
                    for i in range(S)]
         if not all(torch.equal(got[i], singles[i]) for i in range(S)):
             fail(f"K1 {what}: a signal differs from its own launch")
+        k1_bitwise_parent(libs, got, xs, w, b, what)
         err = (got - mobius_linear(xs, w, b)).abs().max().item()
         if err > 1e-6:
             fail(f"K1 {what}: max abs diff {err:.3e} to plain > 1e-6")
@@ -1088,6 +1117,8 @@ def fleet_kernel_checks(device):
 
     out = {"mobius_linear": {}, "critic_step_full": {},
            "critics_fused_grads": {}}
+    parent_k1 = (launcher(libs["mobius_linear_parent"])
+                 if "mobius_linear_parent" in libs else None)
     B = TRAIN_BATCH
     for S in FLEET_SIZES:
         models, P, x, d = fleet_step_case(device, S, B)
@@ -1098,11 +1129,13 @@ def fleet_kernel_checks(device):
         err = k1_check(xs, w, b, f"with S={S}")
         rows = xs.shape[1]
         one = [(xs[i].contiguous(), w[i], b[i]) for i in range(S)]
-        rec = {"ms": cuda_ms(lambda: mobius_linear_kernel(xs, w, b), 100),
-               "single_launches_ms": cuda_ms(
+        rec = {"single_launches_ms": cuda_ms(
                    lambda: [mobius_linear_kernel(*a) for a in one], 100),
                "plain_ms": cuda_ms(lambda: mobius_linear(xs, w, b), 20),
                "max_abs_err": err, "rows_a_signal": rows}
+        rec["ms"], rec["parent_ms"] = in_turns_ms(
+            lambda: mobius_linear_kernel(xs, w, b),
+            parent_k1 and (lambda: parent_k1(xs, w, b)), 100)
         rec["bytes"], rec["ops"] = (v * S for v in k1_cost(rows, WIDTH,
                                                            WIDTH))
         out["mobius_linear"][S] = bound(rec)
@@ -1163,7 +1196,10 @@ def fleet_kernel_checks(device):
         out["critics_fused_grads"][S] = bound(r4)
         for name, r in (("K1 (2B rows a signal)", rec),
                         ("K5", r5), ("K4", r4)):
-            print(f"[fleet] {name} with S={S}: one launch {r['ms']:.5f} ms "
+            old = ("" if r.get("parent_ms") is None else
+                   f" (the parent's {r['parent_ms']:.5f} ms in turns)")
+            print(f"[fleet] {name} with S={S}: one launch {r['ms']:.5f} ms"
+                  f"{old} "
                   f"against {S} single launches {r['single_launches_ms']:.5f}"
                   f" ms; plain {r['plain_ms']:.5f} ms; bound "
                   f"{r['bound_ms']:.6f} ms ({r['bound_by']}); each signal "
@@ -1493,7 +1529,7 @@ def fleet_detect_timing(device):
     return rec
 
 
-def phase_fleet(device):
+def phase_fleet(device, libs):
     """[fleet]: the signal-axis kernels, a 2-epoch hyperbolic seed band
     (S = 3) against ``train_tadgan(seed=i)`` on the card, one ragged fleet
     epoch against the CPU's, and the fleet's epoch and detection timing.
@@ -1510,7 +1546,7 @@ def phase_fleet(device):
     from hypad_tpu_torch.train import trainer as tr
 
     t0 = time.perf_counter()
-    kernels = fleet_kernel_checks(device)
+    kernels = fleet_kernel_checks(device, libs)
     print(f"[time] fleet kernels: {time.perf_counter() - t0:.1f} s")
 
     X, _, _ = synthetic_detect_input(A1_WINDOWS, WIDTH, anomaly_len=50,
@@ -2565,11 +2601,12 @@ def mv_kernel_checks(device, libs):
         names = kernels_launched(lambda: mk.mobius_linear_kernel(x, w, b))
         if not kernel_named(names, mk.instance(F, F)):
             fail(f"K1 at ({rows}, {F}) launched {names}")
-        err, _ = check_k1(mk.mobius_linear_kernel(x, w, b), x, w, b,
-                          case=f"({rows}, {F})")
+        got = mk.mobius_linear_kernel(x, w, b)
+        err, _ = check_k1(got, x, w, b, case=f"({rows}, {F})")
+        same = k1_bitwise_parent(libs, got, x, w, b, f"({rows}, {F})")
         out["k1_err"] = max(out["k1_err"], err)
         print(f"[mv] K1 mobius_linear ({rows}, {F}) x ({F}, {F}): max abs "
-              f"diff {err:.3e}; launches {short_name(names[0])}")
+              f"diff {err:.3e}{same}; launches {short_name(names[0])}")
     # K2 and K3 on a detect call's anti-diagonal rows, T = 50,000 + F - 1
     for F, runs in [(F, 40) for F in MV_WIDE] + [(WADI_F, 40)]:
         vals, mask = k2_case(MV_ROWS, F, runs, device)
@@ -2748,11 +2785,12 @@ def xwide_kernel_checks(device, libs):
                     fail(f"K1 at ({rows}, {F}) launched {names}")
                 out["names"]["mobius_linear"] = short_name(names[0])
                 launched = f"; launches {short_name(names[0])}"
-            err, _ = check_k1(mk.mobius_linear_kernel(x, w, b), x, w, b,
-                              case=f"({rows}, {F})")
+            got = mk.mobius_linear_kernel(x, w, b)
+            err, _ = check_k1(got, x, w, b, case=f"({rows}, {F})")
+            same = k1_bitwise_parent(libs, got, x, w, b, f"({rows}, {F})")
             out["k1_err"] = max(out["k1_err"], err)
             print(f"[xwide] K1 mobius_linear ({rows}, {F}) x ({F}, {F}): "
-                  f"max abs diff {err:.3e}{launched}")
+                  f"max abs diff {err:.3e}{same}{launched}")
     # (width, constant run end, NaNs, traced): one trace a width. Past
     # kK3TriMaxW the 300 windows are fewer than the row's columns, so the
     # NaNs reach every row: a case of their own, all fallback rows; the
@@ -4246,17 +4284,39 @@ def xwide_kernel_timing(device, libs):
     return out
 
 
-def k1_training_timing(device, libs):
+def k1_training_instances(device):
+    """{label: the instance K1 launches at that shape of
+    ``profile_k1.training_shapes``, by the profiler's kernel name}: traced
+    before the long traces of [fleet], after which the profiler now and
+    then records no device event at all."""
+    from hypad_tpu_torch.manifold import kernels as mk
+    from hypad_tpu_torch.profile_k1 import k1_case, training_shapes
+
+    names = {}
+    for label, rows, F, signals in training_shapes():
+        x, w, b = k1_case(rows, F, signals, device)
+        launched = kernels_launched(lambda: mk.mobius_linear_kernel(x, w, b))
+        if len(launched) != 1:
+            fail(f"K1 at {label} launched {launched}")
+        names[label] = short_name(launched[0])
+        print(f"[kernels] K1 at {label} launches {names[label]}")
+    return names
+
+
+def k1_training_timing(device, libs, names):
     """K1 at ``profile_k1.training_shapes``: the generator step's (64, F),
     (128, F) and (3, 64, F) on the signal axis for F = 51, 100, 123, 150,
     256 and 300, and the many-rows shapes (20,000, 100), (20,000, 150),
     (50,000, 150), (50,000, 256), (2,000, 300) and (4,096, 512): the kernel
     within 1e-6 of plain, each signal bitwise its own launch, and bitwise the
-    parent's K1 where it was built (a mismatch fails); its time beside the
-    parent's, the zero-padded yardstick's at 51 and 123 (x and W padded to
-    the next width the bulk copy takes, 52 and 124, through the parent's
-    kernel where built, else the tree's), the plain version's, an empty
-    kernel's and the bound. Returns {"empty_kernel_ms": t, "shapes":
+    parent's K1 where it was built (a mismatch fails); the instance it
+    launches (``names``, ``k1_training_instances``': the few-rows split
+    instance at the generator step's shapes up to 256 columns); its time in
+    turns beside
+    the parent's, the zero-padded yardstick's at 51 and 123 (x and W padded
+    to the next width the bulk copy takes, 52 and 124, through the parent's
+    kernel where built, else the tree's) and an empty kernel's; the plain
+    version's and the bound. Returns {"empty_kernel_ms": t, "shapes":
     {shape: record}}."""
     from hypad_tpu_torch.manifold import kernels as mk
     from hypad_tpu_torch.profile_detect import cuda_ms
@@ -4285,7 +4345,8 @@ def k1_training_timing(device, libs):
                                parent)
         if same is False:
             fail(f"K1 at {label} is not bitwise the parent's K1")
-        calls = {"ms": lambda: mk.mobius_linear_kernel(x, w, b)}
+        calls = {"ms": lambda: mk.mobius_linear_kernel(x, w, b),
+                 "empty_ms": empty_launch(libs["empty"].empty_forward)}
         if parent is not None:
             calls["parent_ms"] = lambda: parent(x, w, b)
         pad = bulk_width(F) if bulk_width(F) != F else None
@@ -4295,6 +4356,7 @@ def k1_training_timing(device, libs):
             calls["yardstick_ms"] = lambda: yard(xp, wp, b)
         k = in_turns(calls, 100)
         k.update(max_abs_err=err, bitwise_parent=same, padded_to=pad,
+                 kernel=names[label],
                  plain_ms=cuda_ms(lambda: mk.mobius_linear(x, w, b), 20))
         k["bytes"], k["ops"] = (v * (signals or 1)
                                 for v in k1_cost(rows, F, F))
@@ -4303,9 +4365,10 @@ def k1_training_timing(device, libs):
                else "parent not built")
         yard_text = ("no yardstick" if pad is None else
                      f"yardstick (padded to {pad}) {k['yardstick_ms']:.5f} ms")
-        print(f"[timing] K1 mobius_linear {label}: kernel {k['ms']:.5f} ms, "
-              f"{old}, {yard_text}, plain {k['plain_ms']:.5f} ms, empty "
-              f"kernel {empty_ms:.5f} ms, bound "
+        print(f"[timing] K1 mobius_linear {label}: {k['kernel']} "
+              f"{k['ms']:.5f} ms, {old}, {yard_text}, empty kernel "
+              f"{k['empty_ms']:.5f} ms in turns, plain {k['plain_ms']:.5f} "
+              f"ms, bound "
               f"{k['bound_ms']:.6f} ms ({k['bound_by']}); max abs diff "
               f"{err:.3e}; bitwise the parent: {same}")
     return {"empty_kernel_ms": empty_ms, "shapes": shapes}
@@ -4486,12 +4549,16 @@ def phase_timing(device, X, model, eucl_model, libs):
               f"at ({N_WINDOWS}, {WIDTH}) x ({WIDTH}, {WIDTH}): "
               f"{cublas_ms:.5f} ms")
         kde = {}
+        parent = parent_kde(libs)
         for name, kernel, plain in (
                 ("kde_argmax", kde_argmax_kernel, kde_argmax_rows_and_use),
                 ("kde_argmax_v2", kde_argmax_v2_kernel,
                  kde_argmax_rows_v2_and_use)):
-            k = {"ms": cuda_ms(lambda: kernel(vals, mask), 50),
-                 "plain_ms": cuda_ms(lambda: plain(vals, mask), 5)}
+            old = parent.get(name)
+            k = {"plain_ms": cuda_ms(lambda: plain(vals, mask), 5)}
+            k["ms"], k["parent_ms"] = in_turns_ms(
+                lambda: kernel(vals, mask),
+                old and (lambda: old(vals, mask)), 50)
             got, _ = kernel(vals, mask)
             want, _ = plain(vals, mask)
             k["tie_flips"] = tie_flips(got, want, vals, mask)
@@ -4514,7 +4581,9 @@ def phase_timing(device, X, model, eucl_model, libs):
         bound(k)
     for name, k in (("K2 kde_argmax, median fallback included", k2),
                     ("K3 kde_argmax_v2, median fallback included", k3)):
-        print(f"[timing] {name}: kernel {k['ms']:.5f} ms, plain "
+        parent = ("" if k["parent_ms"] is None else
+                  f", the parent's {k['parent_ms']:.5f} ms in turns")
+        print(f"[timing] {name}: kernel {k['ms']:.5f} ms{parent}, plain "
               f"{k['plain_ms']:.5f} ms, bound {k['bound_ms']:.5f} ms "
               f"({k['bound_by']}: {k['bytes']} bytes, {k['ops']} ops; "
               f"{kde_bounds_text(k)})")
@@ -4595,12 +4664,13 @@ def main():
     # [fleet]
     mv_errs = timed(mv_kernel_checks, device, libs)
     xw_errs = timed(xwide_kernel_checks, device, libs)
+    k1_names = timed(k1_training_instances, device)
     launches, X, model, main_det = timed(phase_main_path, device)
     eucl_launches, eucl_model = timed(phase_eucl_detect, device)
     train = timed(phase_train, device)
     eucl_train = timed(phase_eucl_train, device)
     cli_paths, cli_info = timed(phase_cli, device, card)
-    fleet = timed(phase_fleet, device)
+    fleet = timed(phase_fleet, device, libs)
     sweep_launches, sweep_grid_launches, sweep_info, grid_scores = timed(
         phase_sweep, device, card)
     mv_paths, mv_info = timed(phase_mv, device, card)
@@ -4614,7 +4684,7 @@ def main():
     epochs, k4, k5 = timed(phase_train_timing, device, train["X"])
     mv_timing = timed(mv_kernel_timing, device, libs)
     xw_timing = timed(xwide_kernel_timing, device, libs)
-    k1_train = timed(k1_training_timing, device, libs)
+    k1_train = timed(k1_training_timing, device, libs, k1_names)
     critic_parent = timed(critic_parent_timing, device, libs)
     a1 = critic_parent["B=64 F=100 hyperbolic"]
     for k, pre in ((k4, "k4_ms_"), (k5, "k5_ms_")):
@@ -4664,9 +4734,11 @@ def main():
          "max_abs_err": k2["max_abs_err"],
          "tolerance": "use flags bitwise; fallback rows bitwise "
                       "masked_median; elsewhere tie level: a differing value "
-                      "is a sample of its own row, at most 1% of rows differ",
+                      "is a sample of its own row at a float64 density tie "
+                      "(gap <= n 2^-22), at most 1% of rows differ",
          "median_fallback": "in the kernel, one launch",
          "tie_flips": k2["tie_flips"],
+         "parent_ms": k2["parent_ms"],
          "edge_case_tie_flips": kde_flips["kde_argmax"],
          "bound_terms": k2["bound_terms"],
          "ms": k2["ms"], "kernel_ms": k2["ms"], "plain_ms": k2["plain_ms"],
@@ -4686,6 +4758,7 @@ def main():
                       "is a sample of its own row, at most 1% of rows differ",
          "median_fallback": "in the kernel, one launch",
          "tie_flips": k3["tie_flips"],
+         "parent_ms": k3["parent_ms"],
          "edge_case_tie_flips": kde_flips["kde_argmax_v2"],
          "bound_terms": k3["bound_terms"],
          "ms": k3["ms"], "kernel_ms": k3["ms"], "plain_ms": k3["plain_ms"],
@@ -4802,7 +4875,8 @@ def main():
             k["signal_axis"] = {
                 f"S={S}": {key: r[key] for key in (
                     "ms", "single_launches_ms", "plain_ms", "bound_ms",
-                    "bound_by", "max_abs_err")} for S, r in by_s.items()}
+                    "bound_by", "max_abs_err", "parent_ms") if key in r}
+                for S, r in by_s.items()}
     OUT_DIR.mkdir(exist_ok=True)
     summary = {"card": card, "detect_20k_wps": wps["hyperbolic v1"],
                "detect_20k_wps_by_path": wps,

@@ -25,6 +25,27 @@ __device__ __forceinline__ float ex2_approx(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
+
+// 1/x on the special-function unit (rcp.approx.ftz.f32, one MUFU.RCP):
+// within about an ulp, subnormals flushed to zero. The CPU emulation
+// brings a stand-in of its own.
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The cluster barrier in halves: arrive without ordering memory
+// (barrier.cluster.arrive.relaxed: no fence before it), then wait for
+// every thread of the cluster (barrier.cluster.wait, acquire). After
+// mbar_init's fence, it makes the barriers' initialisation visible to the
+// cluster. The CPU emulation brings stand-ins.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
 #endif
 
 }  // namespace hypad

@@ -36,18 +36,21 @@
 // Shared design:
 // - Each unordered pair's exp is computed once and added to both samples'
 //   densities: (v_i - v_j)^2 equals (v_j - v_i)^2 bit for bit, so both get
-//   the same term. The narrow instances and K3 take it from the accurate
-//   `expf`. K2's group kernels (above 128 columns) take it as 2^(scl d^2)
-//   from the SFU's ex2.approx.ftz (k2_term, kK2Ex2), scl = scale log2(e)
-//   once a row: a pair costs about 6 issue slots there, not 13. Its error,
-//   about 2^-22 of the term plus the argument's rounding, is of the order of
-//   `expf`'s last ulp, far inside the n 2^-22 (relative) of a density that
-//   the tie-level check allows (profile_kernels.near_tie_flips). Measured on
-//   an H100 80GB HBM3 (profile_kernels.py --wide-only, every kde_shapes
-//   case): K2's flips against its plain version with ex2 within the count
-//   of the `expf` kernels it replaced (47-570 a shape against 56-574),
-//   each a float64 tie, use flags and fallback rows bitwise. K3 keeps `expf`:
-//   its contract is v2's terms, in v2's order, one by one.
+//   the same term. K3 takes it from the accurate `expf`. K2, up to
+//   kK3TriMaxW columns (its narrow kernel and its group kernels), takes it
+//   as 2^(scl d^2) from the SFU's ex2.approx.ftz (k2_term, kK2Ex2), scl =
+//   scale log2(e) once a row: a pair costs about 6 issue slots there, not
+//   13. Its error, about 2^-22 of the term plus the argument's rounding, is
+//   of the order of `expf`'s last ulp, far inside the n 2^-22 (relative) of
+//   a density that the tie-level check allows
+//   (profile_kernels.near_tie_flips). Measured on an H100 80GB HBM3
+//   (profile_kernels.py --wide-only, every kde_shapes case above 128
+//   columns): K2's flips against its plain version with ex2 within the
+//   count of the `expf` kernels it replaced (47-570 a shape against
+//   56-574), each a float64 tie, use flags and fallback rows bitwise; the
+//   narrow K2 at (20,099, 100) 0.0489 ms against 0.0692 with `expf`, 33
+//   flips against plain against 32 (profile_kernels.py --narrow-only). K3
+//   keeps `expf`: its contract is v2's terms, in v2's order, one by one.
 // - A row's samples form nb blocks of 4 (padding holds the sentinel). One
 //   thread owns one block of one row: its 4 densities stay in registers. A
 //   thread block of R rows (K2 16, K3 32) has R * nb threads, nb at least
@@ -198,9 +201,10 @@ constexpr int kK3TriMaxW = 4096;
 constexpr int kK3GroupBar = 1;  // group g's barrier: kK3GroupBar + g
 // K2 on rows of 129 to kK3TriMaxW (its group kernels, blocks of at most
 // kK3Threads threads, one an SM, as K3's): the threads a group aims at up
-// to 256 columns and above, the most groups a block, and the pair's term,
-// 2^(scale log2(e) d^2) on the SFU's ex2 (1) or expf (0).
-// profile_kernels.py --k2-variant times other values.
+// to 256 columns and above, the most groups a block; and the pair's term of
+// K2 up to kK3TriMaxW (its narrow kernel too), 2^(scale log2(e) d^2) on the
+// SFU's ex2 (1) or expf (0). profile_kernels.py --k2-variant times other
+// values.
 constexpr int kK2GroupThreads = 512;
 constexpr int kK2XGroupThreads = 256;
 constexpr int kK2MaxGroups = 7;
@@ -646,7 +650,8 @@ __device__ __forceinline__ void kde_argmax_body(
   } else {
     r = threadIdx.x / nb;
     I = threadIdx.x - r * nb;
-    densities_by_sample<kRows, false>(m, r, I, true, nb, wp, BlockSync{}, p);
+    densities_by_sample<kRows, kK2Ex2 != 0>(m, r, I, true, nb, wp,
+                                          BlockSync{}, p);
   }
 
   // 3. first max over the block's samples (masked: -inf), ascending

@@ -3,6 +3,7 @@ on a GPU: where its time goes, and what a zero-padded launch would cost.
 
     python3 -m hypad_tpu_torch.profile_k1 --baseline-dir DIR [--reps N]
         [--variant kFewWarps=2 ...] [--widths 150 256 ...]
+        [--split-ranks 4 ...] [--split-slice 16 ...] [--split-blocks 132 ...]
 
 ``DIR`` holds another ``mobius_linear.cu`` of the same C interface, for
 example a parent commit's ``hypad_tpu_torch/csrc`` unpacked with ``git
@@ -21,16 +22,27 @@ At each shape:
 * checks: the tree's K1 within 1e-6 of the plain version, bitwise the
   baseline's, and on the signal axis each signal bitwise its own
   single-signal launch;
+* names the kernel the tree's K1 launches at the shape (``launched``: the
+  few-rows split instance, ``mobius_linear_kernel_split`` /
+  ``mobius_linear_wide_kernel_split``, at the generator step's shapes up
+  to 256 columns), and gives its plan there (``split_plan``);
 * times, with CUDA events: the baseline's and the tree's K1 in turns
   (baseline, tree, tree, baseline); each ``--variant`` (the tree with
-  ``constexpr int`` constants set otherwise, checked bitwise the tree);
+  ``constexpr int`` constants set otherwise, checked bitwise the tree;
+  ``--split-ranks``, ``--split-slice`` and ``--split-blocks`` are
+  variants of the few-rows split instance's cluster size, the fewest
+  columns of a rank's slice and the blocks a launch aims at, which set
+  the rows of a tile a rank owns);
   the probes, at the few-rows shapes: "stage", the kernel built to stage
   W and the x tiles and exit (no FMAs, no epilogue, no store), and
   "no_w", the kernel built without staging W (it computes on whatever
   shared memory holds), of both; and of the tree, "fma" and "epilogue",
-  built to exit after the FMAs and after the epilogue (neither stores);
-  so that W's staging is about full - no_w, the FMAs fma - stage, the
-  epilogue epilogue - fma and the store full - epilogue (the baseline's
+  built to exit after the FMAs and after the epilogue (neither stores),
+  and, where the source has the few-rows split instance, "handoff", built
+  to exit after the products' hand-off and its cluster barrier; so that
+  W's staging is about full - no_w, the FMAs fma - stage, the hand-off
+  handoff - fma, the epilogue epilogue - fma (or - handoff) and the store
+  full - epilogue (the baseline's
   at the few-rows shapes only; the tree's also at every shape above 128
   columns, whose probe builds wait for their copies before they exit); the
   plain version's time and the bound (``k1_cost``); an empty kernel's
@@ -43,7 +55,7 @@ At each shape:
   included).
 
 The tree's probes come from its ``HYPAD_K1_PROBE`` hooks (1 stage, 2 no_w,
-3 fma, 4 epilogue); a baseline without them (the K1 of before the hooks)
+3 fma, 4 epilogue, 5 handoff); a baseline without them (the K1 of before the hooks)
 gets "stage" and "no_w" by text substitutions of its source, written
 beside it so that it includes its own headers. Prints one line a shape
 and the card, then one JSON line, also written to ``profile_k1.json`` in
@@ -82,7 +94,7 @@ H100_F32_FLOP_PER_S = 67e12
 # SM, 132 SMs, at the 1.98 GHz boost clock
 H100_SFU_EXP_PER_S = 132 * 16 * 1.98e9
 K1_TOL = 1e-6
-PROBES = {"stage": 1, "no_w": 2, "fma": 3, "epilogue": 4}
+PROBES = {"stage": 1, "no_w": 2, "fma": 3, "epilogue": 4, "handoff": 5}
 # the K1 of before the HYPAD_K1_PROBE hooks: (old, new) text substitutions
 # of each probe, each old text found exactly once
 BASELINE_PROBES = {
@@ -123,6 +135,61 @@ def probe_source(text, kind):
                                f"hold this text once:\n{old}")
         text = text.replace(old, new)
     return text
+
+
+# the few-rows split instance's constants that --split-ranks,
+# --split-slice and --split-own-rows set
+SPLIT_FLAGS = {"split_ranks": "kFewSplitRanks", "split_slice": "kFewSplitSlice",
+               "split_blocks": "kFewSplitBlocks"}
+
+
+def split_variants(args):
+    """The ``--variant`` specs of the split flags in ``args`` (an argparse
+    namespace or a dict of SPLIT_FLAGS' keys): one variant a value."""
+    get = args.get if isinstance(args, dict) else (
+        lambda key: getattr(args, key, None))
+    return [f"{name}={value}" for key, name in SPLIT_FLAGS.items()
+            for value in get(key) or ()]
+
+
+SPLIT_PLAN_KEYS = ("ranks", "slice", "own", "tile_rows", "clusters",
+                   "threads", "smem")
+
+
+def split_plan(lib, signals, rows, din, dout, sms):
+    """The few-rows split instance's plan (``mobius_linear_split_plan`` of
+    ``lib``, a build of csrc/mobius_linear.cu) for a launch of ``signals``
+    x ``rows`` of din -> dout on a card of ``sms`` SMs: {SPLIT_PLAN_KEYS:
+    value}, or None where the few-rows kernels take the launch."""
+    fn = lib.mobius_linear_split_plan
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    out = (ctypes.c_longlong * len(SPLIT_PLAN_KEYS))()
+    if fn(signals, rows, din, dout, sms, out) != 0:
+        return None
+    return dict(zip(SPLIT_PLAN_KEYS, out))
+
+
+def launched(fn, tries=8):
+    """The names of the device kernels ``fn()`` launches (a second call,
+    under ``torch.profiler``; a trace with no device event is taken again
+    after a short pause, up to ``tries`` times), or [] where the profiler
+    records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+        time.sleep(0.5)
+    return names
 
 
 def variant_source(text, spec):
@@ -267,7 +334,9 @@ def build(baseline_dir, variants=()):
     OUT.mkdir(parents=True, exist_ok=True)
     jobs["k1_baseline"] = (base / "mobius_linear.cu",
                            OUT / "libk1_baseline.so")
-    old_probes = PROBES if "HYPAD_K1_PROBE" in old else BASELINE_PROBES
+    old_probes = ({kind: n for kind, n in PROBES.items()
+                   if f"HYPAD_K1_PROBE == {n}" in old or n < 5}
+                  if "HYPAD_K1_PROBE" in old else BASELINE_PROBES)
     for kind in old_probes:
         src = base / f"mobius_linear_probe_{kind}.cu"
         src.write_text(probe_source(old, kind))
@@ -281,7 +350,10 @@ def build(baseline_dir, variants=()):
     libs = {name: ctypes.CDLL(str(lib)) for name, (_, lib) in jobs.items()}
     empty = libs["empty"].empty_forward
     empty.argtypes = [ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     return {"tree": launcher(libs["k1_tree"]),
+            "plan": lambda rows, width, signals: split_plan(
+                libs["k1_tree"], signals or 1, rows, width, width, sms),
             "baseline": launcher(libs["k1_baseline"]),
             "probes": {**{f"baseline_{kind}":
                           launcher(libs[f"k1_baseline_{kind}"])
@@ -365,6 +437,8 @@ def profile(fns, reps, widths=None):
                                         or name.startswith("tree_")):
                 calls[f"probe {name}"] = lambda fn=fn: fn(x, w, b)
         rec = {"max_abs_err": err, "bitwise_baseline": same,
+               "kernel": launched(calls["tree"]),
+               "split_plan": fns["plan"](rows, width, signals),
                "ms": in_turns(calls, reps),
                "plain_ms": cuda_ms(lambda: mk.mobius_linear(x, w, b),
                                    max(reps // 10, 5)),
@@ -378,7 +452,8 @@ def profile(fns, reps, widths=None):
               f"{rec['bound_ms']:.6f} ms; max abs diff {err:.3e}, bitwise "
               f"the baseline: {same}; host us baseline "
               f"{rec['host_us']['baseline']:.2f}, tree "
-              f"{rec['host_us']['tree']:.2f}; "
+              f"{rec['host_us']['tree']:.2f}; tree launches "
+              f"{rec['kernel']}, split plan {rec['split_plan']}; "
               + ", ".join(f"{k} {v:.5f}" for k, v in t.items()
                           if k not in ("baseline", "tree")))
     return records
@@ -394,11 +469,20 @@ def main(argv=None):
     parser.add_argument("--variant", nargs="*", default=(),
                         help="also build the tree with these constants "
                         "(name=value,...), check its bits, and time it")
+    parser.add_argument("--split-ranks", type=int, nargs="*",
+                        help="variants of the few-rows split instance's "
+                        "cluster size (kFewSplitRanks; 0: not launched)")
+    parser.add_argument("--split-slice", type=int, nargs="*",
+                        help="variants of the fewest columns of a rank's "
+                        "slice (kFewSplitSlice)")
+    parser.add_argument("--split-blocks", type=int, nargs="*",
+                        help="variants of the blocks a launch aims at "
+                        "(kFewSplitBlocks), which set a rank's rows")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_k1: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    fns = build(args.baseline_dir, args.variant)
+    fns = build(args.baseline_dir, list(args.variant) + split_variants(args))
     records = profile(fns, args.reps, args.widths)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

@@ -4,7 +4,7 @@ baseline's, on a GPU.
     python3 -m hypad_tpu_torch.profile_kernels --baseline-dir DIR
         [--reps N] [--k3-variant kK3GroupThreads=256,kK3MaxGroups=4 ...]
         [--k3-probe no_exp ...] [--k2-variant kK2Ex2=0 ...]
-        [--k2-probe no_exp no_hand] [--wide-only]
+        [--k2-probe no_exp no_hand] [--wide-only] [--narrow-only]
 
 ``DIR`` holds another ``mobius_linear.cu`` and ``kde_argmax.cu`` of the same
 C interfaces, for example a parent commit's ``hypad_tpu_torch/csrc``
@@ -33,8 +33,10 @@ Checks, at the main path's shapes:
   the baseline's bit for bit, its fallback rows equal ``masked_median``
   bit for bit (NaN where it is NaN), and its other rows equal the plain
   version's and the baseline's final values at tie level; K2's values and
-  use flags equal the baseline K2's bit for bit; each K3 variant's equal
-  the tree's K3's bit for bit.
+  use flags equal the baseline K2's bit for bit, or, where
+  ``k2_tie_level`` (its term the SFU's ex2), its use flags and fallback
+  rows do and each other differing row is a float64 density tie; each K3
+  variant's equal the tree's K3's bit for bit.
 
 ``check_k1``, ``check_k2``, ``check_k3`` and ``tie_flips`` are the checks
 ``chip_smoke.py`` holds the kernels to as well.
@@ -62,7 +64,9 @@ baseline, twice), their medians, each shape's pairs and its bound
 columns (its group kernels) is held at tie level against the baseline's
 and its plain version: use flags and fallback rows bitwise, each other
 differing row a float64 density tie (``near_tie_flips``), the flips
-printed; K2 on narrower and wider rows bitwise the baseline's.
+printed; so is K2 on narrower rows with the ``ex2`` term (``k2_tie_level``);
+K2 elsewhere bitwise the baseline's. ``--narrow-only`` runs this part on
+the narrow detect shape alone, its variants and probes too.
 
 Prints one line per check and time, then the card and one JSON line. Needs
 CUDA; the libraries go under ``hypad_tpu_torch/_build/variants/``.
@@ -199,15 +203,14 @@ def k3_variant_source(text, spec, constants=K3_CONSTANTS):
     return text
 
 
-def kde_shapes():
+def kde_shapes(narrow_only=False):
     """[(label, windows, width)] of the KDE timings above 128 columns, the
-    narrow detect shape first as the yardstick: T = windows + width - 1
-    anti-diagonal rows of ``width``."""
+    narrow detect shape first as the yardstick (``narrow_only``: it alone):
+    T = windows + width - 1 anti-diagonal rows of ``width``."""
+    kinds = (("narrow", (NARROW_SHAPE,)),) + (() if narrow_only else (
+        ("wide", WIDE_SHAPES), ("xwide", XWIDE_SHAPES)))
     return [(f"{kind} ({n + w - 1}, {w})", n, w)
-            for kind, shapes in (("narrow", (NARROW_SHAPE,)),
-                                 ("wide", WIDE_SHAPES),
-                                 ("xwide", XWIDE_SHAPES))
-            for n, w in shapes]
+            for kind, shapes in kinds for n, w in shapes]
 
 
 def kde_pairs(windows, width):
@@ -249,6 +252,18 @@ def k3_constants(text=None, names=K3_CONSTANTS + ("kMaxW",)):
     return {name: int(re.search(rf"constexpr int {name} = (\d+);",
                                 text).group(1))
             for name in names}
+
+
+def k2_tie_level(width, text=None):
+    """Whether K2's bits at ``width`` may differ from a parent's whose K2
+    took another term or order there: with the SFU's ex2 term (kK2Ex2 = 1)
+    every K2 row up to kK3TriMaxW columns (its narrow kernel and its group
+    kernels), with ``expf`` the group kernels' rows above 256 columns,
+    which sum in another order than the parent's K2x. K2's contract is tie
+    level there (csrc/kde_argmax.cu's header); ``text`` is the source
+    (csrc/kde_argmax.cu by default)."""
+    c = k3_constants(text, names=("kK3TriMaxW", "kK2Ex2"))
+    return (0 if c["kK2Ex2"] else 256) < width <= c["kK3TriMaxW"]
 
 
 def k2_probe_sources(tree, base, names):
@@ -523,13 +538,20 @@ def check(fns):
         old = kk.launch_with(fns["k2"][0], vals, mask)
         new, use = kk.launch_with(fns["k2"][1], vals, mask)
         torch.cuda.synchronize()
-        if not (same_values(new, old[0]) and torch.equal(use, old[1])):
+        if same_values(new, old[0]) and torch.equal(use, old[1]):
+            words = "bitwise the baseline's"
+        elif k2_tie_level(width):
+            near = k2_near_ties((new, use), vals, mask, old, case)
+            words = (f"use flags and fallback rows bitwise the baseline's, "
+                     f"{near['flips_vs_baseline']} density-tie flips "
+                     f"against it, {near['flips_vs_plain']} against plain "
+                     f"(baseline {near['baseline_flips_vs_plain']})")
+        else:
             fail(f"K2 differs from the baseline K2's bits at {case}")
         rec = check_k2(new, use, vals, mask, case=case)
-        print(f"[check] K2 {case}: bitwise the baseline's; use flags "
-              f"bitwise; {rec['fallback_rows']} fallback rows bitwise "
-              f"masked_median; {rec['flips_vs_plain']} tie flips against "
-              f"plain")
+        print(f"[check] K2 {case}: {words}; use flags bitwise; "
+              f"{rec['fallback_rows']} fallback rows bitwise masked_median; "
+              f"{rec['flips_vs_plain']} tie flips against plain")
         records[f"k2 {case}"] = rec
 
         old3 = k3_base(vals, mask)
@@ -590,18 +612,18 @@ def k2_near_ties(got, vals, mask, baseline, case):
                                                       plain[use], *rows)}
 
 
-def check_wide_k2(fns, vals, mask, case, tri_max):
-    """The tree's K2 against the baseline's: two launches bitwise; on rows
-    of 129 to ``tri_max`` columns (the group kernels) ``k2_near_ties``, on
-    others bitwise the baseline's; each K2 variant bitwise the tree's or,
-    where its arithmetic differs, at ``k2_near_ties`` of the baseline.
-    Returns (the tree's output, the record)."""
+def check_wide_k2(fns, vals, mask, case):
+    """The tree's K2 against the baseline's: two launches bitwise; where
+    ``k2_tie_level`` ``k2_near_ties``, elsewhere bitwise the baseline's;
+    each K2 variant bitwise the tree's or, where its arithmetic differs,
+    at ``k2_near_ties`` of the baseline. Returns (the tree's output, the
+    record)."""
     old, new = (kk.launch_with(f, vals, mask) for f in fns["k2"])
     again = kk.launch_with(fns["k2"][1], vals, mask)
     if not (same_values(again[0], new[0]) and torch.equal(again[1], new[1])):
         fail(f"two K2 launches differ at {case}")
-    width = vals.shape[1]
-    if 128 < width <= tri_max:
+    tie = k2_tie_level(vals.shape[1])
+    if tie:
         rec = k2_near_ties(new, vals, mask, old, case)
     elif same_values(new[0], old[0]) and torch.equal(new[1], old[1]):
         rec = {"bitwise_baseline": True}
@@ -612,7 +634,7 @@ def check_wide_k2(fns, vals, mask, case, tri_max):
         got = kk.launch_with(fn, vals, mask)
         bitwise = same_values(got[0], new[0]) and torch.equal(got[1], new[1])
         if not bitwise:
-            if not 128 < width <= tri_max:
+            if not tie:
                 fail(f"K2 variant {spec} differs from the tree's K2 at "
                      f"{case}")
             rec.setdefault("variant_vs_baseline", {})[spec] = k2_near_ties(
@@ -621,19 +643,20 @@ def check_wide_k2(fns, vals, mask, case, tri_max):
     return new, rec
 
 
-def check_wide(fns):
+def check_wide(fns, narrow_only=False):
     """The tree's K2 and K3 against the baseline's and their plain versions
-    on ``kde_shapes`` and ``WIDE_EDGE_CASES`` (see the module docstring);
-    one line a case. Returns the records."""
+    on ``kde_shapes`` and ``WIDE_EDGE_CASES`` (see the module docstring;
+    ``narrow_only``: on the narrow shape alone); one line a case. Returns
+    the records."""
     k3_base = baseline_k3(fns)
-    tri_max = k3_constants()["kK3TriMaxW"]
-    cases = [(n, w, 0, False) for _, n, w in kde_shapes()]
+    cases = [(n, w, 0, False) for _, n, w in kde_shapes(narrow_only)]
     records = {}
-    for n, width, runs, nans in cases + list(WIDE_EDGE_CASES):
+    for n, width, runs, nans in cases + (
+            [] if narrow_only else list(WIDE_EDGE_CASES)):
         vals, mask = k2_case(n, width, runs, nans=nans)
         case = (f"T={vals.shape[0]} W={width}"
                 f"{' constant run' if runs else ''}{' NaNs' if nans else ''}")
-        new, k2 = check_wide_k2(fns, vals, mask, case, tri_max)
+        new, k2 = check_wide_k2(fns, vals, mask, case)
         k2_words = ("bitwise the baseline's" if k2["bitwise_baseline"] else
                     "use flags and fallback rows bitwise the baseline's")
         if "flips_vs_plain" in k2:
@@ -683,14 +706,15 @@ def check_wide(fns):
     return records
 
 
-def time_wide(fns, reps):
-    """{label: record} of ``kde_shapes``: the baseline's and the tree's K2
+def time_wide(fns, reps, narrow_only=False):
+    """{label: record} of ``kde_shapes`` (``narrow_only``: the narrow
+    shape alone): the baseline's and the tree's K2
     and K3 in turns (baseline, tree, tree, baseline, twice), ms of each
     run and the medians, the pairs and the bound; then {label: {"k3" or
     "k2": {variant: [ms]}}} of the K3 and K2 variants and probes in turns.
     One line a shape."""
     out, variants = {}, {}
-    for label, n, width in kde_shapes():
+    for label, n, width in kde_shapes(narrow_only):
         vals, mask = k2_case(n, width)
         rec = {"rows": vals.shape[0], "width": width,
                "pairs": kde_pairs(n, width)}
@@ -821,6 +845,9 @@ def main(argv=None):
                         "the baseline's) and time them above 128 columns")
     parser.add_argument("--wide-only", action="store_true",
                         help="only the KDE shapes above 128 columns")
+    parser.add_argument("--narrow-only", action="store_true",
+                        help="only the narrow KDE shape of the --wide-only "
+                        "part (its checks, times, variants and probes)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: needs a CUDA device")
@@ -828,11 +855,12 @@ def main(argv=None):
     fns = build(args.baseline_dir, args.k3_variant, args.k3_probe,
                 args.k2_variant, args.k2_probe)
     records, times = {}, {}
-    if not args.wide_only:
+    if not (args.wide_only or args.narrow_only):
         records = check(fns)
         times = time_all(fns, args.reps)
-    records["wide"] = check_wide(fns)
-    times["wide"], times["wide_variants"] = time_wide(fns, args.reps // 4)
+    records["wide"] = check_wide(fns, args.narrow_only)
+    times["wide"], times["wide_variants"] = time_wide(fns, args.reps // 4,
+                                                      args.narrow_only)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()

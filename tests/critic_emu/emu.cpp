@@ -19,6 +19,7 @@
 #include <map>
 #include <memory>
 #include <mutex>
+#include <optional>
 #include <thread>
 
 #include "bulk_copy.cuh"
@@ -91,6 +92,18 @@ void* map_shared(void* p, unsigned rank) {
 void cluster_sync() {
   pass_turn();
   ctx.blk->cluster->all->arrive_and_wait();
+  wait_turn();
+}
+static thread_local std::optional<std::barrier<Cluster::Reset>::arrival_token>
+    t_cluster_token;
+void cluster_arrive() {
+  pass_turn();
+  t_cluster_token.emplace(ctx.blk->cluster->all->arrive());
+}
+void cluster_wait() {
+  if (!t_cluster_token) die("a cluster wait without its arrival");
+  ctx.blk->cluster->all->wait(std::move(*t_cluster_token));
+  t_cluster_token.reset();
   wait_turn();
 }
 

@@ -289,11 +289,14 @@ def test_fleet_epoch_on_the_card_tracks_the_cpu(cuda):
 # the wide instances: multivariate feature counts of 129 to 256
 # ---------------------------------------------------------------------------
 
-def _traced(fn, kernel, tries=3):
+def _traced(fn, kernel, tries=8):
     """(fn()'s result, the names of the device kernels it launched, and the
     launches ``kernel`` counted in that call). A trace with no device event
-    at all (the profiler missed the launch) is taken again, up to
-    ``tries`` times, as chip_smoke.py's ``kernels_launched`` does."""
+    at all (the profiler missed the launch) is taken again after a short
+    pause, up to ``tries`` times, as chip_smoke.py's ``kernels_launched``
+    does."""
+    import time
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -308,6 +311,7 @@ def _traced(fn, kernel, tries=3):
                  if e.device_type == DeviceType.CUDA]
         if names:
             break
+        time.sleep(0.5)
     return out, names, kernel.launches - before
 
 
@@ -990,3 +994,272 @@ def test_kde_argmax_group_kernels_rows_bitwise_their_own_launch(cuda, W):
         rows = slice(start, start + v.shape[0])
         assert same_values(got[rows], own) and torch.equal(use[rows], own_use)
         start += v.shape[0]
+
+
+def split_launches():
+    """The launches of K1's few-rows split instance so far, as the
+    extension counts them (``mobius_linear_split_launches``)."""
+    import ctypes
+
+    from hypad_tpu_torch import _build
+
+    fn = _build.load("mobius_linear").mobius_linear_split_launches
+    fn.restype = ctypes.c_longlong
+    return fn()
+
+
+@pytest.fixture(scope="module")
+def few_rows_kernels():
+    """{"few_rows": K1 launcher of the tree built without the few-rows split
+    instance (kFewSplitRanks = 0: the few-rows kernels it replaces, the
+    parent's code), "parent": the parent's K1 where a parent commit is
+    unpacked under _checkout/parent (else absent)}: nvcc on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import ctypes
+    from pathlib import Path
+
+    from hypad_tpu_torch import _build
+    from hypad_tpu_torch.profile_critic_step import OUT, variant_jobs
+    from hypad_tpu_torch.profile_k1 import launcher, variant_source
+
+    text = (_build.CSRC / "mobius_linear.cu").read_text()
+    jobs = variant_jobs({"k1_few_rows": variant_source(
+        text, "kFewSplitRanks=0")})
+    parent = (Path(__file__).resolve().parents[1] / "_checkout" / "parent"
+              / "hypad_tpu_torch" / "csrc" / "mobius_linear.cu")
+    if parent.is_file():
+        jobs["k1_parent"] = (parent, OUT / "libk1_parent_cuda_test.so")
+    _build.compile_sources(jobs)
+    return {name[3:]: launcher(ctypes.CDLL(str(lib)))
+            for name, (_, lib) in jobs.items()}
+
+
+@pytest.mark.parametrize("B,D,signals,scale,split", [
+    (64, 100, None, 1.0, True), (128, 100, None, 1.0, True),
+    (64, 100, 3, 1.0, True), (64, 51, 3, 1.0, True),
+    (64, 123, None, 1.0, True), (64, 150, None, 1.0, True),
+    (128, 256, None, 1.0, True), (130, 64, None, 1.0, True),
+    (8, 100, None, 1e6, True), (9, 300, None, 1.0, False),
+    (2280, 100, 3, 1.0, False)])
+def test_mobius_linear_few_rows_split_bitwise_the_few_rows_kernels(
+        cuda, few_rows_kernels, B, D, signals, scale, split):
+    """The few-rows split instance (``mobius_linear_kernel_split`` up to 128
+    columns, ``mobius_linear_wide_kernel_split`` above) at the generator
+    step's shapes, an odd width, a huge weight (the clamps) and 9 rows:
+    it takes the launch (the extension's count of its launches,
+    ``mobius_linear_split_launches``, and its plan,
+    ``mobius_linear_split_plan``, agree), one launch, bitwise the few-rows
+    kernels it replaces and the parent's K1 where built, each signal its
+    own launch, within 1e-6 of plain; at 300 columns and at 2,280 rows a
+    signal (more tiles than clusters fit the card) it has no plan and the
+    kernels of before take the launch, the same bits."""
+    from hypad_tpu_torch import _build
+    from hypad_tpu_torch.profile_k1 import k1_case, split_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = split_plan(_build.load("mobius_linear"), signals or 1, B, D, D,
+                      sms)
+    assert (plan is not None) is split, plan
+    x, w, b = k1_case(B, D, signals, device=cuda)
+    w = (w * scale).contiguous()
+    before = mobius_linear_kernel.launches
+    split_before = split_launches()
+    got = mobius_linear_kernel(x, w, b)
+    torch.cuda.synchronize()
+    assert mobius_linear_kernel.launches == before + 1
+    assert split_launches() == split_before + split
+    for fn in few_rows_kernels.values():
+        assert torch.equal(got, fn(x, w, b))
+    if signals:
+        for i in range(signals):
+            assert torch.equal(got[i], mobius_linear_kernel(
+                x[i].contiguous(), w[i].contiguous(), b[i]))
+    assert (got - mobius_linear(x, w, b)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("moved", ["x", "w"])
+def test_mobius_linear_few_rows_split_unaligned_after_aligned(
+        cuda, few_rows_kernels, moved):
+    """(64, 100), the main path's width, on 16-byte-aligned x and W (each
+    rank's W rows and the tile copied into place), then at the same shape
+    on an x (or W) one float past a 16-byte boundary (a plan of its own:
+    copies from the boundary below into raw regions, repacked): the split
+    instance takes both launches, each bitwise the aligned launch, the
+    few-rows kernels it replaces and the parent's K1 where built."""
+    from hypad_tpu_torch.profile_k1 import k1_case
+
+    x, w, b = k1_case(64, 100, None, device=cuda)
+    before = split_launches()
+    got = mobius_linear_kernel(x, w, b)
+    t = x if moved == "x" else w
+    off = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+    assert off.data_ptr() % 16 == 4
+    off.copy_(t)
+    args = (off, w, b) if moved == "x" else (x, off, b)
+    again = mobius_linear_kernel(*args)
+    torch.cuda.synchronize()
+    assert split_launches() == before + 2
+    assert torch.equal(got, again)
+    for fn in few_rows_kernels.values():
+        assert torch.equal(got, fn(*args))
+
+
+DIV_RN_CHECK = r"""
+__global__ void div_rn_check_kernel(const float* a, const float* b,
+                                    float* q, float* ref, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float a1[1] = {a[i]}, q1[1];
+  div_rn(q1, a1, b[i]);
+  q[5 * i] = q1[0];
+  ref[5 * i] = a[i] / b[i];
+  float a4[4], q4[4];
+  for (int j = 0; j < 4; ++j) a4[j] = a[(i ^ j) < n ? (i ^ j) : i];
+  div_rn(q4, a4, b[i]);
+  for (int j = 0; j < 4; ++j) {
+    q[5 * i + 1 + j] = q4[j];
+    ref[5 * i + 1 + j] = a4[j] / b[i];
+  }
+}
+
+extern "C" int mobius_linear_div_rn_check(const float* a, const float* b,
+                                          float* q, float* ref, int n) {
+  div_rn_check_kernel<<<(n + 255) / 256, 256>>>(a, b, q, ref, n);
+  cudaError_t err = cudaGetLastError();
+  return err != cudaSuccess ? err : cudaDeviceSynchronize();
+}
+"""
+
+
+def div_rn_operands():
+    """(a, b) float32 pairs for div_rn: b of 64 random mantissas at every
+    exponent within 4 of -60, 0 and 60 and both signs, and at 2^-61, 2^-60,
+    2^60, 2^61 and their neighbours; each against a of +0, -0, subnormals,
+    2^-126, the range's edges and their neighbours, 1, random values over
+    the whole normal range and both signs."""
+    import numpy as np
+
+    rng = np.random.default_rng(19)
+    f32 = np.float32
+    mant = 1.0 + rng.random(64)
+    bs = [s * m * 2.0 ** e for e in (*range(-64, -55), *range(-4, 5),
+                                     *range(56, 65))
+          for m in mant[:8] for s in (1, -1)]
+    edges = [f32(2.0 ** e) for e in (-61, -60, 60, 61)]
+    edges += [np.nextafter(e, f32(d)) for e in edges for d in (0, np.inf)]
+    bs = np.array(bs + edges + [-e for e in edges], dtype=f32)
+    a_fixed = [0.0, -0.0, 1e-45, -1e-45, 1e-40, 2.0 ** -126, 1.0, -1.0,
+               *edges, *[-e for e in edges], f32(3.4e38), f32(-3.4e38)]
+    a_rand = (rng.choice([-1.0, 1.0], 256) * (1.0 + rng.random(256))
+              * 2.0 ** rng.integers(-126, 127, 256))
+    a = np.array(a_fixed + list(a_rand), dtype=f32)
+    aa, bb = np.meshgrid(a, bs, indexing="ij")
+    return aa.ravel().astype(f32), bb.ravel().astype(f32)
+
+
+def test_div_rn_bitwise_the_division(cuda):
+    """K1's ``div_rn`` (the few-rows split instance's branch-free division)
+    against ``/`` on the card, bitwise (signs of zeros and NaNs' positions
+    included), one quotient and four sharing a divisor, over operands at
+    and around the edges of its fast path's range [2^-60, 2^60], inside it
+    and past it on either side, zeros and subnormals; and, where every
+    operand and the quotient are normal, against numpy's correctly rounded
+    f32 quotient."""
+    import ctypes
+
+    import numpy as np
+
+    from hypad_tpu_torch import _build
+    from hypad_tpu_torch.profile_critic_step import variant_jobs
+
+    text = (_build.CSRC / "mobius_linear.cu").read_text() + DIV_RN_CHECK
+    jobs = variant_jobs({"k1_div_rn": text})
+    _build.compile_sources(jobs)
+    fn = ctypes.CDLL(str(jobs["k1_div_rn"][1])).mobius_linear_div_rn_check
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    a_np, b_np = div_rn_operands()
+    a = torch.from_numpy(a_np).to(cuda)
+    b = torch.from_numpy(b_np).to(cuda)
+    n = a.numel()
+    q = torch.empty(5 * n, device=cuda)
+    ref = torch.empty(5 * n, device=cuda)
+    assert fn(a.data_ptr(), b.data_ptr(), q.data_ptr(), ref.data_ptr(),
+              n) == 0
+    qi = q.cpu().view(torch.int32)
+    ri = ref.cpu().view(torch.int32)
+    bad = (qi != ri).nonzero().flatten()
+    assert bad.numel() == 0, [
+        (float(a_np[k // 5]), float(b_np[k // 5]), k % 5)
+        for k in bad[:10].tolist()]
+    with np.errstate(all="ignore"):
+        want = a_np / b_np
+    tiny = np.finfo(np.float32).tiny
+    normal = ((np.abs(a_np) >= tiny) & (np.abs(want) >= tiny)
+              & np.isfinite(want))
+    got = q.cpu().numpy()[0::5]
+    assert np.array_equal(got[normal].view(np.int32),
+                          want[normal].view(np.int32))
+
+
+@pytest.fixture(scope="module")
+def kde_expf():
+    """K2 and K3 launchers of the tree built with K2's term as expf
+    (kK2Ex2 = 0: the narrow K2 of before the SFU's ex2): nvcc on the
+    card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import ctypes
+
+    from hypad_tpu_torch import _build
+    from hypad_tpu_torch.ops import kde_kernel as kk
+    from hypad_tpu_torch.profile_critic_step import variant_jobs
+    from hypad_tpu_torch.profile_kernels import K2_CONSTANTS, k3_variant_source
+
+    text = (_build.CSRC / "kde_argmax.cu").read_text()
+    jobs = variant_jobs({"kde_expf": k3_variant_source(text, "kK2Ex2=0",
+                                                       K2_CONSTANTS)})
+    _build.compile_sources(jobs)
+    lib = ctypes.CDLL(str(jobs["kde_expf"][1]))
+    return {v: (lambda vals, mask, fn=kk.bind(lib, entry):
+                kk.launch_with(fn, vals, mask))
+            for v, entry in (("v1", "kde_argmax_forward"),
+                             ("v2", "kde_argmax_v2_forward"))}
+
+
+@pytest.mark.parametrize("N,W,const,nans", [
+    (20000, 100, False, False), (700, 64, False, False),
+    (300, 100, True, False), (300, 100, False, True), (300, 5, False, False),
+    (2000, 128, False, False)])
+def test_kde_argmax_narrow_kernel_ex2_at_density_tie(cuda, kde_expf, N, W,
+                                                     const, nans):
+    """The narrow K2 (up to 128 columns) on the SFU's ex2, one launch: use
+    flags bitwise and fallback rows bitwise
+    masked_median; each other differing row a float64 density tie of the
+    plain version's, and of its expf build (the narrow K2 of before), with
+    whose use flags and fallback rows it agrees bitwise; the narrow K3 the
+    same bits in both builds."""
+    from hypad_tpu_torch.profile_kernels import near_tie_flips, same_values
+
+    critic = torch.randn(N, generator=torch.Generator().manual_seed(N + W))
+    if const:
+        critic[10:40] = 0.5
+    if nans:
+        critic[:2] = critic[100:200] = float("nan")
+    vals, mask = antidiagonal_gather(critic.to(cuda)[:, None].expand(N, W))
+    before = kde_argmax_kernel.launches
+    got, use = kde_argmax_kernel(vals, mask)
+    torch.cuda.synchronize()
+    assert kde_argmax_kernel.launches == before + 1
+    want, want_use = kde_argmax_rows_and_use(vals, mask)
+    assert torch.equal(use, want_use)
+    assert same_values(got[~use], masked_median(vals, mask)[~use])
+    near_tie_flips(got[use], want[use], vals[use], mask[use])
+    old, old_use = kde_expf["v1"](vals, mask)
+    assert torch.equal(old_use, use)
+    assert same_values(old[~use], got[~use])
+    near_tie_flips(got[use], old[use], vals[use], mask[use])
+    k3, k3_use = kde_argmax_v2_kernel(vals, mask)
+    old3, old3_use = kde_expf["v2"](vals, mask)
+    assert same_values(k3, old3) and torch.equal(k3_use, old3_use)

@@ -20,7 +20,12 @@ launches are compared bit for bit only with other emulated launches:
 * with the term as ``expf`` (``kK2Ex2 = 0``) the group kernels sum in the
   parent's order, so up to 256 columns they are bitwise the parent's wide
   K2, ``kde_argmax_body<256, false>`` (instantiated here as the parent
-  launched it).
+  launched it);
+* the narrow K2 (``kde_argmax_kernel``, up to 128 columns) takes the same
+  term: within a density tie of the plain version and of its ``expf``
+  build (the narrow K2 before the term), use flags and fallback rows
+  bitwise; the narrow K3 (``kde_argmax_v2_kernel``), whose term stays
+  ``expf``, has the same bits in both builds.
 
 The libraries build once for the test workers (``compile_emulated``); the
 tree's is ``test_torch_k3_emulated``'s.
@@ -97,7 +102,8 @@ def k2(tmp_path_factory):
     """run(vals, mask, lib, warps, sms, blocks_down) -> (value, use) of a K2
     launch in the emulation: lib "tree" (the source as it is), "expf" (the
     term as expf, one group a block) or "parent_wide" (the parent's wide
-    K2, in the "expf" build); warps FREE, ASCENDING or DESCENDING; a card of
+    K2, in the "expf" build), or of a K3 launch: "k3_tree" and "k3_expf"
+    (K3 of the two builds); warps FREE, ASCENDING or DESCENDING; a card of
     ``sms`` SMs; the blocks in ascending or (``blocks_down``) descending
     order. Also ``run.plan(rows, width, sms, smem_optin)``, the tree's
     ``kde_argmax_group_plan``."""
@@ -122,7 +128,9 @@ def k2(tmp_path_factory):
         lib.emu_block_order.argtypes = [ctypes.c_int]
     entry = {"tree": ("tree", "kde_argmax_forward"),
              "expf": ("expf", "kde_argmax_forward"),
-             "parent_wide": ("expf", "emu_parent_wide_forward")}
+             "parent_wide": ("expf", "emu_parent_wide_forward"),
+             "k3_tree": ("tree", "kde_argmax_v2_forward"),
+             "k3_expf": ("expf", "kde_argmax_v2_forward")}
 
     def run(vals, mask, lib="tree", warps=FREE, sms=1, blocks_down=False):
         name, symbol = entry[lib]
@@ -209,6 +217,38 @@ def test_group_kernels_expf_keep_the_parent_order(k2, width, n, runs, nans,
     if width <= 256:
         assert same(got, k2(vals, mask, "parent_wide"))
     near_plain(got, vals, mask)
+
+
+# (width, windows, constant run end, NaNs, rows taken) of the narrow
+# instances: nb = 25 blocks a row at 100 (13 rounds, every block busy), 16
+# at 64 (the last round taken by half the blocks), 2 at 5 (8 blocks a row,
+# 32 / R, most of them sentinels)
+NARROW_CASES = [(100, 300, 0, False, (6, 12, 4)),
+                (100, 300, 250, False, (4, 8, 4)),
+                (64, 300, 0, True, (4, 8, 4)), (5, 300, 0, False, (4, 8, 4))]
+
+
+@pytest.mark.parametrize("width,n,runs,nans,take", NARROW_CASES)
+def test_narrow_k2_ex2_at_tie_level_k3_keeps_expf(k2, width, n, runs, nans,
+                                                  take):
+    """The narrow K2 on the SFU term's stand-in: two launches the same
+    bits, within a density tie of the plain version (use flags and fallback
+    rows bitwise) and of its ``expf`` build, the narrow K2 of before the
+    term (use flags and fallback rows bitwise); the narrow K3 the same bits
+    in both builds."""
+    from hypad_tpu_torch.profile_kernels import near_tie_flips, same_values
+
+    torch.set_num_threads(1)
+    vals, mask = rows_of(width, n, runs, nans, take)
+    got = k2(vals, mask)
+    assert same(got, k2(vals, mask))
+    near_plain(got, vals, mask)
+    old = k2(vals, mask, "expf")
+    use = got[1]
+    assert torch.equal(use, old[1])
+    assert same_values(got[0][~use], old[0][~use])
+    near_tie_flips(got[0][use], old[0][use], vals[use], mask[use])
+    assert same(k2(vals, mask, "k3_tree"), k2(vals, mask, "k3_expf"))
 
 
 @pytest.mark.parametrize("width", [129, 150, 256, 257, 300, 512, 1024, 4096])

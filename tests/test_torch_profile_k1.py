@@ -20,8 +20,10 @@ from hypad_tpu_torch.profile_k1 import (
     k1_cost,
     bound,
     padded,
+    SPLIT_FLAGS,
     probe_source,
     probed,
+    split_variants,
     training_shapes,
     variant_source,
 )
@@ -127,3 +129,31 @@ def test_variant_source_sets_one_constant():
         f"kFewWarps = {now};", "")
     with pytest.raises(RuntimeError):
         variant_source(text, "kNoSuchConstant=1")
+
+
+def test_split_flags_are_variants_of_the_few_rows_split_instance():
+    """--split-ranks, --split-slice and --split-blocks each give one
+    variant a value, of a constexpr int the source defines once, which
+    variant_source sets alone."""
+    text = (_build.CSRC / "mobius_linear.cu").read_text()
+    specs = split_variants({"split_ranks": [4, 0], "split_slice": [16],
+                            "split_blocks": [132]})
+    assert specs == ["kFewSplitRanks=4", "kFewSplitRanks=0",
+                     "kFewSplitSlice=16", "kFewSplitBlocks=132"]
+    assert split_variants({}) == []
+    for name in SPLIT_FLAGS.values():
+        assert len(re.findall(rf"constexpr int {name} = \d+;", text)) == 1
+    for spec in specs:
+        name, value = spec.split("=")
+        out = variant_source(text, spec)
+        assert f"constexpr int {name} = {value};" in out
+        assert len(out.splitlines()) == len(text.splitlines())
+
+
+def test_the_handoff_probe_is_the_few_rows_split_instances():
+    """The "handoff" probe (5) exits after the products' hand-off, a hook
+    only the few-rows split instance has; a baseline source without it is
+    not built as that probe."""
+    text = (_build.CSRC / "mobius_linear.cu").read_text()
+    assert PROBES["handoff"] == 5
+    assert "HYPAD_K1_PROBE == 5" in text

@@ -13,9 +13,12 @@ from hypad_tpu_torch import _build
 from hypad_tpu_torch.profile_kernels import (
     K2_CONSTANTS,
     K2_PROBES,
+    NARROW_SHAPE,
+    k2_tie_level,
     k3_constants,
     k3_probe_source,
     k3_variant_source,
+    kde_shapes,
 )
 
 
@@ -62,16 +65,36 @@ def test_every_k2_constant_is_a_variant(name):
         k3_variant_source(text, "kK3GroupThreads=256", K2_CONSTANTS)
 
 
-@pytest.mark.parametrize("width,tie", [(1, False), (128, False),
+@pytest.mark.parametrize("width,tie", [(1, True), (128, True),
                                        (129, True), (256, True), (257, True),
                                        (4096, True), (4097, False)])
 def test_chip_smoke_holds_k2_at_tie_level_on_group_rows(width, tie):
     """``chip_smoke.k2_tie_level``: K2's bits may differ from the parent's
-    on its group kernels' rows (129 to kK3TriMaxW with the ex2 term; above
-    256 only with expf), nowhere else."""
+    wherever its term is the SFU's ex2 (every row up to kK3TriMaxW, the
+    narrow kernel's too) and, with expf, on its group kernels' rows above
+    256; nowhere else."""
     import chip_smoke
 
     c = k3_constants(names=("kK3TriMaxW", "kK2Ex2"))
     assert c["kK3TriMaxW"] == 4096
     want = tie and (c["kK2Ex2"] == 1 or width > 256)
     assert chip_smoke.k2_tie_level(width) is want
+
+
+def test_narrow_only_is_the_detect_shape_alone():
+    """``--narrow-only`` times and checks the univariate detect's rows
+    (20,099 of 100) alone, the first of the --wide-only shapes."""
+    (label, n, w), = kde_shapes(narrow_only=True)
+    assert (n, w) == NARROW_SHAPE and label == "narrow (20099, 100)"
+    assert kde_shapes()[0] == (label, n, w) and len(kde_shapes()) > 1
+
+
+@pytest.mark.parametrize("ex2,width,tie", [
+    (1, 1, True), (1, 100, True), (1, 4096, True), (1, 4097, False),
+    (0, 100, False), (0, 256, False), (0, 257, True), (0, 4097, False)])
+def test_k2_tie_level_follows_the_term(ex2, width, tie):
+    """K2 may leave a parent's bits wherever its term is the SFU's ex2
+    (every width its narrow kernel and group kernels take), or with expf
+    on the group kernels' rows above 256 columns."""
+    text = k3_variant_source(source(), f"kK2Ex2={ex2}", K2_CONSTANTS)
+    assert k2_tie_level(width, text) is tie
