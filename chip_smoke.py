@@ -61,6 +61,18 @@ Phases, each failing loudly (a failed check raises and the exit code is not
 6. Euclidean training path: the same 2 epochs with ``hyperbolic=False``
    (K5 200, K1 0), then detection with the trained weights (point, mult,
    K3) on the card and on the CPU: the same intervals and F1;
+6b. the compiled epoch ([graph]): ``train_tadgan``'s default on the card,
+   each critic and generator step a replayed CUDA graph (K1, K4 and K5
+   inside them). For every ``fused_critics`` value in both geometries at
+   A1 (1,320 windows of 100, batch 64), 3 epochs with
+   ``epochs_per_call=2`` (a chunk boundary inside) against 3 eager
+   ``run_epoch`` epochs from the same weights and draws: parameters,
+   moments, step counters and per-epoch metrics bitwise, every kernel's
+   launches equal; the same for one WADI-width (8,000 windows of 123)
+   ``False`` epoch; warm epoch host seconds graphed (one epoch a call,
+   and within a 4-epoch call) against eager, the graph replays an epoch, and at A1 the profiler's device launches,
+   device ms and busy share of each, beside the card's name and power
+   limit;
 7. command line ([cli]): ``hypad_tpu_torch.cli.main`` at the published
    widths on a Yahoo A1 CSV and a NAB-style CSV (1,420 samples each, 1,320
    windows) written to a temporary directory, counters zeroed around each
@@ -1331,11 +1343,12 @@ def ragged_epoch_card_vs_cpu(device, X):
     return diff_cpu, spread
 
 
-def device_work(fn):
+def device_work(fn, required=True):
     """(device launches, device ms, host ms) of one ``fn()`` under
     torch.profiler tracing the card's activity only (kernels, copies and
     sets; no host events, which at ~20,000 launches an epoch would take
-    longer to collect than the epoch)."""
+    longer to collect than the epoch). No device activity recorded fails,
+    or with ``required`` False gives (0, None, host ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1347,6 +1360,8 @@ def device_work(fn):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events and not required:
+        return 0, None, wall_ms
     if not events:
         fail("torch.profiler recorded no device activity")
     return (len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3,
@@ -2070,6 +2085,207 @@ def phase_eucl_train(device):
             "logs": logs, "trained_f1": f1, "first_call_s": seconds}
 
 
+GRAPH_MODES = ("full", True, False)
+WADI_WIDTH, WADI_WINDOWS = 123, 8_000   # configs/multivariate.yaml's width
+
+
+def graph_case(device, X, width, hyperbolic, mode, n_epochs,
+               epochs_per_call, tag):
+    """``n_epochs`` of ``train_tadgan`` (the graphed epoch) against as many
+    eager ``run_epoch`` epochs from the same weights and draws: parameters,
+    moments, step counters, per-epoch metrics and kernel launches must be
+    equal, bit for bit. Returns (graphed state, eager state, record)."""
+    import torch
+
+    from hypad_tpu_torch.data.pipeline import A1_BATCH_SIZE as TRAIN_BATCH
+    from hypad_tpu_torch.models.tadgan import init_tadgan
+    from hypad_tpu_torch.train import trainer as tr
+
+    def init():
+        return init_tadgan(torch.Generator().manual_seed(SEED), width,
+                           hyperbolic=hyperbolic, device=device)
+
+    eager = tr.init_train_state(init(), TRAIN_LR, hyperbolic)
+    eager_logs = []
+    read = zero_counters()
+    t0 = time.perf_counter()
+    for e in range(n_epochs):
+        draws = tr.epoch_draws(tr.epoch_generator(SEED, e), X.shape[0],
+                               TRAIN_BATCH, eager.model)
+        eager, m = tr.run_epoch(eager, X, draws, lr=TRAIN_LR,
+                                hyperbolic=hyperbolic, fused_critics=mode)
+        eager_logs.append(m)
+    eager_s = time.perf_counter() - t0
+    eager_counts = read()
+
+    logs = []
+    read = zero_counters()
+    t0 = time.perf_counter()
+    graphed = tr.train_tadgan(init(), X, lr=TRAIN_LR, hyperbolic=hyperbolic,
+                              batch_size=TRAIN_BATCH, n_epochs=n_epochs,
+                              seed=SEED, device=device, fused_critics=mode,
+                              epochs_per_call=epochs_per_call,
+                              log_cb=lambda e, m: logs.append(m))
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    counts = read()
+
+    got, want = state_tensors(graphed), state_tensors(eager)
+    differ = {k: (got[k] - want[k]).abs().max().item() for k in want
+              if not torch.equal(got[k], want[k])}
+    steps = [(getattr(graphed, n).step, getattr(eager, n).step)
+             for n in ("opt_cx", "opt_cz", "opt_gen")]
+    print(f"[graph] {tag}: {n_epochs} epochs of train_tadgan "
+          f"(epochs_per_call={epochs_per_call}, first call, captures "
+          f"included) {graph_s:.3f} s against {n_epochs} eager run_epoch "
+          f"{eager_s:.3f} s; tensors differing {len(differ)} of "
+          f"{len(want)}; steps {steps}; kernel launches {counts}")
+    if differ:
+        worst = sorted(differ.items(), key=lambda kv: -kv[1])[:8]
+        fail(f"[graph] {tag}: the graphed epochs differ from the eager "
+             f"ones in {len(differ)} tensors, largest {worst}")
+    if any(a != b for a, b in steps) or graphed.epoch != eager.epoch:
+        fail(f"[graph] {tag}: step counters {steps}, epochs "
+             f"{graphed.epoch} / {eager.epoch}")
+    if logs != eager_logs:
+        fail(f"[graph] {tag}: per-epoch metrics {logs} against the eager "
+             f"{eager_logs}")
+    if counts != eager_counts:
+        fail(f"[graph] {tag}: kernel launches {counts} against the eager "
+             f"run's {eager_counts}")
+    return graphed, eager, {"graphed_first_call_s": graph_s,
+                            "eager_s": eager_s, "launches": counts,
+                            "metrics": logs}
+
+
+def graph_timing(device, X, graphed, eager, mode, hyperbolic, tag, card,
+                 profiled=True):
+    """Warm epochs, graphed (``train_tadgan`` one epoch a call, replaying
+    the program the state keeps from ``graph_case``) against eager
+    (``run_epoch``), host seconds of each with its draws (median of 2),
+    the graphed epoch within a 4-epoch call (the next epoch's draws made
+    while the card runs), the draws alone (``epoch_draws``, median of 2),
+    and with ``profiled``
+    the device launches, device ms and busy share of one more epoch of
+    each under torch.profiler."""
+    import statistics as stats
+
+    import torch
+
+    from hypad_tpu_torch.data.pipeline import A1_BATCH_SIZE as TRAIN_BATCH
+    from hypad_tpu_torch.train import trainer as tr
+
+    nb = X.shape[0] // TRAIN_BATCH
+    state = {"eager": eager}
+
+    def graphed_epoch():
+        tr.train_tadgan(graphed, X, lr=TRAIN_LR, hyperbolic=hyperbolic,
+                        batch_size=TRAIN_BATCH, n_epochs=graphed.epoch + 1,
+                        seed=SEED, device=device, fused_critics=mode)
+        torch.cuda.synchronize()
+
+    def eager_epoch():
+        st = state["eager"]
+        draws = tr.epoch_draws(tr.epoch_generator(SEED, st.epoch),
+                               X.shape[0], TRAIN_BATCH, st.model)
+        state["eager"], _ = tr.run_epoch(st, X, draws, lr=TRAIN_LR,
+                                         hyperbolic=hyperbolic,
+                                         fused_critics=mode)
+
+    walls = []
+    for e in range(2):
+        t0 = time.perf_counter()
+        tr.epoch_draws(tr.epoch_generator(SEED, e), X.shape[0], TRAIN_BATCH,
+                       eager.model)
+        walls.append(time.perf_counter() - t0)
+    rec = {"graph_replays_an_epoch": (tr.N_CRITICS + 1) * nb,
+           "draws_s": stats.median(walls)}
+    for name, fn in (("graphed", graphed_epoch), ("eager", eager_epoch)):
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t0)
+        rec[f"{name}_s"] = stats.median(walls)
+        rec[f"{name}_runs_s"] = walls
+        if profiled:
+            launches, device_ms, wall_ms = device_work(fn, required=False)
+            rec[f"{name}_device_launches"] = launches
+            rec[f"{name}_device_ms"] = device_ms
+            rec[f"{name}_busy_share"] = (None if device_ms is None
+                                         else device_ms / wall_ms)
+    chunk = 4
+    t0 = time.perf_counter()
+    tr.train_tadgan(graphed, X, lr=TRAIN_LR, hyperbolic=hyperbolic,
+                    batch_size=TRAIN_BATCH, n_epochs=graphed.epoch + chunk,
+                    seed=SEED, device=device, fused_critics=mode)
+    torch.cuda.synchronize()
+    rec["graphed_chunked_s"] = (time.perf_counter() - t0) / chunk
+    busy = ("" if not profiled else
+            f"; device launches an epoch (profiler) graphed "
+            f"{rec['graphed_device_launches']}, eager "
+            f"{rec['eager_device_launches']}; device ms graphed "
+            f"{rec['graphed_device_ms']}, eager {rec['eager_device_ms']}; "
+            f"busy share graphed {rec['graphed_busy_share']}, eager "
+            f"{rec['eager_busy_share']}")
+    print(f"[graph] {tag}, warm epoch: graphed {rec['graphed_s']:.4f} s "
+          f"(runs {rec['graphed_runs_s']}), eager {rec['eager_s']:.4f} s "
+          f"(runs {rec['eager_runs_s']}); graphed {chunk} epochs in one "
+          f"call {rec['graphed_chunked_s']:.4f} s an epoch; the host's "
+          f"draws alone "
+          f"{rec['draws_s']:.4f} s; graph replays an epoch "
+          f"{rec['graph_replays_an_epoch']}{busy} ({card})")
+    return rec
+
+
+def phase_graph(device, card):
+    """[graph]: the compiled epoch. Every ``fused_critics`` value in both
+    geometries at A1 (1,320 windows of 100, batch 64): 3 epochs of
+    ``train_tadgan`` (the card's default, each step a replayed CUDA graph)
+    with ``epochs_per_call=2`` (a chunk boundary inside) against 3 eager
+    ``run_epoch`` epochs from the same weights and draws, bit for bit, the
+    kernel launches equal; then the WADI-width (123) ``False`` epoch the
+    same way; warm epoch host seconds graphed against eager, the graph
+    replays, and at A1 the device launches and busy share
+    (torch.profiler)."""
+    import numpy as np
+    import torch
+
+    from hypad_tpu_torch.data.pipeline import (
+        A1_WINDOWS,
+        synthetic_detect_input,
+    )
+
+    X, _, _ = synthetic_detect_input(A1_WINDOWS, WIDTH, anomaly_len=50,
+                                     seed=SEED)
+    Xt = torch.as_tensor(X, device=device)
+    paths, cases, timing = {}, {}, {}
+    for hyperbolic in (True, False):
+        geometry = "hyper" if hyperbolic else "eucl"
+        for mode in GRAPH_MODES:
+            tag = f"A1 {geometry} fused_critics={mode!r}"
+            graphed, eager, rec = graph_case(device, Xt, WIDTH, hyperbolic,
+                                             mode, 3, 2, tag)
+            cases[tag] = rec
+            paths[f"graph_a1_{geometry}_{str(mode).lower()}_3_epochs"] = \
+                rec["launches"]
+            if hyperbolic:
+                timing[tag] = graph_timing(device, Xt, graphed, eager, mode,
+                                           True, tag, card)
+    Xw = torch.as_tensor(np.random.default_rng(SEED).uniform(
+        -1, 1, (WADI_WINDOWS, WADI_WIDTH)).astype(np.float32), device=device)
+    tag = f"WADI width {WADI_WIDTH} ({WADI_WINDOWS} windows) hyper " \
+          "fused_critics=False"
+    graphed, eager, rec = graph_case(device, Xw, WADI_WIDTH, True, False, 1,
+                                     10, tag)
+    cases[tag] = rec
+    paths["graph_wadi_hyper_false_1_epoch"] = rec["launches"]
+    timing[tag] = graph_timing(device, Xw, graphed, eager, False, True, tag,
+                               card, profiled=False)
+    print(f"[graph] every graphed run bitwise its eager run ({card})")
+    return paths, {"cases": cases, "timing": timing, "card": card}
+
+
 def write_config(path, cfg):
     """``cfg`` as flat YAML, checked to read back as it was written."""
     from hypad_tpu_torch.utils.config import parse_flat_yaml
@@ -2155,21 +2371,23 @@ def run_cli(argv, log_name, card, env=None):
     return result, launches
 
 
+def state_tensors(state):
+    """{name: tensor} of a TrainState's parameters and optimizer moments."""
+    out = dict(state.model.state_dict())
+    for name in ("opt_cx", "opt_cz", "opt_gen"):
+        opt = getattr(state, name)
+        for m in ("mu", "nu"):
+            moments = getattr(opt, m)
+            items = (moments.items() if isinstance(moments, dict)
+                     else [("", moments)])
+            out.update({f"{name}.{m}.{k}": v for k, v in items})
+    return out
+
+
 def state_diff(a, b):
     """Largest abs diff between two TrainStates' parameters and optimizer
     moments, and whether every element is within EPOCH_TOL."""
-    def tensors(state):
-        out = dict(state.model.state_dict())
-        for name in ("opt_cx", "opt_cz", "opt_gen"):
-            opt = getattr(state, name)
-            for m in ("mu", "nu"):
-                moments = getattr(opt, m)
-                items = (moments.items() if isinstance(moments, dict)
-                         else [("", moments)])
-                out.update({f"{name}.{m}.{k}": v for k, v in items})
-        return out
-
-    ta, tb = tensors(a), tensors(b)
+    ta, tb = state_tensors(a), state_tensors(b)
     worst, within = 0.0, True
     for key, want in tb.items():
         diff = (ta[key] - want).abs()
@@ -4669,6 +4887,7 @@ def main():
     eucl_launches, eucl_model = timed(phase_eucl_detect, device)
     train = timed(phase_train, device)
     eucl_train = timed(phase_eucl_train, device)
+    graph_paths, graph_info = timed(phase_graph, device, card)
     cli_paths, cli_info = timed(phase_cli, device, card)
     fleet = timed(phase_fleet, device, libs)
     sweep_launches, sweep_grid_launches, sweep_info, grid_scores = timed(
@@ -4697,7 +4916,7 @@ def main():
              "train_fused_critics_true": train["launches_fused_true"],
              "train_euclidean": eucl_train["launches"],
              "detect_euclidean_trained": eucl_train["detect_launches"],
-             **cli_paths,
+             **graph_paths, **cli_paths,
              "fleet_seed_band_S3_2_epochs": fleet["band_launches"],
              "fleet_detect_S9": fleet["detect"]["launches"],
              "sweep_nab_9_signals_1_epoch": sweep_launches,
@@ -4888,6 +5107,7 @@ def main():
                "trained_detect_f1": train["trained_f1"],
                "euclidean_train_losses": eucl_train["logs"],
                "euclidean_trained_detect_f1": eucl_train["trained_f1"],
+               "graph": graph_info,
                "cli": cli_info,
                "fleet": {k: v for k, v in fleet.items() if k != "kernels"},
                "sweep": sweep_info,

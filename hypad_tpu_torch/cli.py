@@ -143,7 +143,8 @@ def cmd_train(params, config_path, device="cuda"):
             state, X_dev, lr=params.lr, hyperbolic=params.hyperbolic,
             batch_size=batch_size, n_epochs=params.epochs,
             seed=params.seed, device=device, mesh=mesh,
-            fused_critics=params.fused_critics, log_cb=log_cb,
+            start_epoch=start_epoch, fused_critics=params.fused_critics,
+            log_cb=log_cb,
             checkpoint_cb=lambda e, s: ck.save_state(path, s, e))
         if device.type == "cuda":
             torch.cuda.synchronize(device)

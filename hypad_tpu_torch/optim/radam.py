@@ -169,6 +169,27 @@ class _OneStep:
         return self.coefficients
 
 
+class DeviceStep:
+    """The schedule of one single-model step whose coefficients are read on
+    the device: row ``counter`` ((1,) int64 on the device) of a one-signal
+    pass's tables ``(bc1, inv1, bc2, inv2, stab)``, each (n, 1) as
+    :func:`fleet_schedule` makes them. Nothing of the step is a host value,
+    so an update captured in a CUDA graph reads each replay's own step; the
+    coefficients are :class:`_OneStep`'s, and ``_div_bc`` multiplies by
+    ``inv`` on the card as PyTorch does for ``x / float``, so the update
+    keeps the single model's bits."""
+    valid_host = np.ones((1,), bool)
+    all_valid = (True,)
+    lead = ()
+
+    def __init__(self, tables, counter):
+        self.tables = tables
+        self.counter = counter
+
+    def at(self, j):
+        return tuple(t.index_select(0, self.counter) for t in self.tables)
+
+
 def fleet_schedule(step0, valid, device, b1=0.9, b2=0.999, stabilize=None):
     """The :class:`FleetSchedule` of a pass whose signals stand at steps
     ``step0`` (S,) and take the steps where ``valid`` (n, S) is True."""

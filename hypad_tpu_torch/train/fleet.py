@@ -37,8 +37,11 @@ generator step issues about the launches of one signal's.
 
 Not ported, on purpose: JAX's ``SINGLE_EPOCH_MAX_S`` slicing
 (``_single_epoch_sliced``) works round a v5e code-generation fault that no
-CUDA launch has, and ``epochs_per_call`` fuses epochs into one XLA program,
-which changes no number; the port runs epoch by epoch.
+CUDA launch has. JAX's ``epochs_per_call`` (epochs fused into one program,
+the metrics read once a chunk) is ported for the single model
+(``trainer.train_tadgan``, whose steps are replayed CUDA graphs on the card,
+``train/graphed.py``); the fleet still runs epoch by epoch, eagerly, and
+takes it next.
 """
 
 from __future__ import annotations

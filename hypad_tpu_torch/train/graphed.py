@@ -1,0 +1,367 @@
+"""The training epoch as two captured step graphs, replayed on the card.
+
+Port of JAX's compiled epoch: ``hypad_tpu.train.trainer`` ``build_epoch_fn``
+jits one epoch into one device program and ``build_multi_epoch_fn`` fuses
+``epochs_per_call`` of them with ``lax.scan``, so the host reads the metrics
+once a chunk. Here an epoch is two step bodies, each written once:
+
+* the critic step (:meth:`EpochProgram.critic_step`): the batch and the
+  step's draws gathered through a device step counter, the step of the
+  chosen ``fused_critics`` path (K5, the generator forwards then K4, or the
+  autograd step), then both critics' Adam updates; ``5 * nb`` of them an
+  epoch;
+* the generator step (:meth:`EpochProgram.generator_step`): autograd of
+  ``generator_loss`` (K1 twice when hyperbolic), then Riemannian Adam (or
+  Adam); ``nb`` of them an epoch.
+
+On a CUDA device each body is captured once into a ``torch.cuda.CUDAGraph``
+and replayed every step. Every value a body reads or writes lies in static
+storage the program owns: one epoch's draws (copied in before the epoch's
+replays), the two step counters, the optimizers' coefficient tables (one
+row a step, as ``optim.radam.fleet_schedule`` makes them, read through
+``DeviceStep``), the moments (written back in place after each update) and
+the per-step loss rows, whose means are the epoch's metrics, as
+``trainer.run_epoch`` reduces them. The parameters are updated in place.
+The first steps of the first epoch a program runs are warm-up steps, run
+eagerly on a side stream: they are real steps, counted in the step counter
+and the schedule, and the capture that follows runs nothing. A capture or
+a replay that fails raises; nothing goes back to the eager epoch.
+
+On the CPU the same bodies run eagerly, with no capture, so the CPU tests
+hold the very code the card captures against ``trainer.run_epoch``, which
+stays as it was (the mesh path uses it).
+
+A replay runs no Python, so the kernel wrappers' launch counters
+(``.launches``, ``.wide_launches``, ``.xwide_launches``) are advanced after
+each pass by what each graph captured, times its replays: the counts are
+those of the eager epoch.
+
+Each graph holds the addresses of the model's parameters and of ``X``: a
+program is made for one model, one ``X`` storage and one configuration.
+``trainer.train_tadgan`` keeps the card's program in the ``TrainState``
+(:func:`program_for`), so a later call with that state on the same
+windows replays the same graphs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from hypad_tpu_torch.optim.radam import DeviceStep
+from hypad_tpu_torch.train.losses import N_CRITICS, generator_loss
+from hypad_tpu_torch.train.trainer import (
+    CRITIC_DRAWS,
+    _critic_step,
+    check_fused_critics,
+    critic_params,
+    gen_params,
+    make_fleet_optimizers,
+)
+
+WARMUP_STEPS = 3       # eager steps on a side stream before each capture
+METRICS = ("critic_x_loss", "critic_z_loss", "decoder_loss", "rec_loss")
+_TABLES = ("bc1", "inv1", "bc2", "inv2", "stab")
+
+
+def chunk_sizes(start_epoch, n_epochs, epochs_per_call):
+    """The epochs of each chunk from ``start_epoch`` to ``n_epochs``, as
+    JAX's ``train_tadgan`` cuts them (hypad_tpu/train/trainer.py:611-621):
+    a chunk ends at every multiple of 10 and at ``n_epochs - 1``, where the
+    checkpoints fall, and holds at most ``epochs_per_call`` epochs."""
+    sizes, e = [], start_epoch
+    while e < n_epochs:
+        nxt = min((e // 10 + 1) * 10, n_epochs)
+        if e < n_epochs - 1 < nxt:
+            nxt = n_epochs - 1
+        nxt = min(nxt, e + max(epochs_per_call, 1))
+        sizes.append(nxt - e)
+        e = nxt
+    return sizes
+
+
+def _counted_wrappers():
+    """Every kernel wrapper with launch counters."""
+    from hypad_tpu_torch.manifold.kernels import mobius_linear_kernel
+    from hypad_tpu_torch.ops.kde_kernel import (
+        kde_argmax_kernel,
+        kde_argmax_v2_kernel,
+    )
+    from hypad_tpu_torch.train.critic_kernel import (
+        critic_step_fused_full,
+        critics_fused_grads,
+    )
+
+    return (mobius_linear_kernel, kde_argmax_kernel, kde_argmax_v2_kernel,
+            critics_fused_grads, critic_step_fused_full)
+
+
+_COUNTERS = ("launches", "wide_launches", "xwide_launches")
+
+
+def _read_counters():
+    return {(fn, c): getattr(fn, c) for fn in _counted_wrappers()
+            for c in _COUNTERS}
+
+
+def _store_moments(dst, new):
+    """Write an update's new moments into the static ones ``dst``."""
+    if isinstance(dst.mu, dict):
+        names = list(dst.mu)
+        torch._foreach_copy_([dst.mu[n] for n in names],
+                             [new.mu[n] for n in names])
+        torch._foreach_copy_([dst.nu[n] for n in names],
+                             [new.nu[n] for n in names])
+    else:
+        dst.mu.copy_(new.mu)
+        dst.nu.copy_(new.nu)
+
+
+def _clone_moments(moments):
+    if isinstance(moments, dict):
+        return {n: v.clone() for n, v in moments.items()}
+    return moments.clone()
+
+
+class _Pass:
+    """One step body's static state: its optimizers, their moments and
+    coefficient tables, its step counter, its loss rows and (on the card)
+    its captured graph with the launches it holds."""
+
+    def __init__(self, body, n_steps, device, opts, rows):
+        self.body = body
+        self.n_steps = n_steps
+        self.opts = opts                      # [(optimizer, params, name)]
+        self.counter = torch.zeros(1, dtype=torch.int64, device=device)
+        self.rows = {name: torch.empty(n_steps, dtype=torch.float32,
+                                       device=device) for name in rows}
+        self.moments = {}                     # name -> static opt state
+        self.tables = {}                      # name -> (bc1, ..., stab)
+        self.graph = None
+        self.launches = {}                    # (wrapper, counter) -> n
+
+
+class EpochProgram:
+    """The two step bodies of one model on one ``X`` and their static
+    state; :meth:`run` trains epochs from given draws. ``X`` (N, W)
+    float32 on the model's device."""
+
+    def __init__(self, model, X, *, lr, hyperbolic, batch_size,
+                 fused_critics):
+        check_fused_critics(fused_critics)
+        nb = X.shape[0] // batch_size
+        if nb < 1:
+            raise ValueError(f"{X.shape[0]} windows make no batch of "
+                             f"{batch_size}")
+        self.model, self.X = model, X
+        self.lr, self.hyperbolic = lr, hyperbolic
+        self.batch_size, self.fused_critics = batch_size, fused_critics
+        self.device = X.device
+        self.capture = self.device.type == "cuda"
+        opt_cx, opt_cz, opt_gen = make_fleet_optimizers(lr, hyperbolic)
+        self.critic = _Pass(self.critic_step, N_CRITICS * nb, self.device,
+                            [(opt_cx, critic_params(model["critic_x"],
+                                                    "critic_x"), "opt_cx"),
+                             (opt_cz, critic_params(model["critic_z"],
+                                                    "critic_z"), "opt_cz")],
+                            ("lx", "lz"))
+        self.generator = _Pass(self.generator_step, nb, self.device,
+                               [(opt_gen, gen_params(model), "opt_gen")],
+                               ("loss", "rec"))
+        self.draws = None
+
+    def key(self):
+        """What the graphs hold the addresses of, and the configuration
+        they were captured for."""
+        return _key(self.model, self.X, self.lr, self.hyperbolic,
+                    self.batch_size, self.fused_critics)
+
+    # ------------------------------------------------------------------
+    # the step bodies: what the card captures, and the CPU runs eagerly
+    # ------------------------------------------------------------------
+
+    def _pick(self, name, counter):
+        """Row ``counter`` of the epoch's draw ``name``, gathered on the
+        device."""
+        return self.draws[name].index_select(0, counter)[0]
+
+    def _update(self, p, grads_by_opt):
+        for (opt, params, name), grads in zip(p.opts, grads_by_opt):
+            new = opt.update(grads, p.moments[name], params,
+                             DeviceStep(p.tables[name], p.counter), 0)
+            _store_moments(p.moments[name], new)
+
+    def critic_step(self):
+        p = self.critic
+        s = p.counter
+        x = self.X.index_select(0, self._pick("critic_idx", s))
+        d = {k: self._pick(k, s) for k in CRITIC_DRAWS}
+        lx, lz, gx, gz = _critic_step(self.model, x, d, self.hyperbolic,
+                                      self.fused_critics)
+        self._update(p, (gx, gz))
+        p.rows["lx"].index_copy_(0, s, lx.reshape(1))
+        p.rows["lz"].index_copy_(0, s, lz.reshape(1))
+        s.add_(1)
+
+    def generator_step(self):
+        p = self.generator
+        s = p.counter
+        _, params, _ = p.opts[0]
+        x = self.X.index_select(0, self._pick("gen_idx", s))
+        masks = {"m_cx": self._pick("gen_m_cx", s),
+                 "m_cz": self._pick("gen_m_cz", s),
+                 "m_dec": self._pick("gen_m_dec", s)}
+        with torch.enable_grad():
+            loss, rec = generator_loss(self.model, x, self.hyperbolic,
+                                       self._pick("gen_z", s), masks)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        self._update(p, (dict(zip(params, grads)),))
+        p.rows["loss"].index_copy_(0, s, loss.detach().reshape(1))
+        p.rows["rec"].index_copy_(0, s, rec.detach().reshape(1))
+        s.add_(1)
+
+    # ------------------------------------------------------------------
+    # the host side: static state in and out, capture, replays
+    # ------------------------------------------------------------------
+
+    def _load_state(self, state):
+        """The state's moments into the static ones, and its step counts."""
+        steps = {}
+        for p in (self.critic, self.generator):
+            for _, _, name in p.opts:
+                st = getattr(state, name)
+                if name not in p.moments:
+                    p.moments[name] = dataclasses.replace(
+                        st, mu=_clone_moments(st.mu),
+                        nu=_clone_moments(st.nu))
+                else:
+                    _store_moments(p.moments[name], st)
+                steps[name] = int(st.step)
+        return steps
+
+    def _unload_state(self, state, steps):
+        """Copies of the static moments, and the step counts, into
+        ``state``."""
+        for p in (self.critic, self.generator):
+            for _, _, name in p.opts:
+                m = p.moments[name]
+                setattr(state, name, dataclasses.replace(
+                    m, step=steps[name], mu=_clone_moments(m.mu),
+                    nu=_clone_moments(m.nu)))
+
+    def _load_epoch(self, draws, steps):
+        """One epoch's draws and coefficient tables into the static
+        buffers (on the CPU, the tensors themselves), the counters to 0."""
+        if self.capture:
+            if self.draws is None:
+                self.draws = {k: torch.empty(v.shape, dtype=v.dtype,
+                                             device=self.device)
+                              for k, v in draws.items()}
+            for k, v in draws.items():
+                self.draws[k].copy_(v)
+        else:
+            self.draws = {k: v.to(self.device) for k, v in draws.items()}
+        for p in (self.critic, self.generator):
+            p.counter.zero_()
+            valid = np.ones((p.n_steps, 1), bool)
+            for opt, _, name in p.opts:
+                st = p.moments[name]
+                sched = opt.schedule(dataclasses.replace(
+                    st, step=np.asarray([steps[name]], np.int64)), valid)
+                tables = tuple(getattr(sched, t) for t in _TABLES)
+                if self.capture and name in p.tables:
+                    for dst, src in zip(p.tables[name], tables):
+                        dst.copy_(src)
+                else:
+                    p.tables[name] = tables
+                steps[name] += p.n_steps
+
+    def _run_pass(self, p):
+        if not self.capture:
+            for _ in range(p.n_steps):
+                p.body()
+            return
+        done = 0
+        if p.graph is None:
+            done = min(WARMUP_STEPS, p.n_steps)
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                for _ in range(done):
+                    p.body()
+            main.wait_stream(side)
+            self._capture(p)
+        for _ in range(p.n_steps - done):
+            p.graph.replay()
+        for (fn, c), n in p.launches.items():
+            setattr(fn, c, getattr(fn, c) + n * (p.n_steps - done))
+
+    def _capture(self, p):
+        """Capture ``p``'s body (which runs nothing) and what it launches;
+        the wrappers' counters are left as they were."""
+        before = _read_counters()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                p.body()
+        finally:
+            after = _read_counters()
+            for (fn, c), n in before.items():
+                setattr(fn, c, n)
+        p.launches = {key: after[key] - n for key, n in before.items()
+                      if after[key] != n}
+        p.graph = graph
+
+    def run(self, state, draws_by_epoch):
+        """Train ``state`` (whose model is this program's) one epoch for
+        each draws dict that ``draws_by_epoch`` yields (as
+        ``trainer.epoch_draws`` makes them; it is advanced only once the
+        previous epoch's replays are enqueued, so the host makes the next
+        draws while the card runs). Updates ``state`` in place; returns
+        one metrics dict an epoch, read from the device in one copy."""
+        if state.model is not self.model:
+            raise ValueError("EpochProgram.run: the state's model is not "
+                             "the program's")
+        steps = self._load_state(state)
+        means = []
+        draws_iter = iter(draws_by_epoch)
+        draws = next(draws_iter, None)
+        while draws is not None:
+            self._load_epoch(draws, steps)
+            self._run_pass(self.critic)
+            self._run_pass(self.generator)
+            state.epoch += 1
+            draws = next(draws_iter, None)
+            rows = (self.critic.rows["lx"], self.critic.rows["lz"],
+                    self.generator.rows["loss"], self.generator.rows["rec"])
+            means.append(torch.stack([r.mean() for r in rows]))
+        self._unload_state(state, steps)
+        if not means:
+            return []
+        return [dict(zip(METRICS, m))
+                for m in torch.stack(means).cpu().tolist()]
+
+
+def _key(model, X, lr, hyperbolic, batch_size, fused_critics):
+    return (tuple(p.data_ptr() for p in model.parameters()), X.data_ptr(),
+            tuple(X.shape), tuple(X.stride()), str(X.device), float(lr),
+            bool(hyperbolic), int(batch_size), str(fused_critics))
+
+
+def program_for(state, X, *, lr, hyperbolic, batch_size, fused_critics):
+    """The :class:`EpochProgram` of ``state``'s model on ``X``: on the card
+    the one kept in ``state.program`` if it was made for the same model,
+    parameter and ``X`` storage and configuration (its graphs hold their
+    addresses), else a new one, kept there; on the CPU a new one."""
+    prog = state.program
+    if (prog is not None and prog.model is state.model
+            and prog.key() == _key(state.model, X, lr, hyperbolic,
+                                   batch_size, fused_critics)):
+        return prog
+    prog = EpochProgram(state.model, X, lr=lr, hyperbolic=hyperbolic,
+                        batch_size=batch_size, fused_critics=fused_critics)
+    state.program = prog if prog.capture else None
+    return prog

@@ -46,7 +46,7 @@ signal trains exactly its single-model schedule.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -89,12 +89,16 @@ GEN_DRAWS = ("gen_idx", "gen_z", "gen_m_cx", "gen_m_cz", "gen_m_dec")
 
 @dataclass
 class TrainState:
-    """The model (updated in place) and the three optimizer states."""
+    """The model (updated in place) and the three optimizer states.
+    ``program``: on the card, the captured epoch (``train/graphed.py``)
+    of the last :func:`train_tadgan` call, which the next call on the same
+    model and windows replays."""
     model: Any       # nn.ModuleDict: encoder, decoder, critic_x, critic_z
     opt_cx: Any
     opt_cz: Any
     opt_gen: Any
     epoch: int
+    program: Any = field(default=None, repr=False, compare=False)
 
 
 def gen_params(model):
@@ -192,6 +196,14 @@ _MESH_FUSED = ("fused_critics is a single-device path (the megakernel is not "
                "when training over multiple devices")
 
 
+def check_fused_critics(fused_critics):
+    """``fused_critics`` is one of the three paths, or ValueError."""
+    if not (fused_critics == "full" or fused_critics is True
+            or fused_critics is False):
+        raise ValueError('fused_critics must be "full", True or False, '
+                         f"got {fused_critics!r}")
+
+
 def check_mesh_fused(fused_critics, mesh):
     """JAX's guard: a truthy ``fused_critics`` on a mesh of more than one
     device raises (hypad_tpu/train/trainer.py:296-300)."""
@@ -215,10 +227,7 @@ def critic_pass(state, X, d, *, lr, hyperbolic, fused_critics=False,
     ``d["critic_idx"]``, each followed by the two critics' Adam updates.
     ``d`` holds the epoch's draws on X's device. Returns the per-step
     (lx, lz) as two lists of 0-d tensors."""
-    if not (fused_critics == "full" or fused_critics is True
-            or fused_critics is False):
-        raise ValueError('fused_critics must be "full", True or False, '
-                         f"got {fused_critics!r}")
+    check_fused_critics(fused_critics)
     check_mesh_fused(fused_critics, mesh)
     model = state.model
     opt_cx, opt_cz, _ = make_optimizers(lr, hyperbolic)
@@ -289,21 +298,38 @@ def epoch_generator(seed, epoch):
 
 def train_tadgan(model, X, *, lr, hyperbolic, batch_size, n_epochs, seed=0,
                  device="cuda", fused_critics=False, log_cb=None,
-                 checkpoint_cb=None, mesh=None):
+                 checkpoint_cb=None, mesh=None, start_epoch=None,
+                 epochs_per_call=10):
     """Train ``model`` (an ``init_tadgan`` ModuleDict, or a
     :class:`TrainState` to resume) on windows ``X`` (N, W) for the epochs
-    from its ``epoch`` up to ``n_epochs``. ``log_cb(epoch, metrics)`` fires
-    after every epoch; ``checkpoint_cb(epoch, state)`` after every 10th and
-    after epoch ``n_epochs - 1``. Returns the final :class:`TrainState`.
-    The model must lie on ``device``; a CUDA device without CUDA raises.
-    ``X`` may be numpy or a tensor; a float32 tensor on ``device`` is used
-    as it is, without a copy.
+    from ``start_epoch`` up to ``n_epochs``. Returns the final
+    :class:`TrainState`. The model must lie on ``device``; a CUDA device
+    without CUDA raises. ``X`` may be numpy or a tensor; a float32 tensor
+    on ``device`` is used as it is, without a copy.
 
-    ``mesh``: data parallelism over its ``dp`` devices (the module
-    docstring); ``device`` is then its lead device. The draws are the
-    unsharded run's, split by rows. A truthy ``fused_critics`` on a mesh
-    of more than one device raises JAX's ``ValueError`` before anything
-    else."""
+    JAX's chunks and cadence (hypad_tpu/train/trainer.py:595-652): the
+    epochs run in chunks of at most ``epochs_per_call``, each ending at
+    every multiple of 10 and at epoch ``n_epochs - 1``. After a chunk its
+    metrics come off the device in one copy, ``log_cb(epoch, metrics)``
+    fires for each of its epochs, and ``checkpoint_cb(epoch, state)`` fires
+    where the chunk ends at a multiple of 10 or at ``n_epochs - 1``.
+    ``start_epoch`` starts that epoch counter, as in JAX; it defaults to
+    the state's ``epoch``. ``state.epoch`` counts the epochs run in the
+    state. Epoch e's draws come from ``epoch_generator(seed, e)`` of this
+    counter, so, unlike JAX's keys (made a chunk), they and every number of
+    the run do not depend on ``epochs_per_call``; the port's draws were
+    never JAX's bits (the tests inject JAX's where they compare numbers).
+
+    With no mesh, or a mesh of one device, a chunk's epochs run the two
+    step bodies of ``train/graphed.py``: on the card each captured once as
+    a CUDA graph and replayed every step, on the CPU eagerly. On a mesh of
+    more than one device each epoch is :func:`run_epoch`, eager, its rows
+    split over the mesh's ``dp`` devices (the module docstring); ``device``
+    is then its lead device, and the draws are the unsharded run's, split
+    by rows. A truthy ``fused_critics`` on a mesh of more than one device
+    raises JAX's ``ValueError`` before anything else."""
+    from hypad_tpu_torch.train import graphed
+
     check_mesh_fused(fused_critics, mesh)
     device = resolve_device(device, mesh)
     state = (model if isinstance(model, TrainState)
@@ -314,17 +340,33 @@ def train_tadgan(model, X, *, lr, hyperbolic, batch_size, n_epochs, seed=0,
                          f"not on {device}")
     X = (X.to(device, torch.float32) if torch.is_tensor(X)
          else torch.as_tensor(np.asarray(X, np.float32), device=device))
-    while state.epoch < n_epochs:
-        draws = epoch_draws(epoch_generator(seed, state.epoch), X.shape[0],
-                            batch_size, state.model)
-        state, metrics = run_epoch(state, X, draws, lr=lr,
-                                   hyperbolic=hyperbolic,
-                                   fused_critics=fused_critics, mesh=mesh)
+    epoch = state.epoch if start_epoch is None else start_epoch
+    chunks = graphed.chunk_sizes(epoch, n_epochs, epochs_per_call)
+    sharded = mesh is not None and mesh.size > 1
+    program = None if sharded or not chunks else graphed.program_for(
+        state, X, lr=lr, hyperbolic=hyperbolic, batch_size=batch_size,
+        fused_critics=fused_critics)
+
+    def draws(e):
+        return epoch_draws(epoch_generator(seed, e), X.shape[0], batch_size,
+                           state.model)
+
+    for chunk in chunks:
+        if sharded:
+            metrics = [run_epoch(state, X, draws(epoch + j), lr=lr,
+                                 hyperbolic=hyperbolic,
+                                 fused_critics=fused_critics, mesh=mesh)[1]
+                       for j in range(chunk)]
+        else:
+            metrics = program.run(state, (draws(epoch + j)
+                                          for j in range(chunk)))
         if log_cb is not None:
-            log_cb(state.epoch, metrics)
-        if checkpoint_cb is not None and (state.epoch % 10 == 0
-                                          or state.epoch == n_epochs - 1):
-            checkpoint_cb(state.epoch, state)
+            for j, m in enumerate(metrics):
+                log_cb(epoch + j + 1, m)
+        epoch += chunk
+        if checkpoint_cb is not None and (epoch % 10 == 0
+                                          or epoch == n_epochs - 1):
+            checkpoint_cb(epoch, state)
     return state
 
 
@@ -442,10 +484,7 @@ def fleet_epoch_device(state, Xs, n_real, draws, *, lr, hyperbolic,
     """:func:`run_fleet_epoch` without reading its result: returns
     ``(state, means)``, the (4, S) means still on the device, so a caller
     can enqueue several devices' epochs before it waits for any."""
-    if not (fused_critics == "full" or fused_critics is True
-            or fused_critics is False):
-        raise ValueError('fused_critics must be "full", True or False, '
-                         f"got {fused_critics!r}")
+    check_fused_critics(fused_critics)
     B = draws["critic_idx"].shape[-1]
     valid_c, valid_g = fleet_valid(n_real, B, draws["gen_idx"].shape[1])
     # step-major on the device, so each step's slice is contiguous
