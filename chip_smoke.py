@@ -108,7 +108,20 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    within 1e-3 / 1e-4 of the CPU's from the same weights and draws; warm
    fleet epochs at S = 1, 3 and
    9 (host seconds, all device launches an epoch under torch.profiler)
-   beside a warm single-model epoch; ``detect_scores_fleet`` of 9 signals
+   beside a warm single-model epoch; the graphed fleet epoch
+   (``train_fleet``'s default on the card, each fleet step a replayed
+   CUDA graph, K5, K4 and K1 inside with their signal axis): 3 epochs with
+   ``epochs_per_call=2`` (a chunk boundary inside) against 3 eager
+   ``fleet_epoch_device`` epochs from the same weights and draws, at S = 3
+   under every ``fused_critics`` value (hyperbolic), S = 3 ``"full"``
+   Euclidean, a ragged fleet of 1,320, 1,000 and 640 windows and S = 9
+   ``"full"``: parameters, moments, per-signal step counters and per-epoch
+   metrics bitwise, every kernel's launches equal; then warm graphed
+   epochs at S = 1, 3 and 9, one epoch a call and within a 4-epoch call,
+   with the per-signal draws on ``trainer.DRAW_THREADS`` threads and on
+   one in turns, the draws alone both ways, and the profiler's device launches,
+   device ms and busy share, beside the card's name and power limit;
+   ``detect_scores_fleet`` of 9 signals
    (K1 2, K2 1), each signal's intervals, confusion, F1 and zero and NaN
    positions those of its own ``detect_scores`` call on the card and of
    the CPU's ``detect_scores_fleet``, then timed against 9
@@ -1436,6 +1449,221 @@ def fleet_epoch_timing(device, X):
     return out
 
 
+# the graphed fleet cases of [fleet]: (tag, hyperbolic, fused_critics,
+# window counts); each S = 3 unless its counts say otherwise
+FLEET_GRAPH_CASES = (
+    ("s3_hyper_full", True, "full", (1320,) * 3),
+    ("s3_hyper_true", True, True, (1320,) * 3),
+    ("s3_hyper_false", True, False, (1320,) * 3),
+    ("s3_eucl_full", False, "full", (1320,) * 3),
+    ("ragged_1320_1000_640_hyper_full", True, "full", (1320, 1000, 640)),
+    ("s9_hyper_full", True, "full", (1320,) * 9),
+)
+
+
+def fleet_state_tensors(states):
+    """{name: tensor} of a FleetState's parameters and optimizer moments."""
+    out = {f"params.{k}": v for k, v in states.params.items()}
+    for name in ("opt_cx", "opt_cz", "opt_gen"):
+        opt = getattr(states, name)
+        for m in ("mu", "nu"):
+            moments = getattr(opt, m)
+            items = (moments.items() if isinstance(moments, dict)
+                     else [("", moments)])
+            out.update({f"{name}.{m}.{k}": v for k, v in items})
+    return out
+
+
+def fleet_graph_case(device, X, tag, hyperbolic, mode, lens, n_epochs=3,
+                     epochs_per_call=2):
+    """``n_epochs`` of ``train_fleet`` (the graphed fleet epoch, chunks of
+    ``epochs_per_call``, so a chunk boundary falls inside) on the first
+    ``lens[i]`` windows of ``X`` for signal i (seed i), against as many
+    eager ``fleet_epoch_device`` epochs from the same weights and draws:
+    parameters, moments, per-signal step counters, per-epoch metrics and
+    kernel launches must be equal, bit for bit. Returns a record."""
+    import numpy as np
+    import torch
+
+    from hypad_tpu_torch.data.pipeline import A1_BATCH_SIZE as TRAIN_BATCH
+    from hypad_tpu_torch.train import fleet as fl
+    from hypad_tpu_torch.train import trainer as tr
+
+    S, seeds = len(lens), list(range(len(lens)))
+    X_list = [X[:n] for n in lens]
+
+    def init():
+        return fl.init_fleet_state(fleet_models(device, S, hyperbolic),
+                                   TRAIN_LR, hyperbolic)
+
+    Xs, n_real = fl.pad_and_stack(X_list)
+    Xs = torch.as_tensor(Xs, device=device)
+    eager, eager_logs = init(), []
+    read = zero_counters()
+    t0 = time.perf_counter()
+    for e in range(n_epochs):
+        draws = tr.fleet_epoch_draws(seeds, e, n_real, TRAIN_BATCH,
+                                     eager.params)
+        eager, means = tr.fleet_epoch_device(
+            eager, Xs, n_real, draws, lr=TRAIN_LR, hyperbolic=hyperbolic,
+            fused_critics=mode)
+        eager_logs.append(tr.fleet_metrics(means.cpu().numpy()))
+    eager_s = time.perf_counter() - t0
+    eager_counts = read()
+
+    logs = []
+    read = zero_counters()
+    t0 = time.perf_counter()
+    graphed = fl.train_fleet(init(), X_list, lr=TRAIN_LR,
+                             hyperbolic=hyperbolic, batch_size=TRAIN_BATCH,
+                             n_epochs=n_epochs, seeds=seeds, device=device,
+                             fused_critics=mode,
+                             epochs_per_call=epochs_per_call,
+                             log_cb=lambda e, m: logs.append(m))
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    counts = read()
+
+    got, want = fleet_state_tensors(graphed), fleet_state_tensors(eager)
+    differ = {k: (got[k] - want[k]).abs().max().item() for k in want
+              if not torch.equal(got[k], want[k])}
+    steps = {n: (getattr(graphed, n).step.tolist(),
+                 getattr(eager, n).step.tolist())
+             for n in ("opt_cx", "opt_cz", "opt_gen")}
+    metrics_equal = len(logs) == len(eager_logs) and all(
+        np.array_equal(g[k], w[k]) for g, w in zip(logs, eager_logs)
+        for k in w)
+    if graphed.program is None:
+        fail(f"[fleet graph] {tag}: train_fleet kept no captured program")
+    print(f"[fleet graph] {tag}: {n_epochs} epochs of train_fleet "
+          f"(epochs_per_call={epochs_per_call}, first call, captures "
+          f"included) {graph_s:.3f} s against {n_epochs} eager "
+          f"fleet_epoch_device {eager_s:.3f} s; tensors differing "
+          f"{len(differ)} of {len(want)}; generator steps "
+          f"{steps['opt_gen'][0]}; kernel launches {counts}")
+    if differ:
+        worst = sorted(differ.items(), key=lambda kv: -kv[1])[:8]
+        fail(f"[fleet graph] {tag}: the graphed epochs differ from the "
+             f"eager ones in {len(differ)} tensors, largest {worst}")
+    if any(a != b for a, b in steps.values()) or graphed.epoch != eager.epoch:
+        fail(f"[fleet graph] {tag}: step counters {steps}, epochs "
+             f"{graphed.epoch} / {eager.epoch}")
+    if not metrics_equal:
+        fail(f"[fleet graph] {tag}: per-epoch metrics {logs} against the "
+             f"eager {eager_logs}")
+    if counts != eager_counts:
+        fail(f"[fleet graph] {tag}: kernel launches {counts} against the "
+             f"eager run's {eager_counts}")
+    return {"graphed_first_call_s": graph_s, "eager_s": eager_s,
+            "launches": counts, "gen_steps": steps["opt_gen"][0],
+            "metrics": [{k: v.tolist() for k, v in m.items()}
+                        for m in logs]}
+
+
+def fleet_graph_timing(device, X, card):
+    """Warm graphed fleet epochs (hyperbolic, "full") at S = 1, 3 and 9 on
+    the A1 windows: ``train_fleet`` one epoch a call (median of 2) and
+    within a 4-epoch call, each with the per-signal draws made on
+    ``trainer.DRAW_THREADS`` threads and on one, in turns; the draws alone
+    both ways (median of 2); and the device launches, device ms and busy
+    share of one more one-epoch call under torch.profiler. Returns the
+    records."""
+    import statistics as stats
+
+    import torch
+
+    from hypad_tpu_torch.data.pipeline import A1_BATCH_SIZE as TRAIN_BATCH
+    from hypad_tpu_torch.train import fleet as fl
+    from hypad_tpu_torch.train import trainer as tr
+
+    threads = tr.DRAW_THREADS
+    out = {"draw_threads": threads, "card": card}
+    for S in FLEET_SIZES:
+        seeds, X_list = list(range(S)), [X] * S
+        n_real = [X.shape[0]] * S
+        state = fl.init_fleet_state(fleet_models(device, S), TRAIN_LR, True)
+
+        def call(n):
+            fl.train_fleet(state, X_list, lr=TRAIN_LR, hyperbolic=True,
+                           batch_size=TRAIN_BATCH, n_epochs=state.epoch + n,
+                           seeds=seeds, device=device, fused_critics="full")
+            torch.cuda.synchronize()
+
+        call(1)                      # the captures
+        program = state.program
+        rec = {}
+        for k in (threads, 1, threads, 1):
+            tr.DRAW_THREADS = k
+            try:
+                for name, n in (("epoch", 1), ("chunked", 4)):
+                    t0 = time.perf_counter()
+                    call(n)
+                    rec.setdefault(f"{name}_s_threads_{k}", []).append(
+                        (time.perf_counter() - t0) / n)
+                t0 = time.perf_counter()
+                tr.fleet_epoch_draws(seeds, state.epoch, n_real,
+                                     TRAIN_BATCH, state.params)
+                rec.setdefault(f"draws_s_threads_{k}", []).append(
+                    time.perf_counter() - t0)
+            finally:
+                tr.DRAW_THREADS = threads
+        if state.program is not program:
+            fail(f"[fleet graph] S={S}: a later train_fleet call made a new "
+                 f"program")
+        launches, device_ms, wall_ms = device_work(lambda: call(1),
+                                                   required=False)
+        rec = {**{f"{k}_median": stats.median(v) for k, v in rec.items()},
+               "runs": rec, "device_launches": launches,
+               "device_ms": device_ms,
+               "busy_share": None if device_ms is None else
+               device_ms / wall_ms,
+               "graph_replays_an_epoch": (tr.N_CRITICS + 1)
+               * (X.shape[0] // TRAIN_BATCH)}
+        out[S] = rec
+        print(f"[fleet graph] warm graphed fleet epoch S={S}, draws on "
+              f"{threads} threads / on one: one epoch a call "
+              f"{rec[f'epoch_s_threads_{threads}_median']:.4f} / "
+              f"{rec['epoch_s_threads_1_median']:.4f} s, within a 4-epoch "
+              f"call {rec[f'chunked_s_threads_{threads}_median']:.4f} / "
+              f"{rec['chunked_s_threads_1_median']:.4f} s an epoch, the "
+              f"draws alone {rec[f'draws_s_threads_{threads}_median']:.4f} / "
+              f"{rec['draws_s_threads_1_median']:.4f} s; device launches an "
+              f"epoch (profiler) {launches}, device ms {device_ms}, busy "
+              f"share {rec['busy_share']}; {rec['graph_replays_an_epoch']} "
+              f"graph replays an epoch ({card})")
+    return out
+
+
+def phase_fleet_graph(device, card):
+    """[fleet]'s graphed cases: ``train_fleet`` (each fleet step a
+    replayed CUDA graph) against eager ``fleet_epoch_device`` epochs, bit
+    for bit, for every case of ``FLEET_GRAPH_CASES``, then the warm graphed
+    epoch's timing. Returns ({path: launches}, info)."""
+    from hypad_tpu_torch.data.pipeline import (
+        A1_WINDOWS,
+        synthetic_detect_input,
+    )
+
+    X, _, _ = synthetic_detect_input(A1_WINDOWS, WIDTH, anomaly_len=50,
+                                     seed=SEED)
+    paths, cases = {}, {}
+    t0 = time.perf_counter()
+    for name, hyperbolic, mode, lens in FLEET_GRAPH_CASES:
+        counts = "/".join(str(n) for n in dict.fromkeys(lens))
+        geometry = "hyper" if hyperbolic else "eucl"
+        tag = f"S={len(lens)} ({counts} windows) {geometry} " \
+              f"fused_critics={mode!r}"
+        rec = fleet_graph_case(device, X, tag, hyperbolic, mode, lens)
+        cases[tag] = rec
+        paths[f"fleet_graph_{name}_3_epochs"] = rec["launches"]
+    print(f"[fleet graph] every graphed fleet run bitwise its eager run "
+          f"({card}); {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    timing = fleet_graph_timing(device, X, card)
+    print(f"[time] fleet graphed epochs: {time.perf_counter() - t0:.1f} s")
+    return paths, {"cases": cases, "timing": timing}
+
+
 def detection_of(scores, index, known):
     """detect_univariate's result dict for ``scores`` computed elsewhere:
     the intervals on ``index``, the confusion and the metrics."""
@@ -1544,11 +1772,12 @@ def fleet_detect_timing(device):
     return rec
 
 
-def phase_fleet(device, libs):
+def phase_fleet(device, libs, card):
     """[fleet]: the signal-axis kernels, a 2-epoch hyperbolic seed band
     (S = 3) against ``train_tadgan(seed=i)`` on the card, one ragged fleet
-    epoch against the CPU's, and the fleet's epoch and detection timing.
-    Returns what it saw."""
+    epoch against the CPU's, the fleet's eager epoch timing, the graphed
+    fleet epoch against the eager one (``phase_fleet_graph``) and the
+    fleet's detection timing. Returns what it saw."""
     import numpy as np
     import torch
 
@@ -1610,8 +1839,10 @@ def phase_fleet(device, libs):
     t0 = time.perf_counter()
     epochs = fleet_epoch_timing(device, X)
     print(f"[time] fleet epochs: {time.perf_counter() - t0:.1f} s")
+    graph_paths, graph = phase_fleet_graph(device, card)
     detect = fleet_detect_timing(device)
     return {"kernels": kernels, "band_launches": launches,
+            "graph_paths": graph_paths, "graph": graph,
             "k1_detect_shape": kernels.pop("mobius_linear_detect_shape"),
             "band_first_call_s": seconds, "band_max_diff": worst,
             "band_logs": [{k: v.tolist() for k, v in m.items()}
@@ -4889,7 +5120,7 @@ def main():
     eucl_train = timed(phase_eucl_train, device)
     graph_paths, graph_info = timed(phase_graph, device, card)
     cli_paths, cli_info = timed(phase_cli, device, card)
-    fleet = timed(phase_fleet, device, libs)
+    fleet = timed(phase_fleet, device, libs, card)
     sweep_launches, sweep_grid_launches, sweep_info, grid_scores = timed(
         phase_sweep, device, card)
     mv_paths, mv_info = timed(phase_mv, device, card)
@@ -4918,6 +5149,7 @@ def main():
              "detect_euclidean_trained": eucl_train["detect_launches"],
              **graph_paths, **cli_paths,
              "fleet_seed_band_S3_2_epochs": fleet["band_launches"],
+             **fleet["graph_paths"],
              "fleet_detect_S9": fleet["detect"]["launches"],
              "sweep_nab_9_signals_1_epoch": sweep_launches,
              "sweep_nab_9_signals_grid_detect_only": sweep_grid_launches,

@@ -190,6 +190,29 @@ class DeviceStep:
         return tuple(t.index_select(0, self.counter) for t in self.tables)
 
 
+class DeviceFleetStep(DeviceStep):
+    """:class:`DeviceStep` for a fleet: row ``counter`` of a pass's (n, S)
+    tables and of its ``valid`` (n, S) bool mask, all on the device.
+    Every update takes the masked form with the device row (``all_valid``
+    is never true): a graph captured on a step that every signal takes
+    must still mask a ragged signal's skipped steps on later replays, and
+    ``where(True, new, old)`` is ``new`` bit for bit. ``valid_host`` is
+    zeros, so an update leaves the state's step counters as they are: the
+    caller advances them by the pass's ``valid.sum(0)``."""
+    all_valid = (False,)
+
+    def __init__(self, tables, valid, counter):
+        super().__init__(tables, counter)
+        self.valid_rows = valid
+        self.lead = tuple(valid.shape[1:])
+        self.valid_host = np.zeros((1,) + self.lead, np.int64)
+
+    @property
+    def valid(self):
+        """(1, S): row 0 is the counter's step's mask."""
+        return self.valid_rows.index_select(0, self.counter)
+
+
 def fleet_schedule(step0, valid, device, b1=0.9, b2=0.999, stabilize=None):
     """The :class:`FleetSchedule` of a pass whose signals stand at steps
     ``step0`` (S,) and take the steps where ``valid`` (n, S) is True."""

@@ -19,9 +19,17 @@ generator step issues about the launches of one signal's.
   past its own schedule are no-ops, so every signal trains its own
   single-model schedule; a signal with ``n_real = 0`` comes back
   unchanged.
-* :func:`train_fleet` keeps JAX's checkpoint cadence (every 10th epoch and
-  epoch ``n_epochs - 1``, where its chunks end) and its ``log_cb`` /
-  ``checkpoint_cb`` / ``return_staged`` contract.
+* :func:`train_fleet` keeps JAX's chunks and cadence (``epochs_per_call``
+  epochs a chunk, each chunk ending at every 10th epoch and at epoch
+  ``n_epochs - 1``, where the checkpoints fall; the metrics read once a
+  chunk) and its ``log_cb`` / ``checkpoint_cb`` / ``return_staged``
+  contract. With no mesh, or a mesh of one device, a chunk's epochs run
+  the fleet's two step bodies of ``train/graphed.py``
+  (:class:`~hypad_tpu_torch.train.graphed.FleetProgram`): on the card each
+  captured once as a CUDA graph, K5, K4 and K1 inside with their signal
+  axis, and replayed every step; on the CPU eagerly. The card's program is
+  kept in the :class:`FleetState`, so a later call on the same fleet
+  replays the same graphs.
 
 * On a mesh (``parallel/mesh.py``) the SIGNAL axis is sharded over its
   ``dp`` devices with zero collectives: each device trains its slab of
@@ -37,16 +45,13 @@ generator step issues about the launches of one signal's.
 
 Not ported, on purpose: JAX's ``SINGLE_EPOCH_MAX_S`` slicing
 (``_single_epoch_sliced``) works round a v5e code-generation fault that no
-CUDA launch has. JAX's ``epochs_per_call`` (epochs fused into one program,
-the metrics read once a chunk) is ported for the single model
-(``trainer.train_tadgan``, whose steps are replayed CUDA graphs on the card,
-``train/graphed.py``); the fleet still runs epoch by epoch, eagerly, and
-takes it next.
+CUDA launch has.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Any
 
 import numpy as np
 import torch
@@ -55,6 +60,7 @@ from hypad_tpu_torch._device import resolve_device
 from hypad_tpu_torch.bridge import model_from_state_dict
 from hypad_tpu_torch.optim.radam import AdamState, RAdamState
 from hypad_tpu_torch.parallel.mesh import dp_devices, row_slices
+from hypad_tpu_torch.train import graphed
 from hypad_tpu_torch.train.trainer import (
     TrainState,
     check_mesh_fused,
@@ -71,12 +77,16 @@ class FleetState:
 
     ``params``: {state_dict name: (S, ...) tensor}; the optimizer states
     are ``AdamState`` / ``RAdamState`` with (S, ...) moments and (S,) int64
-    numpy step counters; ``epoch`` is the fleet's."""
+    numpy step counters; ``epoch`` is the fleet's. ``program``: on the
+    card, the captured fleet epoch (``train/graphed.py``) of the last
+    :func:`train_fleet` call, which the next call on the same fleet
+    replays."""
     params: dict
     opt_cx: AdamState
     opt_cz: AdamState
     opt_gen: object
     epoch: int
+    program: Any = field(default=None, repr=False, compare=False)
 
     @property
     def n_signals(self):
@@ -215,19 +225,31 @@ def pad_and_stack(X_list, pad_value=0.0, target_len=None):
 
 def train_fleet(states, X_list, *, lr, hyperbolic, batch_size, n_epochs,
                 seed=0, seeds=None, log_cb=None, checkpoint_cb=None,
-                start_epoch=None, ragged=None, return_staged=False,
-                fused_critics=False, mesh=None, canonical=False,
-                device="cuda"):
+                start_epoch=None, epochs_per_call=10, ragged=None,
+                return_staged=False, fused_critics=False, mesh=None,
+                canonical=False, device="cuda"):
     """Train S models jointly, one batched step per fleet step.
 
     ``states``: a :class:`FleetState` on ``device`` (:func:`stack_states`,
     :func:`init_fleet_state`). ``X_list``: S (N_i, W) window arrays (numpy
     or tensors). ``seeds``: one seed per signal (a seed band), each signal
     drawing what ``train_tadgan(seed=seeds[i])`` draws; without it every
-    signal draws from ``seed``. ``log_cb(epoch, metrics)`` gets (S,)
-    metrics after every epoch; ``checkpoint_cb(epoch, states)`` fires at
-    every 10th epoch and at epoch ``n_epochs - 1`` (JAX's chunk ends).
-    ``start_epoch`` defaults to the state's epoch.
+    signal draws from ``seed``.
+
+    JAX's chunks and cadence (hypad_tpu/train/fleet.py:356-413): the
+    epochs run in chunks of at most ``epochs_per_call``, each ending at
+    every multiple of 10 and at epoch ``n_epochs - 1``. After a chunk its
+    metrics come off the device in one copy, ``log_cb(epoch, metrics)``
+    fires for each of its epochs with (S,) numpy metrics, and
+    ``checkpoint_cb(epoch, states)`` fires where the chunk ends at a
+    multiple of 10 or at ``n_epochs - 1``. ``start_epoch`` defaults to the
+    state's epoch; given, it sets the state's epoch. Epoch e's draws are
+    ``fleet_epoch_draws(seeds, e, ...)``, so no number of the run depends
+    on ``epochs_per_call``. With no mesh, or a mesh of one device, the
+    epochs run the fleet's step bodies (``train/graphed.py``
+    ``FleetProgram``; on the card replayed CUDA graphs, on the CPU
+    eagerly); on a mesh of more than one device each epoch runs
+    ``fleet_epoch_device`` slab by slab, eagerly.
 
     ``ragged`` selects nothing here and exists only to keep JAX's
     signature: the port always runs the ragged body, whose draws are each
@@ -300,35 +322,48 @@ def train_fleet(states, X_list, *, lr, hyperbolic, batch_size, n_epochs,
     Xs = torch.as_tensor(Xs_host, device=device)
     if start_epoch is not None:
         states.epoch = start_epoch
-    devs = [device] if mesh is None else dp_devices(mesh)
+    sharded = mesh is not None and mesh.size > 1
+    devs = dp_devices(mesh) if sharded else [device]
     slabs = row_slices(len(n_real), len(devs))
-    parts = ([states] if mesh is None else
-             [slice_state(states, sl, devs[i]) for i, sl in slabs])
-    Xparts = ([Xs] if mesh is None else
-              [Xs[sl].to(devs[i]) for i, sl in slabs])
+    parts = ([slice_state(states, sl, devs[i]) for i, sl in slabs]
+             if sharded else [states])
+    Xparts = [Xs[sl].to(devs[i]) for i, sl in slabs] if sharded else [Xs]
 
     def merged():
-        return parts[0] if mesh is None else concat_states(parts, device)
+        return concat_states(parts, device) if sharded else parts[0]
 
-    while parts[0].epoch < n_epochs:
-        epoch = parts[0].epoch
-        draws = fleet_epoch_draws(seeds, epoch, n_real, batch_size,
-                                  states.params, n_pad=target_len)
-        means = []
+    def draws(e):
+        return fleet_epoch_draws(seeds, e, n_real, batch_size, states.params,
+                                 n_pad=target_len)
+
+    def eager_epoch(e):
+        d, means = draws(e), []
         for k, (_, sl) in enumerate(slabs):
             parts[k], m = fleet_epoch_device(
                 parts[k], Xparts[k], n_real[sl],
-                {name: v[sl] for name, v in draws.items()}, lr=lr,
+                {name: v[sl] for name, v in d.items()}, lr=lr,
                 hyperbolic=hyperbolic, fused_critics=fused_critics)
             means.append(m.to(device))
-        metrics = fleet_metrics(torch.cat(means, dim=1).cpu().numpy())
+        return fleet_metrics(torch.cat(means, dim=1).cpu().numpy())
+
+    epoch = parts[0].epoch
+    chunks = graphed.chunk_sizes(epoch, n_epochs, epochs_per_call)
+    program = None if sharded or not chunks else graphed.fleet_program_for(
+        states, Xs, n_real, lr=lr, hyperbolic=hyperbolic,
+        batch_size=batch_size, fused_critics=fused_critics)
+    for chunk in chunks:
+        if sharded:
+            metrics = [eager_epoch(epoch + j) for j in range(chunk)]
+        else:
+            metrics = program.run(states, (draws(epoch + j)
+                                           for j in range(chunk)))
         if log_cb is not None:
-            log_cb(epoch + 1, metrics)
-        # JAX's chunks end at every 10th epoch and at epoch n - 1, where
-        # its checkpoints fall (hypad_tpu/train/fleet.py:355-366)
-        if checkpoint_cb is not None and ((epoch + 1) % 10 == 0
-                                          or epoch + 1 == n_epochs - 1):
-            checkpoint_cb(epoch + 1, merged())
+            for j, m in enumerate(metrics):
+                log_cb(epoch + j + 1, m)
+        epoch += chunk
+        if checkpoint_cb is not None and (epoch % 10 == 0
+                                          or epoch == n_epochs - 1):
+            checkpoint_cb(epoch, merged())
     states = merged()
     if return_staged:
         return states, (Xs, real_lens)

@@ -46,6 +46,8 @@ signal trains exactly its single-model schedule.
 
 from __future__ import annotations
 
+import functools
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -392,6 +394,16 @@ def fleet_valid(n_real, batch_size, n_steps=None):
     return np.tile(gen, (1, N_CRITICS)), gen
 
 
+# the host threads that make a fleet epoch's per-signal draws (while the
+# card runs the epoch before, under train_fleet)
+DRAW_THREADS = 8
+
+
+@functools.lru_cache(maxsize=None)
+def _draw_pool(threads):
+    return ThreadPoolExecutor(threads, thread_name_prefix="fleet-draws")
+
+
 def fleet_epoch_draws(seeds, epoch, n_real, batch_size, params, n_pad=None):
     """Every draw of one fleet epoch, on the CPU, signal-major (S, steps,
     ...): signal i's are ``epoch_draws(epoch_generator(seeds[i], epoch),
@@ -404,17 +416,29 @@ def fleet_epoch_draws(seeds, epoch, n_real, batch_size, params, n_pad=None):
     are then ``epoch_draws(..., n_pad, batch_size, params,
     n_real=n_real[i])``, masked shuffles over the padded rows as JAX's
     canonical fleet draws them, nb = n_pad // B: not the draws of an
-    unpadded run."""
+    unpadded run.
+
+    The signals' draws are made on a pool of up to ``DRAW_THREADS``
+    threads, each signal's from its own generator, so their bits do not
+    depend on the pool."""
     B = batch_size
+
+    def one(signal):
+        sd, n = signal
+        if n_pad is not None:
+            return epoch_draws(epoch_generator(int(sd), epoch), int(n_pad),
+                               B, params, n_real=int(n))
+        return epoch_draws(epoch_generator(int(sd), epoch), int(n), B,
+                           params)
+
+    signals = list(zip(seeds, n_real))
+    per = (list(_draw_pool(DRAW_THREADS).map(one, signals))
+           if DRAW_THREADS > 1 and len(signals) > 1
+           else [one(signal) for signal in signals])
     if n_pad is not None:
-        per = [epoch_draws(epoch_generator(int(sd), epoch), int(n_pad), B,
-                           params, n_real=int(n))
-               for sd, n in zip(seeds, n_real)]
         return {k: torch.stack([d[k] for d in per]) for k in per[0]}
     nb = [int(n) // B for n in n_real]
     nb_max = max(nb, default=0)
-    per = [epoch_draws(epoch_generator(int(sd), epoch), int(n), B, params)
-           for sd, n in zip(seeds, n_real)]
     out = {}
     for key, ref in per[0].items():
         steps = N_CRITICS * nb_max if key in CRITIC_DRAWS + (

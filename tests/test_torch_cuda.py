@@ -285,6 +285,67 @@ def test_fleet_epoch_on_the_card_tracks_the_cpu(cuda):
     assert list(out["cuda"].opt_gen.step) == [10, 7, 0]
 
 
+def test_graphed_fleet_epoch_is_the_eager_one_bitwise(cuda):
+    """One fleet epoch of ``train_fleet`` on the card (S = 3 hyperbolic
+    signals of 640 windows, seeds 0-2, ``"full"``), each fleet step a
+    replayed CUDA graph, against one eager ``fleet_epoch_device`` epoch
+    from the same weights and draws: parameters, moments, per-signal step
+    counters, the (S,) metrics and the kernels' launch counts (K5 50, K1
+    20) bit for bit; the captured program is kept in the ``FleetState``."""
+    import numpy as np
+
+    from hypad_tpu_torch.train import critic_kernel as ck
+    from hypad_tpu_torch.train import fleet as fl
+    from hypad_tpu_torch.train import graphed
+    from hypad_tpu_torch.train import trainer as tr
+
+    X = np.random.default_rng(0).uniform(-1, 1, (640, 100)).astype(
+        np.float32)
+
+    def init():
+        return fl.init_fleet_state(
+            [init_tadgan(torch.Generator().manual_seed(3 + i), 100,
+                         hyperbolic=True, device=cuda) for i in range(3)],
+            5e-4, True)
+
+    def counts():
+        return (ck.critic_step_fused_full.launches,
+                mobius_linear_kernel.launches)
+
+    eager, n_real = init(), [640] * 3
+    before = counts()
+    eager, means = tr.fleet_epoch_device(
+        eager, torch.as_tensor(np.stack([X] * 3), device=cuda), n_real,
+        tr.fleet_epoch_draws([0, 1, 2], 0, n_real, 64, eager.params),
+        lr=5e-4, hyperbolic=True, fused_critics="full")
+    want = tr.fleet_metrics(means.cpu().numpy())
+    eager_counts = tuple(a - b for a, b in zip(counts(), before))
+    logs = []
+    before = counts()
+    got = fl.train_fleet(init(), [X] * 3, lr=5e-4, hyperbolic=True,
+                         batch_size=64, n_epochs=1, seeds=[0, 1, 2],
+                         device=cuda, fused_critics="full",
+                         log_cb=lambda e, m: logs.append(m))
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == eager_counts \
+        == (50, 20)
+    assert isinstance(got.program, graphed.FleetProgram)
+    assert got.program.critic.graph is not None
+    for k, v in eager.params.items():
+        assert torch.equal(got.params[k], v), k
+    for name in ("opt_cx", "opt_cz", "opt_gen"):
+        g, w = getattr(got, name), getattr(eager, name)
+        np.testing.assert_array_equal(g.step, w.step)
+        for part in ("mu", "nu"):
+            a, b = getattr(g, part), getattr(w, part)
+            for key in (a if isinstance(a, dict) else [None]):
+                x, y = (a, b) if key is None else (a[key], b[key])
+                assert torch.equal(x, y), (name, part, key)
+    assert len(logs) == 1
+    for k, v in want.items():
+        np.testing.assert_array_equal(logs[0][k], v, err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # the wide instances: multivariate feature counts of 129 to 256
 # ---------------------------------------------------------------------------
