@@ -49,6 +49,23 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    Euclidean model, for r in point, area and dtw, counters zeroed before
    each call (K3 1, K1 and K2 0); the scores must be finite, N + W - 1
    long, and the intervals, confusion and F1 equal the CPU's;
+4b. the compiled detect call ([detect_graph]): on the card
+   ``detect_scores`` and ``detect_scores_grid`` run each configuration's
+   body through ``detect/graphed.py``, the first call eagerly and every
+   later one as a replayed CUDA graph (K1 and K2 / K3 inside). Every path
+   held bit for bit against its eager call (the programs withheld), on the
+   main path's windows and on others (a replay of new inputs), with equal
+   launch counts, the counters zeroed before each call and read after it:
+   the hyperbolic call, all 8 combinations under "v1" and "v2"; the
+   Euclidean call, point / area / dtw x mult / sum / rec / critic under
+   "v2"; ``fetch_inference`` True (the hyperbolic call from windows on
+   the card) and False; the multivariate hyperbolic call at F = 123, 150
+   (K1w, K2w) and 300 (K1x, K2x); the hyperbolic grid (8 cells) and the
+   Euclidean 3 x 4 grid. Then each program's memory, its static input and
+   its graph's private pool (``torch.cuda.memory_reserved`` around its
+   capture), at 20,000 and 262,144 windows for the five timed paths,
+   beside the host seconds of the eager first call and of the capturing
+   call;
 5. training path: a 1,420-sample synthetic signal (the length of Yahoo A1
    ``real_1``) windowed to 1,320 windows, through ``train_tadgan(...,
    hyperbolic=True, batch_size=64, lr=5e-4, n_epochs=2, device="cuda")``
@@ -233,7 +250,12 @@ Phases, each failing loudly (a failed check raises and the exit code is not
    positions and intervals (chunks sum the forward in another order, and a
    last-bit change of a critic value can flip a KDE tie);
 12. timing: warm detect throughput (hyperbolic under K2 and K3, Euclidean
-   for each rec_error), warm epoch seconds for each ``fused_critics``
+   for each rec_error), each path as a one-off call (its program's first,
+   eager; ``detect_20k_wps``) and as a replay of its program's graph (a
+   repeated call; ``detect_20k_replay_wps``) in turns after two warm-up
+   calls, with the profiler's device work, device activities and busy
+   share of each,
+   warm epoch seconds for each ``fused_critics``
    value, and each kernel's time beside its plain version's and its bound
    at the path's shapes (K1 at the detect shape and at the generator
    step's two, beside an empty kernel; cuBLAS's f32 x @ w.T as an
@@ -2515,6 +2537,207 @@ def phase_graph(device, card):
                                card, profiled=False)
     print(f"[graph] every graphed run bitwise its eager run ({card})")
     return paths, {"cases": cases, "timing": timing, "card": card}
+
+
+def same_bits(got, want):
+    """Whether two detect results (numpy arrays, None, ``InferenceOutput``
+    tuples, grids' dicts) hold the same bits in the same shapes and
+    dtypes."""
+    import numpy as np
+
+    if isinstance(got, dict):
+        return (isinstance(want, dict) and list(got) == list(want)
+                and all(same_bits(got[k], want[k]) for k in got))
+    if isinstance(got, tuple):
+        return (isinstance(want, tuple) and len(got) == len(want)
+                and all(same_bits(a, b) for a, b in zip(got, want)))
+    if got is None or want is None:
+        return got is None and want is None
+    a, b = np.asarray(got), np.asarray(want)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def detect_graph_case(tag, model, call, X1, X2):
+    """One path of [detect_graph]: ``call(X)`` (a ``detect_scores`` or
+    ``detect_scores_grid`` call on ``model`` returning host arrays) eager,
+    the programs withheld, on X1 and X2; then through a new program: X1
+    (its eager first call), X1 (the capture and a replay), X2 (a replay).
+    Each of the three must hold its eager call's bits and launch counts,
+    each call's counters zeroed before it and read after it. Returns
+    (launches of one call, host seconds of the three program calls)."""
+    import torch
+
+    from hypad_tpu_torch.detect import graphed
+
+    with graphed.eager():
+        read = zero_counters()
+        want = [call(X1)]
+        launches = read()
+        want.append(call(X2))
+    graphed.release_programs(model)
+    seconds = []
+    for i, (X, w) in enumerate(((X1, want[0]), (X1, want[0]),
+                                (X2, want[1]))):
+        read = zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = call(X)
+        seconds.append(time.perf_counter() - t0)
+        if read() != launches:
+            fail(f"[detect_graph] {tag}: call {i} launched {read()}, the "
+                 f"eager call {launches}")
+        if not same_bits(got, w):
+            fail(f"[detect_graph] {tag}: call {i} differs from its eager "
+                 f"call")
+    progs = graphed.programs(model)
+    if len(progs) != 1 or progs[0].graph is None or progs[0].calls != 3:
+        fail(f"[detect_graph] {tag}: expected one program, captured, after "
+             f"3 calls; got {[(p.graph is not None, p.calls) for p in progs]}")
+    graphed.release_programs(model)
+    print(f"[detect_graph] {tag}: 3 calls bitwise their eager calls, each "
+          f"launching {nonzero(launches)}; host s first (eager) "
+          f"{seconds[0]:.4f}, capture and replay {seconds[1]:.4f}, replay "
+          f"{seconds[2]:.4f}")
+    return launches, seconds
+
+
+def nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def detect_pool_bytes(device, model, call, X):
+    """Bytes ``torch.cuda.memory_reserved`` grows by while a new program's
+    second call makes its static input and captures ``call``'s body on
+    ``X`` (that buffer and the graph's private pool: what the program
+    holds), and the host seconds of that program's first (eager) and
+    second (capturing) calls; the program is freed after."""
+    import torch
+
+    from hypad_tpu_torch.detect import graphed
+
+    graphed.release_programs(model)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    call(X)
+    first_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(device)
+    t0 = time.perf_counter()
+    call(X)
+    capture_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    pool = torch.cuda.memory_reserved(device) - before
+    graphed.release_programs(model)
+    torch.cuda.empty_cache()
+    return {"pool_bytes": pool, "first_call_s": first_s,
+            "capture_call_s": capture_s}
+
+
+def mv_scaled_rows(n, F, seed):
+    """``mv_rows`` scaled into [-1, 1] per feature, as float32."""
+    import numpy as np
+
+    X, _ = mv_rows(n, F, seed)
+    lo, hi = X.min(axis=0), X.max(axis=0)
+    return (2 * (X - lo) / (hi - lo) - 1).astype(np.float32)
+
+
+def phase_detect_graph(device, card, X, model, eucl_model):
+    """[detect_graph]: the compiled detect call and grid. Every path of
+    ``detect_scores`` and ``detect_scores_grid`` held bit for bit against
+    its eager call (``detect_graph_case``) with equal launch counts: the
+    hyperbolic call, all 8 combinations under "v1" and "v2"; the Euclidean
+    call, point / area / dtw x mult / sum / rec / critic under "v2"; both
+    with ``fetch_inference`` True (the hyperbolic one from the windows on
+    the card, copied device to device); the multivariate hyperbolic call at
+    F = 123, 150 (K1w, K2w) and 300 (K1x, K2x); the hyperbolic grid (8
+    cells) and the Euclidean 3 x 4 grid. Then the programs' memory (static
+    input and private pool) at 20,000 windows and at
+    ``ONE_CALL_MAX_WINDOWS`` for the five paths of ``detect_20k_wps``, with
+    the first (eager) and the capturing call's host seconds. Returns
+    (launches by path, info)."""
+    import torch
+
+    from hypad_tpu_torch.data.pipeline import synthetic_detect_input
+    from hypad_tpu_torch.detect.scorer import (
+        COMBINATIONS,
+        EUCL_COMBOS,
+        ONE_CALL_MAX_WINDOWS,
+        detect_scores,
+        detect_scores_grid,
+    )
+    from hypad_tpu_torch.models.tadgan import init_tadgan
+
+    X2, _, _ = synthetic_detect_input(N_WINDOWS, WIDTH, seed=SEED + 1)
+    paths, cases = {}, {}
+
+    def case(tag, m, call, A, B):
+        launches, seconds = detect_graph_case(tag, m, call, A, B)
+        paths[f"detect_graph_{tag.replace(' ', '_')}"] = launches
+        cases[tag] = {"launches": nonzero(launches), "host_s": seconds}
+
+    def scores_of(m, hyperbolic, comb, **kw):
+        return lambda A: detect_scores(m, A, hyperbolic, comb, device=device,
+                                       fetch_inference=False, **kw)[0]
+
+    for version in ("v1", "v2"):
+        for comb in COMBINATIONS:
+            case(f"hyper {comb} {version}", model,
+                 scores_of(model, True, comb, kde_version=version), X, X2)
+    for rec_error in REC_ERRORS:
+        for comb in EUCL_COMBOS:
+            case(f"eucl {rec_error} {comb} v2", eucl_model,
+                 scores_of(eucl_model, False, comb, rec_error=rec_error,
+                           kde_version="v2"), X, X2)
+    Xt, X2t = (torch.as_tensor(A, device=device) for A in (X, X2))
+    case("hyper mult v1 fetch_inference device windows", model,
+         lambda A: detect_scores(model, A, True, "mult", device=device),
+         Xt, X2t)
+    case("eucl dtw mult v2 fetch_inference", eucl_model,
+         lambda A: detect_scores(eucl_model, A, False, "mult",
+                                 rec_error="dtw", kde_version="v2",
+                                 device=device), X, X2)
+    # (F, rows) of the multivariate cases: K1 and K2, K1w and K2w, K1x and
+    # K2x
+    for F, rows in ((WADI_WIDTH, 20_000), (CASAS_F, 20_000),
+                    (XW_F, XW_TEST_ROWS)):
+        mv_model = init_tadgan(torch.Generator().manual_seed(SEED), F,
+                               hyperbolic=True, device=device)
+        case(f"mv hyper mult v1 {rows}x{F}", mv_model,
+             scores_of(mv_model, True, "mult", multivariate=True),
+             mv_scaled_rows(rows, F, SEED), mv_scaled_rows(rows, F, SEED + 1))
+        del mv_model
+    case("grid hyper 8 combinations v1", model,
+         lambda A: detect_scores_grid(model, A, True, COMBINATIONS,
+                                      device=device), X, X2)
+    case("grid eucl 3x4 v2", eucl_model,
+         lambda A: detect_scores_grid(eucl_model, A, False, EUCL_COMBOS,
+                                      REC_ERRORS, kde_version="v2",
+                                      device=device), X, X2)
+    pools = {}
+    timed_paths = {"hyperbolic v1": (model, True, "point", "v1"),
+                   "hyperbolic v2": (model, True, "point", "v2"),
+                   **{f"euclidean {r} v2": (eucl_model, False, r, "v2")
+                      for r in REC_ERRORS}}
+    for n in (N_WINDOWS, ONE_CALL_MAX_WINDOWS):
+        Xn = X if n == N_WINDOWS else synthetic_detect_input(
+            n, WIDTH, seed=SEED)[0]
+        for label, (m, hyperbolic, rec_error, version) in timed_paths.items():
+            rec = detect_pool_bytes(device, m, scores_of(
+                m, hyperbolic, "mult", rec_error=rec_error,
+                kde_version=version), Xn)
+            pools[f"{label}, {n} windows"] = rec
+            print(f"[detect_graph] {label}, {n} windows: the program's "
+                  f"input and pool {rec['pool_bytes']} bytes "
+                  f"({rec['pool_bytes'] / n:.0f} a window); host s of the "
+                  f"first (eager) call {rec['first_call_s']:.4f}, of the "
+                  f"capturing call {rec['capture_call_s']:.4f} ({card})")
+    print(f"[detect_graph] every path bitwise its eager call, launches "
+          f"equal ({card})")
+    return paths, {"cases": cases, "pools": pools, "card": card}
 
 
 def write_config(path, cfg):
@@ -4882,9 +5105,11 @@ def critic_parent_timing(device, libs):
 
 def warm_detect_ms(calls, rounds=7):
     """{label: [wall ms of each round]} of warm detect calls, each
-    ``calls[label]()`` once a round, in turns, after one warm-up each.
-    Each call returns host scores, so it ends synchronised."""
+    ``calls[label]()`` once a round, in turns, after two warm-up calls
+    each (for a repeated call, its program's eager first call and its
+    capture). Each call returns host scores, so it ends synchronised."""
     for call in calls.values():
+        call()
         call()
     walls = {label: [] for label in calls}
     for _ in range(rounds):
@@ -4923,10 +5148,16 @@ def kde_bounds_text(k):
 
 def phase_timing(device, X, model, eucl_model, libs):
     """Warm detect throughput (hyperbolic under K2 and K3, Euclidean for
-    each rec_error), and each detect kernel beside its plain version at the
-    path's shapes: K1 at the detect shape and at the generator step's, with
-    an empty kernel's launch-to-end time beside them. Returns (throughputs,
-    per-kernel timing dicts)."""
+    each rec_error), each path as a one-off call (its program's first,
+    eager, as a model's only detect call runs) and as a replay of its
+    program's graph (a repeated call), in turns, with the device work,
+    launches and busy share of each under torch.profiler; and each detect
+    kernel beside its plain version at the path's shapes: K1 at the detect
+    shape and at the generator step's, with an empty kernel's
+    launch-to-end time beside them. Returns (throughputs, per-kernel timing
+    dicts, the profiles of the detect calls)."""
+    import copy
+
     import numpy as np
     import torch
 
@@ -4944,7 +5175,8 @@ def phase_timing(device, X, model, eucl_model, libs):
         kde_argmax_kernel,
         kde_argmax_v2_kernel,
     )
-    from hypad_tpu_torch.profile_detect import cuda_ms
+    from hypad_tpu_torch.detect import graphed
+    from hypad_tpu_torch.profile_detect import cuda_ms, profile_calls
     from hypad_tpu_torch.profile_k1 import k1_cost
     from hypad_tpu_torch.profile_kernels import empty_launch, tie_flips
 
@@ -4953,11 +5185,30 @@ def phase_timing(device, X, model, eucl_model, libs):
                                      fetch_inference=False, device=device,
                                      **kw)
 
-    calls = {"hyperbolic v1": detect(model, True, kde_version="v1"),
-             "hyperbolic v2": detect(model, True, kde_version="v2")}
-    calls.update({f"euclidean {r} v2": detect(eucl_model, False,
-                                              rec_error=r, kde_version="v2")
-                  for r in REC_ERRORS})
+    # a one-off call is its program's first: each on a twin of the model
+    # (its bits in other tensors, so other programs), whose programs are
+    # freed before it, as a model's only detect call (the CLI's ``detect``,
+    # a sweep's signal) runs
+    twins = {id(m): copy.deepcopy(m) for m in (model, eucl_model)}
+
+    def one_off(m, hyperbolic, **kw):
+        twin = twins[id(m)]
+        call = detect(twin, hyperbolic, **kw)
+
+        def run():
+            graphed.release_programs(twin)
+            return call()
+        return run
+
+    paths = {"hyperbolic v1": (model, True, {"kde_version": "v1"}),
+             "hyperbolic v2": (model, True, {"kde_version": "v2"}),
+             **{f"euclidean {r} v2": (eucl_model, False,
+                                      {"rec_error": r, "kde_version": "v2"})
+                for r in REC_ERRORS}}
+    calls = {}
+    for label, (m, hyperbolic, kw) in paths.items():
+        calls[f"{label} one-off"] = one_off(m, hyperbolic, **kw)
+        calls[f"{label} replay"] = detect(m, hyperbolic, **kw)
     wps = {}
     for label, walls in warm_detect_ms(calls).items():
         median = statistics.median(walls)
@@ -4965,6 +5216,26 @@ def phase_timing(device, X, model, eucl_model, libs):
         print(f"[timing] warm detect_scores, {label}, {N_WINDOWS} windows: "
               f"median {median:.3f} ms, {wps[label]:.0f} windows/s (runs in "
               f"ms: {[round(w, 3) for w in walls]})")
+    traces = {}
+    for label, call in calls.items():
+        top, busy, wall_ms = profile_calls(
+            call, 5, "timing_detect_" + label.replace(" ", "_"),
+            chrome_trace=False)
+        traces[label] = {
+            "device_ms": sum(ms for _, ms, _ in top),
+            "device_launches": sum(c for _, _, c in top),
+            "busy_share": busy, "wall_ms_under_profiler": wall_ms,
+            "top_kernels": [{"name": n, "ms": ms, "launches": c}
+                            for n, ms, c in top[:8]]}
+        t = traces[label]
+        print(f"[timing] detect_scores, {label}, under torch.profiler: "
+              f"device work {t['device_ms']:.4f} ms a call in "
+              f"{t['device_launches']:g} device activities, busy "
+              f"{busy:.4f} of {wall_ms:.3f} ms")
+    for label in paths:
+        one, rep = wps[f"{label} one-off"], wps[f"{label} replay"]
+        print(f"[timing] {label}: one-off {one:.0f}, replay {rep:.0f} "
+              f"windows/s ({rep / one:.2f}x)")
 
     head = model["decoder"].hyperbolic_linear
     w, b = head.w.detach(), head.b.detach()
@@ -5038,7 +5309,7 @@ def phase_timing(device, X, model, eucl_model, libs):
               f"{kde_bounds_text(k)})")
     if not np.isfinite([k1["ms"], k2["ms"], k3["ms"]]).all():
         fail("a kernel time is not finite")
-    return wps, k1, k2, k3
+    return wps, k1, k2, k3, traces
 
 
 def gpu_name_and_power_limit():
@@ -5116,6 +5387,8 @@ def main():
     k1_names = timed(k1_training_instances, device)
     launches, X, model, main_det = timed(phase_main_path, device)
     eucl_launches, eucl_model = timed(phase_eucl_detect, device)
+    detect_graph_paths, detect_graph_info = timed(
+        phase_detect_graph, device, card, X, model, eucl_model)
     train = timed(phase_train, device)
     eucl_train = timed(phase_eucl_train, device)
     graph_paths, graph_info = timed(phase_graph, device, card)
@@ -5130,7 +5403,8 @@ def main():
     a13_paths, a13_info = timed(phase_a13, device, card, main_det,
                                 eucl_model, grid_scores)
     timed(phase_staged, device, X, eucl_model, model)
-    wps, k1, k2, k3 = timed(phase_timing, device, X, model, eucl_model, libs)
+    wps, k1, k2, k3, detect_traces = timed(phase_timing, device, X, model,
+                                           eucl_model, libs)
     epochs, k4, k5 = timed(phase_train_timing, device, train["X"])
     mv_timing = timed(mv_kernel_timing, device, libs)
     xw_timing = timed(xwide_kernel_timing, device, libs)
@@ -5145,6 +5419,7 @@ def main():
                 for r in REC_ERRORS},
              "train": train["launches"],
              "train_fused_critics_true": train["launches_fused_true"],
+             **detect_graph_paths,
              "train_euclidean": eucl_train["launches"],
              "detect_euclidean_trained": eucl_train["detect_launches"],
              **graph_paths, **cli_paths,
@@ -5329,8 +5604,11 @@ def main():
                     "bound_by", "max_abs_err", "parent_ms") if key in r}
                 for S, r in by_s.items()}
     OUT_DIR.mkdir(exist_ok=True)
-    summary = {"card": card, "detect_20k_wps": wps["hyperbolic v1"],
+    summary = {"card": card, "detect_20k_wps": wps["hyperbolic v1 one-off"],
+               "detect_20k_replay_wps": wps["hyperbolic v1 replay"],
                "detect_20k_wps_by_path": wps,
+               "detect_20k_profiles": detect_traces,
+               "detect_graph": detect_graph_info,
                "train_epoch_s": epochs,
                "train_losses": train["logs"],
                "train_first_call_s": train["first_call_s"],

@@ -29,6 +29,11 @@ rows) score its host arrays.
 forward pass and one critic KDE launch. ``stage_inference`` puts a cached
 artifact set on the device once, for the staged scorers to take as it is.
 
+On the card, without a mesh and up to ``ONE_CALL_MAX_WINDOWS``, both run
+their bodies (``_detect_core``, ``_grid_core``) through
+``detect/graphed.py``, as JAX runs them as compiled programs: the first
+call of a configuration eagerly, every later one as a replayed CUDA graph.
+
 Every public function takes JAX's ``mesh`` (``parallel/mesh.py``): the
 row-independent stages run on each ``dp`` slab's device (the forward with
 K1, the KDE argmax with one K2 or K3 launch a slab, the acosh rows, the
@@ -59,6 +64,7 @@ import numpy as np
 import torch
 
 from hypad_tpu_torch._device import resolve_device
+from hypad_tpu_torch.detect import graphed
 from hypad_tpu_torch.manifold import stereographic as st
 from hypad_tpu_torch.ops.dtw import dtw_errors
 from hypad_tpu_torch.ops.kde_kernel import (
@@ -115,6 +121,12 @@ def _as_device(x, device):
     if torch.is_tensor(x):
         return x.to(device=device, dtype=torch.float32).contiguous()
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def _host(t):
+    """A numpy copy of ``t`` that aliases nothing: a program's outputs and
+    static input are rewritten by its next call, on the CPU too."""
+    return t.to("cpu", copy=True).numpy()
 
 
 def kde_version_from_env():
@@ -531,6 +543,20 @@ def _detect_core(model, X, hyperbolic, combination, rec_error, width,
     return scores, outs
 
 
+def _run_body(params, X, body, config, device, mesh):
+    """``body(params, Xt)`` of the one-call windows ``X`` (numpy or a
+    tensor): on the card without a mesh through the program of ``config``
+    (what fixes the body besides the shape; ``detect/graphed.py``), else
+    eagerly on ``X`` put on ``device``. Returns (the body's tensors, the
+    device windows ``Xt`` it read)."""
+    prog = None if mesh is not None else graphed.program_for(
+        params, config, X.shape, device)
+    if prog is None:
+        Xt = _as_device(X, device)
+        return body(params, Xt), Xt
+    return prog.run(params, X, body)
+
+
 def _check_params_device(params, device):
     params_device = next(params.parameters()).device
     if params_device != device:
@@ -579,7 +605,11 @@ def detect_scores(params, X, hyperbolic, combination, rec_error="point",
     the per-row multivariate scores (N,) (:func:`_mv_scores_core`), in
     either geometry and for any of the 8 combinations; ``rec_error`` is
     not read. Above the one-call limit :func:`score_anomalies_multivariate`
-    scores the chunked forward."""
+    scores the chunked forward.
+
+    On the card without a mesh, up to the one-call limit, a
+    configuration's first call runs eagerly and every later one replays
+    its captured CUDA graph (``detect/graphed.py``), with the same bits."""
     _check_combination(hyperbolic or multivariate, combination)
     if not (hyperbolic or multivariate) and rec_error not in REC_ERRORS:
         raise ValueError(f"unknown rec_error_type {rec_error!r}")
@@ -605,19 +635,28 @@ def detect_scores(params, X, hyperbolic, combination, rec_error="point",
         return scores, _apply_artifact_opts(inference, artifact_dtype,
                                             artifact_set, hyperbolic)
     X_host = None if torch.is_tensor(X) else np.asarray(X, np.float32)
-    Xt = _as_device(X if X_host is None else X_host, device)
-    n, w = Xt.shape
-    with torch.inference_mode():
-        scores, outs = _detect_core(params, Xt, hyperbolic, combination,
-                                    rec_error, w, max(math.trunc(n * 0.01),
-                                                      1), kde_version,
+    X_in = X if X_host is None else X_host
+    n, w = X_in.shape
+    smooth = max(math.trunc(n * 0.01), 1)
+
+    def body(P, Xs):
+        scores, outs = _detect_core(P, Xs, hyperbolic, combination,
+                                    rec_error, w, smooth, kde_version,
                                     multivariate, mesh)
-        scores = scores.cpu().numpy()
+        return (scores, *outs)
+
+    with torch.inference_mode():
+        (scores, *outs), Xt = _run_body(
+            params, X_in, body, ("detect", hyperbolic, multivariate,
+                                 combination, None if hyperbolic or
+                                 multivariate else rec_error, kde_version),
+            device, mesh)
+        scores = _host(scores)
         if not fetch_inference:
             return scores, None
-        outs = [t.cpu().numpy() for t in outs]
-    if X_host is None:
-        X_host = Xt.cpu().numpy()
+        outs = [_host(t) for t in outs]
+        if X_host is None:
+            X_host = _host(Xt)
     if hyperbolic:
         hyper, eucl, hyper_x, critic = outs
         inference = InferenceOutput(recons_signal=hyper, true_signal=hyper_x,
@@ -697,7 +736,9 @@ def detect_scores_grid(params, X, hyperbolic, combinations,
     scores take no rec_error. ``multivariate=True`` scores (N, F) timestep
     rows as :func:`detect_scores` does. Above ``ONE_CALL_MAX_WINDOWS`` the
     forward runs in chunks (:func:`run_inference`) and each cell is scored
-    from its output."""
+    from its output. On the card without a mesh the one-call grid replays
+    a captured graph from its configuration's second call on, as
+    :func:`detect_scores` does."""
     combinations, rec_errors = _validate_grid(hyperbolic, combinations,
                                               rec_errors, multivariate)
     if (hyperbolic or multivariate) and len(rec_errors) > 1:
@@ -724,13 +765,26 @@ def detect_scores_grid(params, X, hyperbolic, combinations,
                     inference.critic_score, re_, cb, mesh=mesh,
                     kde_version=kde_version, device=device)
                 for cb in combinations for re_ in rec_errors}
-    Xt = _as_device(X, device)
-    n, w = Xt.shape
+    X_in = X if torch.is_tensor(X) else np.asarray(X, np.float32)
+    n, w = X_in.shape
+    smooth = max(math.trunc(n * 0.01), 1)
+    cells = _cell_order(
+        [(None, cb) for cb in combinations] if hyperbolic or multivariate
+        else [(re_, cb) for re_ in rec_errors for cb in combinations])
+
+    def body(P, Xs):
+        out = _grid_core(P, Xs, hyperbolic, combinations, rec_errors, w,
+                         smooth, kde_version, multivariate=multivariate,
+                         mesh=mesh)
+        return tuple(out[cell] for cell in cells)
+
     with torch.inference_mode():
-        out = _grid_core(params, Xt, hyperbolic, combinations, rec_errors, w,
-                         max(math.trunc(n * 0.01), 1), kde_version,
-                         multivariate=multivariate, mesh=mesh)
-        return {cell: out[cell].cpu().numpy() for cell in _cell_order(out)}
+        out, _ = _run_body(
+            params, X_in, body, ("grid", hyperbolic, multivariate,
+                                 combinations, None if hyperbolic or
+                                 multivariate else rec_errors, kde_version),
+            device, mesh)
+        return {cell: _host(t) for cell, t in zip(cells, out)}
 
 
 def _cell_order(cells):

@@ -1,7 +1,7 @@
 """Where the time of one warm detect call goes, on a GPU.
 
     python3 -m hypad_tpu_torch.profile_detect [--windows 20000]
-        [--rec-error point|area|dtw] [--kde-version v1|v2]
+        [--rec-error point|area|dtw] [--kde-version v1|v2] [--one-off]
 
 Two views of ``detect_scores(..., "mult", fetch_inference=False)`` at full
 model width on a seeded synthetic signal, hyperbolic by default or, with
@@ -12,15 +12,22 @@ model width on a seeded synthetic signal, hyperbolic by default or, with
   CUDA events;
 * trace: ``torch.profiler`` over warm calls, the kernels summed by device
   time, and the device's busy share of the wall time (the union of kernel
-  and copy intervals over the span of the calls).
+  and copy intervals over the span of the calls), of the calls as
+  ``detect_scores`` runs them on the card (replays of the call's captured
+  graph, ``detect/graphed.py``) and of the same calls eager (every op
+  launched from Python, as before the graphs).
 
 Prints one line per stage and per top kernel, then one JSON line; writes
-the profiler's table and Chrome trace under ``chiprun_out/``. Needs CUDA.
+the profiler's table and Chrome trace under ``chiprun_out/``. With
+``--one-off`` it times one-off calls on the five paths of ``chip_smoke.py``'s
+``detect_20k_wps`` instead (:func:`one_off_walls`): run it on two versions of
+the package, in turns, to compare them. Needs CUDA.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -214,22 +221,67 @@ def eucl_stage_times(model, X, device, rec_error, kde_version="v2",
 
 
 def trace(model, X, device, calls=5, hyperbolic=True, rec_error="point",
-          kde_version="v1"):
-    """:func:`profile_calls` over warm detect calls."""
+          kde_version="v1", graphed=True):
+    """:func:`profile_calls` over warm detect calls: replays of the call's
+    graph (``graphed``; two calls before the profiled ones, the eager first
+    call and the capture), or eager calls (the programs withheld,
+    ``detect.graphed.eager``)."""
+    from hypad_tpu_torch.detect.graphed import eager
     from hypad_tpu_torch.detect.scorer import detect_scores
 
     def call():
-        return detect_scores(model, X, hyperbolic, "mult",
-                             rec_error=rec_error, fetch_inference=False,
-                             kde_version=kde_version, device=device)
+        with contextlib.nullcontext() if graphed else eager():
+            return detect_scores(model, X, hyperbolic, "mult",
+                                 rec_error=rec_error, fetch_inference=False,
+                                 kde_version=kde_version, device=device)
 
+    call()
     tag = "detect" if hyperbolic else f"detect_euclidean_{rec_error}"
-    return profile_calls(call, calls, tag)
+    return profile_calls(call, calls,
+                         f"{tag}_{'graphed' if graphed else 'eager'}")
+
+
+def one_off_walls(X, device, rounds=7, seed=0):
+    """{path: [host ms of each round's call]} of one-off ``detect_scores``
+    calls on the five paths of ``chip_smoke.py``'s ``detect_20k_wps``
+    (hyperbolic under "v1" and "v2", Euclidean point, area and dtw under
+    "v2"), in turns, after two calls each. Each call is on a copy of the
+    model made for it (a model's only detect call, as the CLI's ``detect``
+    and a sweep's signal make it: its program's first). It reads nothing
+    but ``detect_scores``, so it times any version of the port's scorer
+    alike."""
+    import copy
+
+    from hypad_tpu_torch.detect.scorer import detect_scores
+    from hypad_tpu_torch.models.tadgan import init_tadgan
+
+    models = {h: init_tadgan(torch.Generator().manual_seed(seed), X.shape[1],
+                             hyperbolic=h, device=device)
+              for h in (True, False)}
+    paths = {"hyperbolic v1": (True, "point", "v1"),
+             "hyperbolic v2": (True, "point", "v2"),
+             **{f"euclidean {r} v2": (False, r, "v2")
+                for r in ("point", "area", "dtw")}}
+    walls = {label: [] for label in paths}
+    for i in range(rounds + 2):
+        for label, (hyperbolic, rec_error, version) in paths.items():
+            model = copy.deepcopy(models[hyperbolic])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            detect_scores(model, X, hyperbolic, "mult", rec_error=rec_error,
+                          fetch_inference=False, kde_version=version,
+                          device=device)
+            if i >= 2:
+                walls[label].append((time.perf_counter() - t0) * 1e3)
+    return walls
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--windows", type=int, default=20_000)
+    parser.add_argument("--one-off", action="store_true",
+                        help="instead of the views above, time one-off "
+                             "calls (one_off_walls) and print one JSON line")
     parser.add_argument("--rec-error", choices=("point", "area", "dtw"),
                         help="profile the Euclidean detector with this "
                              "reconstruction error (default: hyperbolic)")
@@ -242,13 +294,24 @@ def main(argv=None):
 
     from hypad_tpu_torch._device import resolve_device
     from hypad_tpu_torch.data.pipeline import synthetic_detect_input
-    from hypad_tpu_torch.detect.scorer import detect_scores
-    from hypad_tpu_torch.models.tadgan import init_tadgan
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = resolve_device("cuda")
     X, _, _ = synthetic_detect_input(args.windows)
+    if args.one_off:
+        walls = one_off_walls(X, device)
+        print(json.dumps({
+            "card": torch.cuda.get_device_name(0), "windows": args.windows,
+            "one_off_ms_median": {label: statistics.median(w)
+                                  for label, w in walls.items()},
+            "one_off_ms": walls}))
+        return
+
+    from hypad_tpu_torch.detect.graphed import eager
+    from hypad_tpu_torch.detect.scorer import detect_scores
+    from hypad_tpu_torch.models.tadgan import init_tadgan
+
     model = init_tadgan(torch.Generator().manual_seed(0), X.shape[1],
                         hyperbolic=hyperbolic, device=device)
     if hyperbolic:
@@ -259,34 +322,43 @@ def main(argv=None):
     for name, ms in stages.items():
         print(f"[stage] {name}: {ms:.5f} ms")
     print(f"[stage] sum of stages: {sum(stages.values()):.5f} ms")
-    top, busy_share, wall_ms = trace(model, X, device, hyperbolic=hyperbolic,
-                                     rec_error=args.rec_error or "point",
-                                     kde_version=kde_version)
-    for name, ms, count in top[:15]:
-        print(f"[kernel] {ms:.5f} ms/call, {count:g} launches/call: "
-              f"{name[:110]}")
-    device_ms = sum(ms for _, ms, _ in top)
-    print(f"[trace] wall {wall_ms:.5f} ms/call under the profiler, device "
-          f"busy {busy_share:.4f} of it, device work {device_ms:.5f} "
-          f"ms/call in {sum(c for _, _, c in top):g} launches")
-    walls = []
+    traces = {}
+    for mode in ("graphed", "eager"):
+        top, busy_share, wall_ms = trace(
+            model, X, device, hyperbolic=hyperbolic,
+            rec_error=args.rec_error or "point", kde_version=kde_version,
+            graphed=mode == "graphed")
+        for name, ms, count in top[:15]:
+            print(f"[kernel] {mode}: {ms:.5f} ms/call, {count:g} "
+                  f"launches/call: {name[:100]}")
+        device_ms = sum(ms for _, ms, _ in top)
+        launches = sum(c for _, _, c in top)
+        print(f"[trace] {mode}: wall {wall_ms:.5f} ms/call under the "
+              f"profiler, device busy {busy_share:.4f} of it, device work "
+              f"{device_ms:.5f} ms/call in {launches:g} launches")
+        traces[mode] = {
+            "busy_share_under_profiler": busy_share,
+            "wall_ms_under_profiler": wall_ms,
+            "device_ms_per_call": device_ms, "launches_per_call": launches,
+            "top_kernels": [{"name": n, "ms": ms, "launches": c}
+                            for n, ms, c in top[:15]]}
+    walls = {"graphed": [], "eager": []}
     for _ in range(7):
-        t0 = time.perf_counter()
-        detect_scores(model, X, hyperbolic, "mult",
-                      rec_error=args.rec_error or "point",
-                      fetch_inference=False, kde_version=kde_version,
-                      device=device)
-        walls.append((time.perf_counter() - t0) * 1e3)
+        for mode, walls_ms in walls.items():
+            with contextlib.nullcontext() if mode == "graphed" \
+                    else eager():
+                t0 = time.perf_counter()
+                detect_scores(model, X, hyperbolic, "mult",
+                              rec_error=args.rec_error or "point",
+                              fetch_inference=False, kde_version=kde_version,
+                              device=device)
+                walls_ms.append((time.perf_counter() - t0) * 1e3)
     print(json.dumps({
         "card": torch.cuda.get_device_name(0), "windows": args.windows,
         "hyperbolic": hyperbolic, "rec_error": args.rec_error,
         "kde_version": kde_version,
-        "wall_ms_median": statistics.median(walls), "wall_ms": walls,
-        "stages_ms": stages, "busy_share_under_profiler": busy_share,
-        "device_ms_per_call": device_ms,
-        "launches_per_call": sum(c for _, _, c in top),
-        "top_kernels": [{"name": n, "ms": ms, "launches": c}
-                        for n, ms, c in top[:15]]}))
+        "wall_ms_median": {m: statistics.median(w) for m, w in walls.items()},
+        "wall_ms": walls, "stages_ms": stages, "trace": traces}))
 
 
 if __name__ == "__main__":

@@ -45,7 +45,8 @@ uses them).
 A replay runs no Python, so the kernel wrappers' launch counters
 (``.launches``, ``.wide_launches``, ``.xwide_launches``) are advanced after
 each pass by what each graph captured, times its replays: the counts are
-those of the eager epoch.
+those of the eager epoch (``utils/capture.py``, which the detector's
+programs share).
 
 Each graph holds the addresses of the parameters: a program is made for
 one model (or one fleet's stacked parameters), one window shape and one
@@ -83,6 +84,7 @@ from hypad_tpu_torch.train.trainer import (
     gen_params,
     make_fleet_optimizers,
 )
+from hypad_tpu_torch.utils.capture import advance_counters, counted_capture
 
 WARMUP_STEPS = 3       # eager steps on a side stream before each capture
 METRICS = ("critic_x_loss", "critic_z_loss", "decoder_loss", "rec_loss")
@@ -103,30 +105,6 @@ def chunk_sizes(start_epoch, n_epochs, epochs_per_call):
         sizes.append(nxt - e)
         e = nxt
     return sizes
-
-
-def _counted_wrappers():
-    """Every kernel wrapper with launch counters."""
-    from hypad_tpu_torch.manifold.kernels import mobius_linear_kernel
-    from hypad_tpu_torch.ops.kde_kernel import (
-        kde_argmax_kernel,
-        kde_argmax_v2_kernel,
-    )
-    from hypad_tpu_torch.train.critic_kernel import (
-        critic_step_fused_full,
-        critics_fused_grads,
-    )
-
-    return (mobius_linear_kernel, kde_argmax_kernel, kde_argmax_v2_kernel,
-            critics_fused_grads, critic_step_fused_full)
-
-
-_COUNTERS = ("launches", "wide_launches", "xwide_launches")
-
-
-def _read_counters():
-    return {(fn, c): getattr(fn, c) for fn in _counted_wrappers()
-            for c in _COUNTERS}
 
 
 def _store_moments(dst, new):
@@ -274,23 +252,18 @@ class _Program:
             self._capture(p)
         for _ in range(p.n_steps - done):
             p.graph.replay()
-        for (fn, c), n in p.launches.items():
-            setattr(fn, c, getattr(fn, c) + n * (p.n_steps - done))
+        advance_counters(p.launches, p.n_steps - done)
 
     def _capture(self, p):
         """Capture ``p``'s body (which runs nothing) and what it launches;
         the wrappers' counters are left as they were."""
-        before = _read_counters()
         graph = torch.cuda.CUDAGraph()
-        try:
+
+        def capture():
             with torch.cuda.graph(graph):
                 p.body()
-        finally:
-            after = _read_counters()
-            for (fn, c), n in before.items():
-                setattr(fn, c, n)
-        p.launches = {key: after[key] - n for key, n in before.items()
-                      if after[key] != n}
+
+        _, p.launches = counted_capture(capture)
         p.graph = graph
 
     def run(self, state, draws_by_epoch):

@@ -1324,3 +1324,41 @@ def test_kde_argmax_narrow_kernel_ex2_at_density_tie(cuda, kde_expf, N, W,
     k3, k3_use = kde_argmax_v2_kernel(vals, mask)
     old3, old3_use = kde_expf["v2"](vals, mask)
     assert same_values(k3, old3) and torch.equal(k3_use, old3_use)
+
+
+def test_graphed_detect_call_is_the_eager_one_bitwise(cuda):
+    """``detect_scores`` on the card (hyperbolic, 2,000 windows of 100,
+    "mult", K2) through its program: the eager first call, the capture and
+    a replay, then a replay of other windows. The scores and the inference
+    tensors bit for bit the eager calls' (the programs withheld), the
+    launch counts equal (K1 2, K2 1 a call)."""
+    import numpy as np
+
+    from hypad_tpu_torch.detect import graphed, scorer
+
+    model = init_tadgan(torch.Generator().manual_seed(0), 100,
+                        hyperbolic=True, device=cuda)
+    rng = np.random.default_rng(0)
+    X1, X2 = (rng.uniform(-1, 1, (2000, 100)).astype(np.float32)
+              for _ in range(2))
+
+    def call(X):
+        before = (mobius_linear_kernel.launches, kde_argmax_kernel.launches)
+        scores, inference = scorer.detect_scores(model, X, True, "mult",
+                                                 device=cuda)
+        counts = (mobius_linear_kernel.launches - before[0],
+                  kde_argmax_kernel.launches - before[1])
+        return [scores, *(t for t in inference if t is not None)], counts
+
+    with graphed.eager():
+        want = [call(X1), call(X2)]
+    got = [call(X1), call(X1), call(X2)]
+    progs = graphed.programs(model)
+    assert len(progs) == 1 and progs[0].graph is not None
+    for (arrays, counts), (want_arrays, want_counts) in zip(
+            got, [want[0], want[0], want[1]]):
+        assert counts == want_counts == (2, 1)
+        assert len(arrays) == len(want_arrays) == 6
+        for a, b in zip(arrays, want_arrays):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    graphed.release_programs(model)
